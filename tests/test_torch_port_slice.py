@@ -162,23 +162,35 @@ for info in pkgutil.walk_packages(tpukaldi_torch.__path__, "tpukaldi_torch."):
     importlib.import_module(info.name)
 
 from tpukaldi_torch.tools.flagship_tree import (
-    forward_outputs, save_seeded_finals, write_kaldi_tree, write_prod_cfg)
+    forward_outputs, save_seeded_finals, write_kaldi_tree, write_prod_cfg,
+    write_train_cfg)
 from tpukaldi_torch.tools.run_exp import run_experiment
 
 work = sys.argv[2]
 tree = write_kaldi_tree(os.path.join(work, "tree"), 10, 3, 9,
                         {"train": (4, 30, 50), "dev": (2, 30, 50),
                          "test": (5, 30, 90)})
-out = os.path.join(work, "out")
-os.makedirs(out)
-cfg = write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), {
+shrink = {
     "ligru_lay = 550,550,550,550,550": "ligru_lay = 8",
     "ligru_drop = 0.2,0.2,0.2,0.2,0.2": "ligru_drop = 0.2",
     "ligru_use_laynorm = False,False,False,False,False": "ligru_use_laynorm = False",
     "ligru_use_batchnorm = True,True,True,True,True": "ligru_use_batchnorm = True",
-    "ligru_act = relu,relu,relu,relu,relu": "ligru_act = relu"})
+    "ligru_act = relu,relu,relu,relu,relu": "ligru_act = relu"}
+out = os.path.join(work, "out")
+os.makedirs(out)
+cfg = write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), shrink)
 save_seeded_finals(cfg, 10)
 run_experiment(cfg, device="cpu")
+posts, _ = forward_outputs(out)
+assert len(list(posts)) == 5
+# and the training path: one epoch of train and valid chunks, then forward
+out = os.path.join(work, "train")
+os.makedirs(out)
+cfg = write_train_cfg(tree, out, os.path.join(out, "run.cfg"), {
+    **shrink, "n_epochs_tr = 24": "n_epochs_tr = 1", "n_chunks = 5": "n_chunks = 1"})
+run_experiment(cfg, device="cpu")
+with open(os.path.join(out, "res.res")) as f:
+    assert f.read().startswith("ep=0 ")
 posts, _ = forward_outputs(out)
 assert len(list(posts)) == 5
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -189,7 +201,8 @@ print("NO_JAX_OK")
 
 def test_port_runs_without_jax(tmp_path):
     """Every tpukaldi_torch module imports, and the tiny production slice
-    runs on the CPU, with jax/flax/optax/msgpack unimportable."""
+    and a tiny training run go through on the CPU, with
+    jax/flax/optax/msgpack unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO, str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=str(tmp_path))

@@ -5,6 +5,11 @@
 reference-layout state_dict.  The inverse is tpukaldi's own tested
 converter, `tpukaldi.compat.torch_import.import_model_par` (importable
 without JAX), re-exported here as `to_jax_params(state_dict, class_name)`.
+
+`moments_to_jax` / `moments_from_jax` carry a per-parameter tensor set
+(an optimizer moment such as rmsprop's `square_avg`) through the same two
+maps, so optimizer state lands in the tree layout of tpukaldi's optax state
+(e.g. `inner_state/0/nu`), which mirrors its parameter tree.
 """
 
 from __future__ import annotations
@@ -88,3 +93,25 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
         _bn(sd, "bn0", params["bn_inp"]["scale"], params["bn_inp"]["bias"],
             stats["bn_inp"]["mean"], stats["bn_inp"]["var"])
     return sd
+
+
+def moments_to_jax(module: torch.nn.Module,
+                   moments: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """{parameter name: tensor shaped like it} -> a numpy tree in tpukaldi's
+    parameter naming (per-gate batchnorm halves joined, Linear weights
+    transposed)."""
+    sd = dict(module.state_dict())  # buffers, which the map needs too
+    sd.update(moments)
+    params, _ = to_jax_params(sd, type(module).__name__)
+    return params
+
+
+def moments_from_jax(module: torch.nn.Module,
+                     tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of `moments_to_jax`: {parameter name: tensor}."""
+    # from_jax_params also maps batchnorm statistics; any array of the
+    # right shape serves for them, and they are dropped below
+    stats = {k: {"mean": v["scale"], "var": v["scale"]}
+             for k, v in tree.items() if isinstance(v, dict) and "scale" in v}
+    sd = from_jax_params(type(module).__name__, tree, stats)
+    return {name: sd[name] for name, _ in module.named_parameters()}

@@ -1,0 +1,217 @@
+// Li-GRU backward recurrence for Hopper (sm_90a).
+//
+// Replaces tpukaldi/kernels/ligru.py::_ligru_bwd_kernel (the Pallas
+// backward, launched from _ligru_pallas_bwd_impl).  Given the forward's
+// inputs ff (T, B, 2H), U = [Uh | Uz] (H, 2H), mask (B, H), its output h
+// (T, B, H) and the gradient g of h (T, B, H), it returns
+//
+//     dff (T, B, 2H)   dA_t = [da_h | da_z] of every step
+//     dU  (H, 2H)      sum over t, b of h_prev[t, b]^T dA[t, b]
+//     dmask (B, H)     sum over t of dhc * relu(a_h)
+//
+// walking time backwards with h_prev[t] = h[t - 1] (zeros at t = 0):
+//
+//     a_h  = ff_h + h_prev @ Uh,  z = sigmoid(ff_z + h_prev @ Uz)
+//     gh   = g[t] + dh                        dh carried from step t + 1
+//     da_z = gh * (h_prev - relu(a_h) * m) * z * (1 - z)
+//     dhc  = gh * (1 - z),  da_h = dhc * m * [a_h > 0]
+//     dh   = gh * z + dA @ U^T                dh of step t - 1
+//
+// All tensors are float32 and contiguous; the caller also passes U^T
+// (2H, H), made once per call.
+//
+// Design.  Two kernels on one stream.
+//
+// 1. ligru_bwd_seq_kernel, the sequential pass: one CTA per batch row
+//    (rows are independent, as in the forward kernel ligru_fwd.cu) and one
+//    thread per hidden unit; the time loop runs backwards inside the block.
+//    Each step thread j puts h_prev[j] in shared memory, recomputes its two
+//    gate columns from it exactly as the forward kernel does (reading U row
+//    by row: a warp reads 32 neighbouring floats), forms dA, writes dff[t]
+//    and puts dA in shared memory.  After __syncthreads() it forms
+//    dh[j] = gh * z + sum_c dA[c] * U^T[c, j], reading U^T row by row, so
+//    again a warp's reads are neighbouring floats (U's own rows are 2H
+//    apart).  dmask[b, j] accumulates in a register and is written once.
+//    Two barriers per step; every step of T runs (the Pallas kernel pads T
+//    to its 16-step time block).
+// 2. ligru_bwd_du_kernel, dU = h_prev^T dff over the T * B rows: the Pallas
+//    kernel accumulates dU in an output block that stays resident across
+//    its sequential grid, but Hopper's blocks run in no order and carry
+//    nothing between them.  So dU is a second pass, a shared-memory tiled
+//    reduction in which each block owns a 64 x 64 tile of dU and sums all
+//    rows in a fixed order: no float atomics, so a replayed chunk gives the
+//    same bits.
+//
+// What bounds it.  The sequential pass reads U twice per step from L2
+// (once as U for the gates, once as U^T for the dh chain), 16 H^2 bytes
+// per CTA per step against the forward kernel's 8 H^2: on an H100 80GB HBM3
+// (700 W) it takes ~62 us per step at H = 550, B = 16, against the forward
+// kernel's ~39 us.  Only B
+// CTAs run, so at the training batch (B' = 16 after the bidirectional
+// flip) 116 of the 132 SMs idle during it.  The later design is the
+// persistent one (ROADMAP.md section 2): each CTA of the whole grid keeps a
+// column slice of U (and of U^T) resident in shared memory for all T steps
+// and exchanges h and dA through a grid-wide barrier every step
+// (Sparse Persistent RNNs, PAPERS.md, arXiv 1804.10223).  The dU pass is a
+// plain float32 GEMM of 2 T B H 2H flops; a wgmma tile pipeline would make
+// it faster, but it is small next to the sequential pass.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxHidden = 1024;  // one thread per hidden unit
+constexpr int kTile = 64;         // dU tile edge (rows i and columns c)
+constexpr int kTileRows = 16;     // rows r of h_prev and dff per stage
+constexpr int kDuThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
+
+__global__ void ligru_bwd_seq_kernel(const float* __restrict__ ff,
+                                     const float* __restrict__ h,
+                                     const float* __restrict__ g,
+                                     const float* __restrict__ u,
+                                     const float* __restrict__ ut,
+                                     const float* __restrict__ mask,
+                                     float* __restrict__ dff,
+                                     float* __restrict__ dmask,
+                                     int T, int B, int H) {
+  extern __shared__ float smem[];  // h_prev (H floats), then dA (2H floats)
+  float* hp = smem;
+  float* da = smem + H;
+  const int b = blockIdx.x;
+  const int j = threadIdx.x;
+  const bool active = j < H;
+  const size_t two_h = 2 * static_cast<size_t>(H);
+
+  const float m = active ? mask[static_cast<size_t>(b) * H + j] : 0.0f;
+  float dh = 0.0f;  // dL/dh_t[j], carried from step t + 1
+  float dm = 0.0f;  // dmask[b, j]
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t row = static_cast<size_t>(t) * B + b;
+    float hp_j = 0.0f;
+    if (active) {
+      hp_j = t > 0 ? h[(row - B) * H + j] : 0.0f;
+      hp[j] = hp_j;
+    }
+    __syncthreads();  // h_prev complete; last step's dA reads are done
+    float gh = 0.0f;
+    float zt = 0.0f;
+    if (active) {
+      float acc_h = 0.0f;
+      float acc_z = 0.0f;
+      const float* u_col = u + j;
+#pragma unroll 8
+      for (int k = 0; k < H; ++k) {
+        const float hk = hp[k];
+        acc_h = fmaf(hk, u_col[k * two_h], acc_h);
+        acc_z = fmaf(hk, u_col[k * two_h + H], acc_z);
+      }
+      const float* ff_t = ff + row * two_h;
+      const float a_h = ff_t[j] + acc_h;
+      zt = 1.0f / (1.0f + expf(-(ff_t[H + j] + acc_z)));
+      const float relu_ah = fmaxf(a_h, 0.0f);
+      gh = g[row * H + j] + dh;
+      const float da_z = gh * (hp_j - relu_ah * m) * zt * (1.0f - zt);
+      const float dhc = gh * (1.0f - zt);
+      const float da_h = a_h > 0.0f ? dhc * m : 0.0f;
+      dff[row * two_h + j] = da_h;
+      dff[row * two_h + H + j] = da_z;
+      da[j] = da_h;
+      da[H + j] = da_z;
+      dm = fmaf(dhc, relu_ah, dm);
+    }
+    __syncthreads();  // dA complete; the gate reads of h_prev are done
+    if (active) {
+      float acc = gh * zt;
+      const float* ut_col = ut + j;
+#pragma unroll 8
+      for (int c = 0; c < 2 * H; ++c) {
+        acc = fmaf(da[c], ut_col[static_cast<size_t>(c) * H], acc);
+      }
+      dh = acc;
+    }
+  }
+  if (active) dmask[static_cast<size_t>(b) * H + j] = dm;
+}
+
+// dU[i, c] = sum over r < R of h_prev[r, i] * dff[r, c], with R = T * B
+// flattened rows and h_prev[r] = h[r - B] (zeros for r < B).
+__global__ void ligru_bwd_du_kernel(const float* __restrict__ h,
+                                    const float* __restrict__ dff,
+                                    float* __restrict__ du,
+                                    int R, int B, int H) {
+  __shared__ float a_tile[kTileRows][kTile];  // h_prev[r0 + k, i0 + col]
+  __shared__ float b_tile[kTileRows][kTile];  // dff[r0 + k, c0 + col]
+  const int two_h = 2 * H;
+  const int i0 = blockIdx.y * kTile;
+  const int c0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+
+  for (int r0 = 0; r0 < R; r0 += kTileRows) {
+    for (int l = threadIdx.x; l < kTileRows * kTile; l += kDuThreads) {
+      const int k = l / kTile;
+      const int col = l % kTile;
+      const int r = r0 + k;
+      const int i = i0 + col;
+      const int c = c0 + col;
+      a_tile[k][col] = (r < R && r >= B && i < H)
+                           ? h[static_cast<size_t>(r - B) * H + i] : 0.0f;
+      b_tile[k][col] = (r < R && c < two_h)
+                           ? dff[static_cast<size_t>(r) * two_h + c] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTileRows; ++k) {
+      float a[4];
+      float bv[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q] = a_tile[k][ty + 16 * q];
+        bv[q] = b_tile[k][tx + 16 * q];
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int i = i0 + ty + 16 * p;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + tx + 16 * q;
+      if (i < H && c < two_h) du[static_cast<size_t>(i) * two_h + c] = acc[p][q];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int tpk_ligru_bwd_max_hidden() { return kMaxHidden; }
+
+// Launches both kernels on `stream` and returns cudaGetLastError() after
+// each: a refused launch never runs, and only this return value reports it.
+extern "C" int tpk_ligru_bwd(const float* ff, const float* h, const float* g,
+                             const float* u, const float* ut,
+                             const float* mask, float* dff, float* du,
+                             float* dmask, int T, int B, int H,
+                             cudaStream_t stream) {
+  if (T <= 0 || B <= 0 || H <= 0 || H > kMaxHidden) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int threads = ((H + 31) / 32) * 32;
+  const size_t smem = 3 * static_cast<size_t>(H) * sizeof(float);
+  ligru_bwd_seq_kernel<<<B, threads, smem, stream>>>(ff, h, g, u, ut, mask,
+                                                     dff, dmask, T, B, H);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((2 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  ligru_bwd_du_kernel<<<grid, kDuThreads, 0, stream>>>(h, dff, du, T * B, B,
+                                                       H);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,33 +1,37 @@
-"""Li-GRU forward recurrence: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Li-GRU recurrence: the hand-written CUDA kernels, forward and backward,
+and their plain PyTorch versions.
 
     r    = h @ U                  # U = [Uh | Uz], (H, 2H)
     z_t  = sigmoid(ffz_t + r_z)
     hc   = relu(ffh_t + r_h) * mask
     h_t  = z_t * h + (1 - z_t) * hc,   h_0 = 0
 
-`ligru_recurrence` is the counterpart of tpukaldi's
-`kernels/ligru.py::ligru_recurrence` (forward only).  On a CUDA tensor it
-launches `csrc/ligru_fwd.cu` (design notes there); on a CPU tensor it runs
-`ligru_recurrence_ref`, the Python time loop that mirrors tpukaldi's
-`ligru_recurrence_scan`.  The backward kernel is not ported yet, so the CUDA
-path refuses inputs that require grad.
+`LiGRURecurrence` is the counterpart of tpukaldi's
+`kernels/ligru.py::ligru_recurrence` (a `jax.custom_vjp`): its forward is
+`ligru_recurrence` and saves (ff, u, mask, h); its backward is
+`ligru_recurrence_bwd`.  On a CUDA tensor those launch `csrc/ligru_fwd.cu`
+and `csrc/ligru_bwd.cu` (design notes there) or raise; on a CPU tensor they
+run `ligru_recurrence_ref` and `ligru_recurrence_bwd_ref`, the Python time
+loops that mirror tpukaldi's `ligru_recurrence_scan` and `_bwd_scan`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from . import _build
 
 SOURCE = "ligru_fwd.cu"
+BWD_SOURCE = "ligru_bwd.cu"
 
-# kernel launches since the last reset; chip_smoke.py reads it to show that
-# the main path went through the kernel
+# kernel launches since the last reset (one per wrapper call that launched:
+# the backward's call runs its sequential and dU kernels); chip_smoke.py
+# reads them to show that the main path went through the kernels
 launches = 0
+bwd_launches = 0
 
 
 def ligru_recurrence_ref(
@@ -56,7 +60,40 @@ def ligru_recurrence_ref(
     return torch.stack(out)
 
 
-def _lib() -> ctypes.CDLL:
+def ligru_recurrence_bwd_ref(
+    ff: torch.Tensor, h: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+    mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's computation as a reverse-time loop (tpukaldi's
+    `_bwd_scan`): ff, h (the forward's output), g = dL/dh, u, mask (B, H) ->
+    (dff (T, B, 2H), du (H, 2H), dmask (B, H))."""
+    T, B, H2 = ff.shape
+    H = H2 // 2
+    h_prev = torch.cat([h.new_zeros((1, B, H)), h[:-1]])
+    r = (h_prev.reshape(T * B, H) @ u).reshape(T, B, H2)
+    a_h = ff[..., :H] + r[..., :H]
+    zt = torch.sigmoid(ff[..., H:] + r[..., H:])
+    relu_ah = torch.clamp_min(a_h, 0.0)
+    hc = relu_ah * mask
+    apos = (a_h > 0.0).to(ff.dtype)
+    ut = u.t()
+    dff = ff.new_empty((T, B, H2))
+    dhc_seq = ff.new_empty((T, B, H))
+    dh = ff.new_zeros((B, H))
+    for t in range(T - 1, -1, -1):
+        gh = g[t] + dh
+        dz = gh * (h_prev[t] - hc[t])
+        dff[t, :, H:] = dz * zt[t] * (1.0 - zt[t])
+        dhc = gh * (1.0 - zt[t])
+        dff[t, :, :H] = dhc * mask * apos[t]
+        dhc_seq[t] = dhc
+        dh = gh * zt[t] + dff[t] @ ut
+    du = h_prev.reshape(T * B, H).t() @ dff.reshape(T * B, H2)
+    dmask = (dhc_seq * relu_ah).sum(dim=0)
+    return dff, du, dmask
+
+
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
     lib.tpk_ligru_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
@@ -67,53 +104,119 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_cuda_inputs(ff, u, mask) -> None:
-    T, B, H2 = ff.shape
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load(BWD_SOURCE)
+    lib.tpk_ligru_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    lib.tpk_ligru_bwd.restype = ctypes.c_int
+    lib.tpk_ligru_bwd_max_hidden.argtypes = []
+    lib.tpk_ligru_bwd_max_hidden.restype = ctypes.c_int
+    return lib
+
+
+def _check_cuda_inputs(fn: str, ref: torch.Tensor, max_hidden: int,
+                       **tensors) -> None:
+    """Every tensor float32, contiguous, on the CUDA device of `ref`, with
+    the shapes (T, B, 2H) for ff, (T, B, H) for h and g, (H, 2H) for u and
+    (B, H) for mask, H within the kernel's limit."""
+    got = {name: tuple(t.shape) for name, t in tensors.items()}
+    T, B, H2 = got["ff"] if len(got["ff"]) == 3 else (0, 0, -1)
     H = H2 // 2
-    if H2 != 2 * H or u.shape != (H, 2 * H) or mask.shape != (B, H):
-        raise ValueError(
-            f"ligru_recurrence: expected ff (T, B, 2H), u (H, 2H), mask (B, H); "
-            f"got {tuple(ff.shape)}, {tuple(u.shape)}, {tuple(mask.shape)}")
-    for name, t in (("ff", ff), ("u", u), ("mask", mask)):
-        if t.device != ff.device or t.device.type != "cuda":
-            raise ValueError(f"ligru_recurrence: {name} is on {t.device}, "
-                             f"expected the CUDA device of ff ({ff.device})")
+    want = {"ff": (T, B, 2 * H), "h": (T, B, H), "g": (T, B, H),
+            "u": (H, 2 * H), "mask": (B, H)}
+    if any(got[n] != want[n] for n in got):
+        raise ValueError(f"{fn}: expected shapes "
+                         f"{ {n: want[n] for n in got} }, got {got}")
+    for name, t in tensors.items():
+        if t.device != ref.device or t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected the "
+                             f"CUDA device of ff ({ref.device})")
         if t.dtype != torch.float32:
-            raise TypeError(f"ligru_recurrence: {name} is {t.dtype}, "
-                            "the kernel takes float32")
+            raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
+                            "float32")
         if not t.is_contiguous():
-            raise ValueError(f"ligru_recurrence: {name} is not contiguous")
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"ligru_recurrence: {name} requires grad, but the backward "
-                "kernel is not ported yet; call under torch.inference_mode()")
+            raise ValueError(f"{fn}: {name} is not contiguous")
+    if H > max_hidden:
+        raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "
+                         f"{max_hidden} (one thread per hidden unit)")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; the plain version on CPU."""
+    """Forward: launch the CUDA kernel on a CUDA tensor; the plain version on
+    CPU.  Builds no autograd graph of its own: `LiGRURecurrence` is the
+    differentiable entry."""
     global launches
     if ff.device.type == "cpu":
         return ligru_recurrence_ref(ff, u, mask)
-    _check_cuda_inputs(ff, u, mask)
+    lib = _fwd_lib()
+    _check_cuda_inputs("ligru_recurrence", ff, lib.tpk_ligru_fwd_max_hidden(),
+                       ff=ff, u=u, mask=mask)
     T, B, H2 = ff.shape
     H = H2 // 2
-    lib = _lib()
-    max_h = lib.tpk_ligru_fwd_max_hidden()
-    if H > max_h:
-        raise ValueError(
-            f"ligru_recurrence: H={H} exceeds the kernel's limit of {max_h} "
-            "(one thread per hidden unit)")
     out = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
     if T == 0:
         return out
     with torch.cuda.device(ff.device):
-        stream = torch.cuda.current_stream(ff.device).cuda_stream
         err = lib.tpk_ligru_fwd(ff.data_ptr(), u.data_ptr(), mask.data_ptr(),
-                                out.data_ptr(), T, B, H, stream)
+                                out.data_ptr(), T, B, H, _stream(ff))
     if err != 0:
         raise RuntimeError(
             f"ligru_fwd kernel launch failed with CUDA error {err} "
             f"(T={T}, B={B}, H={H})")
     launches += 1
     return out
+
+
+def ligru_recurrence_bwd(
+    ff: torch.Tensor, h: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
+    mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward: (dff, du, dmask) from the CUDA kernels on CUDA tensors; the
+    plain version on CPU."""
+    global bwd_launches
+    if ff.device.type == "cpu":
+        return ligru_recurrence_bwd_ref(ff, h, g, u, mask)
+    lib = _bwd_lib()
+    _check_cuda_inputs("ligru_recurrence_bwd", ff,
+                       lib.tpk_ligru_bwd_max_hidden(),
+                       ff=ff, h=h, g=g, u=u, mask=mask)
+    T, B, H2 = ff.shape
+    H = H2 // 2
+    dff = torch.empty_like(ff)
+    if T == 0:
+        return dff, torch.zeros_like(u), torch.zeros_like(mask)
+    du = torch.empty_like(u)
+    dmask = torch.empty_like(mask)
+    ut = u.t().contiguous()  # (2H, H): the dh chain reads it row by row
+    with torch.cuda.device(ff.device):
+        err = lib.tpk_ligru_bwd(
+            ff.data_ptr(), h.data_ptr(), g.data_ptr(), u.data_ptr(),
+            ut.data_ptr(), mask.data_ptr(), dff.data_ptr(), du.data_ptr(),
+            dmask.data_ptr(), T, B, H, _stream(ff))
+    if err != 0:
+        raise RuntimeError(
+            f"ligru_bwd kernel launch failed with CUDA error {err} "
+            f"(T={T}, B={B}, H={H})")
+    bwd_launches += 1
+    return dff, du, dmask
+
+
+class LiGRURecurrence(torch.autograd.Function):
+    """h = recurrence(ff, u, mask) with the backward kernel as its
+    gradient; mask is (B, H)."""
+
+    @staticmethod
+    def forward(ctx, ff, u, mask):
+        h = ligru_recurrence(ff, u, mask)
+        ctx.save_for_backward(ff, u, mask, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        ff, u, mask, h = ctx.saved_tensors
+        return ligru_recurrence_bwd(ff, h, g.contiguous(), u, mask)

@@ -5,9 +5,12 @@
   softmax is log_softmax computed in float32.
 - `ref_laynorm`: gamma*(x-mean)/(std+eps)+beta with the reference's
   *unbiased* std and eps added to the std, not the variance.
-- `batchnorm`: torch BatchNorm1d with momentum 0.05, eps 1e-5.
+- `BatchNorm` / `batchnorm`: BatchNorm1d with momentum 0.05, eps 1e-5, whose
+  train-mode running variance takes the *biased* batch variance, as flax's
+  BatchNorm in tpukaldi does (torch's own folds in the unbiased one).
 - `recurrent_drop_mask`: one Bernoulli(1-p) mask shared across time at
-  train, the scalar (1-p) at eval.  Not inverted dropout.
+  train, drawn on the device from the generator it is given; the scalar
+  (1-p) at eval.  Not inverted dropout.
 - init functions drawing from an explicit CPU `torch.Generator`, so a seed
   gives the same weights whatever device the module lives on.
 """
@@ -83,18 +86,40 @@ class RefLayerNorm(nn.Module):
         return ref_laynorm(x, self.gamma, self.beta, self.eps)
 
 
-def batchnorm(features: int, device=None) -> nn.BatchNorm1d:
-    """BatchNorm1d with the reference's momentum 0.05 and eps 1e-5."""
-    return nn.BatchNorm1d(features, momentum=0.05, eps=1e-5, device=device)
+class BatchNorm(nn.BatchNorm1d):
+    """tpukaldi's `make_batchnorm` (flax BatchNorm, momentum 0.95 = torch's
+    0.05).  Train mode normalises by the batch's biased variance, as torch
+    does, but also folds the *biased* variance into `running_var`, as flax
+    does; `nn.BatchNorm1d` folds the unbiased one, n/(n-1) times larger.
+    The state_dict keys are BatchNorm1d's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.detach(), dim=0, correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
+def batchnorm(features: int, device=None) -> BatchNorm:
+    """BatchNorm with the reference's momentum 0.05 and eps 1e-5."""
+    return BatchNorm(features, momentum=0.05, eps=1e-5, device=device)
 
 
 def recurrent_drop_mask(train: bool, shape, p: float, device,
                         generator: Optional[torch.Generator] = None):
     """One Bernoulli(1-p) mask reused across time at train, the scalar
-    (1-p) at eval (reference neural_networks.py:421-425)."""
+    (1-p) at eval (reference neural_networks.py:421-425).  The mask is drawn
+    on `device` from `generator` (a generator of that device, or None for
+    its default one): no host draw, no blocking copy."""
     if train and p > 0.0:
-        keep = torch.full(shape, 1.0 - p)
-        return torch.bernoulli(keep, generator=generator).to(device)
+        return torch.empty(shape, device=device).bernoulli_(
+            1.0 - p, generator=generator)
     # torch.full, not torch.tensor: a fill kernel, no blocking host copy
     return torch.full((), 1.0 - p, dtype=torch.float32, device=device)
 

@@ -91,7 +91,8 @@ class MLP(nn.Module):
             x = act_fun(self.acts[i])(x)
             if self.training and self.drop[i] > 0.0:
                 # torch nn.Dropout semantics (inverted), identity at eval
-                keep = torch.full(x.shape, 1.0 - self.drop[i])
-                mask = torch.bernoulli(keep, generator=generator).to(x.device)
-                x = x * mask / (1.0 - self.drop[i])
+                # (tpukaldi/models/mlp.py:70-71); drawn on x's device
+                keep = 1.0 - self.drop[i]
+                mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+                x = x * mask / keep
         return x

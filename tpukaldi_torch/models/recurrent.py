@@ -9,8 +9,13 @@ Per layer, as in tpukaldi:
 - recurrent dropout as one mask shared across time (train) or the scalar
   (1-p) (eval) — not inverted dropout;
 - the time recurrence with one fused (B', H) @ (H, G*H) product per step:
-  for liGRU's relu/no-laynorm layers the hand-written kernel
-  (`kernels/ligru.py`), else that kernel's plain Python loop.
+  for liGRU's relu/no-laynorm layers the hand-written kernels
+  (`kernels/ligru.py::LiGRURecurrence`: forward kernel, and the backward
+  kernel as its gradient), else that kernel's plain Python loop, through
+  which autograd differentiates.
+
+Training calls pass no `lengths`, as tpukaldi's train and eval steps pass
+none: the reversal is then a plain flip over the bucket-padded batch.
 
 The state_dict keeps the reference layout (neural_networks.py:997-1155):
 per-gate `wh.{i}`/`wz.{i}` Linear (out, in), `uh.{i}`/`uz.{i}` recurrent
@@ -29,7 +34,7 @@ from torch import nn
 
 from tpukaldi.config.schema import to_bool
 
-from ..kernels.ligru import ligru_recurrence, ligru_recurrence_ref
+from ..kernels.ligru import LiGRURecurrence, ligru_recurrence_ref
 from .common import (
     RefLayerNorm,
     act_fun,
@@ -180,8 +185,9 @@ class liGRU(_RecurrentBase):
     batchnorm on the feed-forward path.
 
     `ligru_impl`: `auto`/`pallas` run relu/no-laynorm layers through the
-    hand kernel (its plain version on CPU tensors; `pallas` refuses CPU
-    tensors), `scan` through the plain loop."""
+    hand kernels, forward and backward (their plain versions on CPU
+    tensors; `pallas` refuses CPU tensors), `scan` through the plain loop
+    and autograd."""
 
     PREFIX = "ligru"
     FF_GATES = ("wh", "wz")
@@ -202,4 +208,4 @@ class liGRU(_RecurrentBase):
             raise ValueError(
                 "ligru_impl=pallas asks for the hand kernel, which runs "
                 "on CUDA tensors only; use auto or scan on CPU")
-        return ligru_recurrence(ff, u, mask)
+        return LiGRURecurrence.apply(ff, u, mask)

@@ -1,8 +1,9 @@
-"""A synthetic Kaldi TIMIT tree in real formats, and the flagship production
-cfg pointed at it — inputs for running the port end to end without a
+"""A synthetic Kaldi TIMIT tree in real formats, and the flagship cfg
+pointed at it, for training (`write_train_cfg`) or production forward
+(`write_prod_cfg`) — inputs for running the port end to end without a
 corpus (`chip_smoke.py`, the tests) — and helpers to set up and check such
-a run: seeded final checkpoints, the forward outputs, and a second forward
-of chosen utterances.
+a run: seeded initial or final checkpoints, the forward outputs, and a
+second forward of chosen utterances.
 
 The tree carries what `cfg/TIMIT/liGRU_fmllr.cfg` reads: per split a
 `feats.ark/.scp` (aliased as the mfcc/fbank/fmllr streams), `utt2spk`,
@@ -18,7 +19,7 @@ import gzip
 import io
 import os
 import shutil
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,11 +40,12 @@ from tpukaldi.io.transition_model import (
     write_transition_model,
 )
 from tpukaldi.plan import build_plan
+from tpukaldi.plan.planner import ExperimentPlan
 
 from ..graph.compiler import build_graph, init_graph
 from ..train.checkpoint import save_all
-from ..train.chunk_runtime import ChunkRuntime, read_info
-from ..train.step import forward_step
+from ..train.chunk_runtime import ChunkRuntime, batch_seed, read_info
+from ..train.step import forward_step, train_step
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FLAGSHIP_CFG = os.path.join(_REPO, "cfg", "TIMIT", "liGRU_fmllr.cfg")
@@ -127,6 +129,34 @@ def write_kaldi_tree(
     return root
 
 
+def _write_cfg(text: str, tree: str, out_folder: str, cfg_path: str,
+               replace: Optional[Dict[str, str]]) -> str:
+    text = text.replace("out_folder = exp/TIMIT_liGRU_fmllr",
+                        f"out_folder = {out_folder}")
+    for old, new in (replace or {}).items():
+        if old not in text:
+            raise ValueError(f"cfg line {old!r} not found in {FLAGSHIP_CFG}")
+        text = text.replace(old, new)
+    text = text.replace("$KALDI_TIMIT", tree)
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    return cfg_path
+
+
+def write_train_cfg(
+    tree: str,
+    out_folder: str,
+    cfg_path: str,
+    replace: Optional[Dict[str, str]] = None,
+) -> str:
+    """The flagship cfg as it is (train on TIMIT_tr, validate on TIMIT_dev,
+    forward TIMIT_test, each split with its labels) pointed at `tree`.
+    `replace` maps cfg lines to their substitutes (e.g. to shrink a run or
+    cut its epochs)."""
+    with open(FLAGSHIP_CFG) as f:
+        return _write_cfg(f.read(), tree, out_folder, cfg_path, replace)
+
+
 def write_prod_cfg(
     tree: str,
     out_folder: str,
@@ -151,28 +181,76 @@ def write_prod_cfg(
     )
     text = text.replace("[data_use]", prod_block + "[data_use]")
     text = text.replace("forward_with = TIMIT_test", "forward_with = TIMIT_prod")
-    text = text.replace("out_folder = exp/TIMIT_liGRU_fmllr",
-                        f"out_folder = {out_folder}")
-    for old, new in (replace or {}).items():
-        if old not in text:
-            raise ValueError(f"cfg line {old!r} not found in {FLAGSHIP_CFG}")
-        text = text.replace(old, new)
-    text = text.replace("$KALDI_TIMIT", tree)
-    with open(cfg_path, "w") as f:
-        f.write(text)
-    return cfg_path
+    return _write_cfg(text, tree, out_folder, cfg_path, replace)
 
 
-def save_seeded_finals(cfg_path: str, dim: int) -> Dict[str, str]:
-    """Save the port's init from the cfg's `seed` (random weights) as the
-    final checkpoints a production run of the cfg reads; `dim` is the
-    fmllr feature width.  Returns arch -> checkpoint path."""
+def _seeded_graph(cfg_path: str, dim: int):
+    """The port's init of the cfg's graph from its `seed` (random weights),
+    on the CPU; `dim` is the fmllr feature width."""
     exp = load_config(cfg_path)
     graph = build_graph(exp, {"fmllr": (0, dim)}, {}, "cpu")
     init_graph(graph, exp.seed)
+    return exp, graph
+
+
+def save_seeded_finals(cfg_path: str, dim: int) -> Dict[str, str]:
+    """Save the port's seeded init as the final checkpoints a production run
+    of the cfg reads.  Returns arch -> checkpoint path."""
+    exp, graph = _seeded_graph(cfg_path, dim)
     finals = build_plan(exp).final_ckpts
     save_all(finals, graph.modules)
     return finals
+
+
+def save_seeded_init(cfg_path: str, dim: int, folder: str) -> List[str]:
+    """Save the port's seeded init as one checkpoint per architecture under
+    `folder` (weights only, so each run starts a fresh optimizer) and return
+    the `--<section>,arch_pretrain_file=<path>` overrides that make a
+    training run of the cfg start from them: two runs, tpukaldi's and the
+    port's, then start from the same weights."""
+    exp, graph = _seeded_graph(cfg_path, dim)
+    os.makedirs(folder, exist_ok=True)
+    paths = {a: os.path.join(folder, f"init_{a}.ckpt") for a in graph.modules}
+    save_all(paths, graph.modules)
+    return [f"--{exp.archs[a].section},arch_pretrain_file={p}"
+            for a, p in paths.items()]
+
+
+def train_plan(cfg_path: str) -> Tuple[ExperimentConfig, ExperimentPlan]:
+    """The cfg and the plan a training run of it follows (tasks, their
+    ledger and checkpoint files, the final checkpoints)."""
+    exp = load_config(cfg_path)
+    return exp, build_plan(exp)
+
+
+def train_step_gradients(
+    cfg_path: str, device, dtype: torch.dtype = torch.float32,
+) -> Tuple[float, Dict[str, torch.Tensor], Tuple[int, ...]]:
+    """One train step of the cfg's seeded init on the first batch of its
+    first train chunk, on `device`: (loss, {arch.param: gradient}, batch
+    shape).  Two cfgs that differ only in `ligru_impl` give two paths to the
+    same numbers.  `dtype=torch.float64` (with `ligru_impl = scan`: the
+    kernels take float32 only) gives a reference for both, float64 except
+    the heads' log-softmax and the cost means, which stay float32 as in
+    tpukaldi."""
+    exp, plan = train_plan(cfg_path)
+    task = plan.epochs[0].tasks[0]
+    rt = ChunkRuntime(exp, device)
+    chunk = rt.load_task_chunk(task)
+    rt.ensure_initialized(chunk, with_optimizers=True)
+    for module in rt.graph.modules.values():
+        module.to(dtype)
+    batch = next(rt._batches(chunk, exp.batches.batch_size_train[0], True,
+                             task.seed))
+    rt.generator.manual_seed(batch_seed(task.seed, 0))
+    loss, _ = train_step(rt.graph, rt.optimizers,
+                         torch.from_numpy(batch.feats).to(rt.device, dtype),
+                         torch.from_numpy(batch.labs).to(rt.device),
+                         batch.n_valid_t, rt.generator)
+    grads = {f"{a}.{n}": p.grad.detach().clone()
+             for a, m in rt.graph.modules.items()
+             for n, p in m.named_parameters()}
+    return loss.item(), grads, tuple(batch.feats.shape)
 
 
 def forward_outputs(

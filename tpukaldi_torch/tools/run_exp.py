@@ -4,12 +4,12 @@ reference run_exp.py:1-621).
   python -m tpukaldi_torch.tools.run_exp cfg/exp.cfg [--device cuda] \\
       [--section,field=value ...]
 
-Drives: config load -> plan -> final checkpoints -> forward posteriors ->
-Kaldi decode bridge, on the shared config, planner, ledger and decode code.
-Training is not ported yet, so every training task of the plan must already
-be done (its `.info` ledger entry exists, e.g. from a tpukaldi run) — in
-production (transcription-only) mode the plan has none.  `--device cuda`
-without a CUDA device is an error; there is no fallback to the CPU.
+Drives: config load -> plan -> (train chunks with interleaved validation ->
+new-bob lr annealing) x epochs -> res.res -> final checkpoints -> forward
+posteriors -> Kaldi decode bridge, on the shared config, planner, ledger and
+decode code.  Crash recovery goes through the `.info` ledger as in
+tpukaldi: done tasks are skipped on restart.  `--device cuda` without a CUDA
+device is an error; there is no fallback to the CPU.
 """
 
 from __future__ import annotations
@@ -18,18 +18,24 @@ import argparse
 import os
 import shutil
 import sys
+import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from tpukaldi.config import ConfigError, load_config
 from tpukaldi.config.cfg import ExperimentConfig
 from tpukaldi.decode.bridge import harvest_wer, run_decode
 from tpukaldi.forward.counts import resolve_count_files
-from tpukaldi.plan import build_plan, repair_resume_point
+from tpukaldi.plan import ChunkTask, build_plan, repair_resume_point
 from tpukaldi.plan.chunk_cfg import write_chunk_cfg
 
-from ..train.chunk_runtime import ChunkRuntime
+from ..train.chunk_runtime import ChunkResult, ChunkRuntime, read_info
+
+# per-chunk phases summed into the `phases ep=` line of res.res
+_PHASES = ("host_batch", "h2d", "dispatch", "drain", "ckpt_write",
+           "restore_wait")
 
 
 def _log(out_folder: str, msg: str) -> None:
@@ -47,6 +53,147 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# _aggregate, _result_from_info and dump_epoch_results copy tpukaldi's
+# (tools/run_exp.py:39-83): that module imports JAX.
+def _aggregate(results: List[ChunkResult]):
+    if not results:
+        return 0.0, 0.0, 0.0
+    return (
+        float(np.mean([r.loss for r in results])),
+        float(np.mean([r.err for r in results])),
+        float(np.sum([r.elapsed for r in results])),
+    )
+
+
+def _result_from_info(task: ChunkTask) -> ChunkResult:
+    info = read_info(task.info_file)
+    return ChunkResult(
+        loss=info.get("loss", 0.0),
+        err=info.get("err", 0.0),
+        elapsed=info.get("elapsed_time_chunk", 0.0),
+        n_batches=1,
+    )
+
+
+def dump_epoch_results(
+    res_file: str,
+    epoch: int,
+    n_epochs: int,
+    train_with: List[str],
+    tr_loss: float,
+    tr_err: float,
+    valid_perf: Dict[str, ChunkResult],
+    lr: Dict[str, List[float]],
+    elapsed: float,
+) -> None:
+    """Append the reference-format epoch line (utils.py:2423-2476)."""
+    width = max(len(str(n_epochs - 1)), 1)
+    parts = [
+        f"ep={epoch:0{width}d} tr={train_with} loss={tr_loss:0.3f} err={tr_err:0.3f}"
+    ]
+    for name, perf in valid_perf.items():
+        parts.append(f"valid={name} loss={perf.loss:0.3f} err={perf.err:0.3f}")
+    for arch, sched in lr.items():
+        parts.append(f"lr_{arch}={sched[epoch]}")
+    parts.append(f"time(s)={int(elapsed)}")
+    line = " ".join(parts)
+    with open(res_file, "a") as f:
+        f.write(line + "\n")
+    print(line)
+
+
+def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
+           res_file: str) -> None:
+    """The epoch loop (tpukaldi/tools/run_exp.py:167-337): train chunks in
+    order, each validation point aggregating the valid tasks after it,
+    new-bob halving of every auto-annealed arch's lr, and per epoch an
+    `ep=` line and a `phases ep=` line in res.res."""
+    out_folder = exp.out_folder
+    # annealing is on iff the user gave a single-value schedule (reference
+    # run_exp.py:151-161)
+    lr: Dict[str, List[float]] = {a: list(s.lr) for a, s in exp.archs.items()}
+    auto_anneal = {a: "|" not in exp.raw[s.section]["arch_lr"]
+                   for a, s in exp.archs.items()}
+    prev_valid_err: Optional[float] = None
+    for ep_plan in plan.epochs:
+        ep = ep_plan.epoch
+        t_ep = time.time()
+        host_load = 0.0
+        tr_results: List[ChunkResult] = []
+        ep_valid_results: List[ChunkResult] = []
+        valid_perf: Dict[str, ChunkResult] = {}
+        pending_valid: List[ChunkResult] = []
+        valid_names: List[str] = []
+        _log(out_folder, f"------ Epoch {ep} / {exp.n_epochs - 1} ------")
+
+        def flush_valid_point():
+            nonlocal prev_valid_err, pending_valid, valid_names
+            if not pending_valid:
+                return
+            by_name: Dict[str, List[ChunkResult]] = {}
+            for name, res in zip(valid_names, pending_valid):
+                by_name.setdefault(name, []).append(res)
+            for name, results in by_name.items():
+                l, e, t = _aggregate(results)
+                valid_perf[name] = ChunkResult(l, e, t, len(results))
+            err_mean = float(np.mean([v.err for v in valid_perf.values()]))
+            if prev_valid_err is not None:
+                for arch in lr:
+                    spec = exp.archs[arch]
+                    improvement = (prev_valid_err - err_mean) / max(err_mean, 1e-12)
+                    if (ep < exp.n_epochs - 1 and auto_anneal[arch]
+                            and improvement < spec.improvement_threshold):
+                        new_lr = lr[arch][ep] * spec.halving_factor
+                        for i in range(ep + 1, exp.n_epochs):
+                            lr[arch][i] = new_lr
+                        _log(out_folder,
+                             f"[new-bob] halving lr of {arch} -> {new_lr}")
+            prev_valid_err = err_mean
+            pending_valid, valid_names = [], []
+
+        for task in ep_plan.tasks:
+            if task.done:  # ledger resume (reference run_exp.py:253)
+                res = _result_from_info(task)
+            else:
+                epoch_lr = {a: lr[a][ep] for a in lr}
+                bs = (exp.batches.batch_size_train[ep] if task.phase == "train"
+                      else exp.batches.batch_size_valid)
+                msl = exp.batches.msl_for_phase(task.phase, task.epoch)
+                task.write_lst_files()
+                write_chunk_cfg(exp, task, lr=epoch_lr, batch_size=bs,
+                                max_seq_length=msl)
+                t0 = time.perf_counter()
+                chunk = runtime.load_task_chunk(task, msl)
+                host_load += time.perf_counter() - t0
+                res = runtime.run_task(task, epoch_lr=epoch_lr,
+                                       max_seq_length=msl, batch_size=bs,
+                                       chunk=chunk)
+            if task.phase == "train":
+                flush_valid_point()
+                tr_results.append(res)
+            else:
+                pending_valid.append(res)
+                valid_names.append(task.dataset)
+                ep_valid_results.append(res)
+        flush_valid_point()
+
+        tr_loss, tr_err, tr_time = _aggregate(tr_results)
+        epoch_wall = time.time() - t_ep
+        dump_epoch_results(res_file, ep, exp.n_epochs, exp.train_with,
+                           tr_loss, tr_err, valid_perf, lr, epoch_wall)
+        # where the epoch's wall time went (skipped by "ep="-prefixed parsers)
+        valid_wall = sum(r.elapsed for r in ep_valid_results)
+        phases = "".join(
+            f" {k}={sum((r.phases or {}).get(k, 0.0) for r in tr_results + ep_valid_results):.2f}"
+            for k in _PHASES)
+        other = max(epoch_wall - tr_time - valid_wall - host_load, 0.0)
+        with open(res_file, "a") as rf:
+            rf.write(f"phases ep={ep} host_load={host_load:.2f} "
+                     f"train_wall={tr_time:.2f} valid_wall={valid_wall:.2f}"
+                     f"{phases} driver_other={other:.2f} "
+                     f"epoch_wall={epoch_wall:.2f}\n")
+
+
 def run_experiment(
     cfg_file: str,
     overrides: Optional[List[str]] = None,
@@ -60,8 +207,8 @@ def run_experiment(
     with open(os.path.join(out_folder, "conf.cfg"), "w") as f:
         exp.raw.write(f)
 
-    # the same plan tpukaldi builds (same knobs), so the port picks up the
-    # ledger and checkpoints of a tpukaldi training run
+    # the same plan tpukaldi builds (same knobs), so the two share ledgers
+    # and checkpoints
     n_valid = int(exp.raw["exp"].get("nr_of_valid_per_epoch", "1"))
     ckpt_every = int(os.environ.get(
         "TPUKALDI_CKPT_EVERY", exp.raw["exp"].get("ckpt_every_n_chunks", "1")))
@@ -69,16 +216,12 @@ def run_experiment(
     for removed in repair_resume_point(plan):
         _log(out_folder, f"[resume] {removed} invalidated (no restorable "
              "checkpoint); the chunk will be replayed deterministically")
-    pending = [t.info_file for ep in plan.epochs for t in ep.tasks if not t.done]
-    if pending:
-        raise NotImplementedError(
-            f"{len(pending)} training/validation tasks are not done (first: "
-            f"{pending[0]}); training is not ported to tpukaldi_torch yet — "
-            "train with tpukaldi, or run a production cfg")
+    runtime = ChunkRuntime(exp, device)
 
     res_file = os.path.join(out_folder, "res.res")
     if not os.path.exists(res_file):
         open(res_file, "w").close()
+    _train(exp, plan, runtime, res_file)
 
     # final checkpoints (reference run_exp.py:412-414)
     if plan.epochs:
@@ -100,7 +243,6 @@ def run_experiment(
     resolve_count_files(exp, os.path.join(out_folder, "exp_files"))
 
     # ---------------- forward ----------------
-    runtime = ChunkRuntime(exp, device)
     ark_files: Dict[str, List[str]] = {}
     for task in plan.forward_tasks:
         if not task.done:
@@ -157,7 +299,7 @@ def run_experiment(
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m tpukaldi_torch.tools.run_exp",
-        description="Forward (posterior) stage of a tpukaldi cfg on PyTorch.")
+        description="Train, forward and decode a tpukaldi cfg on PyTorch.")
     parser.add_argument("cfg")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")

@@ -14,12 +14,15 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Any, Dict, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import numpy as np
 from torch import nn
 
 from ..compat.jax_params import from_jax_params, to_jax_params
+
+if TYPE_CHECKING:
+    from .optimizers import ArchOptimizer
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -220,23 +223,32 @@ def write_checkpoint(path: str, params: Dict, opt_state: Dict = None,
     os.replace(tmp, path)  # atomic: the ledger never sees a torn checkpoint
 
 
-def save_all(paths: Dict[str, str], modules: Dict[str, nn.Module]) -> None:
-    """One tpukaldi-format checkpoint per architecture (params and batch
-    stats; the optimizer state is not ported yet)."""
+def save_all(paths: Dict[str, str], modules: Dict[str, nn.Module],
+             optimizers: Optional[Dict[str, "ArchOptimizer"]] = None) -> None:
+    """One tpukaldi-format checkpoint per architecture: params, batch stats
+    and, when `optimizers` has the architecture, its optimizer state in
+    tpukaldi's optax layout.  Synchronous: the device-to-host copies and
+    the write finish before it returns."""
     for arch, path in paths.items():
         module = modules[arch]
         params, stats = to_jax_params(module.state_dict(), type(module).__name__)
-        write_checkpoint(path, params, None, stats)
+        opt = (optimizers or {}).get(arch)
+        write_checkpoint(path, params, opt.state_tree() if opt else None, stats)
 
 
-def load_all(paths: Dict[str, str], modules: Dict[str, nn.Module]) -> None:
-    """Load every architecture whose checkpoint exists into its module."""
+def load_all(paths: Dict[str, str], modules: Dict[str, nn.Module],
+             optimizers: Optional[Dict[str, "ArchOptimizer"]] = None) -> None:
+    """Load every architecture whose checkpoint exists into its module, and
+    its optimizer state (moments and step count, not the lr: the caller's
+    cfg lr stands) into `optimizers`."""
     for arch, path in paths.items():
         if path in ("none", "", None) or not os.path.exists(path):
             continue
         module = modules[arch]
-        params, _, stats = read_checkpoint(path)
+        params, opt_state, stats = read_checkpoint(path)
         sd = from_jax_params(type(module).__name__, params, stats)
         device = next(module.parameters()).device
         module.load_state_dict({k: v.to(device) for k, v in sd.items()})
-
+        opt = (optimizers or {}).get(arch)
+        if opt is not None:
+            opt.load_state_tree(opt_state, path)
