@@ -8,7 +8,6 @@ numpy with a seed.  Tolerance: 1e-5 absolute on outputs of order 1 — both
 sides compute in float32, with matmul sums in different orders.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,8 +16,8 @@ import torch
 from tpukaldi.compat.torch_import import import_model_par
 from tpukaldi.models.mlp import MLP as JaxMLP
 from tpukaldi.models.recurrent import liGRU as JaxLiGRU
-from tpukaldi_torch.compat.jax_params import from_jax_params
 from tpukaldi_torch.models import MLP, liGRU, resolve
+from torch_port_helpers import assert_trees_equal, jax_init, port_module
 
 ATOL = 1e-5
 
@@ -55,43 +54,6 @@ MLP_OPTS = {
 D = 10
 
 
-def _randomize_norms(tree, rng, positive=False):
-    """Replace every batchnorm/laynorm leaf with a numpy draw."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out[k] = _randomize_norms(v, rng, positive or k == "var")
-        elif positive:
-            out[k] = rng.uniform(0.5, 1.5, np.shape(v)).astype(np.float32)
-        else:
-            out[k] = rng.normal(0.0, 0.3, np.shape(v)).astype(np.float32) + (
-                1.0 if k in ("scale", "gamma") or k.endswith("_gamma") else 0.0)
-    return out
-
-
-def _jax_init(cls, opts, x, seed):
-    module = cls(options=opts, inp_dim=D)
-    variables = module.init({"params": jax.random.key(seed),
-                             "dropout": jax.random.key(seed + 1)},
-                            jnp.asarray(x), train=False)
-    params = jax.tree_util.tree_map(np.asarray, dict(variables["params"]))
-    stats = jax.tree_util.tree_map(
-        np.asarray, dict(variables.get("batch_stats", {})))
-    rng = np.random.default_rng(seed)
-    norm_keys = [k for k in params if k.startswith(("bn", "ln"))]
-    params.update(_randomize_norms({k: params[k] for k in norm_keys}, rng))
-    stats = {k: _randomize_norms({"mean": s["mean"]}, rng) | {
-        "var": rng.uniform(0.5, 1.5, s["var"].shape).astype(np.float32)}
-        for k, s in stats.items()}
-    return module, params, stats
-
-
-def _port(cls, opts, params, stats, class_name):
-    module = cls(opts, D)
-    module.load_state_dict(from_jax_params(class_name, params, stats))
-    return module.eval()
-
-
 @pytest.mark.parametrize("with_lengths", [False, True])
 @pytest.mark.parametrize("name", list(LIGRU_OPTS))
 def test_ligru_matches_flax(name, with_lengths):
@@ -100,14 +62,14 @@ def test_ligru_matches_flax(name, with_lengths):
     T, B = 11, 3
     x = rng.standard_normal((T, B, D)).astype(np.float32)
     lengths = np.array([11, 7, 4], np.int64) if with_lengths else None
-    jmod, params, stats = _jax_init(JaxLiGRU, opts, x, seed=5)
+    jmod, params, stats = jax_init(JaxLiGRU, opts, x, seed=5)
     variables = {"params": params}
     if stats:
         variables["batch_stats"] = stats
     want = np.asarray(jmod.apply(
         variables, jnp.asarray(x), train=False,
         lengths=None if lengths is None else jnp.asarray(lengths, jnp.int32)))
-    port = _port(liGRU, opts, params, stats, "liGRU")
+    port = port_module(liGRU, opts, D, params, stats, "liGRU")
     with torch.inference_mode():
         got = port(torch.from_numpy(x),
                    lengths=None if lengths is None else torch.from_numpy(lengths))
@@ -119,25 +81,15 @@ def test_ligru_matches_flax(name, with_lengths):
 def test_mlp_matches_flax(name):
     opts = MLP_OPTS[name]
     x = np.random.default_rng(4).standard_normal((29, D)).astype(np.float32)
-    jmod, params, stats = _jax_init(JaxMLP, opts, x, seed=7)
+    jmod, params, stats = jax_init(JaxMLP, opts, x, seed=7)
     variables = {"params": params}
     if stats:
         variables["batch_stats"] = stats
     want = np.asarray(jmod.apply(variables, jnp.asarray(x), train=False))
-    port = _port(MLP, opts, params, stats, "MLP")
+    port = port_module(MLP, opts, D, params, stats, "MLP")
     with torch.inference_mode():
         got = port(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
-
-
-def _assert_trees_equal(a, b, path=""):
-    assert set(a) == set(b), (path, sorted(a), sorted(b))
-    for k in a:
-        if isinstance(a[k], dict):
-            _assert_trees_equal(a[k], b[k], f"{path}/{k}")
-        else:
-            assert np.asarray(a[k]).dtype == np.asarray(b[k]).dtype, f"{path}/{k}"
-            np.testing.assert_array_equal(a[k], b[k], err_msg=f"{path}/{k}")
 
 
 @pytest.mark.parametrize("cls_name,name", [
@@ -149,19 +101,19 @@ def test_converter_round_trip(cls_name, name):
         "MLP": (JaxMLP, MLP, MLP_OPTS.get(name)),
     }[cls_name]
     x = np.zeros((4, 2, D) if cls_name == "liGRU" else (4, D), np.float32)
-    _, params, stats = _jax_init(jcls, opts, x, seed=11)
-    port = _port(pcls, opts, params, stats, cls_name)  # strict load
+    _, params, stats = jax_init(jcls, opts, x, seed=11)
+    port = port_module(pcls, opts, D, params, stats, cls_name)  # strict load
     back_params, back_stats = import_model_par(port.state_dict(), cls_name)
-    _assert_trees_equal(back_params, params)
-    _assert_trees_equal(back_stats, stats)
+    assert_trees_equal(back_params, params)
+    assert_trees_equal(back_stats, stats)
 
 
 def test_registry_resolves_cfg_libraries():
     for lib in ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks"):
         assert resolve("liGRU", lib) is liGRU
         assert resolve("MLP", lib) is MLP
-    with pytest.raises(NotImplementedError, match="LSTM.*still to be ported"):
-        resolve("LSTM")
+    with pytest.raises(NotImplementedError, match="RNN.*still to be ported"):
+        resolve("RNN")
     with pytest.raises(KeyError):
         resolve("liGRU", "my_library")
 

@@ -27,8 +27,6 @@ import numpy as np
 import pytest
 import torch
 
-from tpukaldi.config.model_dsl import parse_model
-from tpukaldi.graph import compiler as jax_compiler
 from tpukaldi.io import read_mat_ark
 from tpukaldi.kernels.ligru import _bwd_scan
 from tpukaldi.kernels.ligru import ligru_recurrence as jax_ligru
@@ -36,9 +34,6 @@ from tpukaldi.models.common import make_batchnorm
 from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
 from tpukaldi.train.chunk_runtime import read_info as tpk_read_info
 from tpukaldi.train.optimizers import make_optimizer
-from tpukaldi.train.step import _loss_fn, make_eval_step, make_train_step
-from tpukaldi_torch.compat.jax_params import from_jax_params, to_jax_params
-from tpukaldi_torch.graph import compiler
 from tpukaldi_torch.kernels import ligru as port_ligru
 from tpukaldi_torch.models import common
 from tpukaldi_torch.tools.flagship_tree import (
@@ -49,8 +44,7 @@ from tpukaldi_torch.tools.flagship_tree import (
 from tpukaldi_torch.tools.run_chunk import run_chunk
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
-from tpukaldi_torch.train.optimizers import make_all_optimizers
-from tpukaldi_torch.train.step import eval_step, train_step
+from torch_port_helpers import check_train_and_eval_step, recipe_exp
 
 
 # ------------------------------------------------------------ (a) K1b
@@ -178,139 +172,12 @@ def test_batchnorm_running_stats_match_flax():
 
 
 # ------------------------------------------------------------ (d) one step
-PROGRAM = """
-out_dnn1=compute(liGRU_layers,fmllr)
-out_dnn2=compute(MLP_layers,out_dnn1)
-out_dnn3=compute(MLP_layers2,out_dnn1)
-loss_mono=cost_nll(out_dnn3,lab_mono)
-loss_mono_w=mult_constant(loss_mono,1.0)
-loss_cd=cost_nll(out_dnn2,lab_cd)
-loss_final=sum(loss_cd,loss_mono_w)
-err_final=cost_err(out_dnn2,lab_cd)
-"""
-FEA = {"fmllr": (0, 6)}
-LAB = {"lab_cd": 0, "lab_mono": 1}
-N_CD, N_MONO = 9, 3
-
-
-def _flagship_exp(freeze_mono: bool):
-    """The flagship program over a 2x8 bidirectional liGRU (batchnorm,
-    relu, drop 0) and two softmax heads, rmsprop as the cfg has it."""
-    rms = SimpleNamespace(kind="rmsprop", options={
-        "opt_alpha": 0.95, "opt_eps": 1e-8, "opt_momentum": 0.0,
-        "opt_centered": False, "opt_weight_decay": 0.0})
-    mlp = dict(dnn_drop="0.0", dnn_use_batchnorm="False",
-               dnn_use_laynorm="False", dnn_use_laynorm_inp="False",
-               dnn_use_batchnorm_inp="False", dnn_act="softmax")
-
-    def arch(name, cls, seq, freeze=False, **opts):
-        return SimpleNamespace(name=name, class_name=cls,
-                               library="tpukaldi.models", seq_model=seq,
-                               freeze=freeze, options=opts, optimizer=rms,
-                               lr=[4e-4])
-
-    return SimpleNamespace(
-        model=parse_model(PROGRAM),
-        archs={
-            "liGRU_layers": arch(
-                "liGRU_layers", "liGRU", True, ligru_lay="8,8",
-                ligru_drop="0.0,0.0", ligru_use_batchnorm="True,True",
-                ligru_use_laynorm="False,False", ligru_act="relu,relu",
-                ligru_bidir="True", ligru_orthinit="True"),
-            "MLP_layers": arch("MLP_layers", "MLP", False, dnn_lay=str(N_CD),
-                               **mlp),
-            "MLP_layers2": arch("MLP_layers2", "MLP", False, freeze_mono,
-                                dnn_lay=str(N_MONO), **mlp),
-        },
-        forward=SimpleNamespace(outs=["out_dnn2"]),
-    )
-
-
-def _to_port(pg, params, stats):
-    for name, module in pg.modules.items():
-        module.load_state_dict(from_jax_params(
-            type(module).__name__, params[name], stats.get(name, {})))
-
-
-def _port_tree(module, grads=False):
-    """The module's parameters (or their .grad) in tpukaldi's naming."""
-    sd = dict(module.state_dict())
-    if grads:
-        sd.update({n: p.grad for n, p in module.named_parameters()})
-    return to_jax_params(sd, type(module).__name__)
-
-
-def _assert_trees_close(got, want, atol, path=""):
-    if isinstance(want, dict):
-        assert set(got) == set(want), path
-        for k in want:
-            _assert_trees_close(got[k], want[k], atol, f"{path}/{k}")
-        return
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
-                               atol=atol, err_msg=path)
-
-
 @pytest.mark.parametrize("freeze_mono", [False, True])
 def test_train_and_eval_step_match_tpukaldi(freeze_mono):
-    """Loss, err, every gradient, the batch statistics and the stepped
-    weights of one train step, then loss and err of one eval step, against
-    tpukaldi at drop 0 from the same weights, on a bucket-padded batch
-    (n_valid_t < T).  A frozen head runs in eval mode and is not stepped.
-    1e-5 absolute: float32 on both sides, sums in other orders; the
-    stepped weights move by at most lr * 4.5 per element on rmsprop's first
-    step, whose g / sqrt(0.05 g^2) amplifies nothing but the gradient's
-    sign."""
-    exp = _flagship_exp(freeze_mono)
-    rng = np.random.default_rng(11)
-    T, B, n_valid = 12, 3, 9
-    feats = rng.standard_normal((T, B, 6)).astype(np.float32)
-    labs = np.stack([rng.integers(0, N_CD, (T, B)),
-                     rng.integers(0, N_MONO, (T, B))], axis=-1)
-    jg = jax_compiler.build_graph(exp, FEA, LAB)
-    params, stats = jax_compiler.init_graph(jg, jax.random.key(3),
-                                            jnp.asarray(feats))
-    params = jax.tree_util.tree_map(np.asarray, params)
-    stats = jax.tree_util.tree_map(np.asarray, stats)
-    pg = compiler.build_graph(exp, FEA, LAB, "cpu")
-    _to_port(pg, params, stats)
-
-    (loss_w, (err_w, stats_w)), grads_w = jax.value_and_grad(
-        _loss_fn, has_aux=True)(params, jg, stats, jnp.asarray(feats),
-                                jnp.asarray(labs), None, jnp.asarray(n_valid))
-    optimizers = {n: make_optimizer(a) for n, a in exp.archs.items()}
-    frozen = {n: a.freeze for n, a in exp.archs.items()}
-    opt_states = {n: optimizers[n].init(params[n]) for n in params}
-    new_params, new_stats, _, loss_s, err_s = make_train_step(
-        jg, optimizers, frozen, donate=False)(
-        params, stats, opt_states, jnp.asarray(feats), jnp.asarray(labs),
-        jax.random.key(0), jnp.asarray(n_valid))
-    np.testing.assert_allclose(float(loss_s), float(loss_w), atol=1e-6)
-
-    opts = make_all_optimizers(pg.archs, pg.modules)
-    loss, err = train_step(pg, opts, torch.from_numpy(feats),
-                           torch.from_numpy(labs), n_valid)
-    np.testing.assert_allclose(loss.item(), float(loss_w), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(err.item(), float(err_w), rtol=0, atol=1e-6)
-    for name, module in pg.modules.items():
-        got_grads, _ = _port_tree(module, grads=True)
-        _assert_trees_close(got_grads, grads_w[name], 1e-5, f"grad {name}")
-        got_params, got_stats = _port_tree(module)
-        _assert_trees_close(got_params, new_params[name], 1e-5, name)
-        _assert_trees_close(got_stats, new_stats.get(name, {}), 1e-5,
-                            f"stats {name}")
-        if exp.archs[name].freeze:
-            _assert_trees_close(got_params, params[name], 0.0, name)
-
-    # the eval step on the stepped weights
-    loss_e, err_e = make_eval_step(jg)(new_params, new_stats,
-                                       jnp.asarray(feats), jnp.asarray(labs),
-                                       jnp.asarray(n_valid))
-    got_loss, got_err = eval_step(pg, torch.from_numpy(feats),
-                                  torch.from_numpy(labs), n_valid)
-    np.testing.assert_allclose(got_loss.item(), float(loss_e), rtol=0,
-                               atol=1e-5)
-    np.testing.assert_allclose(got_err.item(), float(err_e), rtol=0,
-                               atol=1e-6)
+    """One train step and one eval step of the flagship program (a 2x8
+    liGRU, relu) against tpukaldi's, with the mono head frozen or not
+    (`check_train_and_eval_step` states what is compared, and how close)."""
+    check_train_and_eval_step(recipe_exp("liGRU", "relu", freeze_mono))
 
 
 # ------------------------------------------------------------ (f), (g) runs

@@ -21,8 +21,16 @@ import torch
 
 from tpukaldi.compat.torch_import import import_model_par as to_jax_params  # noqa: F401
 
-# torch attribute names per gate, in tpukaldi's FF_GATES order
-_GATES = {"liGRU": (("h", "wh", "uh"), ("z", "wz", "uz"))}
+# (tpukaldi gate letter, torch ff attr, torch recurrent attr), in tpukaldi's
+# FF_GATES order, as tpukaldi.compat.torch_import._GATE_TABLES has them.  The
+# GRU's `uh{i}` is one of tpukaldi's extra params, outside its fused Uzr; the
+# ("h", "wh", "uh") row maps it all the same.
+_GATES = {
+    "liGRU": (("h", "wh", "uh"), ("z", "wz", "uz")),
+    "GRU": (("h", "wh", "uh"), ("z", "wz", "uz"), ("r", "wr", "ur")),
+    "LSTM": (("f", "wfx", "ufh"), ("i", "wix", "uih"), ("o", "wox", "uoh"),
+             ("c", "wcx", "uch")),
+}
 
 
 def _t(x) -> torch.Tensor:

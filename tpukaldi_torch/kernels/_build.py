@@ -3,8 +3,9 @@
 Each kernel source under `csrc/` is compiled at first use with `nvcc` for
 Hopper (`sm_90a`) into a shared library with a plain C interface, loaded
 with `ctypes`.  The library lands in `build/tpukaldi_torch/` beside the
-package (a directory `.gitignore` lists), named by a hash of its source and
-flags, so an edited source is rebuilt and an unchanged one is reused.
+package (a directory `.gitignore` lists), named by a hash of its source, the
+shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
+is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the library built from `csrc/<source>` lives."""
-    with open(os.path.join(_CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 

@@ -34,13 +34,8 @@
 //    apart).  dmask[b, j] accumulates in a register and is written once.
 //    Two barriers per step; every step of T runs (the Pallas kernel pads T
 //    to its 16-step time block).
-// 2. ligru_bwd_du_kernel, dU = h_prev^T dff over the T * B rows: the Pallas
-//    kernel accumulates dU in an output block that stays resident across
-//    its sequential grid, but Hopper's blocks run in no order and carry
-//    nothing between them.  So dU is a second pass, a shared-memory tiled
-//    reduction in which each block owns a 64 x 64 tile of dU and sums all
-//    rows in a fixed order: no float atomics, so a replayed chunk gives the
-//    same bits.
+// 2. dU = h_prev^T dff over the T * B rows: the deterministic tiled pass of
+//    du_tile.cuh, shared with the LSTM and GRU backward kernels.
 //
 // What bounds it.  The sequential pass reads U twice per step from L2
 // (once as U for the gates, once as U^T for the dh chain), 16 H^2 bytes
@@ -52,18 +47,15 @@
 // persistent one (ROADMAP.md section 2): each CTA of the whole grid keeps a
 // column slice of U (and of U^T) resident in shared memory for all T steps
 // and exchanges h and dA through a grid-wide barrier every step
-// (Sparse Persistent RNNs, PAPERS.md, arXiv 1804.10223).  The dU pass is a
-// plain float32 GEMM of 2 T B H 2H flops; a wgmma tile pipeline would make
-// it faster, but it is small next to the sequential pass.
+// (Sparse Persistent RNNs, PAPERS.md, arXiv 1804.10223).
 
 #include <cuda_runtime.h>
+
+#include "du_tile.cuh"
 
 namespace {
 
 constexpr int kMaxHidden = 1024;  // one thread per hidden unit
-constexpr int kTile = 64;         // dU tile edge (rows i and columns c)
-constexpr int kTileRows = 16;     // rows r of h_prev and dff per stage
-constexpr int kDuThreads = 256;   // 16 x 16 threads, 4 x 4 outputs each
 
 __global__ void ligru_bwd_seq_kernel(const float* __restrict__ ff,
                                      const float* __restrict__ h,
@@ -134,62 +126,6 @@ __global__ void ligru_bwd_seq_kernel(const float* __restrict__ ff,
   if (active) dmask[static_cast<size_t>(b) * H + j] = dm;
 }
 
-// dU[i, c] = sum over r < R of h_prev[r, i] * dff[r, c], with R = T * B
-// flattened rows and h_prev[r] = h[r - B] (zeros for r < B).
-__global__ void ligru_bwd_du_kernel(const float* __restrict__ h,
-                                    const float* __restrict__ dff,
-                                    float* __restrict__ du,
-                                    int R, int B, int H) {
-  __shared__ float a_tile[kTileRows][kTile];  // h_prev[r0 + k, i0 + col]
-  __shared__ float b_tile[kTileRows][kTile];  // dff[r0 + k, c0 + col]
-  const int two_h = 2 * H;
-  const int i0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-
-  for (int r0 = 0; r0 < R; r0 += kTileRows) {
-    for (int l = threadIdx.x; l < kTileRows * kTile; l += kDuThreads) {
-      const int k = l / kTile;
-      const int col = l % kTile;
-      const int r = r0 + k;
-      const int i = i0 + col;
-      const int c = c0 + col;
-      a_tile[k][col] = (r < R && r >= B && i < H)
-                           ? h[static_cast<size_t>(r - B) * H + i] : 0.0f;
-      b_tile[k][col] = (r < R && c < two_h)
-                           ? dff[static_cast<size_t>(r) * two_h + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileRows; ++k) {
-      float a[4];
-      float bv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        a[q] = a_tile[k][ty + 16 * q];
-        bv[q] = b_tile[k][tx + 16 * q];
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], bv[q], acc[p][q]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int i = i0 + ty + 16 * p;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + tx + 16 * q;
-      if (i < H && c < two_h) du[static_cast<size_t>(i) * two_h + c] = acc[p][q];
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int tpk_ligru_bwd_max_hidden() { return kMaxHidden; }
@@ -210,8 +146,6 @@ extern "C" int tpk_ligru_bwd(const float* ff, const float* h, const float* g,
                                                      dff, dmask, T, B, H);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((2 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  ligru_bwd_du_kernel<<<grid, kDuThreads, 0, stream>>>(h, dff, du, T * B, B,
-                                                       H);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      tpk::launch_du(h, B, dff, 2 * H, 0, 2 * H, du, T * B, H, stream));
 }

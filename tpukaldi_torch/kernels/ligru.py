@@ -17,12 +17,11 @@ loops that mirror tpukaldi's `ligru_recurrence_scan` and `_bwd_scan`.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _launch
 
 SOURCE = "ligru_fwd.cu"
 BWD_SOURCE = "ligru_bwd.cu"
@@ -93,58 +92,6 @@ def ligru_recurrence_bwd_ref(
     return dff, du, dmask
 
 
-def _fwd_lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    lib.tpk_ligru_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.tpk_ligru_fwd.restype = ctypes.c_int
-    lib.tpk_ligru_fwd_max_hidden.argtypes = []
-    lib.tpk_ligru_fwd_max_hidden.restype = ctypes.c_int
-    return lib
-
-
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load(BWD_SOURCE)
-    lib.tpk_ligru_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    lib.tpk_ligru_bwd.restype = ctypes.c_int
-    lib.tpk_ligru_bwd_max_hidden.argtypes = []
-    lib.tpk_ligru_bwd_max_hidden.restype = ctypes.c_int
-    return lib
-
-
-def _check_cuda_inputs(fn: str, ref: torch.Tensor, max_hidden: int,
-                       **tensors) -> None:
-    """Every tensor float32, contiguous, on the CUDA device of `ref`, with
-    the shapes (T, B, 2H) for ff, (T, B, H) for h and g, (H, 2H) for u and
-    (B, H) for mask, H within the kernel's limit."""
-    got = {name: tuple(t.shape) for name, t in tensors.items()}
-    T, B, H2 = got["ff"] if len(got["ff"]) == 3 else (0, 0, -1)
-    H = H2 // 2
-    want = {"ff": (T, B, 2 * H), "h": (T, B, H), "g": (T, B, H),
-            "u": (H, 2 * H), "mask": (B, H)}
-    if any(got[n] != want[n] for n in got):
-        raise ValueError(f"{fn}: expected shapes "
-                         f"{ {n: want[n] for n in got} }, got {got}")
-    for name, t in tensors.items():
-        if t.device != ref.device or t.device.type != "cuda":
-            raise ValueError(f"{fn}: {name} is on {t.device}, expected the "
-                             f"CUDA device of ff ({ref.device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
-                            "float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} is not contiguous")
-    if H > max_hidden:
-        raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "
-                         f"{max_hidden} (one thread per hidden unit)")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
     """Forward: launch the CUDA kernel on a CUDA tensor; the plain version on
@@ -153,21 +100,15 @@ def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
     global launches
     if ff.device.type == "cpu":
         return ligru_recurrence_ref(ff, u, mask)
-    lib = _fwd_lib()
-    _check_cuda_inputs("ligru_recurrence", ff, lib.tpk_ligru_fwd_max_hidden(),
-                       ff=ff, u=u, mask=mask)
-    T, B, H2 = ff.shape
-    H = H2 // 2
+    entry, max_hidden = _launch.bind(SOURCE, "ligru_fwd", 4, 3)
+    T, B, H = _launch.dims("ligru_recurrence", ff, 2)
+    _launch.check_inputs("ligru_recurrence", H, max_hidden,
+                         ff=(ff, (T, B, 2 * H)), u=(u, (H, 2 * H)),
+                         mask=(mask, (B, H)))
     out = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
     if T == 0:
         return out
-    with torch.cuda.device(ff.device):
-        err = lib.tpk_ligru_fwd(ff.data_ptr(), u.data_ptr(), mask.data_ptr(),
-                                out.data_ptr(), T, B, H, _stream(ff))
-    if err != 0:
-        raise RuntimeError(
-            f"ligru_fwd kernel launch failed with CUDA error {err} "
-            f"(T={T}, B={B}, H={H})")
+    _launch.launch("ligru_fwd", entry, (ff, u, mask, out), T, B, H)
     launches += 1
     return out
 
@@ -181,27 +122,20 @@ def ligru_recurrence_bwd(
     global bwd_launches
     if ff.device.type == "cpu":
         return ligru_recurrence_bwd_ref(ff, h, g, u, mask)
-    lib = _bwd_lib()
-    _check_cuda_inputs("ligru_recurrence_bwd", ff,
-                       lib.tpk_ligru_bwd_max_hidden(),
-                       ff=ff, h=h, g=g, u=u, mask=mask)
-    T, B, H2 = ff.shape
-    H = H2 // 2
+    entry, max_hidden = _launch.bind(BWD_SOURCE, "ligru_bwd", 9, 3)
+    T, B, H = _launch.dims("ligru_recurrence_bwd", ff, 2)
+    _launch.check_inputs("ligru_recurrence_bwd", H, max_hidden,
+                         ff=(ff, (T, B, 2 * H)), h=(h, (T, B, H)),
+                         g=(g, (T, B, H)), u=(u, (H, 2 * H)),
+                         mask=(mask, (B, H)))
     dff = torch.empty_like(ff)
     if T == 0:
         return dff, torch.zeros_like(u), torch.zeros_like(mask)
     du = torch.empty_like(u)
     dmask = torch.empty_like(mask)
     ut = u.t().contiguous()  # (2H, H): the dh chain reads it row by row
-    with torch.cuda.device(ff.device):
-        err = lib.tpk_ligru_bwd(
-            ff.data_ptr(), h.data_ptr(), g.data_ptr(), u.data_ptr(),
-            ut.data_ptr(), mask.data_ptr(), dff.data_ptr(), du.data_ptr(),
-            dmask.data_ptr(), T, B, H, _stream(ff))
-    if err != 0:
-        raise RuntimeError(
-            f"ligru_bwd kernel launch failed with CUDA error {err} "
-            f"(T={T}, B={B}, H={H})")
+    _launch.launch("ligru_bwd", entry,
+                   (ff, h, g, u, ut, mask, dff, du, dmask), T, B, H)
     bwd_launches += 1
     return dff, du, dmask
 

@@ -1,5 +1,5 @@
 """Recurrent models (counterpart of `tpukaldi/models/recurrent.py`): the
-shared `_RecurrentBase` scaffold and the flagship `liGRU`.
+shared `_RecurrentBase` scaffold, the flagship `liGRU`, `LSTM` and `GRU`.
 
 Per layer, as in tpukaldi:
 - the feed-forward gate projections run as ONE (T*B', D) @ (D, G*H) matmul;
@@ -8,19 +8,21 @@ Per layer, as in tpukaldi:
   time-reversed copy, split and re-reversed after the recurrence;
 - recurrent dropout as one mask shared across time (train) or the scalar
   (1-p) (eval) — not inverted dropout;
-- the time recurrence with one fused (B', H) @ (H, G*H) product per step:
-  for liGRU's relu/no-laynorm layers the hand-written kernels
-  (`kernels/ligru.py::LiGRURecurrence`: forward kernel, and the backward
-  kernel as its gradient), else that kernel's plain Python loop, through
-  which autograd differentiates.
+- the time recurrence with one fused (B', H) @ (H, G*H) product per step
+  (the GRU's candidate product on r*h apart): for the layers a cell's
+  kernels take (liGRU relu, LSTM tanh, GRU relu or tanh; no laynorm) the
+  hand-written kernels (`kernels/{ligru,lstm,gru}.py`: an autograd Function
+  with the forward kernel, and the backward kernel as its gradient), else
+  that kernel's plain Python loop, through which autograd differentiates.
 
 Training calls pass no `lengths`, as tpukaldi's train and eval steps pass
 none: the reversal is then a plain flip over the bucket-padded batch.
 
-The state_dict keeps the reference layout (neural_networks.py:997-1155):
-per-gate `wh.{i}`/`wz.{i}` Linear (out, in), `uh.{i}`/`uz.{i}` recurrent
-Linear without bias, per-gate `bn_wh.{i}`/`bn_wz.{i}`, `ln.{i}` and the
-input `ln0`/`bn0`.
+The state_dict keeps the reference layout (neural_networks.py:300-655,
+:997-1155): per-gate feed-forward Linear (out, in) (`wh.{i}`/`wz.{i}`;
+LSTM `wfx/wix/wox/wcx`; GRU `wh/wz/wr`), per-gate recurrent Linear without
+bias (`uh/uz`; `ufh/uih/uoh/uch`; `uh/uz/ur`), per-gate `bn_<ff gate>.{i}`,
+`ln.{i}` and the input `ln0`/`bn0`.
 
 Tensor contract: x is (T, B, D) -> (T, B, out_dim).
 """
@@ -34,7 +36,9 @@ from torch import nn
 
 from tpukaldi.config.schema import to_bool
 
+from ..kernels.gru import GRURecurrence, gru_recurrence_ref
 from ..kernels.ligru import LiGRURecurrence, ligru_recurrence_ref
+from ..kernels.lstm import LSTMRecurrence, lstm_recurrence_ref
 from .common import (
     RefLayerNorm,
     act_fun,
@@ -63,12 +67,15 @@ def _reverse_time(x: torch.Tensor, lengths: Optional[torch.Tensor]):
 
 class _RecurrentBase(nn.Module):
     """Shared scaffold; subclasses set PREFIX and the gate attribute names
-    (FF_GATES: torch attrs of the feed-forward Linears, REC_GATES: of the
-    recurrent ones) and implement `recurrence`."""
+    (FF_GATES: torch attrs of the feed-forward Linears, in tpukaldi's gate
+    order; REC_GATES: of the recurrent ones; FUSED_REC: those of REC_GATES
+    whose weights join the one per-step product `u`, all of them unless a
+    subclass says otherwise) and implement `recurrence`."""
 
     PREFIX = ""
     FF_GATES = ()
     REC_GATES = ()
+    FUSED_REC = None  # None: all of REC_GATES
 
     def __init__(self, options: Dict[str, str], inp_dim: int, device=None):
         super().__init__()
@@ -142,8 +149,26 @@ class _RecurrentBase(nn.Module):
 
     def recurrence(self, i: int, ff: torch.Tensor, u: torch.Tensor,
                    drop_mask: torch.Tensor) -> torch.Tensor:
-        """(T, B', G*H) feed-forward gates -> (T, B', H) hidden sequence."""
+        """(T, B', G*H) feed-forward gates, the fused recurrent weights u
+        (H, len(FUSED_REC)*H) -> (T, B', H) hidden sequence."""
         raise NotImplementedError
+
+    def _impl(self, i: int, kernel_acts, ff: torch.Tensor) -> str:
+        """How layer i runs: "kernel" (the cell's autograd Function), "scan"
+        (its plain loop at the kernel's shapes) or "loop" (the plain loop
+        with any activation and optional laynorm), by `<prefix>_impl`
+        (auto | pallas | scan).  `pallas` asks for the hand kernel, which
+        runs on CUDA tensors only."""
+        if self.acts[i] not in kernel_acts or self.use_ln[i]:
+            return "loop"
+        impl = self.options.get(f"{self.PREFIX}_impl", "auto")
+        if impl == "scan":
+            return "scan"
+        if impl == "pallas" and ff.device.type == "cpu":
+            raise ValueError(
+                f"{self.PREFIX}_impl=pallas asks for the hand kernel, which "
+                "runs on CUDA tensors only; use auto or scan on CPU")
+        return "kernel"
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -170,7 +195,8 @@ class _RecurrentBase(nn.Module):
                     zip(self.FF_GATES, ff.split(hidden, dim=1))], dim=1)
             ff = ff.reshape(T, Bp, len(lins) * hidden).contiguous()
             u = torch.cat([getattr(self, g)[i].weight.t()
-                           for g in self.REC_GATES], dim=1).contiguous()
+                           for g in self.FUSED_REC or self.REC_GATES],
+                          dim=1).contiguous()
             drop_mask = recurrent_drop_mask(
                 self.training, (Bp, hidden), self.drop[i], ff.device, generator)
             h = self.recurrence(i, ff, u, drop_mask)
@@ -194,18 +220,64 @@ class liGRU(_RecurrentBase):
     REC_GATES = ("uh", "uz")
 
     def recurrence(self, i, ff, u, drop_mask):
-        H = u.shape[0]
-        impl = self.options.get("ligru_impl", "auto")
-        if self.acts[i] != "relu" or self.use_ln[i]:
+        impl = self._impl(i, ("relu",), ff)
+        if impl == "loop":
             # any activation, optional laynorm on h: the plain loop only
             return ligru_recurrence_ref(
                 ff, u, drop_mask, act_fun(self.acts[i]),
                 self.ln[i] if self.use_ln[i] else None)
-        mask = drop_mask.expand(ff.shape[1], H).contiguous()
+        mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
         if impl == "scan":
             return ligru_recurrence_ref(ff, u, mask)
-        if impl == "pallas" and ff.device.type == "cpu":
-            raise ValueError(
-                "ligru_impl=pallas asks for the hand kernel, which runs "
-                "on CUDA tensors only; use auto or scan on CPU")
         return LiGRURecurrence.apply(ff, u, mask)
+
+
+class LSTM(_RecurrentBase):
+    """LSTM with the reference's drop-mask-on-candidate convention
+    (neural_networks.py:457-469); `act` is the candidate's and the cell
+    output's activation.
+
+    `lstm_impl`: `auto`/`pallas` run tanh/no-laynorm layers through the
+    hand kernels K2f/K2b (float32 at every H; tpukaldi's bf16-U lean kernel
+    is the QLSTM's), `scan` through the plain loop and autograd."""
+
+    PREFIX = "lstm"
+    FF_GATES = ("wfx", "wix", "wox", "wcx")
+    REC_GATES = ("ufh", "uih", "uoh", "uch")
+
+    def recurrence(self, i, ff, u, drop_mask):
+        impl = self._impl(i, ("tanh",), ff)
+        if impl == "loop":
+            return lstm_recurrence_ref(
+                ff, u, drop_mask, act_fun(self.acts[i]),
+                self.ln[i] if self.use_ln[i] else None)[0]
+        mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
+        if impl == "scan":
+            return lstm_recurrence_ref(ff, u, mask)[0]
+        return LSTMRecurrence.apply(ff, u, mask)
+
+
+class GRU(_RecurrentBase):
+    """Standard GRU with reset gate (neural_networks.py:629-641).  The
+    candidate product acts on r*h, so `uh` stays out of the fused per-step
+    product of `uz`/`ur` (tpukaldi's `extra_params`).
+
+    `gru_impl`: `auto`/`pallas` run relu or tanh no-laynorm layers through
+    the hand kernels K3f/K3b, `scan` through the plain loop and autograd."""
+
+    PREFIX = "gru"
+    FF_GATES = ("wh", "wz", "wr")
+    REC_GATES = ("uh", "uz", "ur")
+    FUSED_REC = ("uz", "ur")
+
+    def recurrence(self, i, ff, uzr, drop_mask):
+        uh = self.uh[i].weight.t().contiguous()
+        impl = self._impl(i, ("relu", "tanh"), ff)
+        if impl == "loop":
+            return gru_recurrence_ref(
+                ff, uzr, uh, drop_mask, act_fun(self.acts[i]),
+                self.ln[i] if self.use_ln[i] else None)
+        mask = drop_mask.expand(ff.shape[1], uzr.shape[0]).contiguous()
+        if impl == "scan":
+            return gru_recurrence_ref(ff, uzr, uh, mask, self.acts[i])
+        return GRURecurrence.apply(ff, uzr, uh, mask, self.acts[i])

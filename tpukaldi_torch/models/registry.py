@@ -12,15 +12,16 @@ from typing import Dict, Type
 from torch import nn
 
 from .mlp import MLP
-from .recurrent import liGRU
+from .recurrent import GRU, LSTM, liGRU
 
 LIBRARIES = ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks")
 
-_REGISTRY: Dict[str, Type[nn.Module]] = {"MLP": MLP, "liGRU": liGRU}
+_REGISTRY: Dict[str, Type[nn.Module]] = {
+    "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU}
 
 # tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1)
 NOT_PORTED = (
-    "LSTM", "GRU", "RNN", "minimalGRU", "QLSTM", "CNN", "SincNet",
+    "RNN", "minimalGRU", "QLSTM", "CNN", "SincNet",
     "logMelFb", "channel_averaging", "LSTM_cudnn", "GRU_cudnn", "RNN_cudnn",
     "fusionRNN", "fusionRNN_jit", "SRU", "PASE",
 )

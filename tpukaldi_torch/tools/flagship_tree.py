@@ -1,16 +1,23 @@
-"""A synthetic Kaldi TIMIT tree in real formats, and the flagship cfg
-pointed at it, for training (`write_train_cfg`) or production forward
-(`write_prod_cfg`) — inputs for running the port end to end without a
-corpus (`chip_smoke.py`, the tests) — and helpers to set up and check such
-a run: seeded initial or final checkpoints, the forward outputs, and a
-second forward of chosen utterances.
+"""A synthetic Kaldi TIMIT tree in real formats, and a TIMIT fMLLR recipe
+cfg pointed at it (the flagship `cfg/TIMIT/liGRU_fmllr.cfg` by default, or
+`recipe_cfg("LSTM")`, `recipe_cfg("GRU")`), for training
+(`write_train_cfg`) or production forward (`write_prod_cfg`) — inputs for
+running the port end to end without a corpus (`chip_smoke.py`, the tests)
+— and helpers to set up and check such a run: seeded initial or final
+checkpoints, the forward outputs, and a second forward of chosen
+utterances.
 
-The tree carries what `cfg/TIMIT/liGRU_fmllr.cfg` reads: per split a
+The tree carries what those cfgs read: per split a
 `feats.ark/.scp` (aliased as the mfcc/fbank/fmllr streams), `utt2spk`,
 per-speaker CMVN stats, and an alignment dir with gzipped transition-id
 archives and a binary `final.mdl`, so `N_out_lab_cd`/`N_out_lab_mono` and
 the prior counts resolve natively (hmm-info, ali-to-pdf, analyze-counts).
 Features are pdf-conditioned Gaussians from a numpy seed.
+
+The LSTM and GRU recipes have no `lstm_impl`/`gru_impl` line (tpukaldi
+reads `auto` then), and an override of a field the cfg lacks is refused, so
+a run that wants another impl adds the line with `replace=`, e.g.
+`{"lstm_orthinit = True": "lstm_orthinit = True\nlstm_impl = scan"}`.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import gzip
 import io
 import os
+import re
 import shutil
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -48,7 +56,14 @@ from ..train.chunk_runtime import ChunkRuntime, batch_seed, read_info
 from ..train.step import forward_step, train_step
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-FLAGSHIP_CFG = os.path.join(_REPO, "cfg", "TIMIT", "liGRU_fmllr.cfg")
+
+
+def recipe_cfg(arch_class: str) -> str:
+    """The TIMIT fMLLR recipe of a recurrent class (liGRU, LSTM, GRU, ...)."""
+    return os.path.join(_REPO, "cfg", "TIMIT", f"{arch_class}_fmllr.cfg")
+
+
+FLAGSHIP_CFG = recipe_cfg("liGRU")
 
 _ALI_DIRS = {
     "train": "dnn4_pretrain-dbn_dnn_ali",
@@ -130,12 +145,14 @@ def write_kaldi_tree(
 
 
 def _write_cfg(text: str, tree: str, out_folder: str, cfg_path: str,
-               replace: Optional[Dict[str, str]]) -> str:
-    text = text.replace("out_folder = exp/TIMIT_liGRU_fmllr",
-                        f"out_folder = {out_folder}")
+               replace: Optional[Dict[str, str]], recipe: str) -> str:
+    text, n = re.subn(r"^out_folder = .*$", lambda _: f"out_folder = {out_folder}",
+                      text, count=1, flags=re.M)
+    if n != 1:
+        raise ValueError(f"no out_folder line in {recipe}")
     for old, new in (replace or {}).items():
         if old not in text:
-            raise ValueError(f"cfg line {old!r} not found in {FLAGSHIP_CFG}")
+            raise ValueError(f"cfg line {old!r} not found in {recipe}")
         text = text.replace(old, new)
     text = text.replace("$KALDI_TIMIT", tree)
     with open(cfg_path, "w") as f:
@@ -148,13 +165,15 @@ def write_train_cfg(
     out_folder: str,
     cfg_path: str,
     replace: Optional[Dict[str, str]] = None,
+    recipe: str = FLAGSHIP_CFG,
 ) -> str:
-    """The flagship cfg as it is (train on TIMIT_tr, validate on TIMIT_dev,
+    """The recipe cfg as it is (train on TIMIT_tr, validate on TIMIT_dev,
     forward TIMIT_test, each split with its labels) pointed at `tree`.
     `replace` maps cfg lines to their substitutes (e.g. to shrink a run or
     cut its epochs)."""
-    with open(FLAGSHIP_CFG) as f:
-        return _write_cfg(f.read(), tree, out_folder, cfg_path, replace)
+    with open(recipe) as f:
+        return _write_cfg(f.read(), tree, out_folder, cfg_path, replace,
+                          recipe)
 
 
 def write_prod_cfg(
@@ -162,12 +181,13 @@ def write_prod_cfg(
     out_folder: str,
     cfg_path: str,
     replace: Optional[Dict[str, str]] = None,
+    recipe: str = FLAGSHIP_CFG,
 ) -> str:
-    """The flagship cfg in production (transcription-only) mode: a
+    """The recipe cfg in production (transcription-only) mode: a
     `TIMIT_prod` dataset over the test features with `lab_name=none` (the
     pattern of cfg/TIMIT/MLP_fbank_prod.cfg) and `forward_with = TIMIT_prod`.
     `replace` maps cfg lines to their substitutes (e.g. to shrink a run)."""
-    with open(FLAGSHIP_CFG) as f:
+    with open(recipe) as f:
         text = f.read()
     test_block = text[text.index("[dataset3]"):text.index("[data_use]")]
     prod_block = test_block.replace("[dataset3]", "[dataset4]").replace(
@@ -181,7 +201,7 @@ def write_prod_cfg(
     )
     text = text.replace("[data_use]", prod_block + "[data_use]")
     text = text.replace("forward_with = TIMIT_test", "forward_with = TIMIT_prod")
-    return _write_cfg(text, tree, out_folder, cfg_path, replace)
+    return _write_cfg(text, tree, out_folder, cfg_path, replace, recipe)
 
 
 def _seeded_graph(cfg_path: str, dim: int):
@@ -228,11 +248,11 @@ def train_step_gradients(
 ) -> Tuple[float, Dict[str, torch.Tensor], Tuple[int, ...]]:
     """One train step of the cfg's seeded init on the first batch of its
     first train chunk, on `device`: (loss, {arch.param: gradient}, batch
-    shape).  Two cfgs that differ only in `ligru_impl` give two paths to the
-    same numbers.  `dtype=torch.float64` (with `ligru_impl = scan`: the
-    kernels take float32 only) gives a reference for both, float64 except
-    the heads' log-softmax and the cost means, which stay float32 as in
-    tpukaldi."""
+    shape).  Two cfgs that differ only in the recurrent class's `*_impl`
+    (`ligru_impl`, `lstm_impl`, `gru_impl`) give two paths to the same
+    numbers.  `dtype=torch.float64` (with `*_impl = scan`: the kernels take
+    float32 only) gives a reference for both, float64 except the heads'
+    log-softmax and the cost means, which stay float32 as in tpukaldi."""
     exp, plan = train_plan(cfg_path)
     task = plan.epochs[0].tasks[0]
     rt = ChunkRuntime(exp, device)

@@ -44,7 +44,9 @@ from .optimizers import make_all_optimizers
 from .step import eval_step, forward_step, train_step
 
 # batches run since the last reset, by task phase; chip_smoke.py holds the
-# liGRU kernels' launch counts to them
+# recurrence kernels' launch counts to them (liGRU, LSTM and GRU: forward
+# kernel once per layer per batch, backward kernel once per layer per train
+# batch)
 train_batches = 0
 valid_batches = 0
 forward_batches = 0
