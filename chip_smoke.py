@@ -3,59 +3,77 @@
 
     python3 chip_smoke.py
 
-Three TIMIT fMLLR recipes run at full width, 5x550 bidirectional with
-batchnorm, recurrent dropout 0.2, two softmax heads (cd head 1944 pdfs)
-and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg, relu), the LSTM
-(LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
+Four recipes run at full width.  Three TIMIT fMLLR recipes, 5x550
+bidirectional with batchnorm, recurrent dropout 0.2, two softmax heads (cd
+head 1944 pdfs) and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg,
+relu), the LSTM (LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
+And the DIRHA QLSTM (cfg/DIRHA/QLSTM_mfcc.cfg): 2x1024 bidirectional
+quaternion LSTM, tanh, recurrent dropout 0.2, the lean quaternion backward
+(`autograd = False`), one softmax head, rmsprop, batch 16, whose recurrence
+runs the bf16-U kernels.
 
-1. Builds the port's six CUDA kernels (tpukaldi_torch/kernels/csrc/
-   {ligru,lstm,gru}_{fwd,bwd}.cu), one nvcc per source, all at once, for
-   sm_90a into build/tpukaldi_torch/.
+1. Builds the port's eight CUDA kernels (tpukaldi_torch/kernels/csrc/
+   {ligru,lstm,gru,lstm_lean}_{fwd,bwd}.cu), one nvcc per source, all at
+   once, for sm_90a into build/tpukaldi_torch/, and prints each kernel's
+   registers and spills from ptxas's report.
 2. Kernel phase, each kernel against its plain PyTorch version on the card:
    the forward recurrences (K1f liGRU, K2f LSTM, K3f GRU) at (T=778,
    B=64, H=550), the forward batch of 32 doubled by the bidirectional
    flip-concat, and (1000, 16, 550); the backward recurrences (K1b, K2b,
    K3b) at (778, 16, 550) and (1000, 16, 550), the training batch of 8
-   doubled, at the longest utterance and at max_seq_length_train: error of
-   h (and the LSTM's c), of dff, dmask and the weight gradients, and median
-   time of each; and autograd through each Function (forward kernel, then
-   backward kernel) against autograd through its plain loop at a small
-   shape.
+   doubled, at the longest utterance and at max_seq_length_train; the
+   bf16-U LSTM (K4f, K4b) at the QLSTM's shapes, (778, 64, 1024) and
+   (1000, 32, 1024) forward, (778, 32, 1024) and (1000, 32, 1024)
+   backward: error of h (and the LSTMs' c), of dff, dmask and the weight
+   gradients, and median time of each; and autograd through each Function
+   (forward kernel, then backward kernel) against its plain versions at a
+   small shape.  K4f is also held, step by step, to one plain step from its
+   own previous state, and K4f and K4b are timed beside the float32 K2f
+   and K2b on the same inputs.  Beside each kernel: the least time the card could
+   take for the same work (bytes or operations, at the published peaks),
+   and for K2f and K4f the time of cuDNN's LSTM on the same inputs at
+   mask 1 (a yardstick the port never calls).
 3. Serving phase, per recipe: the production forward over a synthetic
-   Kaldi tree in real formats (40-dim fMLLR, 192 test utterances of 150-778
-   frames) through `run_experiment(device="cuda")`, from random final
-   checkpoints made from a seed: the recipe's forward kernel 5 times per
-   forward batch and no backward launch, 192 finite 1944-wide posterior
-   matrices agreeing with the plain recurrence (`*_impl = scan`) and, for
-   two utterances, with the CPU path.
+   Kaldi tree in real formats (40-dim fMLLR or mfcc, 192 test utterances
+   of 150-778 frames) through `run_experiment(device="cuda")`, from random
+   final checkpoints made from a seed: the recipe's forward kernel once per
+   layer per forward batch and no backward launch, 192 finite 1944-wide
+   posterior matrices agreeing with the plain path and, for two
+   utterances, with the CPU path.
 4. Training phase, per recipe, the slice's main path: the cfg over the same
    tree (train 64 utterances of 150-778 frames, dev 16), with 2 epochs of 2
    train chunks and no sequence-length curriculum, through
    `run_experiment(device="cuda")`: train and valid chunks, new-bob,
    res.res, final checkpoints, then the forward stage.  It checks the
    ledger, the checkpoints and the two `ep=` lines, that the train loss
-   fell, that the forward kernel ran 5 x (train + valid + forward batches)
-   and the backward kernel 5 x train batches (the runtime's own counters),
-   the arks, and two utterances against the CPU path.  The first train
-   chunk runs once more through the plain recurrence for its frames/s, and
-   one full-width train step at drop 0 holds the kernel path's loss and
-   gradients, and the plain path's, to a float64 run.
+   fell, that the forward kernel ran once per layer per (train + valid +
+   forward) batch and the backward kernel once per layer per train batch
+   (the runtime's own counters), the arks, and two utterances against the
+   CPU path.  The first train chunk runs once more through the plain path
+   for its frames/s, and one full-width train step at drop 0 holds the
+   kernel path's gradients, and the plain path's, to a float64 run.
 5. Profile phase, per recipe: the serving path's forward stage and one warm
    train chunk again under torch.profiler: device busy time, idle share,
    top device ops and, for the train chunk, device time by layer.
 
-Each path is driven with every kernel's counts set to 0 just before it and
-read just after.  Any failed check raises, so the exit code is not 0.  The
-last lines are the card's name and power limit, one JSON line with the
-kernels, and the result line.  Scratch files go to build/chip_smoke/.
+The plain path of a TIMIT recipe is `*_impl = scan`, the plain loop through
+autograd.  The QLSTM's is its bf16-U kernels' plain versions, run on the
+card through the same autograd Function (`plain_recurrences`), since the
+kernel path is held to the same bf16 arithmetic.  Each path is driven with
+every kernel's count set to 0 just before it and read just after.  Any
+failed check raises, so the exit code is not 0.  The last lines are the
+card's name and power limit, one JSON line with the kernels, and the
+result line.  Scratch files go to build/chip_smoke/.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -67,12 +85,14 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
-HIDDEN = 550
-N_LAYERS = 5
-N_PDFS = 1944  # TIMIT's tri3 cd states
+N_PDFS = 1944  # TIMIT's tri3 cd states; the DIRHA tree takes the same
 N_PHONES = 48
-FWD_SHAPES = ((778, 64, HIDDEN), (1000, 16, HIDDEN))
-BWD_SHAPES = ((778, 16, HIDDEN), (1000, 16, HIDDEN))
+FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
+BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
+# the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
+# doubled by the bidirectional flip-concat
+LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
+LEAN_BWD_SHAPES = ((778, 32, 1024), (1000, 32, 1024))
 # kernel vs plain version on the card: both float32, the recurrent products
 # summed in another order per step, compounding over up to 1000 steps
 KERNEL_ATOL = 1e-4
@@ -81,42 +101,117 @@ KERNEL_ATOL = 1e-4
 # version in cuBLAS tiles), so they are held relative to their max, as h is
 # (values of order 1)
 DU_RTOL = 1e-4
+# The bf16-U kernels against their plain versions.  Both round h (and in the
+# backward dA) to a bf16 operand every step; their float32 sums of 1024
+# products differ in order, so h differs by an ulp now and then, and where
+# that ulp straddles a bf16 rounding tie the next step reads another
+# operand, 2^-8 of h away.  Over hundreds of steps a few percent of the
+# operands differ and the sequences drift apart, boundedly (the cell
+# forgets): h and c to LEAN_SEQ_ATOL, dff and dmask to LEAN_BWD_ATOL, dU
+# (the same cuBLAS GEMM on both sides, over that dff) to LEAN_DU_RTOL of its
+# max.  So the forward is also held step by step: each step's h and c
+# against one plain bf16 step from the kernel's own previous state, which
+# removes the drift and leaves the sum order, to LEAN_STEP_ATOL.
+LEAN_SEQ_ATOL = 2e-3
+LEAN_STEP_ATOL = 1e-5
+LEAN_BWD_ATOL = 5e-4
+LEAN_DU_RTOL = 1e-3
 # whole-path posteriors (log-probabilities minus log-priors, order 10):
-# five such layers, batchnorm and a 1944-way log-softmax on each side
+# several such layers, batchnorm and a 1944-way log-softmax on each side
 POSTERIOR_ATOL = 1e-3
-# one full-width train step, kernel path vs plain path, both float32: the
-# loss to 1e-4 absolute (order 10).  Their gradients pass back through five
-# recurrences of hundreds of steps, where float32 rounding grows with the
-# chain, so each path is held to a float64 run of the plain path: the kernel
-# path's worst error (max |g - g64| / max |g64| over the tensors) may be at
-# most STEP_GRAD_FACTOR times the plain float32 path's, i.e. as accurate as
-# PyTorch's own float32 path up to the spread between two float32 sum
-# orders
+# one full-width train step, kernel path vs plain path: the loss to 1e-4
+# absolute (order 10).  Their gradients pass back through recurrences of
+# hundreds of steps, where rounding grows with the chain, so each path is
+# held to a float64 run of the plain float32 arithmetic: the kernel path's
+# worst error (max |g - g64| / max |g64| over the tensors) may be at most
+# STEP_GRAD_FACTOR times the plain path's, i.e. as accurate as PyTorch's
+# own path of the same arithmetic up to the spread between two sum orders
+# (for the QLSTM, the plain bf16 path: its products are bf16 by design)
 STEP_LOSS_ATOL = 1e-4
 STEP_GRAD_FACTOR = 2.0
+# recipe -> its kernel module's cell, forward and backward kernel, layers,
+# tree and cuts (2 epochs of 2 train chunks, no sequence-length curriculum;
+# the DIRHA cfg has none already)
+RECIPES = {
+    "liGRU": dict(cell="ligru", fwd="ligru_fwd", bwd="ligru_bwd", layers=5,
+                  corpus="TIMIT", batch=8),
+    "LSTM": dict(cell="lstm", fwd="lstm_fwd", bwd="lstm_bwd", layers=5,
+                 corpus="TIMIT", batch=8),
+    "GRU": dict(cell="gru", fwd="gru_fwd", bwd="gru_bwd", layers=5,
+                corpus="TIMIT", batch=8),
+    "QLSTM": dict(cell="lstm_lean", fwd="lstm_lean_fwd", bwd="lstm_lean_bwd",
+                  layers=2, corpus="DIRHA", batch=16),
+}
 TRAIN_CUTS = {
     "n_epochs_tr = 24": "n_epochs_tr = 2",
-    "increase_seq_length_train = True": "increase_seq_length_train = False",
     "n_chunks = 5": "n_chunks = 2",  # the train set's; dev and test keep 1
 }
-# recurrent class -> its kernel module
-RECIPES = {"liGRU": "ligru", "LSTM": "lstm", "GRU": "gru"}
+TIMIT_CUTS = {"increase_seq_length_train = True":
+              "increase_seq_length_train = False"}
 GRU_ACT = "tanh"  # the GRU recipe's activation
+# kernel -> (module, launch counter, source attribute, the Pallas kernel
+# body it replaces)
+KERNELS = {
+    "ligru_fwd": ("ligru", "launches", "SOURCE", "tpukaldi/kernels/ligru.py:41"),
+    "ligru_bwd": ("ligru", "bwd_launches", "BWD_SOURCE",
+                  "tpukaldi/kernels/ligru.py:106"),
+    "lstm_fwd": ("lstm", "launches", "SOURCE", "tpukaldi/kernels/lstm.py:43"),
+    "lstm_bwd": ("lstm", "bwd_launches", "BWD_SOURCE",
+                 "tpukaldi/kernels/lstm.py:128"),
+    "gru_fwd": ("gru", "launches", "SOURCE", "tpukaldi/kernels/gru.py:49"),
+    "gru_bwd": ("gru", "bwd_launches", "BWD_SOURCE",
+                "tpukaldi/kernels/gru.py:119"),
+    "lstm_lean_fwd": ("lstm", "lean_launches", "LEAN_SOURCE",
+                      "tpukaldi/kernels/lstm.py:390"),
+    "lstm_lean_bwd": ("lstm", "lean_bwd_launches", "LEAN_BWD_SOURCE",
+                      "tpukaldi/kernels/lstm.py:465"),
+}
+# the card's published peaks (H100 SXM, dense): memory, float32 outside
+# the tensor cores, bf16 tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+
+
+def _cuts(recipe):
+    return {**TRAIN_CUTS, **(TIMIT_CUTS if RECIPES[recipe]["corpus"] == "TIMIT"
+                             else {})}
 
 
 def _scan(recipe):
     """cfg replacements that run the recipe's plain recurrence: the liGRU
     cfg has an `ligru_impl` line; the LSTM and GRU cfgs have none, so the
-    line is added."""
+    line is added.  The QLSTM's `scan` is the float32 recurrence."""
     p = recipe.lower()
     if recipe == "liGRU":
         return {"ligru_impl = auto": "ligru_impl = scan"}
+    if recipe == "QLSTM":
+        return {"autograd = False": "autograd = False\nqlstm_impl = scan"}
     return {f"{p}_orthinit = True": f"{p}_orthinit = True\n{p}_impl = scan"}
 
 
 def _no_drop(recipe):
+    if recipe == "QLSTM":
+        return {"lstm_drop = 0.2,0.2": "lstm_drop = 0.0,0.0"}
     p = recipe.lower()
     return {f"{p}_drop = 0.2,0.2,0.2,0.2,0.2": f"{p}_drop = 0.0,0.0,0.0,0.0,0.0"}
+
+
+@contextlib.contextmanager
+def plain_recurrences(lstm):
+    """The LSTM Functions run their plain versions on the card, float32 and
+    bf16-U alike: the QLSTM's plain path, and its float64 reference."""
+    plain = {"lstm_recurrence": lstm.lstm_recurrence_ref,
+             "lstm_recurrence_bwd": lstm.lstm_recurrence_bwd_ref,
+             "lstm_recurrence_lean": lstm.lstm_recurrence_lean_ref,
+             "lstm_recurrence_lean_bwd": lstm.lstm_recurrence_lean_bwd_ref}
+    saved = {n: getattr(lstm, n) for n in plain}
+    for n, fn in plain.items():
+        setattr(lstm, n, fn)
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(lstm, n, fn)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -142,7 +237,7 @@ def median_ms(fn, reps: int) -> float:
 def _recurrence_inputs(cell, T, B, H, seed):
     """ff (T, B, G*H), the cell's recurrent weights (orthogonal (H, H)
     blocks), a train-style mask and a gradient of h, on the card."""
-    n_gates = {"ligru": 2, "lstm": 4, "gru": 3}[cell]
+    n_gates = {"ligru": 2, "lstm": 4, "gru": 3, "lstm_lean": 4}[cell]
     g = torch.Generator().manual_seed(seed)
     ff = torch.randn(T, B, n_gates * H, generator=g)
     blocks = [torch.nn.init.orthogonal_(torch.empty(H, H), generator=g)
@@ -159,7 +254,8 @@ def _cell_fns(cell, mod, act=None):
     """Uniform entries of one cell's kernels and their plain versions:
     fwd(ff, ws, mask) -> (h[, c]); bwd(ff, outs, grad, ws, mask) -> (dff,
     weight gradients..., dmask); and the Function and its plain loop,
-    (ff, *ws, mask) -> h."""
+    (ff, *ws, mask) -> h (for the bf16-U cell, whose plain forward rounds
+    and so has no gradient of its own, `loop` is None)."""
     if cell == "gru":
         act = act or GRU_ACT
         return dict(
@@ -172,16 +268,19 @@ def _cell_fns(cell, mod, act=None):
             fn=lambda *a: mod.GRURecurrence.apply(*a, act),
             loop=lambda *a: mod.gru_recurrence_ref(*a, act),
             grads=("dff", "duzr", "duh", "dmask"))
-    if cell == "lstm":
+    if cell in ("lstm", "lstm_lean"):
+        lean = "_lean" if cell == "lstm_lean" else ""
+        fwd = getattr(mod, f"lstm_recurrence{lean}")
+        fwd_ref = getattr(mod, f"lstm_recurrence{lean}_ref")
+        bwd = getattr(mod, f"lstm_recurrence{lean}_bwd")
+        bwd_ref = getattr(mod, f"lstm_recurrence{lean}_bwd_ref")
         return dict(
-            fwd=lambda ff, ws, m: mod.lstm_recurrence(ff, *ws, m),
-            fwd_ref=lambda ff, ws, m: mod.lstm_recurrence_ref(ff, *ws, m),
-            bwd=lambda ff, outs, g, ws, m: mod.lstm_recurrence_bwd(
-                ff, *outs, g, *ws, m),
-            bwd_ref=lambda ff, outs, g, ws, m: mod.lstm_recurrence_bwd_ref(
-                ff, *outs, g, *ws, m),
-            fn=mod.LSTMRecurrence.apply,
-            loop=lambda *a: mod.lstm_recurrence_ref(*a)[0],
+            fwd=lambda ff, ws, m: fwd(ff, *ws, m),
+            fwd_ref=lambda ff, ws, m: fwd_ref(ff, *ws, m),
+            bwd=lambda ff, outs, g, ws, m: bwd(ff, *outs, g, *ws, m),
+            bwd_ref=lambda ff, outs, g, ws, m: bwd_ref(ff, *outs, g, *ws, m),
+            fn=(mod.LSTMLeanRecurrence if lean else mod.LSTMRecurrence).apply,
+            loop=None if lean else (lambda *a: mod.lstm_recurrence_ref(*a)[0]),
             grads=("dff", "du", "dmask"))
     return dict(
         fwd=lambda ff, ws, m: (mod.ligru_recurrence(ff, *ws, m),),
@@ -194,15 +293,95 @@ def _cell_fns(cell, mod, act=None):
         grads=("dff", "du", "dmask"))
 
 
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _lean_step_error(ff, u, mask, h, c):
+    """K4f's h and c at every step against one plain bf16 step from the
+    kernel's own h and c of the step before: the per-step arithmetic
+    without the drift of rounding ties."""
+    T, B, H4 = ff.shape
+    H = H4 // 4
+    zeros = h.new_zeros((1, B, H))
+    h_prev = torch.cat([zeros, h[:-1]])
+    c_prev = torch.cat([zeros, c[:-1]])
+    a = ff + (_bf16(h_prev).reshape(T * B, H) @ _bf16(u)).reshape(T, B, H4)
+    f, i, o = (torch.sigmoid(a[..., k * H:(k + 1) * H]) for k in range(3))
+    c_step = i * torch.tanh(a[..., 3 * H:]) * mask + f * c_prev
+    h_step = o * torch.tanh(c_step)
+    return max((h - h_step).abs().max().item(),
+               (c - c_step).abs().max().item())
+
+
+# the recurrent products of one call per (T, B, H), as multiples of T B H^2,
+# and their precision: the forward's per-step product, and the backward's
+# remat, dh chain and dU (K4b's dU is a float32 GEMM after the bf16 kernel)
+FLOPS = {
+    "ligru_fwd": {"f32": 4}, "ligru_bwd": {"f32": 12},
+    "lstm_fwd": {"f32": 8}, "lstm_bwd": {"f32": 24},
+    "gru_fwd": {"f32": 6}, "gru_bwd": {"f32": 18},
+    "lstm_lean_fwd": {"bf16": 8}, "lstm_lean_bwd": {"bf16": 16, "f32": 8},
+}
+# float32 words each call reads and writes once, as (per T B H, per H^2,
+# per B H): the gate inputs, h (and c), g and dff; U and dU; mask and dmask
+WORDS = {
+    "ligru_fwd": (3, 2, 1), "ligru_bwd": (6, 4, 2),
+    "lstm_fwd": (6, 4, 1), "lstm_bwd": (11, 8, 2),
+    "gru_fwd": (4, 3, 1), "gru_bwd": (8, 6, 2),
+    "lstm_lean_fwd": (6, 4, 1), "lstm_lean_bwd": (11, 8, 2),
+}
+
+
+def bound_ms(name, T, B, H):
+    """(least ms the card could take for one call at (T, B, H), "bytes" or
+    "operations"): each input read once and each output written once at the
+    memory's peak, against the recurrent products at the peak of their
+    precision (the gate arithmetic adds under 1% at these H)."""
+    tbh, hh, bh = WORDS[name]
+    bytes_ms = 4 * (tbh * T * B * H + hh * H * H + bh * B * H) / PEAK_BYTES * 1e3
+    ops_ms = sum(n * T * B * H * H / PEAK_FLOPS[p]
+                 for p, n in FLOPS[name].items()) * 1e3
+    return (bytes_ms, "bytes") if bytes_ms > ops_ms else (ops_ms, "operations")
+
+
+def library_ms(lstm, ff, u, dtype):
+    """One cuDNN LSTM call (torch.nn.LSTM) over the same ff and U at mask 1,
+    the gates permuted into its i, f, g, o order, with an identity input
+    weight, so it also runs a (T B, 4H) x (4H, 4H) input GEMM that the
+    kernels do not: (ms of the call, ms of that GEMM alone, max |h - the
+    kernel's h at mask 1|)."""
+    H = u.shape[0]
+
+    def perm(x):
+        return torch.cat([x[..., H:2 * H], x[..., :H], x[..., 3 * H:],
+                          x[..., 2 * H:3 * H]], dim=-1)
+
+    with torch.no_grad():
+        m = torch.nn.LSTM(4 * H, H, bias=False, device=ff.device, dtype=dtype)
+        m.weight_ih_l0.copy_(torch.eye(4 * H))
+        m.weight_hh_l0.copy_(perm(u).t())
+        m.flatten_parameters()
+        x = perm(ff).to(dtype).contiguous()
+        ones = torch.ones(ff.shape[1], H, device=ff.device)
+        kernel = (lstm.lstm_recurrence if dtype == torch.float32
+                  else lstm.lstm_recurrence_lean)
+        err = (m(x)[0].float() - kernel(ff, u, ones)[0]).abs().max().item()
+        eye = torch.eye(4 * H, device=ff.device, dtype=dtype)
+        gemm_ms = median_ms(lambda: x.view(-1, 4 * H) @ eye, 5)
+        return median_ms(lambda: m(x), 5), gemm_ms, err
+
+
 def kernel_phase(mods) -> dict:
     """Every kernel against its plain version at the main paths' shapes;
-    returns {kernel name: worst error} and {(kernel name, T, B, H): (ms,
-    plain ms)}."""
-    errs, timing = {}, {}
+    returns {kernel name: worst error}, {(kernel name, T, B, H): (ms, plain
+    ms)} and {kernel name: (library ms, T, B, H)}."""
+    errs, timing, library = {}, {}, {}
     for cell, mod in mods.items():
+        lean = cell == "lstm_lean"
         fns = _cell_fns(cell, mod)
         name = f"{cell}_fwd"
-        for T, B, H in FWD_SHAPES:
+        for T, B, H in LEAN_FWD_SHAPES if lean else FWD_SHAPES:
             ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
@@ -210,18 +389,38 @@ def kernel_phase(mods) -> dict:
                 torch.cuda.synchronize()
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 rel = err / max(b.abs().max().item() for b in want)
+                step = _lean_step_error(ff, *ws, mask, *got) if lean else None
                 ms = median_ms(lambda: fns["fwd"](ff, ws, mask), 5)
                 plain_ms = median_ms(lambda: fns["fwd_ref"](ff, ws, mask), 3)
+                # the float32 kernel on the same inputs, twice K4f's bytes
+                k2_ms = (median_ms(lambda: mod.lstm_recurrence(ff, *ws, mask), 3)
+                         if lean else None)
+            atol = LEAN_SEQ_ATOL if lean else KERNEL_ATOL
             print(f"kernel {name} T={T} B={B} H={H}: max_abs_err={err:.3e} "
-                  f"max_rel_err={rel:.3e} (atol {KERNEL_ATOL:g}) "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-            check(math.isfinite(err) and err <= KERNEL_ATOL,
+                  f"max_rel_err={rel:.3e} (atol {atol:g})"
+                  + (f", per step {step:.3e} (atol {LEAN_STEP_ATOL:g})"
+                     if lean else "")
+                  + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
+                  + (f", K2f at this shape {k2_ms:.3f} ms" if lean else ""),
+                  flush=True)
+            check(math.isfinite(err) and err <= atol,
                   f"{name} disagrees with its plain version at {(T, B, H)}: {err}")
+            if lean:
+                check(math.isfinite(step) and step <= LEAN_STEP_ATOL,
+                      f"{name} step disagrees at {(T, B, H)}: {step}")
             errs[name] = max(errs.get(name, 0.0), err)
             timing[(name, T, B, H)] = (ms, plain_ms)
+            if name in ("lstm_fwd", "lstm_lean_fwd") and name not in library:
+                dtype = torch.bfloat16 if lean else torch.float32
+                lib_ms, gemm_ms, lib_err = library_ms(mod, ff, ws[0], dtype)
+                library[name] = (lib_ms, T, B, H)
+                print(f"library {name} T={T} B={B} H={H}: cuDNN LSTM "
+                      f"({str(dtype)[6:]}) {lib_ms:.3f} ms, of which the "
+                      f"identity input GEMM alone {gemm_ms:.3f} ms; h vs the "
+                      f"kernel at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         name = f"{cell}_bwd"
-        for T, B, H in BWD_SHAPES:
+        for T, B, H in LEAN_BWD_SHAPES if lean else BWD_SHAPES:
             ff, ws, mask, grad = _recurrence_inputs(cell, T, B, H, T * B)
             with torch.inference_mode():
                 outs = fns["fwd"](ff, ws, mask)
@@ -235,19 +434,25 @@ def kernel_phase(mods) -> dict:
                 ms = median_ms(lambda: fns["bwd"](ff, outs, grad, ws, mask), 5)
                 plain_ms = median_ms(
                     lambda: fns["bwd_ref"](ff, outs, grad, ws, mask), 3)
+                k2_ms = (median_ms(lambda: mod.lstm_recurrence_bwd(
+                    ff, *outs, grad, *ws, mask), 3) if lean else None)
+            atol = LEAN_BWD_ATOL if lean else KERNEL_ATOL
+            rtol = LEAN_DU_RTOL if lean else DU_RTOL
             print(f"kernel {name} T={T} B={B} H={H}: max_abs_err dff="
                   f"{e['dff']:.3e} dmask={e['dmask']:.3e} (atol "
-                  f"{KERNEL_ATOL:g}), " + ", ".join(
+                  f"{atol:g}), " + ", ".join(
                       f"{n}={e[n]:.3e} of max|{n}| {du_max[n]:.3f}"
                       for n in du_max)
-                  + f" (rtol {DU_RTOL:g}); kernel {ms:.3f} ms, plain "
-                  f"{plain_ms:.3f} ms", flush=True)
+                  + f" (rtol {rtol:g}); kernel {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms"
+                  + (f", K2b at this shape {k2_ms:.3f} ms" if lean else ""),
+                  flush=True)
             check(all(math.isfinite(v) for v in e.values()),
                   f"{name}: non-finite error at {(T, B, H)}")
-            check(e["dff"] <= KERNEL_ATOL and e["dmask"] <= KERNEL_ATOL,
+            check(e["dff"] <= atol and e["dmask"] <= atol,
                   f"{name} dff/dmask disagree at {(T, B, H)}: {e}")
             for n, mx in du_max.items():
-                check(e[n] <= DU_RTOL * mx,
+                check(e[n] <= rtol * mx,
                       f"{name} {n} disagrees at {(T, B, H)}: {e[n]} of {mx}")
             errs[name] = max(errs.get(name, 0.0), *e.values())
             timing[(name, T, B, H)] = (ms, plain_ms)
@@ -255,38 +460,57 @@ def kernel_phase(mods) -> dict:
         # autograd through the Function (forward kernel, then backward
         # kernel) against autograd through the plain loop, at a small shape;
         # 1e-5: float32, sums in other orders.  The GRU in both activations.
+        # The bf16-U Function against its plain backward on its own forward
+        # outputs (the same h and c, so no forward drift).
         for act in (("relu", "tanh") if cell == "gru" else (None,)):
             f = _cell_fns(cell, mod, act)
             ff, ws, mask, grad = _recurrence_inputs(cell, 50, 4, 64, 7)
             grads = []
-            for fn in (f["fn"], f["loop"]):
+            leaves = [x.clone().requires_grad_() for x in (ff, *ws)]
+            (f["fn"](*leaves, mask) * grad).sum().backward()
+            grads.append([x.grad for x in leaves])
+            if lean:
+                with torch.inference_mode():
+                    outs = f["fwd"](ff, ws, mask)
+                    grads.append(f["bwd_ref"](ff, outs, grad, ws, mask)[:2])
+            else:
                 leaves = [x.clone().requires_grad_() for x in (ff, *ws)]
-                (fn(*leaves, mask) * grad).sum().backward()
+                (f["loop"](*leaves, mask) * grad).sum().backward()
                 grads.append([x.grad for x in leaves])
             torch.cuda.synchronize()
             ag_err = max((x - y).abs().max().item() for x, y in zip(*grads))
             label = f"{cell}" + (f" {act}" if act else "")
-            print(f"kernel autograd ({label} Function vs plain loop, T=50 B=4 "
+            against = "plain backward" if lean else "plain loop"
+            print(f"kernel autograd ({label} Function vs {against}, T=50 B=4 "
                   f"H=64): max_abs_err={ag_err:.3e} (atol 1e-5)", flush=True)
             check(ag_err <= 1e-5, f"{label} Function gradients disagree: {ag_err}")
-    return {"errs": errs, "timing": timing}
+    return {"errs": errs, "timing": timing, "library": library}
 
 
-def _reset_counts(mods, chunk_runtime) -> None:
-    for mod in mods.values():
-        mod.launches = mod.bwd_launches = 0
+def _reset_counts(modules, chunk_runtime) -> None:
+    for mod, counter, _, _ in KERNELS.values():
+        setattr(modules[mod], counter, 0)
     chunk_runtime.train_batches = chunk_runtime.valid_batches = 0
     chunk_runtime.forward_batches = 0
 
 
-def _counts(mods):
-    return {cell: (mod.launches, mod.bwd_launches) for cell, mod in mods.items()}
+def _counts(modules):
+    return {name: getattr(modules[mod], counter)
+            for name, (mod, counter, _, _) in KERNELS.items()}
 
 
-def _check_only(counts, cell, what):
-    """No kernel of another cell launched in a path of `cell`'s recipe."""
-    others = {c: n for c, n in counts.items() if c != cell and any(n)}
-    check(not others, f"{what}: kernels of other cells launched: {others}")
+def _check_only(counts, recipe, what):
+    """No kernel but the recipe's own two launched in a path of it."""
+    own = (RECIPES[recipe]["fwd"], RECIPES[recipe]["bwd"])
+    others = {k: n for k, n in counts.items() if k not in own and n}
+    check(not others, f"{what}: other kernels launched: {others}")
+
+
+def _plain_path(recipe, modules):
+    """The context a recipe's plain path runs in, and its label."""
+    if recipe == "QLSTM":
+        return plain_recurrences(modules["lstm"]), "the bf16-U plain versions"
+    return contextlib.nullcontext(), f"{RECIPES[recipe]['cell']}_impl=scan"
 
 
 def _check_arks(posts, n_utts):
@@ -301,18 +525,54 @@ def _check_arks(posts, n_utts):
     return names, lengths
 
 
-def _check_cpu_path(ft, exp, out, names, lengths) -> float:
+def _cpu_posteriors(ft, exp, names, impl=None):
+    """The CPU path's posteriors of `names`; `impl` sets the QLSTM's
+    `qlstm_impl` for the call (pallas: its bf16-U plain version)."""
+    archs = [a for a in exp.archs.values() if a.class_name == "QLSTM"]
+    saved = [a.options.get("qlstm_impl") for a in archs]
+    for a in archs:
+        if impl is not None:
+            a.options["qlstm_impl"] = impl
+    try:
+        return ft.forward_utterances(exp, names, "cpu")
+    finally:
+        for a, v in zip(archs, saved):
+            if v is None:
+                a.options.pop("qlstm_impl", None)
+            else:
+                a.options["qlstm_impl"] = v
+
+
+def _check_cpu_path(ft, exp, out, names, lengths, recipe) -> str:
     """Two utterances (shortest, longest) through the port's CPU path from
-    the same final checkpoints."""
-    wanted = {names[lengths.index(min(lengths))],
-              names[lengths.index(max(lengths))]}
-    cpu = ft.forward_utterances(exp, sorted(wanted), "cpu")
-    posts, _ = ft.forward_outputs(out)
-    worst = max(float(abs(cpu[key] - post).max())
-                for key, post in posts if key in wanted)
-    check(worst <= POSTERIOR_ATOL,
-          f"CUDA posteriors differ from the CPU path by {worst}")
-    return worst
+    the same final checkpoints.  The QLSTM's CUDA path multiplies bf16
+    operands, so its CPU path is the bf16-U plain version (`qlstm_impl =
+    pallas` on CPU): the same arithmetic, summed in another order, whose
+    rounding ties drift apart over the steps as in the kernel phase.  It is
+    held to POSTERIOR_ATOL, or, where trained weights amplify that drift,
+    to the distance between the CPU path's bf16 and float32 arithmetic (the
+    scale of a bf16 operand's rounding), printed beside it."""
+    wanted = sorted({names[lengths.index(min(lengths))],
+                     names[lengths.index(max(lengths))]})
+    posts = {key: post for key, post in ft.forward_outputs(out)[0]
+             if key in wanted}
+
+    def dist(a, b):
+        return max(float(abs(a[key] - b[key]).max()) for key in wanted)
+
+    if recipe != "QLSTM":
+        worst = dist(ft.forward_utterances(exp, wanted, "cpu"), posts)
+        check(worst <= POSTERIOR_ATOL,
+              f"CUDA posteriors differ from the CPU path by {worst}")
+        return f"max_abs_err={worst:.3e} (atol {POSTERIOR_ATOL:g})"
+    cpu_bf16 = _cpu_posteriors(ft, exp, wanted, "pallas")
+    gap = dist(cpu_bf16, _cpu_posteriors(ft, exp, wanted, "scan"))
+    worst = dist(cpu_bf16, posts)
+    check(worst <= max(POSTERIOR_ATOL, gap),
+          f"CUDA posteriors differ from the CPU bf16-U path by {worst} "
+          f"(CPU bf16-U vs float32 {gap})")
+    return (f"max_abs_err={worst:.3e} vs the bf16-U plain version (atol "
+            f"max({POSTERIOR_ATOL:g}, CPU bf16-U vs float32 {gap:.3e}))")
 
 
 def _phases(info) -> str:
@@ -320,14 +580,16 @@ def _phases(info) -> str:
                     if k.startswith("phase_"))
 
 
-def serving_phase(mods, tree, recipe) -> dict:
+def serving_phase(modules, trees, recipe) -> dict:
     """The serving path of one recipe: production forward from seeded final
     checkpoints."""
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.tools.run_exp import run_experiment
     from tpukaldi_torch.train import chunk_runtime
 
-    cell = RECIPES[recipe]
+    r = RECIPES[recipe]
+    tree = trees[r["corpus"]]
+    lean = recipe == "QLSTM"
     out = os.path.join(WORK, f"serve_{recipe}")
     out_plain = os.path.join(WORK, f"serve_{recipe}_plain")
     for d in (out, out_plain):
@@ -336,27 +598,29 @@ def serving_phase(mods, tree, recipe) -> dict:
     cfg = ft.write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), recipe=src)
     cfg_plain = ft.write_prod_cfg(tree, out_plain,
                                   os.path.join(out_plain, "run.cfg"),
-                                  _scan(recipe), recipe=src)
+                                  None if lean else _scan(recipe), recipe=src)
     # the same seed, so both runs read the same weights
     ft.save_seeded_finals(cfg, dim=40)
     ft.save_seeded_finals(cfg_plain, dim=40)
 
-    _reset_counts(mods, chunk_runtime)
+    _reset_counts(modules, chunk_runtime)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     exp = run_experiment(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    counts, n_batches = _counts(mods), chunk_runtime.forward_batches
-    launches, bwd = counts[cell]
-    _check_only(counts, cell, f"{recipe} serving")
+    counts, n_batches = _counts(modules), chunk_runtime.forward_batches
+    launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
+    _check_only(counts, recipe, f"{recipe} serving")
     posts, info = ft.forward_outputs(out)
 
-    _reset_counts(mods, chunk_runtime)
+    plain_ctx, plain_label = _plain_path(recipe, modules)
+    _reset_counts(modules, chunk_runtime)
     t0 = time.perf_counter()
-    run_experiment(cfg_plain, device="cuda")
+    with plain_ctx:
+        run_experiment(cfg_plain, device="cuda")
     wall_plain = time.perf_counter() - t0
-    check(not any(any(n) for n in _counts(mods).values()),
-          f"{recipe} *_impl=scan still launched a kernel: {_counts(mods)}")
+    check(not any(_counts(modules).values()),
+          f"{recipe} plain path still launched a kernel: {_counts(modules)}")
     posts_plain, info_plain = ft.forward_outputs(out_plain)
 
     posts, posts_plain = list(posts), list(posts_plain)
@@ -367,33 +631,33 @@ def serving_phase(mods, tree, recipe) -> dict:
         worst_plain = max(worst_plain, float(abs(post - post_p).max()))
     check(worst_plain <= POSTERIOR_ATOL,
           f"{recipe}: kernel path vs plain path posteriors differ by {worst_plain}")
-    # every forward batch ran its 5 layers through the kernel; 192
+    # every forward batch ran its layers through the kernel; 192
     # utterances in batches of at most 32 take at least 6 batches
     fwd_bs = int(os.environ.get("TPUKALDI_FORWARD_BATCH", "32"))
     check(n_batches >= math.ceil(len(names) / fwd_bs),
           f"{n_batches} forward batches for {len(names)} utterances")
-    check(launches == N_LAYERS * n_batches and bwd == 0,
-          f"{cell} kernels launched {launches} (fwd), {bwd} (bwd) times, "
-          f"expected {N_LAYERS} x {n_batches} forward batches and 0")
+    check(launches == r["layers"] * n_batches and bwd == 0,
+          f"{r['fwd']} launched {launches} times, {r['bwd']} {bwd}, expected "
+          f"{r['layers']} x {n_batches} forward batches and 0")
     frames = int(sum(lengths))
     check(int(info["frames"]) == frames, f".info frames {info['frames']} != {frames}")
-    worst_cpu = _check_cpu_path(ft, exp, out, names, lengths)
+    cpu = _check_cpu_path(ft, exp, out, names, lengths, recipe)
 
     print(f"serving {recipe}: 192 utterances, {frames} frames, {n_batches} "
-          f"forward batches of up to {fwd_bs}, {cell}_fwd launches {launches} "
-          f"(= {N_LAYERS} x {n_batches}), arks {N_PDFS} wide, all finite",
+          f"forward batches of up to {fwd_bs}, {r['fwd']} launches {launches} "
+          f"(= {r['layers']} x {n_batches}), arks {N_PDFS} wide, all finite",
           flush=True)
     print(f"serving {recipe} kernel path: forward stage "
           f"{info['elapsed_time_chunk']:.3f} s, {info['frames_per_sec']:.1f} "
           f"frames/s (.info), run_experiment wall {wall:.3f} s, phases "
           f"{_phases(info)}", flush=True)
-    print(f"serving {recipe} plain path ({cell}_impl=scan): forward stage "
+    print(f"serving {recipe} plain path ({plain_label}): forward stage "
           f"{info_plain['elapsed_time_chunk']:.3f} s, "
           f"{info_plain['frames_per_sec']:.1f} frames/s (.info), run_experiment "
           f"wall {wall_plain:.3f} s, phases {_phases(info_plain)}", flush=True)
     print(f"serving {recipe} agreement: kernel vs plain path max_abs_err="
-          f"{worst_plain:.3e}, CUDA vs CPU path (2 utterances) max_abs_err="
-          f"{worst_cpu:.3e} (atol {POSTERIOR_ATOL:g})", flush=True)
+          f"{worst_plain:.3e} (atol {POSTERIOR_ATOL:g}), CUDA vs CPU path (2 "
+          f"utterances) {cpu}", flush=True)
     return {"cfg": cfg}
 
 
@@ -403,33 +667,36 @@ def _train_infos(out):
             if f.endswith(".info") and f.startswith(("train_", "valid_"))}
 
 
-def train_phase(mods, tree, recipe) -> dict:
+def train_phase(modules, trees, recipe) -> dict:
     """The main path of one recipe: full-width training, then forward."""
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.tools.run_exp import run_experiment
     from tpukaldi_torch.train import chunk_runtime
 
-    cell = RECIPES[recipe]
+    r = RECIPES[recipe]
+    tree = trees[r["corpus"]]
+    lean = recipe == "QLSTM"
     src = ft.recipe_cfg(recipe)
     out = os.path.join(WORK, f"train_{recipe}")
     out_plain = os.path.join(WORK, f"train_{recipe}_plain")
     for d in (out, out_plain):
         os.makedirs(d)
     cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
-                             TRAIN_CUTS, recipe=src)
-    cfg_plain = ft.write_train_cfg(tree, out_plain,
-                                   os.path.join(out_plain, "run.cfg"),
-                                   {**TRAIN_CUTS, **_scan(recipe)}, recipe=src)
+                             _cuts(recipe), recipe=src)
+    cfg_plain = ft.write_train_cfg(
+        tree, out_plain, os.path.join(out_plain, "run.cfg"),
+        _cuts(recipe) if lean else {**_cuts(recipe), **_scan(recipe)},
+        recipe=src)
 
     # the main path, counted
-    _reset_counts(mods, chunk_runtime)
+    _reset_counts(modules, chunk_runtime)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     exp = run_experiment(cfg, device="cuda")
     wall = time.perf_counter() - t0
-    counts = _counts(mods)
-    launches, bwd = counts[cell]
-    _check_only(counts, cell, f"{recipe} training")
+    counts = _counts(modules)
+    launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
+    _check_only(counts, recipe, f"{recipe} training")
     n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
                                chunk_runtime.valid_batches,
                                chunk_runtime.forward_batches)
@@ -456,22 +723,23 @@ def train_phase(mods, tree, recipe) -> dict:
     check(tr_loss[1] < tr_loss[0], f"{recipe} train loss did not fall: {tr_loss}")
 
     # the forward kernel ran in every layer of every batch, the backward
-    # kernel in every train batch
-    check(n_train == 2 * 2 * 32 // 8, f"{n_train} train batches, expected 16")
-    check(launches == N_LAYERS * (n_train + n_valid + n_fwd),
-          f"{cell}_fwd launched {launches} times, expected {N_LAYERS} x "
+    # kernel in every train batch: 2 epochs x 2 chunks x 32 utterances
+    layers, expected = r["layers"], 2 * 2 * 32 // r["batch"]
+    check(n_train == expected, f"{n_train} train batches, expected {expected}")
+    check(launches == layers * (n_train + n_valid + n_fwd),
+          f"{r['fwd']} launched {launches} times, expected {layers} x "
           f"({n_train} train + {n_valid} valid + {n_fwd} forward batches)")
-    check(bwd == N_LAYERS * n_train,
-          f"{cell}_bwd launched {bwd} times, expected {N_LAYERS} x {n_train}")
+    check(bwd == layers * n_train,
+          f"{r['bwd']} launched {bwd} times, expected {layers} x {n_train}")
 
     posts, _ = ft.forward_outputs(out)
     names, lengths = _check_arks(list(posts), 192)
-    worst_cpu = _check_cpu_path(ft, exp, out, names, lengths)
+    cpu = _check_cpu_path(ft, exp, out, names, lengths, recipe)
 
     print(f"training {recipe}: 2 epochs, {n_train} train + {n_valid} valid + "
-          f"{n_fwd} forward batches; {cell}_fwd launches {launches} (= "
-          f"{N_LAYERS} x {n_train + n_valid + n_fwd}), {cell}_bwd launches "
-          f"{bwd} (= {N_LAYERS} x {n_train}); run_experiment wall {wall:.3f} s",
+          f"{n_fwd} forward batches; {r['fwd']} launches {launches} (= "
+          f"{layers} x {n_train + n_valid + n_fwd}), {r['bwd']} launches "
+          f"{bwd} (= {layers} x {n_train}); run_experiment wall {wall:.3f} s",
           flush=True)
     for line in res:
         print(f"training {recipe} res.res: {line}", flush=True)
@@ -481,46 +749,60 @@ def train_phase(mods, tree, recipe) -> dict:
               f"{v['frames_per_sec']:.1f} frames/s, phases {_phases(v)}",
               flush=True)
     print(f"training {recipe} arks: 192 finite, {N_PDFS} wide; CUDA vs CPU "
-          f"path (2 utterances) max_abs_err={worst_cpu:.3e} (atol "
-          f"{POSTERIOR_ATOL:g})", flush=True)
+          f"path (2 utterances) {cpu}", flush=True)
 
-    # the plain recurrence on the first train chunk only
+    # the plain path on the first train chunk only
     exp_plain, plan_plain = ft.train_plan(cfg_plain)
     task = plan_plain.epochs[0].tasks[0]
     rt = chunk_runtime.ChunkRuntime(exp_plain, "cuda")
-    _reset_counts(mods, chunk_runtime)
-    plain = rt.run_task(task, epoch_lr={a: s.lr[0] for a, s in exp_plain.archs.items()},
-                        batch_size=exp_plain.batches.batch_size_train[0])
-    check(not any(any(n) for n in _counts(mods).values()),
-          f"{cell}_impl=scan launched a kernel: {_counts(mods)}")
+    plain_ctx, plain_label = _plain_path(recipe, modules)
+    _reset_counts(modules, chunk_runtime)
+    with plain_ctx:
+        plain = rt.run_task(
+            task, epoch_lr={a: s.lr[0] for a, s in exp_plain.archs.items()},
+            batch_size=exp_plain.batches.batch_size_train[0])
+    check(not any(_counts(modules).values()),
+          f"{recipe} plain path launched a kernel: {_counts(modules)}")
     first = values[os.path.basename(task.info_file)]
     print(f"training {recipe} first train chunk: kernel path "
-          f"{first['frames_per_sec']:.1f} frames/s, plain path ({cell}_impl="
-          f"scan) {plain.frames_per_sec:.1f} frames/s (.info); loss "
+          f"{first['frames_per_sec']:.1f} frames/s, plain path ({plain_label}) "
+          f"{plain.frames_per_sec:.1f} frames/s (.info); loss "
           f"{first['loss']:.6f} vs {plain.loss:.6f} (the same dropout draws)",
           flush=True)
 
-    step_check(tree, recipe)
+    step_check(modules, trees, recipe)
     return {"launches": launches, "bwd_launches": bwd, "cfg": cfg}
 
 
-def step_check(tree, recipe) -> None:
+def step_check(modules, trees, recipe) -> None:
     """One full-width train step of the recipe at drop 0: the kernel path's
     loss and gradients, and the plain path's, held to a float64 run of the
-    plain path."""
+    plain float32 arithmetic (for the QLSTM, `qlstm_impl = scan` through
+    the plain versions)."""
     from tpukaldi_torch.tools import flagship_tree as ft
 
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 GEMMs must not run in TF32 in the step check")
+    tree = trees[RECIPES[recipe]["corpus"]]
     src = ft.recipe_cfg(recipe)
     out_step = os.path.join(WORK, f"train_{recipe}_step")
     os.makedirs(out_step, exist_ok=True)
+    cuts = {**_cuts(recipe), **_no_drop(recipe)}
     cfg_k = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "k.cfg"),
-                               {**TRAIN_CUTS, **_no_drop(recipe)}, recipe=src)
+                               cuts, recipe=src)
     cfg_s = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "s.cfg"),
-                               {**TRAIN_CUTS, **_no_drop(recipe),
-                                **_scan(recipe)}, recipe=src)
+                               {**cuts, **_scan(recipe)}, recipe=src)
     loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
-    loss_s, grads_s, _ = ft.train_step_gradients(cfg_s, "cuda")
-    loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda", torch.float64)
+    # the QLSTM's plain path is its kernel path's cfg through the plain
+    # versions; a TIMIT recipe's is `*_impl = scan`
+    plain_ctx, plain_label = _plain_path(recipe, modules)
+    with plain_ctx:
+        loss_s, grads_s, _ = ft.train_step_gradients(
+            cfg_k if recipe == "QLSTM" else cfg_s, "cuda")
+    with _plain_path(recipe, modules)[0]:
+        loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda",
+                                                     torch.float64)
 
     def worst(grads, ref):
         """(max over tensors of max|g - ref| / max|ref|, that tensor)"""
@@ -540,9 +822,10 @@ def step_check(tree, recipe) -> None:
           f"{len(grads_k)} gradients): loss kernel {loss_k:.7f} plain "
           f"{loss_s:.7f} float64 {loss_r:.7f}, kernel vs plain |diff|="
           f"{loss_err:.3e} (atol {STEP_LOSS_ATOL:g}); worst gradient error vs "
-          f"float64: kernel path {err_k:.3e} ({name_k}), plain float32 path "
-          f"{err_s:.3e} ({name_s}) (factor {STEP_GRAD_FACTOR:g}); kernel vs "
-          f"plain {err_ks:.3e} ({name_ks})", flush=True)
+          f"float64: kernel path {err_k:.3e} ({name_k}), plain path "
+          f"({plain_label}) {err_s:.3e} ({name_s}) (factor "
+          f"{STEP_GRAD_FACTOR:g}); kernel vs plain {err_ks:.3e} ({name_ks})",
+          flush=True)
     check(loss_err <= STEP_LOSS_ATOL,
           f"{recipe} train step loss differs by {loss_err}")
     check(err_k <= STEP_GRAD_FACTOR * err_s,
@@ -578,7 +861,8 @@ def _print_profile(label, wall, busy_us, per_op, n_top=3):
 
 # device-op name patterns -> training layer, first match wins (so the
 # liGRU's names come before the GRU's, which they contain); GEMMs of the FF
-# projections, the heads and their backward share cuBLAS kernel names
+# projections, the heads, K4b's dU and their backward share cuBLAS kernel
+# names
 LAYERS = (
     ("K1f", ("ligru_fwd_kernel",)),
     ("K1b sequential", ("ligru_bwd_seq_kernel",)),
@@ -586,9 +870,11 @@ LAYERS = (
     ("K2b sequential", ("lstm_bwd_seq_kernel",)),
     ("K3f", ("gru_fwd_kernel",)),
     ("K3b sequential", ("gru_bwd_seq_kernel",)),
+    ("K4f", ("lstm_lean_fwd_kernel",)),
+    ("K4b sequential", ("lstm_lean_bwd_kernel",)),
     ("dU passes (K1b, K2b, K3b)", ("du_tile_kernel",)),
-    ("GEMM (FF, heads, their backward)", ("gemm", "Gemm", "cutlass", "xmma",
-                                          "sm90_", "splitKreduce")),
+    ("GEMM (FF, heads, K4b's dU, their backward)",
+     ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "splitKreduce")),
     ("batchnorm", ("batch_norm", "batchnorm", "welford", "bn_")),
     ("optimizer (rmsprop, foreach)", ("multi_tensor_apply", "foreach")),
     ("dropout draws", ("bernoulli", "philox", "distribution")),
@@ -667,17 +953,40 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
                                           row_limit=-1))
 
 
-def build_kernels(mods) -> None:
+def build_kernels(modules) -> None:
     """Every kernel source, one nvcc each, all at once."""
     from tpukaldi_torch.kernels import _build
 
     t0 = time.perf_counter()
-    sources = [s for mod in mods.values() for s in (mod.SOURCE, mod.BWD_SOURCE)]
+    sources = [getattr(modules[mod], attr)
+               for mod, _, attr, _ in KERNELS.values()]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     print(f"build {', '.join(sources)} (nvcc sm_90a, in parallel): "
           f"{time.perf_counter() - t0:.2f} s -> "
           + ", ".join(os.path.relpath(lib, REPO) for lib in libs), flush=True)
+    for source, lib in zip(sources, libs):
+        for kernel, regs, spill in _ptxas(f"{lib}.txt"):
+            print(f"ptxas {source} {kernel}: {regs} registers, {spill}",
+                  flush=True)
+
+
+def _ptxas(report):
+    """(kernel, registers, spills) of each kernel in a ptxas -v report."""
+    with open(report) as f:
+        text = f.read()
+    found = []
+    for part in text.split("Compiling entry function")[1:]:
+        name = re.search(r"([a-z_]+_kernel)", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          part)
+        check(bool(name and regs and spill), f"unreadable ptxas report {report}")
+        found.append((name.group(1), regs.group(1),
+                      f"{spill.group(1)} bytes spill stores, "
+                      f"{spill.group(2)} bytes spill loads"))
+    check(bool(found), f"no kernel in the ptxas report {report}")
+    return found
 
 
 def _timed(label, fn, *args):
@@ -704,8 +1013,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
-    mods = {"ligru": ligru, "lstm": lstm, "gru": gru}
-    build_kernels(mods)
+    modules = {"ligru": ligru, "lstm": lstm, "gru": gru}
+    build_kernels(modules)
 
     # a process's first torch.optim optimizer imports torch._dynamo (seconds
     # of host time, once per process); done here, timed, so that no chunk
@@ -715,45 +1024,50 @@ def main() -> int:
     print(f"import torch._dynamo (once per training process): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    k = _timed("kernels", kernel_phase, mods)
+    k = _timed("kernels", kernel_phase, {**modules, "lstm_lean": lstm})
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
-    tree = ft.write_kaldi_tree(
-        os.path.join(WORK, "tree"), dim=40, n_phones=N_PHONES, n_pdfs=N_PDFS,
-        splits={"train": (64, 150, 778), "dev": (16, 150, 778),
-                "test": (192, 150, 778)})
-    print(f"synthetic tree: {time.perf_counter() - t0:.1f} s", flush=True)
+    splits = {"train": (64, 150, 778), "dev": (16, 150, 778),
+              "test": (192, 150, 778)}
+    trees = {corpus: ft.write_kaldi_tree(
+        os.path.join(WORK, corpus.lower()), dim=40, n_phones=N_PHONES,
+        n_pdfs=N_PDFS, splits=splits, corpus=corpus)
+        for corpus in ("TIMIT", "DIRHA")}
+    print(f"synthetic trees: {time.perf_counter() - t0:.1f} s", flush=True)
     trained = {}
     for recipe in RECIPES:
-        s = _timed(f"{recipe} serving", serving_phase, mods, tree, recipe)
-        trained[recipe] = _timed(f"{recipe} training", train_phase, mods,
-                                 tree, recipe)
+        s = _timed(f"{recipe} serving", serving_phase, modules, trees, recipe)
+        trained[recipe] = _timed(f"{recipe} training", train_phase, modules,
+                                 trees, recipe)
         _timed(f"{recipe} profile", profile_phase, recipe, s["cfg"],
                trained[recipe]["cfg"])
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # the Pallas kernel bodies each replaces
-    replaces = {"ligru_fwd": "tpukaldi/kernels/ligru.py:41",
-                "ligru_bwd": "tpukaldi/kernels/ligru.py:106",
-                "lstm_fwd": "tpukaldi/kernels/lstm.py:43",
-                "lstm_bwd": "tpukaldi/kernels/lstm.py:128",
-                "gru_fwd": "tpukaldi/kernels/gru.py:49",
-                "gru_bwd": "tpukaldi/kernels/gru.py:119"}
     kernels = []
-    for recipe, cell in RECIPES.items():
-        mod = mods[cell]
-        for kind, source, shape, key in (
-                ("fwd", mod.SOURCE, FWD_SHAPES[0], "launches"),
-                ("bwd", mod.BWD_SOURCE, BWD_SHAPES[0], "bwd_launches")):
-            name = f"{cell}_{kind}"
-            ms, plain_ms = k["timing"][(name, *shape)]
+    for recipe, r in RECIPES.items():
+        lean = recipe == "QLSTM"
+        for kind, shapes, key in (
+                ("fwd", LEAN_FWD_SHAPES if lean else FWD_SHAPES, "launches"),
+                ("bwd", LEAN_BWD_SHAPES if lean else BWD_SHAPES,
+                 "bwd_launches")):
+            name = r[kind]
+            mod, _, attr, replaces = KERNELS[name]
+            T, B, H = shapes[0]
+            ms, plain_ms = k["timing"][(name, T, B, H)]
+            bound, bound_by = bound_ms(name, T, B, H)
+            lib = k["library"].get(name)
+            check(lib is None or lib[1:] == (T, B, H),
+                  f"{name}: library timed at {lib}, the kernel at {(T, B, H)}")
             kernels.append({
                 "name": name, "route": "cuda",
-                "source": f"tpukaldi_torch/kernels/csrc/{source}",
-                "replaces": replaces[name],
+                "source": "tpukaldi_torch/kernels/csrc/"
+                          + getattr(modules[mod], attr),
+                "replaces": replaces,
                 "launches": trained[recipe][key],
-                "max_abs_err": k["errs"][name], "ms": ms, "plain_ms": plain_ms})
+                "max_abs_err": k["errs"][name], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None if lib is None else lib[0]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

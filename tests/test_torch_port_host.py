@@ -1,0 +1,72 @@
+"""The port's own copies of tpukaldi's host modules (tpukaldi_torch/config,
+io, native, plan, data, forward, decode) against the originals.
+
+Every shipped cfg parses to the same experiment in both packages.  With the
+ledger, ark and posterior parity of the other tests/test_torch_port_*.py
+files, which now run the port's copies end to end, this guards the copies
+against drifting from tpukaldi.
+"""
+
+import dataclasses
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from tpukaldi.config import load_config as tpk_load_config
+from tpukaldi.io import feats as tpk_feats
+from tpukaldi_torch.config import load_config
+from tpukaldi_torch.io import feats
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFGS = sorted(os.path.relpath(p, REPO)
+              for p in glob.glob(os.path.join(REPO, "cfg", "**", "*.cfg"),
+                                 recursive=True))
+
+
+def _plain(value):
+    """An experiment as plain data: dataclasses as dicts (their class names
+    differ between the packages), the raw INI as {section: {key: value}}."""
+    if dataclasses.is_dataclass(value):
+        return {f.name: _plain(getattr(value, f.name))
+                for f in dataclasses.fields(value)}
+    if hasattr(value, "sections") and hasattr(value, "items"):
+        return {name: dict(sec) for name, sec in value.items()}
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_plain(v) for v in value)
+    return value
+
+
+@pytest.mark.parametrize("cfg", CFGS)
+def test_cfg_parses_as_in_tpukaldi(cfg):
+    """The port's load_config and tpukaldi's give the same experiment for
+    every shipped cfg (data paths are not materialised here, so neither
+    side checks them nor resolves N_out from alignments)."""
+    path = os.path.join(REPO, cfg)
+    want = tpk_load_config(path, strict_paths=False, resolve_nout=False)
+    got = load_config(path, strict_paths=False, resolve_nout=False)
+    assert _plain(got) == _plain(want)
+
+
+def test_cfg_list_is_complete():
+    assert len(CFGS) >= 39
+    assert "cfg/DIRHA/QLSTM_mfcc.cfg" in CFGS
+
+
+def test_host_feature_ops_match_tpukaldi():
+    """Splice, chunk CMVN, per-speaker CMVN and deltas of the port's copy
+    against tpukaldi's, exactly: the same numpy (or native) code on the
+    same input."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((50, 6)).astype(np.float32)
+    stats = tpk_feats.compute_cmvn_stats(x)
+    np.testing.assert_array_equal(feats.compute_cmvn_stats(x), stats)
+    for name, args in (("splice", (x, 2, 3)), ("chunk_cmvn", (x,)),
+                       ("apply_cmvn", (x, stats, True)),
+                       ("add_deltas", (x, 2))):
+        got = getattr(feats, name)(*args)
+        want = getattr(tpk_feats, name)(*args)
+        np.testing.assert_array_equal(got, want, err_msg=name)

@@ -144,7 +144,7 @@ def test_forward_utterances_match_the_run(tree, tmp_path):
 _NO_JAX = r"""
 import importlib, importlib.abc, os, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "tpukaldi")
 
 
 class Block(importlib.abc.MetaPathFinder):
@@ -161,15 +161,18 @@ import tpukaldi_torch
 for info in pkgutil.walk_packages(tpukaldi_torch.__path__, "tpukaldi_torch."):
     importlib.import_module(info.name)
 
+from tpukaldi_torch import native
 from tpukaldi_torch.tools.flagship_tree import (
-    forward_outputs, save_seeded_finals, write_kaldi_tree, write_prod_cfg,
-    write_train_cfg)
+    forward_outputs, recipe_cfg, save_seeded_finals, write_kaldi_tree,
+    write_prod_cfg, write_train_cfg)
 from tpukaldi_torch.tools.run_exp import run_experiment
 
+# the native host library builds beside the port, never inside a package
+assert os.path.dirname(native.library_path()) == os.path.join(
+    sys.argv[1], "build", "tpukaldi_torch"), native.library_path()
 work = sys.argv[2]
-tree = write_kaldi_tree(os.path.join(work, "tree"), 10, 3, 9,
-                        {"train": (4, 30, 50), "dev": (2, 30, 50),
-                         "test": (5, 30, 90)})
+splits = {"train": (4, 30, 50), "dev": (2, 30, 50), "test": (5, 30, 90)}
+tree = write_kaldi_tree(os.path.join(work, "tree"), 10, 3, 9, splits)
 shrink = {
     "ligru_lay = 550,550,550,550,550": "ligru_lay = 8",
     "ligru_drop = 0.2,0.2,0.2,0.2,0.2": "ligru_drop = 0.2",
@@ -193,6 +196,21 @@ with open(os.path.join(out, "res.res")) as f:
     assert f.read().startswith("ep=0 ")
 posts, _ = forward_outputs(out)
 assert len(list(posts)) == 5
+# and a tiny DIRHA QLSTM run (a 12-dim stream: 60 spliced inputs, a
+# multiple of 4), trained for one epoch, then forward
+tree = write_kaldi_tree(os.path.join(work, "dirha"), 12, 3, 9, splits,
+                        corpus="DIRHA")
+out = os.path.join(work, "qlstm")
+os.makedirs(out)
+cfg = write_train_cfg(tree, out, os.path.join(out, "run.cfg"), {
+    "lstm_lay = 1024,1024": "lstm_lay = 8", "lstm_drop = 0.2,0.2": "lstm_drop = 0.2",
+    "lstm_act = tanh,tanh": "lstm_act = tanh", "n_epochs_tr = 24": "n_epochs_tr = 1",
+    "n_chunks = 5": "n_chunks = 1"}, recipe=recipe_cfg("QLSTM"))
+run_experiment(cfg, device="cpu")
+with open(os.path.join(out, "res.res")) as f:
+    assert f.read().startswith("ep=0 ")
+posts, _ = forward_outputs(out)
+assert len(list(posts)) == 5
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK")
@@ -200,9 +218,9 @@ print("NO_JAX_OK")
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Every tpukaldi_torch module imports, and the tiny production slice
-    and a tiny training run go through on the CPU, with
-    jax/flax/optax/msgpack unimportable."""
+    """Every tpukaldi_torch module imports, and the tiny production slice,
+    a tiny training run and a tiny QLSTM run go through on the CPU, with
+    jax/flax/optax/msgpack and tpukaldi itself unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO, str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
@@ -222,6 +240,28 @@ def test_chip_smoke_imports_only_the_port():
             roots.add(node.module.split(".")[0])
     assert "tpukaldi_torch" in roots
     assert not roots & {"tpukaldi", "jax", "jaxlib", "flax", "optax"}, roots
+
+
+def test_port_sources_import_nothing_of_tpukaldi():
+    """No file of the port, nor chip_smoke.py, has an absolute import whose
+    root is tpukaldi (or JAX): the port keeps its own copy of every module
+    it uses.  Relative imports stay inside tpukaldi_torch."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "tpukaldi_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 40
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module]
+            else:
+                continue
+            bad += [(os.path.relpath(path, REPO), node.lineno, m) for m in mods
+                    if m.split(".")[0] in ("tpukaldi", "jax", "flax", "optax")]
+    assert not bad, bad
 
 
 def test_cli_applies_overrides(tree, tmp_path):

@@ -2,17 +2,22 @@
 
 It reads the same INI cfgs, plans with the same chunk ledger and writes the
 same prior-normalised posterior arks as tpukaldi, whose JAX package stays
-the reference.  The config, planner, data plane, ark I/O and decode bridge
-are tpukaldi's own JAX-free modules, imported, not copied.  The port never
-imports JAX.
+the reference.  The port imports torch and nothing of tpukaldi, not even
+the modules there that need no JAX: the config, planner, data plane, ark
+I/O, native host ops and decode bridge are the port's own copies, under
+the same sub-package names.  The port never imports JAX.
 
 Layout (mirrors tpukaldi/):
-  tools/    run_exp (forward stage), synthetic Kaldi tree
+  tools/    run_exp (training and forward), run_chunk, synthetic Kaldi trees
   graph/    [model] DSL -> program over nn.Modules
-  models/   MLP and liGRU in the reference state_dict layout
+  models/   MLP, liGRU, LSTM, GRU and QLSTM in the reference state_dict
+            layout
   kernels/  hand-written CUDA kernels for Hopper, each beside its plain version
   train/    chunk runtime, forward step, tpukaldi-format checkpoints
   compat/   weights between tpukaldi trees and port state_dicts
+  config/, plan/, io/, native/, data/, forward/, decode/
+            the host side: cfgs, the chunk plan, Kaldi I/O and host data
+            ops, batches, posterior arks, the Kaldi decode bridge
 """
 
 __version__ = "0.1.0"

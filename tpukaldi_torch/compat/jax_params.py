@@ -1,10 +1,11 @@
 """Weights between tpukaldi's parameter trees and the port's state_dicts.
 
 `from_jax_params` maps numpy trees in tpukaldi naming (`wh{i}`, `uz{i}`,
-`bn_ff{i}` scale/bias + mean/var, `wx{i}` kernel/bias, ...) onto the port's
-reference-layout state_dict.  The inverse is tpukaldi's own tested
-converter, `tpukaldi.compat.torch_import.import_model_par` (importable
-without JAX), re-exported here as `to_jax_params(state_dict, class_name)`.
+`bn_ff{i}` scale/bias + mean/var, `wx{i}` kernel/bias, the QLSTM's
+`wfx{i}` r/i/j/k/bias and `ufh{i}`, ...) onto the port's reference-layout
+state_dict.  `to_jax_params(state_dict, class_name)` is the inverse, the
+port's copy of the MLP, QLSTM and gate-table branches of tpukaldi's tested
+converter `compat/torch_import.py::import_model_par`, in numpy only.
 
 `moments_to_jax` / `moments_from_jax` carry a per-parameter tensor set
 (an optimizer moment such as rmsprop's `square_avg`) through the same two
@@ -14,23 +15,24 @@ maps, so optimizer state lands in the tree layout of tpukaldi's optax state
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from tpukaldi.compat.torch_import import import_model_par as to_jax_params  # noqa: F401
-
 # (tpukaldi gate letter, torch ff attr, torch recurrent attr), in tpukaldi's
-# FF_GATES order, as tpukaldi.compat.torch_import._GATE_TABLES has them.  The
+# FF_GATES order, as tpukaldi's `torch_import._GATE_TABLES` has them.  The
 # GRU's `uh{i}` is one of tpukaldi's extra params, outside its fused Uzr; the
-# ("h", "wh", "uh") row maps it all the same.
+# ("h", "wh", "uh") row maps it all the same.  The QLSTM's gates are the
+# LSTM's.
 _GATES = {
     "liGRU": (("h", "wh", "uh"), ("z", "wz", "uz")),
     "GRU": (("h", "wh", "uh"), ("z", "wz", "uz"), ("r", "wr", "ur")),
     "LSTM": (("f", "wfx", "ufh"), ("i", "wix", "uih"), ("o", "wox", "uoh"),
              ("c", "wcx", "uch")),
 }
+# the four real components of a quaternion weight, in their stacking order
+_QUAT = ("r", "i", "j", "k")
 
 
 def _t(x) -> torch.Tensor:
@@ -93,14 +95,120 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
         if "ln_inp_gamma" in params:
             sd["ln0.gamma"] = _t(params["ln_inp_gamma"])
             sd["ln0.beta"] = _t(params["ln_inp_beta"])
+    elif class_name == "QLSTM":
+        # quaternion weights keep their (in/4, out/4) component layout on
+        # both sides: nothing transposes
+        i = 0
+        while f"wfx{i}" in params:
+            for g, w_attr, u_attr in _GATES["LSTM"]:
+                dense = params[f"w{g}x{i}"]
+                for c in _QUAT:
+                    sd[f"{w_attr}.{i}.{c}_weight"] = _t(dense[c])
+                if "bias" in dense:
+                    sd[f"{w_attr}.{i}.bias"] = _t(dense["bias"])
+                rec = np.asarray(params[f"u{g}h{i}"])
+                for k, c in enumerate(_QUAT):
+                    sd[f"{u_attr}.{i}.{c}_weight"] = _t(rec[k])
+            i += 1
     else:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
-            f"(ported: MLP, {', '.join(_GATES)})")
+            f"(ported: MLP, QLSTM, {', '.join(_GATES)})")
     if "bn_inp" in params:
         _bn(sd, "bn0", params["bn_inp"]["scale"], params["bn_inp"]["bias"],
             stats["bn_inp"]["mean"], stats["bn_inp"]["var"])
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t)
+
+
+def _n_layers(sd: Dict[str, Any], attr: str) -> int:
+    n = 0
+    while f"{attr}.{n}.weight" in sd:
+        n += 1
+    return n
+
+
+def _bn_tree(sd: Dict[str, Any], key: str) -> Optional[Dict[str, np.ndarray]]:
+    if f"{key}.weight" not in sd:
+        return None
+    return {"scale": _np(sd[f"{key}.weight"]), "bias": _np(sd[f"{key}.bias"]),
+            "mean": _np(sd[f"{key}.running_mean"]),
+            "var": _np(sd[f"{key}.running_var"])}
+
+
+def _put_bn(params, stats, name, bn) -> None:
+    if bn:
+        params[name] = {"scale": bn["scale"], "bias": bn["bias"]}
+        stats[name] = {"mean": bn["mean"], "var": bn["var"]}
+
+
+def to_jax_params(state_dict: Dict[str, Any], class_name: str
+                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A port (reference-layout) state_dict of one architecture -> tpukaldi
+    (params, batch_stats) numpy trees: per-gate batchnorms joined into one
+    feature batchnorm in FF_GATES order, Linear weights transposed."""
+    sd = state_dict
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    if class_name == "MLP":
+        for i in range(_n_layers(sd, "wx")):
+            dense = {"kernel": _np(sd[f"wx.{i}.weight"]).T}
+            if f"wx.{i}.bias" in sd:
+                dense["bias"] = _np(sd[f"wx.{i}.bias"])
+            params[f"wx{i}"] = dense
+            if f"ln.{i}.gamma" in sd:
+                params[f"ln{i}"] = {"gamma": _np(sd[f"ln.{i}.gamma"]),
+                                    "beta": _np(sd[f"ln.{i}.beta"])}
+            _put_bn(params, stats, f"bn{i}", _bn_tree(sd, f"bn.{i}"))
+        if "ln0.gamma" in sd:
+            params["ln_inp"] = {"gamma": _np(sd["ln0.gamma"]),
+                                "beta": _np(sd["ln0.beta"])}
+        _put_bn(params, stats, "bn_inp", _bn_tree(sd, "bn0"))
+        return params, stats
+
+    if class_name == "QLSTM":
+        i = 0
+        while f"wfx.{i}.r_weight" in sd:
+            for g, w_attr, u_attr in _GATES["LSTM"]:
+                quad = {c: _np(sd[f"{w_attr}.{i}.{c}_weight"]) for c in _QUAT}
+                if f"{w_attr}.{i}.bias" in sd:
+                    quad["bias"] = _np(sd[f"{w_attr}.{i}.bias"])
+                params[f"w{g}x{i}"] = quad
+                params[f"u{g}h{i}"] = np.stack(
+                    [_np(sd[f"{u_attr}.{i}.{c}_weight"]) for c in _QUAT])
+            i += 1
+        return params, stats
+
+    if class_name not in _GATES:
+        raise NotImplementedError(
+            f"weight mapping for {class_name!r} is still to be ported "
+            f"(ported: MLP, QLSTM, {', '.join(_GATES)})")
+    gates = _GATES[class_name]
+    for i in range(_n_layers(sd, gates[0][1])):
+        bn_parts = []
+        for g, w_attr, u_attr in gates:
+            params[f"w{g}{i}"] = _np(sd[f"{w_attr}.{i}.weight"]).T
+            if f"{w_attr}.{i}.bias" in sd:
+                params[f"b{g}{i}"] = _np(sd[f"{w_attr}.{i}.bias"])
+            params[f"u{g}{i}"] = _np(sd[f"{u_attr}.{i}.weight"]).T
+            bn = _bn_tree(sd, f"bn_{w_attr}.{i}")
+            if bn:
+                bn_parts.append(bn)
+        if bn_parts:
+            _put_bn(params, stats, f"bn_ff{i}", {
+                k: np.concatenate([b[k] for b in bn_parts])
+                for k in ("scale", "bias", "mean", "var")})
+        if f"ln.{i}.gamma" in sd:
+            params[f"ln{i}_gamma"] = _np(sd[f"ln.{i}.gamma"])
+            params[f"ln{i}_beta"] = _np(sd[f"ln.{i}.beta"])
+    if "ln0.gamma" in sd:
+        params["ln_inp_gamma"] = _np(sd["ln0.gamma"])
+        params["ln_inp_beta"] = _np(sd["ln0.beta"])
+    _put_bn(params, stats, "bn_inp", _bn_tree(sd, "bn0"))
+    return params, stats
 
 
 def moments_to_jax(module: torch.nn.Module,

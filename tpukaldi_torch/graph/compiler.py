@@ -19,9 +19,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from tpukaldi.config.cfg import ArchSpec, ExperimentConfig
-from tpukaldi.config.model_dsl import ModelStatement
-
+from ..config.cfg import ArchSpec, ExperimentConfig
+from ..config.model_dsl import ModelStatement
 from ..models.registry import resolve
 
 

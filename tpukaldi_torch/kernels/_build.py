@@ -5,7 +5,9 @@ Hopper (`sm_90a`) into a shared library with a plain C interface, loaded
 with `ctypes`.  The library lands in `build/tpukaldi_torch/` beside the
 package (a directory `.gitignore` lists), named by a hash of its source, the
 shared headers (`csrc/*.cuh`) and the flags, so an edited source or header
-is rebuilt and an unchanged one is reused.
+is rebuilt and an unchanged one is reused.  Beside it, `<library>.txt`
+keeps ptxas's report of the build: each kernel's registers, spills and
+shared memory.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ BUILD_DIR = os.path.join(
     "build", "tpukaldi_torch",
 )
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -65,6 +67,8 @@ def build(source: str) -> str:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) building {source}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    with open(f"{lib}.txt", "w") as f:
+        f.write(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a reader never sees a partial library
     return lib
 

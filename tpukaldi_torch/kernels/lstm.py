@@ -1,5 +1,6 @@
 """LSTM recurrence: the hand-written CUDA kernels, forward and backward,
-and their plain PyTorch versions.
+and their plain PyTorch versions, in float32 (K2) and with a bf16
+recurrent weight (K4, the "lean" kernels).
 
     r    = h @ U                  # U = [Uf | Ui | Uo | Uc], (H, 4H)
     f, i, o = sigmoid(ff_{f,i,o} + r_{f,i,o})
@@ -14,9 +15,17 @@ and `csrc/lstm_bwd.cu` (design notes there) or raise; on a CPU tensor they
 run `lstm_recurrence_ref` and `lstm_recurrence_bwd_ref`, the Python time
 loops that mirror tpukaldi's `lstm_recurrence_scan` and `_bwd_scan`.
 
-tpukaldi's bf16-U "lean" variant (K4, `lstm_recurrence_lean`) belongs to
-the QLSTM; the port's LSTM runs this float32 recurrence at every H, which is
-what tpukaldi computes off a TPU.
+`LSTMLeanRecurrence` is the counterpart of tpukaldi's `lstm_recurrence_lean`
+(the QLSTM's recurrence): the same cell with h and U rounded to bf16 as the
+operands of every recurrent product, the products exact and summed in
+float32, and h and c kept in float32.  Its forward `lstm_recurrence_lean`
+launches `csrc/lstm_lean_fwd.cu` (K4f), its backward
+`lstm_recurrence_lean_bwd` launches `csrc/lstm_lean_bwd.cu` (K4b, dff and
+dmask) and then contracts dU = h_prev^T dff as one float32 GEMM, as
+tpukaldi's `_lean_bwd` does.  On CPU tensors they run
+`lstm_recurrence_lean_ref` and `lstm_recurrence_lean_bwd_ref`.  The port's
+LSTM runs the float32 kernels at every H, which is what tpukaldi computes
+off a TPU; the QLSTM picks by `qlstm_impl` (`models/quaternion.py`).
 """
 
 from __future__ import annotations
@@ -29,12 +38,27 @@ from . import _launch
 
 SOURCE = "lstm_fwd.cu"
 BWD_SOURCE = "lstm_bwd.cu"
+LEAN_SOURCE = "lstm_lean_fwd.cu"
+LEAN_BWD_SOURCE = "lstm_lean_bwd.cu"
 
 # kernel launches since the last reset (one per wrapper call that launched);
 # chip_smoke.py reads them to show that the main path went through the
 # kernels
 launches = 0
 bwd_launches = 0
+lean_launches = 0
+lean_bwd_launches = 0
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), kept in x's dtype: the operand
+    of a bf16 product, whose products with another such operand are exact
+    in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def lstm_recurrence_ref(
@@ -51,12 +75,25 @@ def lstm_recurrence_ref(
     and the cell output's activation) and `ln` (a layer norm applied to each
     h_t, which the next step then reads; c is carried as it is, tpukaldi's
     `LSTM.replace_output`) cover the layers the kernel does not take."""
+    return _lstm_loop(ff, u, mask, act, ln, _identity)
+
+
+def lstm_recurrence_lean_ref(
+    ff: torch.Tensor, u: torch.Tensor, mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4f's computation: `lstm_recurrence_ref` with h and u rounded to bf16
+    as the operands of each step's product, which is exact and summed in
+    float32 (tpukaldi's `_lstm_lean_kernel`); h and c stay float32."""
+    return _lstm_loop(ff, _bf16(u), mask, torch.tanh, None, _bf16)
+
+
+def _lstm_loop(ff, u, mask, act, ln, operand):
     H = ff.shape[-1] // 4
     h = ff.new_zeros((ff.shape[1], H))
     c = ff.new_zeros((ff.shape[1], H))
     hs, cs = [], []
     for ff_t in ff:
-        a = ff_t + h @ u
+        a = ff_t + operand(h) @ u
         f = torch.sigmoid(a[:, :H])
         i = torch.sigmoid(a[:, H:2 * H])
         o = torch.sigmoid(a[:, 2 * H:3 * H])
@@ -76,18 +113,34 @@ def lstm_recurrence_bwd_ref(
     """The backward kernel's computation as a reverse-time loop (tpukaldi's
     `_bwd_scan`): ff, h and c (the forward's outputs), g = dL/dh, u, mask
     (B, H) -> (dff (T, B, 4H), du (H, 4H), dmask (B, H))."""
+    return _lstm_bwd_loop(ff, h, c, g, u, mask, _identity)
+
+
+def lstm_recurrence_lean_bwd_ref(
+    ff: torch.Tensor, h: torch.Tensor, c: torch.Tensor, g: torch.Tensor,
+    u: torch.Tensor, mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4b's computation and the dU contraction after it (tpukaldi's
+    `_lstm_lean_bwd_kernel` and `_lean_bwd`): the gates recomputed with the
+    forward's bf16 products, the dh chain as bf16(dA) @ bf16(u)^T summed in
+    float32, and du = h_prev^T dff in float32."""
+    return _lstm_bwd_loop(ff, h, c, g, u, mask, _bf16)
+
+
+def _lstm_bwd_loop(ff, h, c, g, u, mask, operand):
     T, B, H4 = ff.shape
     H = H4 // 4
     zeros = h.new_zeros((1, B, H))
     h_prev = torch.cat([zeros, h[:-1]])
     c_prev = torch.cat([zeros, c[:-1]])
-    a = ff + (h_prev.reshape(T * B, H) @ u).reshape(T, B, H4)
+    u_op = operand(u)
+    a = ff + (operand(h_prev).reshape(T * B, H) @ u_op).reshape(T, B, H4)
     f = torch.sigmoid(a[..., :H])
     i = torch.sigmoid(a[..., H:2 * H])
     o = torch.sigmoid(a[..., 2 * H:3 * H])
     cand = torch.tanh(a[..., 3 * H:])
     tanh_c = torch.tanh(c)
-    ut = u.t()
+    ut = u_op.t()
     dff = ff.new_empty((T, B, H4))
     dmask = ff.new_zeros((B, H))
     dh = ff.new_zeros((B, H))
@@ -100,7 +153,7 @@ def lstm_recurrence_bwd_ref(
         dff[t, :, H:2 * H] = dc * cand[t] * mask * i[t] * (1.0 - i[t])
         dff[t, :, 3 * H:] = dc * i[t] * mask * (1.0 - cand[t] ** 2)
         dmask = dmask + dc * i[t] * cand[t]
-        dh = dff[t] @ ut
+        dh = operand(dff[t]) @ ut
         dc = dc * f[t]
     du = h_prev.reshape(T * B, H).t() @ dff.reshape(T * B, H4)
     return dff, du, dmask
@@ -170,3 +223,84 @@ class LSTMRecurrence(torch.autograd.Function):
     def backward(ctx, g):
         ff, u, mask, h, c = ctx.saved_tensors
         return lstm_recurrence_bwd(ff, h, c, g.contiguous(), u, mask)
+
+
+def _pack(u: torch.Tensor, H: int) -> torch.Tensor:
+    """bf16 (H, H, 4) with [k, j, g] = U[k, gH + j]: thread j's four gate
+    weights of row k side by side (`csrc/lstm_lean_cell.cuh`)."""
+    return u.view(H, 4, H).permute(0, 2, 1).to(torch.bfloat16).contiguous()
+
+
+def _pack_t(u: torch.Tensor, H: int) -> torch.Tensor:
+    """bf16 (H, H, 4) with [k, j, g] = U[j, gH + k]: the transpose that
+    K4b's dh chain reads."""
+    return u.view(H, 4, H).permute(2, 0, 1).to(torch.bfloat16).contiguous()
+
+
+def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
+                         mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward (h, c) with bf16 recurrent products: launch K4f on a CUDA
+    tensor (u, float32, is rounded and packed once per call); the plain
+    version on CPU.  Builds no autograd graph of its own:
+    `LSTMLeanRecurrence` is the differentiable entry."""
+    global lean_launches
+    if ff.device.type == "cpu":
+        return lstm_recurrence_lean_ref(ff, u, mask)
+    entry, max_hidden = _launch.bind(LEAN_SOURCE, "lstm_lean_fwd", 5, 3)
+    T, B, H = _launch.dims("lstm_recurrence_lean", ff, 4)
+    _launch.check_inputs("lstm_recurrence_lean", H, max_hidden,
+                         ff=(ff, (T, B, 4 * H)), u=(u, (H, 4 * H)),
+                         mask=(mask, (B, H)))
+    h = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
+    c = torch.empty_like(h)
+    if T == 0:
+        return h, c
+    _launch.launch("lstm_lean_fwd", entry, (ff, _pack(u, H), mask, h, c),
+                   T, B, H)
+    lean_launches += 1
+    return h, c
+
+
+def lstm_recurrence_lean_bwd(
+    ff: torch.Tensor, h: torch.Tensor, c: torch.Tensor, g: torch.Tensor,
+    u: torch.Tensor, mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward (dff, du, dmask) with bf16 recurrent products: K4b on CUDA
+    tensors for dff and dmask, then du = h_prev^T dff as one float32 GEMM
+    over the T * B rows (h_prev[0] = 0 adds nothing); the plain version on
+    CPU."""
+    global lean_bwd_launches
+    if ff.device.type == "cpu":
+        return lstm_recurrence_lean_bwd_ref(ff, h, c, g, u, mask)
+    entry, max_hidden = _launch.bind(LEAN_BWD_SOURCE, "lstm_lean_bwd", 9, 3)
+    T, B, H = _launch.dims("lstm_recurrence_lean_bwd", ff, 4)
+    _launch.check_inputs("lstm_recurrence_lean_bwd", H, max_hidden,
+                         ff=(ff, (T, B, 4 * H)), h=(h, (T, B, H)),
+                         c=(c, (T, B, H)), g=(g, (T, B, H)),
+                         u=(u, (H, 4 * H)), mask=(mask, (B, H)))
+    dff = torch.empty_like(ff)
+    if T == 0:
+        return dff, torch.zeros_like(u), torch.zeros_like(mask)
+    dmask = torch.empty_like(mask)
+    _launch.launch("lstm_lean_bwd", entry,
+                   (ff, h, c, g, _pack(u, H), _pack_t(u, H), mask, dff, dmask),
+                   T, B, H)
+    lean_bwd_launches += 1
+    du = h[:-1].reshape(-1, H).t() @ dff[1:].reshape(-1, 4 * H)
+    return dff, du, dmask
+
+
+class LSTMLeanRecurrence(torch.autograd.Function):
+    """h = lean recurrence(ff, u, mask) with K4b as its gradient; mask is
+    (B, H).  Saves (ff, u, mask, h, c), as tpukaldi's `_lean_fwd` does."""
+
+    @staticmethod
+    def forward(ctx, ff, u, mask):
+        h, c = lstm_recurrence_lean(ff, u, mask)
+        ctx.save_for_backward(ff, u, mask, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        ff, u, mask, h, c = ctx.saved_tensors
+        return lstm_recurrence_lean_bwd(ff, h, c, g.contiguous(), u, mask)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpukaldi.config.schema import to_bool
+from ..config.schema import to_bool
 
 
 def act_fun(name: str) -> Callable[[torch.Tensor], torch.Tensor]:

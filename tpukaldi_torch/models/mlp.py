@@ -13,8 +13,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from tpukaldi.config.schema import to_bool
-
+from ..config.schema import to_bool
 from .common import (
     RefLayerNorm,
     act_fun,

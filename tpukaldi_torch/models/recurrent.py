@@ -34,8 +34,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from tpukaldi.config.schema import to_bool
-
+from ..config.schema import to_bool
 from ..kernels.gru import GRURecurrence, gru_recurrence_ref
 from ..kernels.ligru import LiGRURecurrence, ligru_recurrence_ref
 from ..kernels.lstm import LSTMRecurrence, lstm_recurrence_ref

@@ -2,7 +2,7 @@
 
 Cfgs name `arch_library = tpukaldi.models` (or the reference's
 `neural_networks`); the port resolves those names from its own table and
-never imports `tpukaldi.models`, which needs JAX.
+never imports `tpukaldi.models` (nor anything else of tpukaldi).
 """
 
 from __future__ import annotations
@@ -12,16 +12,17 @@ from typing import Dict, Type
 from torch import nn
 
 from .mlp import MLP
+from .quaternion import QLSTM
 from .recurrent import GRU, LSTM, liGRU
 
 LIBRARIES = ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks")
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
-    "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU}
+    "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU, "QLSTM": QLSTM}
 
 # tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1)
 NOT_PORTED = (
-    "RNN", "minimalGRU", "QLSTM", "CNN", "SincNet",
+    "RNN", "minimalGRU", "CNN", "SincNet",
     "logMelFb", "channel_averaging", "LSTM_cudnn", "GRU_cudnn", "RNN_cudnn",
     "fusionRNN", "fusionRNN_jit", "SRU", "PASE",
 )

@@ -1,22 +1,27 @@
-"""A synthetic Kaldi TIMIT tree in real formats, and a TIMIT fMLLR recipe
-cfg pointed at it (the flagship `cfg/TIMIT/liGRU_fmllr.cfg` by default, or
-`recipe_cfg("LSTM")`, `recipe_cfg("GRU")`), for training
+"""Synthetic Kaldi trees in real formats, and the recipe cfgs pointed at
+them: the TIMIT fMLLR recipes (the flagship `cfg/TIMIT/liGRU_fmllr.cfg` by
+default, or `recipe_cfg("LSTM")`, `recipe_cfg("GRU")`) over a TIMIT tree,
+and the DIRHA QLSTM recipe (`recipe_cfg("QLSTM")`, `cfg/DIRHA/QLSTM_mfcc.cfg`)
+over a DIRHA tree (`write_kaldi_tree(..., corpus="DIRHA")`), for training
 (`write_train_cfg`) or production forward (`write_prod_cfg`) — inputs for
 running the port end to end without a corpus (`chip_smoke.py`, the tests)
 — and helpers to set up and check such a run: seeded initial or final
 checkpoints, the forward outputs, and a second forward of chosen
 utterances.
 
-The tree carries what those cfgs read: per split a
-`feats.ark/.scp` (aliased as the mfcc/fbank/fmllr streams), `utt2spk`,
-per-speaker CMVN stats, and an alignment dir with gzipped transition-id
-archives and a binary `final.mdl`, so `N_out_lab_cd`/`N_out_lab_mono` and
-the prior counts resolve natively (hmm-info, ali-to-pdf, analyze-counts).
-Features are pdf-conditioned Gaussians from a numpy seed.
+A tree carries what those cfgs read: per split a `feats.ark/.scp` (aliased
+as the mfcc/fbank/fmllr streams), `utt2spk`, per-speaker CMVN stats per
+stream, and alignments, gzipped transition-id archives beside a binary
+`final.mdl`, so `N_out_lab_cd`/`N_out_lab_mono` and the prior counts
+resolve natively (hmm-info, ali-to-pdf, analyze-counts).  TIMIT keeps one
+alignment dir per split, DIRHA one for all three.  Features are
+pdf-conditioned Gaussians from a numpy seed.  The QLSTM's quaternion
+projection needs its spliced input, (2 + 1 + 2) x the stream width, to be a
+multiple of 4: a 40-dim stream gives 200.
 
-The LSTM and GRU recipes have no `lstm_impl`/`gru_impl` line (tpukaldi
-reads `auto` then), and an override of a field the cfg lacks is refused, so
-a run that wants another impl adds the line with `replace=`, e.g.
+The LSTM, GRU and QLSTM recipes have no `*_impl` line (tpukaldi reads
+`auto` then), and an override of a field the cfg lacks is refused, so a run
+that wants another impl adds the line with `replace=`, e.g.
 `{"lstm_orthinit = True": "lstm_orthinit = True\nlstm_impl = scan"}`.
 """
 
@@ -32,25 +37,25 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpukaldi.config import load_config
-from tpukaldi.config.cfg import ExperimentConfig
-from tpukaldi.io import (
+from ..config import load_config
+from ..config.cfg import ExperimentConfig
+from ..config.model_dsl import used_names
+from ..graph.compiler import build_graph, init_graph
+from ..io import (
     ArkScpWriter,
     compute_cmvn_stats,
     read_mat_ark,
     write_mat,
     write_vec_int,
 )
-from tpukaldi.io.feats import load_counts
-from tpukaldi.io.transition_model import (
+from ..io.feats import load_counts
+from ..io.transition_model import (
     HmmState,
     TransitionModel,
     write_transition_model,
 )
-from tpukaldi.plan import build_plan
-from tpukaldi.plan.planner import ExperimentPlan
-
-from ..graph.compiler import build_graph, init_graph
+from ..plan import build_plan
+from ..plan.planner import ExperimentPlan
 from ..train.checkpoint import save_all
 from ..train.chunk_runtime import ChunkRuntime, batch_seed, read_info
 from ..train.step import forward_step, train_step
@@ -58,17 +63,31 @@ from ..train.step import forward_step, train_step
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+# the recipe cfg of each recurrent class the port runs end to end
+RECIPES = {
+    "liGRU": ("TIMIT", "liGRU_fmllr.cfg"),
+    "LSTM": ("TIMIT", "LSTM_fmllr.cfg"),
+    "GRU": ("TIMIT", "GRU_fmllr.cfg"),
+    "QLSTM": ("DIRHA", "QLSTM_mfcc.cfg"),
+}
+
+
 def recipe_cfg(arch_class: str) -> str:
-    """The TIMIT fMLLR recipe of a recurrent class (liGRU, LSTM, GRU, ...)."""
-    return os.path.join(_REPO, "cfg", "TIMIT", f"{arch_class}_fmllr.cfg")
+    """The recipe cfg of a recurrent class: the TIMIT fMLLR recipes of the
+    liGRU, LSTM and GRU, the DIRHA mfcc recipe of the QLSTM."""
+    return os.path.join(_REPO, "cfg", *RECIPES[arch_class])
 
 
 FLAGSHIP_CFG = recipe_cfg("liGRU")
 
+# alignment dir of each split, per corpus layout (the recipes' lab_folder)
 _ALI_DIRS = {
-    "train": "dnn4_pretrain-dbn_dnn_ali",
-    "dev": "dnn4_pretrain-dbn_dnn_ali_dev",
-    "test": "dnn4_pretrain-dbn_dnn_ali_test",
+    "TIMIT": {"train": "dnn4_pretrain-dbn_dnn_ali",
+              "dev": "dnn4_pretrain-dbn_dnn_ali_dev",
+              "test": "dnn4_pretrain-dbn_dnn_ali_test"},
+    "DIRHA": {"train": "dnn4_pretrain-dbn_dnn_ali",
+              "dev": "dnn4_pretrain-dbn_dnn_ali",
+              "test": "dnn4_pretrain-dbn_dnn_ali"},
 }
 
 
@@ -102,16 +121,17 @@ def write_kaldi_tree(
     n_pdfs: int,
     splits: Dict[str, Tuple[int, int, int]],
     seed: int = 21,
+    corpus: str = "TIMIT",
 ) -> str:
-    """Write the tree under `root`; `splits` maps train/dev/test to
-    (utterances, min frames, max frames)."""
+    """Write the tree under `root` in `corpus`'s layout (TIMIT or DIRHA);
+    `splits` maps train/dev/test to (utterances, min frames, max frames)."""
     tm = transition_model(n_phones, n_pdfs)
     rng = np.random.default_rng(seed)
     means = rng.standard_normal((tm.num_pdfs, dim)) * 2.0
     os.makedirs(os.path.join(root, "exp", "tri3", "graph"), exist_ok=True)
-    for split, (n, lo, hi) in splits.items():
+    for n_split, (split, (n, lo, hi)) in enumerate(splits.items(), 1):
         d = os.path.join(root, "data", split)
-        alidir = os.path.join(root, "exp", _ALI_DIRS[split])
+        alidir = os.path.join(root, "exp", _ALI_DIRS[corpus][split])
         os.makedirs(d, exist_ok=True)
         os.makedirs(alidir, exist_ok=True)
         write_transition_model(tm, os.path.join(alidir, "final.mdl"))
@@ -131,7 +151,7 @@ def write_kaldi_tree(
                 u2s.write(f"{key} {spk}\n")
                 write_vec_int(ali_buf, tids, key=key)
                 cmvn[spk] = cmvn.get(spk, 0) + compute_cmvn_stats(fea)
-        with gzip.open(os.path.join(alidir, "ali.1.gz"), "wb") as f:
+        with gzip.open(os.path.join(alidir, f"ali.{n_split}.gz"), "wb") as f:
             f.write(ali_buf.getvalue())
         # the cfg lists three corpus streams; alias the same ark for each
         for stream in ("mfcc", "fbank", "fmllr"):
@@ -154,7 +174,7 @@ def _write_cfg(text: str, tree: str, out_folder: str, cfg_path: str,
         if old not in text:
             raise ValueError(f"cfg line {old!r} not found in {recipe}")
         text = text.replace(old, new)
-    text = text.replace("$KALDI_TIMIT", tree)
+    text = text.replace("$KALDI_TIMIT", tree).replace("$KALDI_DIRHA", tree)
     with open(cfg_path, "w") as f:
         f.write(text)
     return cfg_path
@@ -184,31 +204,42 @@ def write_prod_cfg(
     recipe: str = FLAGSHIP_CFG,
 ) -> str:
     """The recipe cfg in production (transcription-only) mode: a
-    `TIMIT_prod` dataset over the test features with `lab_name=none` (the
-    pattern of cfg/TIMIT/MLP_fbank_prod.cfg) and `forward_with = TIMIT_prod`.
+    `<corpus>_prod` dataset (`TIMIT_prod`, `DIRHA_prod`) over the test
+    features with `lab_name=none` (the pattern of
+    cfg/TIMIT/MLP_fbank_prod.cfg) and `forward_with = <corpus>_prod`.
     `replace` maps cfg lines to their substitutes (e.g. to shrink a run)."""
     with open(recipe) as f:
         text = f.read()
+    test_name = re.search(r"^forward_with = (\S+)_test$", text, re.M).group(1)
     test_block = text[text.index("[dataset3]"):text.index("[data_use]")]
+    lab = test_block[test_block.index("lab = "):test_block.index("n_chunks")]
     prod_block = test_block.replace("[dataset3]", "[dataset4]").replace(
-        "data_name = TIMIT_test", "data_name = TIMIT_prod")
+        f"data_name = {test_name}_test", f"data_name = {test_name}_prod")
     prod_block = (
         prod_block[: prod_block.index("lab = ")]
         + "lab = lab_name=none\n"
-        + "\tlab_data_folder=$KALDI_TIMIT/data/test/\n"
-        + "\tlab_graph=$KALDI_TIMIT/exp/tri3/graph\n\n"
+        + re.search(r"^[ \t]*lab_data_folder=.*\n", lab, re.M).group(0)
+        + re.search(r"^[ \t]*lab_graph=.*\n", lab, re.M).group(0) + "\n"
         + prod_block[prod_block.index("n_chunks"):]
     )
     text = text.replace("[data_use]", prod_block + "[data_use]")
-    text = text.replace("forward_with = TIMIT_test", "forward_with = TIMIT_prod")
+    text = text.replace(f"forward_with = {test_name}_test",
+                        f"forward_with = {test_name}_prod")
     return _write_cfg(text, tree, out_folder, cfg_path, replace, recipe)
 
 
 def _seeded_graph(cfg_path: str, dim: int):
     """The port's init of the cfg's graph from its `seed` (random weights),
-    on the CPU; `dim` is the fmllr feature width."""
+    on the CPU; `dim` is the tree's stream width, which each stream the
+    [model] reads splices (cw_left + 1 + cw_right) times."""
     exp = load_config(cfg_path)
-    graph = build_graph(exp, {"fmllr": (0, dim)}, {}, "cpu")
+    ds = next(iter(exp.datasets.values()))
+    layout, off = {}, 0
+    for name in used_names(exp.model, list(ds.features), "input"):
+        width = dim * ds.features[name].spliced_factor
+        layout[name] = (off, off + width)
+        off += width
+    graph = build_graph(exp, layout, {}, "cpu")
     init_graph(graph, exp.seed)
     return exp, graph
 

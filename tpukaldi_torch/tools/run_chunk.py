@@ -6,7 +6,7 @@ PyTorch (counterpart of `tpukaldi/tools/run_chunk.py`).
 
 The reference schedules chunks as separate processes (`run_exp.py` launches
 `core.run_nn(config_chunk_file)` per chunk, optionally through the `cmd`
-prefix); every chunk cfg the shared planner writes (`plan/chunk_cfg.py`) is
+prefix); every chunk cfg the planner writes (`plan/chunk_cfg.py`) is
 directly executable here too.  It loads the chunk's .lst feature lists,
 restores the `arch_pretrain_file` checkpoints (weights and optimizer
 state), runs the task (train/valid/forward per `to_do`) and writes the
@@ -24,9 +24,8 @@ import sys
 import tempfile
 from typing import List, Optional
 
-from tpukaldi.config.cfg import ExperimentConfig, load_config
-from tpukaldi.plan.planner import ChunkTask
-
+from ..config.cfg import ExperimentConfig, load_config
+from ..plan.planner import ChunkTask
 from ..train.chunk_runtime import ChunkRuntime
 from .run_exp import resolve_device
 

@@ -6,8 +6,8 @@ reference run_exp.py:1-621).
 
 Drives: config load -> plan -> (train chunks with interleaved validation ->
 new-bob lr annealing) x epochs -> res.res -> final checkpoints -> forward
-posteriors -> Kaldi decode bridge, on the shared config, planner, ledger and
-decode code.  Crash recovery goes through the `.info` ledger as in
+posteriors -> Kaldi decode bridge, on the port's copies of tpukaldi's
+config, planner, ledger and decode code.  Crash recovery goes through the `.info` ledger as in
 tpukaldi: done tasks are skipped on restart.  `--device cuda` without a CUDA
 device is an error; there is no fallback to the CPU.
 """
@@ -24,13 +24,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tpukaldi.config import ConfigError, load_config
-from tpukaldi.config.cfg import ExperimentConfig
-from tpukaldi.decode.bridge import harvest_wer, run_decode
-from tpukaldi.forward.counts import resolve_count_files
-from tpukaldi.plan import ChunkTask, build_plan, repair_resume_point
-from tpukaldi.plan.chunk_cfg import write_chunk_cfg
-
+from ..config import ConfigError, load_config
+from ..config.cfg import ExperimentConfig
+from ..decode.bridge import harvest_wer, run_decode
+from ..forward.counts import resolve_count_files
+from ..plan import ChunkTask, build_plan, repair_resume_point
+from ..plan.chunk_cfg import write_chunk_cfg
 from ..train.chunk_runtime import ChunkResult, ChunkRuntime, read_info
 
 # per-chunk phases summed into the `phases ep=` line of res.res

@@ -2,9 +2,8 @@
 (counterpart of tpukaldi's `train/chunk_runtime.py`, reference core.py:438
 `run_nn`).
 
-Per task it loads the chunk on the host (the shared
-`tpukaldi.data.chunk_loader`) and runs the step batch by batch on the
-runtime's device.  Train and valid tasks take tpukaldi's batches
+Per task it loads the chunk on the host (`data.chunk_loader`) and runs
+the step batch by batch on the runtime's device.  Train and valid tasks take tpukaldi's batches
 (`iter_seq_batches` / `iter_frame_batches`, bucket-padded unless
 `TPUKALDI_PAD_TO_BUCKET=0`), keep loss and err on the device until the
 chunk ends, and a train task writes its checkpoints (synchronously) before
@@ -26,26 +25,25 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from tpukaldi.config.cfg import ExperimentConfig
-from tpukaldi.config.model_dsl import used_names
-from tpukaldi.data.batching import (
+from ..config.cfg import ExperimentConfig
+from ..config.model_dsl import used_names
+from ..data.batching import (
     iter_forward_batches,
     iter_frame_batches,
     iter_seq_batches,
 )
-from tpukaldi.data.chunk_loader import ChunkData, load_chunk
-from tpukaldi.forward.posteriors import PosteriorWriter
-from tpukaldi.plan.planner import ChunkTask
-
+from ..data.chunk_loader import ChunkData, load_chunk
+from ..forward.posteriors import PosteriorWriter
 from ..graph.compiler import build_graph, init_graph
 from ..models.common import float_list
+from ..plan.planner import ChunkTask
 from . import checkpoint as ckpt
 from .optimizers import make_all_optimizers
 from .step import eval_step, forward_step, train_step
 
 # batches run since the last reset, by task phase; chip_smoke.py holds the
-# recurrence kernels' launch counts to them (liGRU, LSTM and GRU: forward
-# kernel once per layer per batch, backward kernel once per layer per train
+# recurrence kernels' launch counts to them (liGRU, LSTM, GRU and QLSTM:
+# forward kernel once per layer per batch, backward kernel once per layer per train
 # batch)
 train_batches = 0
 valid_batches = 0
@@ -116,7 +114,7 @@ class ChunkRuntime:
     # ---------------- data ----------------
     def load_task_chunk(self, task: ChunkTask,
                         max_seq_length=None) -> ChunkData:
-        """Host path: the shared chunk loader, only the streams the [model]
+        """Host path: the chunk loader, only the streams the [model]
         program references.  `max_seq_length` defaults to the cfg's for the
         task's phase and epoch."""
         ds = self.exp.datasets[task.dataset]

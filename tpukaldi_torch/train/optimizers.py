@@ -31,9 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpukaldi.config.cfg import ArchSpec
-
 from ..compat.jax_params import moments_from_jax, moments_to_jax
+from ..config.cfg import ArchSpec
 
 
 class ArchOptimizer:
