@@ -3,19 +3,27 @@
 
     python3 chip_smoke.py
 
-Four recipes run at full width.  Three TIMIT fMLLR recipes, 5x550
+Six recipes run at full width.  Three TIMIT fMLLR recipes, 5x550
 bidirectional with batchnorm, recurrent dropout 0.2, two softmax heads (cd
 head 1944 pdfs) and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg,
 relu), the LSTM (LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
-And the DIRHA QLSTM (cfg/DIRHA/QLSTM_mfcc.cfg): 2x1024 bidirectional
+The DIRHA QLSTM (cfg/DIRHA/QLSTM_mfcc.cfg): 2x1024 bidirectional
 quaternion LSTM, tanh, recurrent dropout 0.2, the lean quaternion backward
 (`autograd = False`), one softmax head, rmsprop, batch 16, whose recurrence
-runs the bf16-U kernels.
+runs the bf16-U kernels.  And the TIMIT raw-waveform recipes over 3200-sample
+windows, batch 128, each with an MLP 2048,2048,1944 (batchnorm,
+leaky_relu, softmax): CNN_raw.cfg (convs 128,60,60,60, layer norm, relu,
+dropout 0.15, rmsprop), whose layer 0 runs the fused conv, pool, layer
+norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
+80,60,60, leaky_relu, sgd), whose layer 0 runs the conv + pool kernels
+(K5f/K5b).
 
-1. Builds the port's eight CUDA kernels (tpukaldi_torch/kernels/csrc/
-   {ligru,lstm,gru,lstm_lean}_{fwd,bwd}.cu), one nvcc per source, all at
-   once, for sm_90a into build/tpukaldi_torch/, and prints each kernel's
-   registers and spills from ptxas's report.
+1. Builds the port's twelve CUDA kernels (tpukaldi_torch/kernels/csrc/
+   {ligru,lstm,gru,lstm_lean}_{fwd,bwd}.cu, conv_pool_{fwd,bwd}.cu and
+   conv_ln_{fwd,bwd}.cu), one nvcc per source, all at once, for sm_90a into
+   build/tpukaldi_torch/, and prints each kernel's registers and spills
+   from ptxas's report.  The port's `resolve_device("cuda")` pins float32
+   (cuDNN's TF32 off) first; this script sets no precision flag itself.
 2. Kernel phase, each kernel against its plain PyTorch version on the card:
    the forward recurrences (K1f liGRU, K2f LSTM, K3f GRU) at (T=778,
    B=64, H=550), the forward batch of 32 doubled by the bidirectional
@@ -29,23 +37,30 @@ runs the bf16-U kernels.
    (forward kernel, then backward kernel) against its plain versions at a
    small shape.  K4f is also held, step by step, to one plain step from its
    own previous state, and K4f and K4b are timed beside the float32 K2f
-   and K2b on the same inputs.  Beside each kernel: the least time the card could
-   take for the same work (bytes or operations, at the published peaks),
-   and for K2f and K4f the time of cuDNN's LSTM on the same inputs at
-   mask 1 (a yardstick the port never calls).
+   and K2b on the same inputs.  The conv kernels (K5f, K5b, K6f, K6b) at
+   the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
+   at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
+   and K6f on the serving batch of 32,000 windows (a slice held to the
+   plain version); the backwards given the kernel's own argmax.  Beside
+   each kernel: the least time the card could take for the same work
+   (bytes or operations, at the published peaks), and a library
+   yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f,
+   F.conv1d + F.max_pool1d (+ the layer norm and relu as PyTorch ops, and
+   their autograd backward) for the conv kernels.
 3. Serving phase, per recipe: the production forward over a synthetic
    Kaldi tree in real formats (40-dim fMLLR or mfcc, 192 test utterances
-   of 150-778 frames) through `run_experiment(device="cuda")`, from random
-   final checkpoints made from a seed: the recipe's forward kernel once per
-   layer per forward batch and no backward launch, 192 finite 1944-wide
-   posterior matrices agreeing with the plain path and, for two
-   utterances, with the CPU path.
+   of 150-778 frames; the raw tree 48 of 3200-sample windows per frame)
+   through `run_experiment(device="cuda")`, from random final checkpoints
+   made from a seed: the recipe's forward kernel once per layer per forward
+   batch and no backward launch, finite 1944-wide posterior matrices
+   agreeing with the plain path and, for two utterances, with the CPU path,
+   and the peak device memory.
 4. Training phase, per recipe, the slice's main path: the cfg over the same
-   tree (train 64 utterances of 150-778 frames, dev 16), with 2 epochs of 2
-   train chunks and no sequence-length curriculum, through
-   `run_experiment(device="cuda")`: train and valid chunks, new-bob,
-   res.res, final checkpoints, then the forward stage.  It checks the
-   ledger, the checkpoints and the two `ep=` lines, that the train loss
+   tree (train 64 utterances of 150-778 frames, dev 16; raw: 32 and 8),
+   with 2 epochs of 2 train chunks and no sequence-length curriculum,
+   through `run_experiment(device="cuda")`: train and valid chunks,
+   new-bob, res.res, final checkpoints, then the forward stage.  It checks
+   the ledger, the checkpoints and the two `ep=` lines, that the train loss
    fell, that the forward kernel ran once per layer per (train + valid +
    forward) batch and the backward kernel once per layer per train batch
    (the runtime's own counters), the arks, and two utterances against the
@@ -56,10 +71,12 @@ runs the bf16-U kernels.
    train chunk again under torch.profiler: device busy time, idle share,
    top device ops and, for the train chunk, device time by layer.
 
-The plain path of a TIMIT recipe is `*_impl = scan`, the plain loop through
-autograd.  The QLSTM's is its bf16-U kernels' plain versions, run on the
-card through the same autograd Function (`plain_recurrences`), since the
-kernel path is held to the same bf16 arithmetic.  Each path is driven with
+The plain path of a TIMIT recurrent recipe is `*_impl = scan`, the plain
+loop through autograd.  The QLSTM's is its bf16-U kernels' plain versions,
+run on the card through the same autograd Function (`plain_recurrences`),
+since the kernel path is held to the same bf16 arithmetic.  A raw recipe's
+is `TPUKALDI_CONV_IMPL=nhc`, the composed path (cuDNN's conv, pooling and
+the separate layer norm, activation and dropout).  Each path is driven with
 every kernel's count set to 0 just before it and read just after.  Any
 failed check raises, so the exit code is not 0.  The last lines are the
 card's name and power limit, one JSON line with the kernels, and the
@@ -141,6 +158,25 @@ RECIPES = {
                 corpus="TIMIT", batch=8),
     "QLSTM": dict(cell="lstm_lean", fwd="lstm_lean_fwd", bwd="lstm_lean_bwd",
                   layers=2, corpus="DIRHA", batch=16),
+    # the raw-waveform recipes: one kernel layer (layer 0), frame batches of
+    # 128 windows of 3200 samples; CNN_raw's layer 0 (128 filters, layer
+    # norm, relu) takes K6, SincNet_raw's (80 filters, leaky_relu) K5
+    "CNN": dict(cell="conv1d", fwd="conv_ln_fwd", bwd="conv_ln_bwd", layers=1,
+                corpus="RAW", batch=128, filters=128),
+    "SincNet": dict(cell="conv1d", fwd="conv_pool_fwd", bwd="conv_pool_bwd",
+                    layers=1, corpus="RAW", batch=128, filters=80),
+}
+# each tree's stream width (for the raw stream, its window length) and its
+# splits: train, dev, test as (utterances, min frames, max frames).  The raw
+# tree is sized by its bytes (a frame is 12.8 KB): 88 utterances of 150-778
+# frames, ~0.5 GB of arks
+TREES = {
+    "TIMIT": dict(dim=40, splits={"train": (64, 150, 778), "dev": (16, 150, 778),
+                                  "test": (192, 150, 778)}),
+    "DIRHA": dict(dim=40, splits={"train": (64, 150, 778), "dev": (16, 150, 778),
+                                  "test": (192, 150, 778)}),
+    "RAW": dict(dim=3200, splits={"train": (32, 150, 778), "dev": (8, 150, 778),
+                                  "test": (48, 150, 778)}),
 }
 TRAIN_CUTS = {
     "n_epochs_tr = 24": "n_epochs_tr = 2",
@@ -165,16 +201,64 @@ KERNELS = {
                       "tpukaldi/kernels/lstm.py:390"),
     "lstm_lean_bwd": ("lstm", "lean_bwd_launches", "LEAN_BWD_SOURCE",
                       "tpukaldi/kernels/lstm.py:465"),
+    "conv_pool_fwd": ("conv1d", "launches", "SOURCE",
+                      "tpukaldi/kernels/conv1d.py:123"),
+    "conv_pool_bwd": ("conv1d", "bwd_launches", "BWD_SOURCE",
+                      "tpukaldi/kernels/conv1d.py:191"),
+    "conv_ln_fwd": ("conv1d", "ln_launches", "LN_SOURCE",
+                    "tpukaldi/kernels/conv1d.py:588"),
+    "conv_ln_bwd": ("conv1d", "ln_bwd_launches", "LN_BWD_SOURCE",
+                    "tpukaldi/kernels/conv1d.py:627"),
 }
+# the conv kernels at the raw recipes' shapes: the training batch (128
+# windows of 3200 samples, K = 129, pool 3; O = 80 for SincNet's K5, 128
+# for CNN's K6), the serving batch (32 utterances padded to the 1000-frame
+# bucket: 32,000 windows), and an odd shape (N not a multiple of 8, K <
+# 128, a pool tail, a partial filter tile)
+CONV_TRAIN = (128, 3200, 129, 3)
+CONV_SERVE_N = 32000
+CONV_ODD = (13, 701, 100, 7, 3)
+# a slice of the serving batch held to the plain version (the windows are
+# independent), and the plain version's timing batch: its conv output at
+# 32,000 windows alone would be 50 GB
+CONV_SERVE_CHECK = 1024
+CONV_SERVE_PLAIN_N = 4000
+# kernel vs plain version: float32 sums of 129 products in another order
+# (outputs of order 1-10); the gradients sum 131k terms (dW) or 16.5k (dX)
+# in their own blocked order, held relative to each tensor's max
+CONV_ATOL = 1e-5
+CONV_GRAD_RTOL = 2e-5
+CONV_DROP = 0.15  # CNN_raw's layer-0 dropout
+RAW_PLAIN_FORWARD_BATCH = 8
 # the card's published peaks (H100 SXM, dense): memory, float32 outside
 # the tensor cores, bf16 tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 
 
+def _raw(recipe):
+    return RECIPES[recipe]["corpus"] == "RAW"
+
+
 def _cuts(recipe):
     return {**TRAIN_CUTS, **(TIMIT_CUTS if RECIPES[recipe]["corpus"] == "TIMIT"
                              else {})}
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment knobs for the runs inside (TPUKALDI_CONV_IMPL is read
+    where a module is built, TPUKALDI_FORWARD_BATCH per forward task)."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
 def _scan(recipe):
@@ -192,6 +276,15 @@ def _scan(recipe):
 def _no_drop(recipe):
     if recipe == "QLSTM":
         return {"lstm_drop = 0.2,0.2": "lstm_drop = 0.0,0.0"}
+    if _raw(recipe):
+        # the head's dropout too: the composed path draws layer 0's mask from
+        # the generator where the kernel path draws one seed, so the two
+        # paths' later draws part
+        head = {"dnn_drop = 0.15,0.15,0.0": "dnn_drop = 0.0,0.0,0.0"}
+        if recipe == "CNN":
+            return {**head, "cnn_drop = 0.15,0.15,0.15,0.15":
+                    "cnn_drop = 0.0,0.0,0.0,0.0"}
+        return head
     p = recipe.lower()
     return {f"{p}_drop = 0.2,0.2,0.2,0.2,0.2": f"{p}_drop = 0.0,0.0,0.0,0.0,0.0"}
 
@@ -487,6 +580,214 @@ def kernel_phase(mods) -> dict:
     return {"errs": errs, "timing": timing, "library": library}
 
 
+def conv_bound_ms(name, N, L, K, O, pool, residuals=True):
+    """(least ms the card could take for one call, "bytes" or "operations"):
+    each input read and each output written once at the memory's peak,
+    against the float32 multiply-adds at the float32 peak.  The forwards
+    convolve every position, 2 N (L-K+1) K O flops; a backward needs only
+    the pooled rows' gradients, dX and dW 2 N M K O each, and K6b
+    recomputes the pooled value from x, 2 N M K O more.  `residuals`: the
+    forwards' idx (and K6f's stats) are written (training)."""
+    Lc = L - K + 1
+    M = Lc // pool
+    nmo = N * M * O
+    flops = {"conv_pool_fwd": 2 * N * Lc * K * O, "conv_ln_fwd": 2 * N * Lc * K * O,
+             "conv_pool_bwd": 4 * N * M * K * O, "conv_ln_bwd": 6 * N * M * K * O}
+    x, w = 4 * N * L, 4 * K * O
+    idx = nmo if residuals else 0
+    stats = 8 * N * O if residuals else 0
+    ln_in = 4 * O + 8 * M * O  # bias, gt, bt
+    nbytes = {
+        "conv_pool_fwd": x + w + 4 * nmo + idx,
+        "conv_pool_bwd": x + 4 * nmo + nmo + w + x + w,
+        "conv_ln_fwd": x + w + ln_in + 4 * nmo + idx + stats,
+        "conv_ln_bwd": x + w + ln_in + nmo + 8 * N * O + 4 * nmo
+                       + x + w + ln_in,
+    }
+    bytes_ms = nbytes[name] / PEAK_BYTES * 1e3
+    ops_ms = flops[name] / PEAK_FLOPS["f32"] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms > ops_ms else (ops_ms, "operations")
+
+
+def _conv_composite(F, x, w, bias, gt, bt, pool, eps, ln):
+    """The library yardstick: one cuDNN conv (F.conv1d) and
+    F.max_pool1d(return_indices=True), plus, for K6, the bias, the layer
+    norm over time (the reference's unbiased std, eps on the std) and relu
+    as PyTorch ops; (N, O, M)."""
+    y, _ = F.max_pool1d(F.conv1d(x[:, None, :], w.t()[:, None, :]), pool,
+                        return_indices=True)
+    if not ln:
+        return y
+    y = y + bias[None, :, None]
+    mu = y.mean(2, keepdim=True)
+    std = torch.sqrt(((y - mu) ** 2).sum(2, keepdim=True) / (y.shape[2] - 1))
+    return torch.relu((y - mu) / (std + eps) * gt.t() + bt.t())
+
+
+def _conv_inputs(N, L, K, O, pool, seed):
+    g = torch.Generator().manual_seed(seed)
+    M = (L - K + 1) // pool
+    x = torch.randn(N, L, generator=g)
+    w = torch.randn(K, O, generator=g) / K ** 0.5
+    bias = torch.randn(O, generator=g)
+    gt = 1 + 0.3 * torch.randn(M, O, generator=g)
+    bt = 0.3 * torch.randn(M, O, generator=g)
+    dy = torch.randn(N, M, O, generator=g)
+    return [t.cuda() for t in (x, w, bias, gt, bt, dy)]
+
+
+def conv_kernel_phase(conv1d) -> dict:
+    """K5f/K5b and K6f/K6b against their plain versions: at the training
+    batch for O = 80 and 128 (K6 also at drop 0.15, where kernel and plain
+    version must drop the same elements), at an odd shape, and K5f/K6f on
+    the serving batch (a slice of its windows held to the plain version).
+    The backwards are held given the kernel's own idx: a sum in another
+    order can flip a near-tie argmax, which moves a gradient to the
+    neighbouring sample.  Times: median of 5 launches, the plain version's
+    of 3, the library composite's of 3.  Returns {kernel name: record} at
+    the recipe's shape (K5 at O = 80, K6 at O = 128)."""
+    import torch.nn.functional as F
+
+    N, L, K, pool = CONV_TRAIN
+    eps, seed = 1e-6, -12345
+    rec = {}
+    # (relu off, a linear layer 0, at the odd shape without dropout)
+    shapes = [(N, L, K, O, pool, drop, True) for O in (80, 128)
+              for drop in (0.0, CONV_DROP)] + [(*CONV_ODD, 0.0, False),
+                                               (*CONV_ODD, CONV_DROP, True)]
+    for n_, l_, k_, o_, p_, drop, relu in shapes:
+        x, w, bias, gt, bt, dy = _conv_inputs(n_, l_, k_, o_, p_, n_ + o_)
+        tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
+        train = (n_, l_, k_, p_) == CONV_TRAIN
+        with torch.inference_mode():
+            got = {}
+            if drop == 0.0:
+                y, idx = conv1d.conv1d_pool(x, w, p_)
+                y_r, idx_r = conv1d.conv1d_pool_ref(x, w, p_)
+                dx, dw = conv1d.conv1d_pool_bwd(x, dy, idx, w, p_)
+                dx_r, dw_r = conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, p_)
+                torch.cuda.synchronize()
+                got["conv_pool_fwd"] = ((y - y_r).abs().max().item(),
+                                        (idx != idx_r).sum().item())
+                got["conv_pool_bwd"] = max(
+                    ((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in ((dx, dx_r), (dw, dw_r)))
+            ln = (x, w, bias, gt, bt, seed, p_, eps, relu, drop)
+            z, idx6, stats = conv1d.conv1d_pool_ln_act(*ln)
+            z_r, idx6_r, stats_r = conv1d.conv1d_pool_ln_act_ref(*ln)
+            gk = conv1d.conv1d_pool_ln_act_bwd(*ln[:6], idx6, stats, dy,
+                                               *ln[6:])
+            gr = conv1d.conv1d_pool_ln_act_bwd_ref(*ln[:6], idx6, stats, dy,
+                                                   *ln[6:])
+            torch.cuda.synchronize()
+            dropped = ((z == 0) != (z_r == 0)).sum().item()
+            got["conv_ln_fwd"] = (max((z - z_r).abs().max().item(),
+                                      (stats - stats_r).abs().max().item()),
+                                  (idx6 != idx6_r).sum().item())
+            check(torch.equal(gk[2], torch.zeros_like(bias)),
+                  f"conv_ln_bwd: dbias is not an exact zero at {tag}")
+            got["conv_ln_bwd"] = max(
+                ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for i, (a, b) in enumerate(zip(gk, gr)) if i != 2)
+        for name, e in got.items():
+            fwd = name.endswith("_fwd")
+            err = e[0] if fwd else e
+            tol = CONV_ATOL if fwd else CONV_GRAD_RTOL
+            print(f"kernel {name} {tag} drop={drop}"
+                  + ("" if relu or not name.startswith("conv_ln") else
+                     " linear") + ": "
+                  + (f"max_abs_err={err:.3e} (atol {tol:g}), argmax differs at "
+                     f"{e[1]} of {z.numel()}" if fwd else
+                     f"max_rel_err={err:.3e} of each gradient's max (rtol "
+                     f"{tol:g}), given the kernel's idx")
+                  + (f", dropped elements differ at {dropped}"
+                     if name == "conv_ln_fwd" and drop else ""), flush=True)
+            check(math.isfinite(err) and err <= tol,
+                  f"{name} disagrees with its plain version at {tag}: {err}")
+            r = rec.setdefault(name, {"err": 0.0})
+            r["err"] = max(r["err"], err)
+        if drop:
+            check(dropped == 0, f"conv_ln_fwd drops other elements at {tag}")
+        if not train or drop:
+            continue
+        # times at the training batch, and the library composites
+        lib_in = [t.clone().requires_grad_() for t in (x, w, bias, gt, bt)]
+        for name, kernel, plain in (
+                ("conv_pool_fwd", lambda: conv1d.conv1d_pool(x, w, p_),
+                 lambda: conv1d.conv1d_pool_ref(x, w, p_)),
+                ("conv_pool_bwd",
+                 lambda: conv1d.conv1d_pool_bwd(x, dy, idx, w, p_),
+                 lambda: conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, p_)),
+                ("conv_ln_fwd", lambda: conv1d.conv1d_pool_ln_act(*ln),
+                 lambda: conv1d.conv1d_pool_ln_act_ref(*ln)),
+                ("conv_ln_bwd", lambda: conv1d.conv1d_pool_ln_act_bwd(
+                    *ln[:6], idx6, stats, dy, *ln[6:]),
+                 lambda: conv1d.conv1d_pool_ln_act_bwd_ref(
+                    *ln[:6], idx6, stats, dy, *ln[6:]))):
+            ms = median_ms(kernel, 5)
+            plain_ms = median_ms(plain, 3)
+            use_ln = name.startswith("conv_ln")
+            if name.endswith("_fwd"):
+                with torch.no_grad():
+                    lib_ms = median_ms(lambda: _conv_composite(
+                        F, x, w, bias, gt, bt, p_, eps, use_ln), 3)
+            else:
+                out = _conv_composite(F, *lib_in, p_, eps, use_ln)
+                g = dy.transpose(1, 2)
+                leaves = lib_in if use_ln else lib_in[:2]
+                lib_ms = median_ms(lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True), 3)
+                del out
+            bound, by = conv_bound_ms(name, n_, l_, k_, o_, p_)
+            print(f"kernel {name} N={n_} L={l_} K={k_} O={o_} pool={p_}: "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                  f"composite {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})",
+                  flush=True)
+            own = o_ == (80 if name.startswith("conv_pool") else 128)
+            if own:
+                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 shape=(n_, l_, k_, o_, p_))
+        del lib_in
+    # the serving batch: the forwards alone (no idx, no stats)
+    for name, O in (("conv_pool_fwd", 80), ("conv_ln_fwd", 128)):
+        M = (L - K + 1) // pool
+        x, w, bias, gt, bt, _ = _conv_inputs(1, L, K, O, pool, O)
+        x = torch.randn(CONV_SERVE_N, L, device="cuda")
+        if name == "conv_pool_fwd":
+            kernel = lambda xx: conv1d.conv1d_pool(xx, w, pool,  # noqa: E731
+                                                   need_idx=False)[0]
+            plain = lambda xx: conv1d.conv1d_pool_ref(xx, w, pool)[0]  # noqa: E731
+        else:
+            kernel = lambda xx: conv1d.conv1d_pool_ln_act(  # noqa: E731
+                xx, w, bias, gt, bt, 0, pool, eps, True, 0.0, residuals=False)[0]
+            plain = lambda xx: conv1d.conv1d_pool_ln_act_ref(  # noqa: E731
+                xx, w, bias, gt, bt, 0, pool, eps, True, 0.0)[0]
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            out = kernel(x)
+            n = CONV_SERVE_CHECK
+            err = max((out[sl] - plain(x[sl])).abs().max().item()
+                      for sl in (slice(0, n), slice(-n, None)))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            del out
+            ms = median_ms(lambda: kernel(x), 5)
+            xs = x[:CONV_SERVE_PLAIN_N]
+            plain_ms = median_ms(lambda: plain(xs), 3)
+        bound, by = conv_bound_ms(name, CONV_SERVE_N, L, K, O, pool, False)
+        print(f"kernel {name} serving N={CONV_SERVE_N} L={L} K={K} O={O} "
+              f"pool={pool}: max_abs_err={err:.3e} on {2 * n} windows (atol "
+              f"{CONV_ATOL:g}); kernel {ms:.3f} ms ({M * O * 4 * CONV_SERVE_N / 1e9:.2f}"
+              f" GB out, peak {peak:.2f} GiB), bound {bound:.3f} ms ({by}); "
+              f"plain at N={CONV_SERVE_PLAIN_N} {plain_ms:.3f} ms", flush=True)
+        check(math.isfinite(err) and err <= CONV_ATOL,
+              f"{name} disagrees with its plain version at serving: {err}")
+        rec[name]["err"] = max(rec[name]["err"], err)
+        del x
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _reset_counts(modules, chunk_runtime) -> None:
     for mod, counter, _, _ in KERNELS.values():
         setattr(modules[mod], counter, 0)
@@ -510,7 +811,17 @@ def _plain_path(recipe, modules):
     """The context a recipe's plain path runs in, and its label."""
     if recipe == "QLSTM":
         return plain_recurrences(modules["lstm"]), "the bf16-U plain versions"
+    if _raw(recipe):
+        return (_env(TPUKALDI_CONV_IMPL="nhc"),
+                "TPUKALDI_CONV_IMPL=nhc, the composed path")
     return contextlib.nullcontext(), f"{RECIPES[recipe]['cell']}_impl=scan"
+
+
+def _plain_replace(recipe):
+    """cfg replacements of the plain path: `*_impl = scan` for a TIMIT
+    recurrent recipe; none for the QLSTM and the raw recipes, whose plain
+    path is a context (`_plain_path`)."""
+    return {} if recipe == "QLSTM" or _raw(recipe) else _scan(recipe)
 
 
 def _check_arks(posts, n_utts):
@@ -589,7 +900,8 @@ def serving_phase(modules, trees, recipe) -> dict:
 
     r = RECIPES[recipe]
     tree = trees[r["corpus"]]
-    lean = recipe == "QLSTM"
+    dim = TREES[r["corpus"]]["dim"]
+    n_test = TREES[r["corpus"]]["splits"]["test"][0]
     out = os.path.join(WORK, f"serve_{recipe}")
     out_plain = os.path.join(WORK, f"serve_{recipe}_plain")
     for d in (out, out_plain):
@@ -598,25 +910,33 @@ def serving_phase(modules, trees, recipe) -> dict:
     cfg = ft.write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), recipe=src)
     cfg_plain = ft.write_prod_cfg(tree, out_plain,
                                   os.path.join(out_plain, "run.cfg"),
-                                  None if lean else _scan(recipe), recipe=src)
+                                  _plain_replace(recipe), recipe=src)
     # the same seed, so both runs read the same weights
-    ft.save_seeded_finals(cfg, dim=40)
-    ft.save_seeded_finals(cfg_plain, dim=40)
+    ft.save_seeded_finals(cfg, dim=dim)
+    ft.save_seeded_finals(cfg_plain, dim=dim)
 
     _reset_counts(modules, chunk_runtime)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     exp = run_experiment(cfg, device="cuda")
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts, n_batches = _counts(modules), chunk_runtime.forward_batches
     launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
     _check_only(counts, recipe, f"{recipe} serving")
     posts, info = ft.forward_outputs(out)
 
     plain_ctx, plain_label = _plain_path(recipe, modules)
+    # the composed path's layer-0 conv output alone would take 50 GB at the
+    # 32,000 windows of a forward batch of 32 utterances padded to 1000
+    # frames: its run forwards 8 utterances a batch (a frame's posteriors
+    # do not depend on the batch of a frame-level model in eval mode)
+    fwd_env = (_env(TPUKALDI_FORWARD_BATCH=str(RAW_PLAIN_FORWARD_BATCH))
+               if _raw(recipe) else contextlib.nullcontext())
     _reset_counts(modules, chunk_runtime)
     t0 = time.perf_counter()
-    with plain_ctx:
+    with plain_ctx, fwd_env:
         run_experiment(cfg_plain, device="cuda")
     wall_plain = time.perf_counter() - t0
     check(not any(_counts(modules).values()),
@@ -624,15 +944,15 @@ def serving_phase(modules, trees, recipe) -> dict:
     posts_plain, info_plain = ft.forward_outputs(out_plain)
 
     posts, posts_plain = list(posts), list(posts_plain)
-    names, lengths = _check_arks(posts, 192)
+    names, lengths = _check_arks(posts, n_test)
     worst_plain = 0.0
     for (key, post), (key_p, post_p) in zip(posts, posts_plain):
         check(key == key_p, f"ark order differs: {key} vs {key_p}")
         worst_plain = max(worst_plain, float(abs(post - post_p).max()))
     check(worst_plain <= POSTERIOR_ATOL,
           f"{recipe}: kernel path vs plain path posteriors differ by {worst_plain}")
-    # every forward batch ran its layers through the kernel; 192
-    # utterances in batches of at most 32 take at least 6 batches
+    # every forward batch ran its layers through the kernel; the test
+    # utterances in batches of at most 32 take at least n / 32 batches
     fwd_bs = int(os.environ.get("TPUKALDI_FORWARD_BATCH", "32"))
     check(n_batches >= math.ceil(len(names) / fwd_bs),
           f"{n_batches} forward batches for {len(names)} utterances")
@@ -643,10 +963,10 @@ def serving_phase(modules, trees, recipe) -> dict:
     check(int(info["frames"]) == frames, f".info frames {info['frames']} != {frames}")
     cpu = _check_cpu_path(ft, exp, out, names, lengths, recipe)
 
-    print(f"serving {recipe}: 192 utterances, {frames} frames, {n_batches} "
+    print(f"serving {recipe}: {n_test} utterances, {frames} frames, {n_batches} "
           f"forward batches of up to {fwd_bs}, {r['fwd']} launches {launches} "
-          f"(= {r['layers']} x {n_batches}), arks {N_PDFS} wide, all finite",
-          flush=True)
+          f"(= {r['layers']} x {n_batches}), arks {N_PDFS} wide, all finite; "
+          f"peak device memory {peak:.2f} GiB", flush=True)
     print(f"serving {recipe} kernel path: forward stage "
           f"{info['elapsed_time_chunk']:.3f} s, {info['frames_per_sec']:.1f} "
           f"frames/s (.info), run_experiment wall {wall:.3f} s, phases "
@@ -675,7 +995,6 @@ def train_phase(modules, trees, recipe) -> dict:
 
     r = RECIPES[recipe]
     tree = trees[r["corpus"]]
-    lean = recipe == "QLSTM"
     src = ft.recipe_cfg(recipe)
     out = os.path.join(WORK, f"train_{recipe}")
     out_plain = os.path.join(WORK, f"train_{recipe}_plain")
@@ -685,8 +1004,7 @@ def train_phase(modules, trees, recipe) -> dict:
                              _cuts(recipe), recipe=src)
     cfg_plain = ft.write_train_cfg(
         tree, out_plain, os.path.join(out_plain, "run.cfg"),
-        _cuts(recipe) if lean else {**_cuts(recipe), **_scan(recipe)},
-        recipe=src)
+        {**_cuts(recipe), **_plain_replace(recipe)}, recipe=src)
 
     # the main path, counted
     _reset_counts(modules, chunk_runtime)
@@ -723,8 +1041,15 @@ def train_phase(modules, trees, recipe) -> dict:
     check(tr_loss[1] < tr_loss[0], f"{recipe} train loss did not fall: {tr_loss}")
 
     # the forward kernel ran in every layer of every batch, the backward
-    # kernel in every train batch: 2 epochs x 2 chunks x 32 utterances
-    layers, expected = r["layers"], 2 * 2 * 32 // r["batch"]
+    # kernel in every train batch: 2 epochs x 2 chunks x 32 utterances in
+    # sentence batches, or the raw recipes' frame batches of 128 windows
+    # (each train .info counts its batches' frames)
+    layers = r["layers"]
+    expected = 2 * 2 * 32 // r["batch"]
+    if _raw(recipe):
+        # (a chunk smaller than a batch runs as one batch of its frames)
+        expected = sum(max(1, int(v["frames"]) // r["batch"])
+                       for f, v in values.items() if f.startswith("train_"))
     check(n_train == expected, f"{n_train} train batches, expected {expected}")
     check(launches == layers * (n_train + n_valid + n_fwd),
           f"{r['fwd']} launched {launches} times, expected {layers} x "
@@ -732,8 +1057,9 @@ def train_phase(modules, trees, recipe) -> dict:
     check(bwd == layers * n_train,
           f"{r['bwd']} launched {bwd} times, expected {layers} x {n_train}")
 
+    n_test = TREES[r["corpus"]]["splits"]["test"][0]
     posts, _ = ft.forward_outputs(out)
-    names, lengths = _check_arks(list(posts), 192)
+    names, lengths = _check_arks(list(posts), n_test)
     cpu = _check_cpu_path(ft, exp, out, names, lengths, recipe)
 
     print(f"training {recipe}: 2 epochs, {n_train} train + {n_valid} valid + "
@@ -748,8 +1074,8 @@ def train_phase(modules, trees, recipe) -> dict:
               f"err={v['err']:.4f} frames={int(v['frames'])} "
               f"{v['frames_per_sec']:.1f} frames/s, phases {_phases(v)}",
               flush=True)
-    print(f"training {recipe} arks: 192 finite, {N_PDFS} wide; CUDA vs CPU "
-          f"path (2 utterances) {cpu}", flush=True)
+    print(f"training {recipe} arks: {n_test} finite, {N_PDFS} wide; CUDA vs "
+          f"CPU path (2 utterances) {cpu}", flush=True)
 
     # the plain path on the first train chunk only
     exp_plain, plan_plain = ft.train_plan(cfg_plain)
@@ -764,11 +1090,15 @@ def train_phase(modules, trees, recipe) -> dict:
     check(not any(_counts(modules).values()),
           f"{recipe} plain path launched a kernel: {_counts(modules)}")
     first = values[os.path.basename(task.info_file)]
+    draws = ("layer 0's dropout drawn otherwise: one seed for K6's hash mask "
+             "against a Bernoulli tensor" if recipe == "CNN"
+             else "the same dropout draws")
     print(f"training {recipe} first train chunk: kernel path "
           f"{first['frames_per_sec']:.1f} frames/s, plain path ({plain_label}) "
           f"{plain.frames_per_sec:.1f} frames/s (.info); loss "
-          f"{first['loss']:.6f} vs {plain.loss:.6f} (the same dropout draws)",
-          flush=True)
+          f"{first['loss']:.6f} vs {plain.loss:.6f} ({draws}); phases kernel "
+          f"path {_phases(first)}, plain path " + " ".join(
+              f"{k}={v:.3f}" for k, v in plain.phases.items()), flush=True)
 
     step_check(modules, trees, recipe)
     return {"launches": launches, "bwd_launches": bwd, "cfg": cfg}
@@ -781,9 +1111,13 @@ def step_check(modules, trees, recipe) -> None:
     the plain versions)."""
     from tpukaldi_torch.tools import flagship_tree as ft
 
+    # the port's own setting (`resolve_device` pins it); this script sets
+    # no precision flag itself
     check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
-          "float32 GEMMs must not run in TF32 in the step check")
+          "float32 GEMMs and convolutions must not run in TF32 in the step "
+          "check")
     tree = trees[RECIPES[recipe]["corpus"]]
     src = ft.recipe_cfg(recipe)
     out_step = os.path.join(WORK, f"train_{recipe}_step")
@@ -792,7 +1126,7 @@ def step_check(modules, trees, recipe) -> None:
     cfg_k = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "k.cfg"),
                                cuts, recipe=src)
     cfg_s = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "s.cfg"),
-                               {**cuts, **_scan(recipe)}, recipe=src)
+                               {**cuts, **_plain_replace(recipe)}, recipe=src)
     loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
     # the QLSTM's plain path is its kernel path's cfg through the plain
     # versions; a TIMIT recipe's is `*_impl = scan`
@@ -804,11 +1138,23 @@ def step_check(modules, trees, recipe) -> None:
         loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda",
                                                      torch.float64)
 
+    # the raw recipes' conv biases sit before a layer norm, whose mean
+    # cancels them: their gradient is exactly zero (float64 gives 1e-16 of
+    # noise, float32 1e-7, K6 an exact zero), so they are held to be tiny,
+    # not to a relative error
+    inert = {n for n in grads_k
+             if _raw(recipe) and re.fullmatch(r"\w+\.conv\.\d+\.bias", n)}
+    top = max(g.double().abs().max().item() for g in grads_r.values())
+    for grads in (grads_k, grads_s):
+        for n in inert:
+            check(grads[n].abs().max().item() <= 1e-5 * top,
+                  f"{recipe}: {n} should be ~0, is {grads[n].abs().max()}")
+
     def worst(grads, ref):
         """(max over tensors of max|g - ref| / max|ref|, that tensor)"""
         rel = {name: ((g.double() - ref[name].double()).abs().max()
                       / ref[name].double().abs().max().clamp_min(1e-30)).item()
-               for name, g in grads.items()}
+               for name, g in grads.items() if name not in inert}
         name = max(rel, key=rel.get)
         check(all(math.isfinite(r) for r in rel.values()),
               "non-finite gradient error")
@@ -864,6 +1210,12 @@ def _print_profile(label, wall, busy_us, per_op, n_top=3):
 # projections, the heads, K4b's dU and their backward share cuBLAS kernel
 # names
 LAYERS = (
+    ("K6f", ("conv_ln_fwd_kernel",)),
+    ("K6b layer-norm pass", ("conv_ln_bwd_kernel",)),
+    ("K5f", ("conv_pool_fwd_kernel",)),
+    ("K5b/K6b dX, dW passes", ("conv_pool_dx_kernel",
+                               "conv_pool_dw_part_kernel",
+                               "reduce_windows_kernel")),
     ("K1f", ("ligru_fwd_kernel",)),
     ("K1b sequential", ("ligru_bwd_seq_kernel",)),
     ("K2f", ("lstm_fwd_kernel",)),
@@ -873,6 +1225,11 @@ LAYERS = (
     ("K4f", ("lstm_lean_fwd_kernel",)),
     ("K4b sequential", ("lstm_lean_bwd_kernel",)),
     ("dU passes (K1b, K2b, K3b)", ("du_tile_kernel",)),
+    # cuDNN's convolutions (the raw recipes' layers 1-3) before the GEMM
+    # row, whose patterns their names share
+    ("cuDNN conv (layers 1-3, forward and backward)",
+     ("fprop", "dgrad", "wgrad", "convolve", "conv2d", "cudnn")),
+    ("max-pool (layers 1-3)", ("max_pool", "MaxPool")),
     ("GEMM (FF, heads, K4b's dU, their backward)",
      ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "splitKreduce")),
     ("batchnorm", ("batch_norm", "batchnorm", "welford", "bn_")),
@@ -948,6 +1305,11 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
     for layer, us in sorted(_by_layer(per_op).items(), key=lambda kv: -kv[1]):
         print(f"profile {label} layer: {layer}: {us / 1e3:.1f} ms "
               f"({us / busy_us:.1%} of busy)", flush=True)
+    # where the host's time goes: the top operators by their own CPU time
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in host[:6]:
+        print(f"profile {label} host op: {e.self_cpu_time_total / 1e3:.1f} ms "
+              f"self CPU x{e.count} {e.key[:70]}", flush=True)
     with open(os.path.join(WORK, f"profile_{recipe}_train.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=-1))
@@ -1002,18 +1364,23 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from tpukaldi_torch.kernels import gru, ligru, lstm
+    from tpukaldi_torch.kernels import conv1d, gru, ligru, lstm
     from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.chunk_runtime import resolve_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the port's own entry pins float32 arithmetic (cuDNN's TF32 off) when
+    # it resolves the card: the kernel phase's plain versions run under it
+    resolve_device("cuda")
+    print(f"precision (the port's setting): cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
-    modules = {"ligru": ligru, "lstm": lstm, "gru": gru}
+    modules = {"ligru": ligru, "lstm": lstm, "gru": gru, "conv1d": conv1d}
     build_kernels(modules)
 
     # a process's first torch.optim optimizer imports torch._dynamo (seconds
@@ -1024,15 +1391,19 @@ def main() -> int:
     print(f"import torch._dynamo (once per training process): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    k = _timed("kernels", kernel_phase, {**modules, "lstm_lean": lstm})
+    k = _timed("kernels", kernel_phase,
+               {"ligru": ligru, "lstm": lstm, "gru": gru, "lstm_lean": lstm})
+    conv = _timed("conv kernels", conv_kernel_phase, conv1d)
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
-    splits = {"train": (64, 150, 778), "dev": (16, 150, 778),
-              "test": (192, 150, 778)}
+    # the raw tree is in TIMIT's layout, with the raw stream beside its
+    # 40-dim one
     trees = {corpus: ft.write_kaldi_tree(
         os.path.join(WORK, corpus.lower()), dim=40, n_phones=N_PHONES,
-        n_pdfs=N_PDFS, splits=splits, corpus=corpus)
-        for corpus in ("TIMIT", "DIRHA")}
+        n_pdfs=N_PDFS, splits=t["splits"],
+        corpus="DIRHA" if corpus == "DIRHA" else "TIMIT",
+        raw_wlen=t["dim"] if corpus == "RAW" else None)
+        for corpus, t in TREES.items()}
     print(f"synthetic trees: {time.perf_counter() - t0:.1f} s", flush=True)
     trained = {}
     for recipe in RECIPES:
@@ -1053,21 +1424,28 @@ def main() -> int:
                  "bwd_launches")):
             name = r[kind]
             mod, _, attr, replaces = KERNELS[name]
-            T, B, H = shapes[0]
-            ms, plain_ms = k["timing"][(name, T, B, H)]
-            bound, bound_by = bound_ms(name, T, B, H)
-            lib = k["library"].get(name)
-            check(lib is None or lib[1:] == (T, B, H),
-                  f"{name}: library timed at {lib}, the kernel at {(T, B, H)}")
+            if _raw(recipe):
+                rec = conv[name]
+            else:
+                T, B, H = shapes[0]
+                ms, plain_ms = k["timing"][(name, T, B, H)]
+                bound, bound_by = bound_ms(name, T, B, H)
+                lib = k["library"].get(name)
+                check(lib is None or lib[1:] == (T, B, H),
+                      f"{name}: library timed at {lib}, the kernel at "
+                      f"{(T, B, H)}")
+                rec = dict(err=k["errs"][name], ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=bound_by,
+                           library_ms=None if lib is None else lib[0])
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "tpukaldi_torch/kernels/csrc/"
                           + getattr(modules[mod], attr),
                 "replaces": replaces,
                 "launches": trained[recipe][key],
-                "max_abs_err": k["errs"][name], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None if lib is None else lib[0]})
+                "max_abs_err": rec["err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

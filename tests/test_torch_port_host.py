@@ -16,8 +16,11 @@ import pytest
 
 from tpukaldi.config import load_config as tpk_load_config
 from tpukaldi.io import feats as tpk_feats
+from tpukaldi.io import kaldi_io as tpk_kaldi_io
+from tpukaldi.tools import save_raw_fea as tpk_save_raw_fea
 from tpukaldi_torch.config import load_config
 from tpukaldi_torch.io import feats
+from tpukaldi_torch.tools import save_raw_fea
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFGS = sorted(os.path.relpath(p, REPO)
@@ -70,3 +73,48 @@ def test_host_feature_ops_match_tpukaldi():
         got = getattr(feats, name)(*args)
         want = getattr(tpk_feats, name)(*args)
         np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("n, wlen", [(399, 400), (401, 400), (1000, 400),
+                                     (3333, 3200), (6000, 3200)])
+def test_window_signal_matches_tpukaldi(n, wlen):
+    """The port's copy of `window_signal` against tpukaldi's, exactly: 25 ms
+    and 200 ms windows, edges zero-padded the same way, and no frame for a
+    signal no longer than one label window.  (Both refuse a signal shorter
+    than the window on both sides at once, as the reference does.)"""
+    x = np.random.default_rng(n).standard_normal(n)
+    want = tpk_save_raw_fea.window_signal(x, wlen, 400, 160)
+    got = save_raw_fea.window_signal(x, wlen, 400, 160)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_dump_raw_features_matches_tpukaldi(tmp_path):
+    """`dump_raw_features` of a two-utterance wav list: the same scp and the
+    same windows (the port's Kaldi I/O copy reads and writes the arks)."""
+    rng = np.random.default_rng(1)
+    wav_lst = tmp_path / "wav.lst"
+    with open(wav_lst, "w") as lst:
+        for key, n in (("utt_a", 2400), ("utt_b", 5000)):
+            path = tmp_path / f"{key}.vec"
+            with open(path, "wb") as f:
+                tpk_kaldi_io.write_vec_flt(
+                    f, (rng.standard_normal(n) * 3000).astype(np.float32))
+            lst.write(f"{key} {path}\n")
+    outs = {}
+    for side, mod in (("tpk", tpk_save_raw_fea), ("port", save_raw_fea)):
+        scp = mod.dump_raw_features(str(wav_lst), str(tmp_path / side),
+                                    sig_wlen_ms=25)
+        with open(scp) as f:
+            outs[side] = [line.split() for line in f]
+    assert [r[0] for r in outs["port"]] == [r[0] for r in outs["tpk"]]
+    for (key, a), (_, b) in zip(outs["port"], outs["tpk"]):
+        assert _read(a).shape[1] == 400
+        np.testing.assert_array_equal(_read(a), _read(b))
+
+
+def _read(rxspec):
+    path, offset = rxspec.rsplit(":", 1)
+    with open(path, "rb") as f:
+        f.seek(int(offset))
+        return tpk_kaldi_io.read_mat(f)

@@ -211,6 +211,31 @@ with open(os.path.join(out, "res.res")) as f:
     assert f.read().startswith("ep=0 ")
 posts, _ = forward_outputs(out)
 assert len(list(posts)) == 5
+# and tiny CNN and SincNet raw-waveform runs (400-sample windows), trained
+# for one epoch with dropout, the CNN's layer 0 through K6's plain version
+# with its hash mask, then forward
+tree = write_kaldi_tree(os.path.join(work, "raw"), 10, 3, 9, splits,
+                        raw_wlen=400)
+for recipe, widths, impl in (
+        ("CNN", {"cnn_n_filt = 128,60,60,60": "cnn_n_filt = 8,4,4,4"}, "pallas"),
+        ("SincNet", {"sinc_n_filt = 80,60,60": "sinc_n_filt = 8,4,4"}, "auto")):
+    os.environ["TPUKALDI_CONV_IMPL"] = impl
+    out = os.path.join(work, recipe)
+    os.makedirs(out)
+    cfg = write_train_cfg(tree, out, os.path.join(out, "run.cfg"), {
+        **widths, "dnn_lay = 2048,2048,N_out_lab_cd": "dnn_lay = 8,N_out_lab_cd",
+        "dnn_drop = 0.15,0.15,0.0": "dnn_drop = 0.15,0.0",
+        "dnn_use_batchnorm = True,True,False": "dnn_use_batchnorm = True,False",
+        "dnn_use_laynorm = False,False,False": "dnn_use_laynorm = False,False",
+        "dnn_act = leaky_relu,leaky_relu,softmax": "dnn_act = leaky_relu,softmax",
+        "batch_size_train = 128": "batch_size_train = 32",
+        "n_epochs_tr = 24": "n_epochs_tr = 1", "n_chunks = 5": "n_chunks = 1"},
+        recipe=recipe_cfg(recipe))
+    run_experiment(cfg, device="cpu")
+    with open(os.path.join(out, "res.res")) as f:
+        assert f.read().startswith("ep=0 ")
+    posts, _ = forward_outputs(out)
+    assert len(list(posts)) == 5
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK")
@@ -219,8 +244,9 @@ print("NO_JAX_OK")
 
 def test_port_runs_without_jax(tmp_path):
     """Every tpukaldi_torch module imports, and the tiny production slice,
-    a tiny training run and a tiny QLSTM run go through on the CPU, with
-    jax/flax/optax/msgpack and tpukaldi itself unimportable."""
+    a tiny training run, a tiny QLSTM run and tiny CNN and SincNet runs go
+    through on the CPU, with jax/flax/optax/msgpack and tpukaldi itself
+    unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO, str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=str(tmp_path))

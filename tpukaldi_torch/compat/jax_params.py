@@ -2,10 +2,12 @@
 
 `from_jax_params` maps numpy trees in tpukaldi naming (`wh{i}`, `uz{i}`,
 `bn_ff{i}` scale/bias + mean/var, `wx{i}` kernel/bias, the QLSTM's
-`wfx{i}` r/i/j/k/bias and `ufh{i}`, ...) onto the port's reference-layout
-state_dict.  `to_jax_params(state_dict, class_name)` is the inverse, the
-port's copy of the MLP, QLSTM and gate-table branches of tpukaldi's tested
-converter `compat/torch_import.py::import_model_par`, in numpy only.
+`wfx{i}` r/i/j/k/bias and `ufh{i}`, the conv stacks' `conv{i}`/`conv{i}_b`,
+`low_hz`/`band_hz`, `ln{i}`, `ln_inp`, ...) onto the port's
+reference-layout state_dict.  `to_jax_params(state_dict, class_name)` is
+the inverse, the port's copy of the MLP, CNN/SincNet, QLSTM and gate-table
+branches of tpukaldi's tested converter
+`compat/torch_import.py::import_model_par`, in numpy only.
 
 `moments_to_jax` / `moments_from_jax` carry a per-parameter tensor set
 (an optimizer moment such as rmsprop's `square_avg`) through the same two
@@ -33,6 +35,8 @@ _GATES = {
 }
 # the four real components of a quaternion weight, in their stacking order
 _QUAT = ("r", "i", "j", "k")
+# the raw-waveform conv stacks
+_CONV = ("CNN", "SincNet")
 
 
 def _t(x) -> torch.Tensor:
@@ -110,10 +114,34 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
                 for k, c in enumerate(_QUAT):
                     sd[f"{u_attr}.{i}.{c}_weight"] = _t(rec[k])
             i += 1
+    elif class_name in _CONV:
+        # conv weights keep torch's (out, in, K) layout on both sides
+        i = 0
+        while True:
+            if i == 0 and "low_hz" in params:
+                sd["conv.0.low_hz_"] = _t(params["low_hz"])
+                sd["conv.0.band_hz_"] = _t(params["band_hz"])
+            elif f"conv{i}" in params:
+                sd[f"conv.{i}.weight"] = _t(params[f"conv{i}"])
+                if f"conv{i}_b" in params:
+                    sd[f"conv.{i}.bias"] = _t(params[f"conv{i}_b"])
+            else:
+                break
+            if f"ln{i}" in params:
+                sd[f"ln.{i}.gamma"] = _t(params[f"ln{i}"]["gamma"])
+                sd[f"ln.{i}.beta"] = _t(params[f"ln{i}"]["beta"])
+            if f"bn{i}" in params:
+                _bn(sd, f"bn.{i}", params[f"bn{i}"]["scale"],
+                    params[f"bn{i}"]["bias"], stats[f"bn{i}"]["mean"],
+                    stats[f"bn{i}"]["var"])
+            i += 1
+        if "ln_inp" in params:
+            sd["ln0.gamma"] = _t(params["ln_inp"]["gamma"])
+            sd["ln0.beta"] = _t(params["ln_inp"]["beta"])
     else:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
-            f"(ported: MLP, QLSTM, {', '.join(_GATES)})")
+            f"(ported: MLP, QLSTM, {', '.join((*_CONV, *_GATES))})")
     if "bn_inp" in params:
         _bn(sd, "bn0", params["bn_inp"]["scale"], params["bn_inp"]["bias"],
             stats["bn_inp"]["mean"], stats["bn_inp"]["var"])
@@ -169,6 +197,29 @@ def to_jax_params(state_dict: Dict[str, Any], class_name: str
         _put_bn(params, stats, "bn_inp", _bn_tree(sd, "bn0"))
         return params, stats
 
+    if class_name in _CONV:
+        if "ln0.gamma" in sd:
+            params["ln_inp"] = {"gamma": _np(sd["ln0.gamma"]),
+                                "beta": _np(sd["ln0.beta"])}
+        _put_bn(params, stats, "bn_inp", _bn_tree(sd, "bn0"))
+        i = 0
+        while True:
+            if f"conv.{i}.low_hz_" in sd:
+                params["low_hz"] = _np(sd[f"conv.{i}.low_hz_"])
+                params["band_hz"] = _np(sd[f"conv.{i}.band_hz_"])
+            elif f"conv.{i}.weight" in sd:
+                params[f"conv{i}"] = _np(sd[f"conv.{i}.weight"])
+                if f"conv.{i}.bias" in sd:
+                    params[f"conv{i}_b"] = _np(sd[f"conv.{i}.bias"])
+            else:
+                break
+            if f"ln.{i}.gamma" in sd:
+                params[f"ln{i}"] = {"gamma": _np(sd[f"ln.{i}.gamma"]),
+                                    "beta": _np(sd[f"ln.{i}.beta"])}
+            _put_bn(params, stats, f"bn{i}", _bn_tree(sd, f"bn.{i}"))
+            i += 1
+        return params, stats
+
     if class_name == "QLSTM":
         i = 0
         while f"wfx.{i}.r_weight" in sd:
@@ -185,7 +236,7 @@ def to_jax_params(state_dict: Dict[str, Any], class_name: str
     if class_name not in _GATES:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
-            f"(ported: MLP, QLSTM, {', '.join(_GATES)})")
+            f"(ported: MLP, QLSTM, {', '.join((*_CONV, *_GATES))})")
     gates = _GATES[class_name]
     for i in range(_n_layers(sd, gates[0][1])):
         bn_parts = []

@@ -1,37 +1,54 @@
-"""What every recurrence kernel's wrapper does around its launch: bind the
-library's C entry, check the tensors it is given, and launch on PyTorch's
-current stream, raising on a refused launch.
+"""What every kernel's wrapper does around its launch: bind the library's C
+entry, check the tensors it is given, and launch on PyTorch's current
+stream, raising on a refused launch.
 
-Each library built from `csrc/<source>` exports `tpk_<name>(pointers...,
-ints..., stream)`, which returns `cudaGetLastError()`, and
-`tpk_<name>_max_hidden()`, the largest H it takes (one thread per hidden
-unit).
+Each library built from `csrc/<source>` exports `tpk_<name>(arguments...,
+stream)`, which returns `cudaGetLastError()`.  A recurrence kernel's takes
+(pointers..., T, B, H, ints...) and comes with `tpk_<name>_max_hidden()`,
+the largest H it takes (one thread per hidden unit).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 
+def entry(source: str, name: str, argtypes: Sequence) -> Callable[..., int]:
+    """Build (if needed) and load `csrc/<source>`; returns its C entry
+    `tpk_<name>` taking `argtypes` and then the stream.  Pointers and the
+    stream are c_void_p: as plain ints ctypes would cut them to 32 bits."""
+    fn = getattr(_build.load(source), f"tpk_{name}")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def call(name: str, fn: Callable[..., int], device: torch.device, args,
+         what: str) -> None:
+    """`fn(args..., stream)` on the current stream of `device`; raise if the
+    launch was refused."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err} ({what})")
+
+
 def bind(source: str, name: str, n_ptrs: int,
          n_ints: int) -> Tuple[Callable[..., int], int]:
     """Build (if needed) and load `csrc/<source>`; returns its entry
     `tpk_<name>` and that kernel's largest H."""
-    lib = _build.load(source)
-    entry = getattr(lib, f"tpk_{name}")
-    # pointers and the stream as c_void_p: ctypes would cut them to 32 bits
-    entry.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                      + [ctypes.c_void_p])
-    entry.restype = ctypes.c_int
-    max_hidden = getattr(lib, f"tpk_{name}_max_hidden")
+    entry_fn = entry(source, name,
+                     [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints)
+    max_hidden = getattr(_build.load(source), f"tpk_{name}_max_hidden")
     max_hidden.argtypes = []
     max_hidden.restype = ctypes.c_int
-    return entry, max_hidden()
+    return entry_fn, max_hidden()
 
 
 def dims(fn: str, ff: torch.Tensor, gates: int) -> Tuple[int, int, int]:
@@ -43,37 +60,42 @@ def dims(fn: str, ff: torch.Tensor, gates: int) -> Tuple[int, int, int]:
     return T, B, GH // gates
 
 
+def check_tensors(fn: str, **tensors: Tuple[torch.Tensor, Tuple[int, ...],
+                                            torch.dtype]) -> None:
+    """Each (tensor, expected shape, dtype) contiguous, on one CUDA device,
+    with its shape and dtype."""
+    got = {name: tuple(t.shape) for name, (t, _, _) in tensors.items()}
+    want = {name: tuple(shape) for name, (_, shape, _) in tensors.items()}
+    if got != want:
+        raise ValueError(f"{fn}: expected shapes {want}, got {got}")
+    device = next(iter(tensors.values()))[0].device
+    for name, (t, _, dtype) in tensors.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{fn}: {name} is on {t.device}, expected one "
+                             f"CUDA device ({device})")
+        if t.dtype != dtype:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
+                            f"{dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+
+
 def check_inputs(fn: str, H: int, max_hidden: int,
                  **tensors: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
     """Each (tensor, expected shape) float32, contiguous, on one CUDA
     device, with its shape; H within the kernel's limit."""
-    got = {name: tuple(t.shape) for name, (t, _) in tensors.items()}
-    want = {name: tuple(shape) for name, (_, shape) in tensors.items()}
-    if got != want:
-        raise ValueError(f"{fn}: expected shapes {want}, got {got}")
-    device = next(iter(tensors.values()))[0].device
-    for name, (t, _) in tensors.items():
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"{fn}: {name} is on {t.device}, expected one "
-                             f"CUDA device ({device})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
-                            "float32")
-        if not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} is not contiguous")
+    check_tensors(fn, **{name: (t, shape, torch.float32)
+                         for name, (t, shape) in tensors.items()})
     if H > max_hidden:
         raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "
                          f"{max_hidden} (one thread per hidden unit)")
 
 
-def launch(name: str, entry: Callable[..., int], ptrs, T: int, B: int,
+def launch(name: str, entry_fn: Callable[..., int], ptrs, T: int, B: int,
            H: int, extra_ints=()) -> None:
-    """Call `entry(ptrs..., T, B, H, extra_ints..., stream)` on the current
-    stream of the first tensor's device; raise if the launch was refused."""
-    device = ptrs[0].device
-    with torch.cuda.device(device):
-        err = entry(*(t.data_ptr() for t in ptrs), T, B, H, *extra_ints,
-                    torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err} (T={T}, B={B}, H={H})")
+    """Call `entry_fn(ptrs..., T, B, H, extra_ints..., stream)` on the
+    current stream of the first tensor's device; raise if the launch was
+    refused."""
+    call(name, entry_fn, ptrs[0].device,
+         (*(t.data_ptr() for t in ptrs), T, B, H, *extra_ints),
+         f"T={T}, B={B}, H={H}")

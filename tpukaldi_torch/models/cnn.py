@@ -1,0 +1,371 @@
+"""Raw-waveform front-ends: CNN and SincNet (counterpart of tpukaldi's
+`models/cnn.py`, reference neural_networks.py:1464-1665, SincConv
+:1668-1959).
+
+Both take flat (N, samples) windows (arch_seq_model = False; the raw-wave
+dump cuts 200 ms windows, `tools/save_raw_fea.py`) and return the flattened
+(N, filt * time) conv features.  Each layer is a valid 1-D conv and a
+max-pool (stride = width, floor), then a layer norm over time per (window,
+filter) with a full (filt, time) affine map, batchnorm, the activation and
+dropout, each as the cfg asks.  SincNet's layer 0 synthesises band-pass
+filters from learnable cut-offs every forward, in float32.
+
+Layer 0 (one input channel) is where the kernels are
+(`kernels/conv1d.py`), chosen by `TPUKALDI_CONV_IMPL`, read once per module
+and normalised (strip, lower):
+- `auto` (default): the kernels on a CUDA tensor, the composed path on a CPU
+  one, which is what tpukaldi's `auto` does off a TPU;
+- `pallas`: the kernel functions, which on a CPU tensor run their plain
+  versions;
+- `nhc`, `dot`, `xla`: the composed path (`F.conv1d`, pool, the separate
+  layer norm, activation and dropout).
+Any other value raises.  With the kernels, layer 0 runs K6 (conv, pool,
+bias, layer norm, relu and dropout in one) where it has a layer norm, no
+batchnorm and a relu or linear activation, else K5 (conv and pool).  K6's
+dropout in training takes an int32 seed drawn from the step's generator, so
+a replayed chunk drops the same elements.  Layers 1-3 (C > 1) run `F.conv1d`,
+as tpukaldi runs them outside any Pallas kernel.  Activations stay (N, C,
+time) between layers, the reference's layout.
+
+The state_dict keeps the reference layout (tpukaldi's
+`compat/torch_import.py:116-154`): `ln0`/`bn0` on the input, `conv.{i}`
+(Conv1d weight (out, in, K) and bias; SincNet's `conv.0.low_hz_` and
+`band_hz_`), `ln.{i}` (gamma and beta (filt, time)), `bn.{i}`.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config.schema import to_bool
+from ..kernels.conv1d import conv_pool, conv_pool_ln_act
+from .common import (
+    RefLayerNorm,
+    act_fun,
+    batchnorm,
+    bool_list,
+    float_list,
+    int_list,
+    ref_laynorm,
+    torch_linear_uniform,
+)
+
+CONV_IMPLS = ("auto", "pallas", "nhc", "dot", "xla")
+
+
+def conv_impl() -> str:
+    """`TPUKALDI_CONV_IMPL`, normalised; an unknown value raises."""
+    impl = os.environ.get("TPUKALDI_CONV_IMPL", "auto").strip().lower()
+    if impl not in CONV_IMPLS:
+        raise ValueError(f"TPUKALDI_CONV_IMPL={impl!r} is not one of "
+                         f"{', '.join(CONV_IMPLS)}")
+    return impl
+
+
+class CNNLayerNorm(nn.Module):
+    """The reference LayerNorm with a (filt, time) shape
+    (neural_networks.py:1510-1512): over the last axis (time) of (N, filt,
+    time), unbiased std, eps on the std, the affine map over the whole
+    (filt, time) plane."""
+
+    def __init__(self, n_filt: int, n_time: int, eps: float = 1e-6,
+                 device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.ones(n_filt, n_time, device=device))
+        self.beta = nn.Parameter(torch.zeros(n_filt, n_time, device=device))
+        self.eps = eps
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.gamma.fill_(1.0)
+            self.beta.zero_()
+
+    def forward(self, x):
+        return ref_laynorm(x, self.gamma, self.beta, self.eps)
+
+
+def _to_mel(hz):
+    return 2595 * np.log10(1 + hz / 700)
+
+
+def _to_hz(mel):
+    return 700 * (10 ** (mel / 2595) - 1)
+
+
+def sinc_filters_fast(low_hz_, band_hz_, kernel_size: int, sample_rate: int,
+                      min_low_hz: float, min_band_hz: float) -> torch.Tensor:
+    """Band-pass filters by the half-window symmetry of SincConv_fast
+    (neural_networks.py:1915-1949): (out_channels, kernel_size)."""
+    dev = low_hz_.device
+    dt = low_hz_.dtype
+    half = (kernel_size - 1) // 2
+    n_lin = torch.linspace(0, kernel_size / 2 - 1, int(kernel_size / 2),
+                           dtype=dt, device=dev)
+    window = 0.54 - 0.46 * torch.cos(2 * math.pi * n_lin / kernel_size)
+    n_ = 2 * math.pi * torch.arange(-half, 0.0, dtype=dt,
+                                    device=dev)[None, :] / sample_rate
+    low = min_low_hz + torch.abs(low_hz_)
+    high = torch.clamp(low + min_band_hz + torch.abs(band_hz_), min_low_hz,
+                       sample_rate / 2)
+    band = (high - low)[:, 0]
+    f_low = low @ n_
+    f_high = high @ n_
+    bp_left = ((torch.sin(f_high) - torch.sin(f_low)) / (n_ / 2)) * window
+    bp_center = 2 * band[:, None]
+    bp_right = torch.flip(bp_left, dims=(1,))
+    band_pass = torch.cat([bp_left, bp_center, bp_right], dim=1)
+    return band_pass / (2 * band[:, None])
+
+
+def sinc_filters_slow(low_hz_, band_hz_, kernel_size: int, sample_rate: int,
+                      min_low_hz: float, min_band_hz: float) -> torch.Tensor:
+    """The original SincConv's filters, normalised frequencies and max-norm
+    (neural_networks.py:1789-1803): (out_channels, kernel_size)."""
+    dev = low_hz_.device
+    dt = low_hz_.dtype
+    half = (kernel_size - 1) // 2
+    n_lin = torch.linspace(0, kernel_size, kernel_size, dtype=dt, device=dev)
+    window = 0.54 - 0.46 * torch.cos(2 * math.pi * n_lin / kernel_size)
+    n_ = torch.arange(-half, half + 1.0, dtype=dt,
+                      device=dev)[None, :] / sample_rate
+
+    def stable_sinc(x):
+        y_left = torch.sin(x[:, :half]) / x[:, :half]
+        ones = torch.ones((x.shape[0], 1), dtype=dt, device=dev)
+        return torch.cat([y_left, ones, torch.flip(y_left, dims=(1,))], dim=1)
+
+    low = min_low_hz / sample_rate + torch.abs(low_hz_)
+    high = low + min_band_hz / sample_rate + torch.abs(band_hz_)
+    lp1 = 2 * low * stable_sinc(2 * math.pi * (low @ n_) * sample_rate)
+    lp2 = 2 * high * stable_sinc(2 * math.pi * (high @ n_) * sample_rate)
+    band_pass = lp2 - lp1
+    band_pass = band_pass / band_pass.max(dim=1, keepdim=True).values
+    return band_pass * window
+
+
+class SincConv(nn.Module):
+    """SincNet's layer 0: learnable cut-offs (`low_hz_`, `band_hz_`, each
+    (out_channels, 1)) from which the band-pass filters are synthesised in
+    float32 every forward; mel-spaced at init.  The default is the original
+    SincConv (normalised frequencies, the reference's SincNet);
+    `sinc_fast = True` the half-window variant, whose cut-offs are in Hz."""
+
+    def __init__(self, options: Dict[str, str], n_filt: int, len_filt: int,
+                 device=None):
+        super().__init__()
+        o = options
+        self.sample_rate = int(o.get("sinc_sample_rate", 16000))
+        self.min_low_hz = int(o.get("sinc_min_low_hz", 50))
+        self.min_band_hz = int(o.get("sinc_min_band_hz", 50))
+        self.fast = to_bool(o.get("sinc_fast", "False"))
+        self.kernel_size = len_filt + 1 if len_filt % 2 == 0 else len_filt
+        self.n_filt = n_filt
+        self.low_hz_ = nn.Parameter(torch.zeros(n_filt, 1, device=device))
+        self.band_hz_ = nn.Parameter(torch.zeros(n_filt, 1, device=device))
+        self.reset_parameters()
+
+    def reset_parameters(self) -> None:
+        high_hz = self.sample_rate / 2 - (self.min_low_hz + self.min_band_hz)
+        mel = np.linspace(_to_mel(30), _to_mel(high_hz), self.n_filt + 1)
+        hz = _to_hz(mel)
+        if not self.fast:
+            hz = hz / self.sample_rate
+        with torch.no_grad():
+            self.low_hz_.copy_(torch.from_numpy(hz[:-1, None]))
+            self.band_hz_.copy_(torch.from_numpy(np.diff(hz)[:, None]))
+
+    def filters(self) -> torch.Tensor:
+        synth = sinc_filters_fast if self.fast else sinc_filters_slow
+        return synth(self.low_hz_.float(), self.band_hz_.float(),
+                     self.kernel_size, self.sample_rate, self.min_low_hz,
+                     self.min_band_hz).to(self.low_hz_.dtype)
+
+    def kernel(self):
+        """Layer 0's (out, 1, K) weight and its bias (none)."""
+        return self.filters()[:, None, :], None
+
+
+class _ConvStack(nn.Module):
+    """The CNN and SincNet scaffold; subclasses set PREFIX and make layer 0
+    (`first_layer`, a module whose `kernel()` gives the (O, 1, K) weight and
+    the bias or None)."""
+
+    PREFIX = "cnn"
+
+    def __init__(self, options: Dict[str, str], inp_dim: int, device=None):
+        super().__init__()
+        self.options = options
+        self.inp_dim = inp_dim
+        o, p = options, self.PREFIX
+        self.n_filt, self.len_filt, self.pool, time = self._dims(options,
+                                                                 inp_dim)
+        self.acts = o[f"{p}_act"].split(",")
+        self.drop = float_list(o[f"{p}_drop"])
+        self.use_ln = bool_list(o[f"{p}_use_laynorm"])
+        self.use_bn = bool_list(o[f"{p}_use_batchnorm"])
+        self.impl = conv_impl()
+        if to_bool(o.get(f"{p}_use_laynorm_inp", "False")):
+            self.ln0 = RefLayerNorm(inp_dim, device=device)
+        if to_bool(o.get(f"{p}_use_batchnorm_inp", "False")):
+            self.bn0 = batchnorm(inp_dim, device=device)
+        self.conv = nn.ModuleList()
+        self.ln = nn.ModuleList()
+        self.bn = nn.ModuleList()
+        for i, (n, k, t) in enumerate(zip(self.n_filt, self.len_filt, time)):
+            self.conv.append(
+                self.first_layer(n, k, device) if i == 0 else
+                nn.Conv1d(self.n_filt[i - 1], n, k, device=device))
+            # Identity placeholders keep the reference's per-layer indices
+            # without adding state_dict entries for unused norms
+            self.ln.append(CNNLayerNorm(n, t, device=device)
+                           if self.use_ln[i] else nn.Identity())
+            self.bn.append(batchnorm(n, device=device)
+                           if self.use_bn[i] else nn.Identity())
+
+    @classmethod
+    def _dims(cls, options, inp_dim):
+        """Filters, widths, pools and each layer's pooled time.  The
+        reference's float-then-truncate `int((current - K + 1) / pool)`,
+        with the cfg's width even where SincConv pads an even one."""
+        p = cls.PREFIX
+        n_filt = int_list(options[f"{p}_n_filt"])
+        len_filt = int_list(options[f"{p}_len_filt"])
+        pool = int_list(options[f"{p}_max_pool_len"])
+        time, current = [], inp_dim
+        for k, q in zip(len_filt, pool):
+            current = int((current - k + 1) / q)
+            time.append(current)
+        return n_filt, len_filt, pool, time
+
+    @classmethod
+    def compute_out_dim(cls, options: Dict[str, str], inp_dim: int) -> int:
+        n_filt, _, _, time = cls._dims(options, inp_dim)
+        return time[-1] * n_filt[-1]
+
+    @property
+    def out_dim(self) -> int:
+        return self.compute_out_dim(self.options, self.inp_dim)
+
+    def first_layer(self, n_filt: int, len_filt: int, device) -> nn.Module:
+        raise NotImplementedError
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """nn.Conv1d's default init, U(+-1/sqrt(in * K)), for weights and
+        biases, drawn from `generator`; SincConv's mel init; norms to their
+        identity."""
+        with torch.no_grad():
+            for conv in self.conv:
+                if isinstance(conv, SincConv):
+                    conv.reset_parameters()
+                    continue
+                fan_in = conv.weight.shape[1] * conv.weight.shape[2]
+                conv.weight.copy_(torch_linear_uniform(conv.weight.shape,
+                                                       fan_in, generator))
+                conv.bias.copy_(torch_linear_uniform(conv.bias.shape, fan_in,
+                                                     generator))
+        for m in (*self.ln, *self.bn, getattr(self, "ln0", None),
+                  getattr(self, "bn0", None)):
+            if isinstance(m, (RefLayerNorm, CNNLayerNorm, nn.BatchNorm1d)):
+                m.reset_parameters()
+
+    def _kernels(self, x: torch.Tensor) -> bool:
+        return self.impl == "pallas" or (self.impl == "auto"
+                                         and x.device.type == "cuda")
+
+    def _fused0(self) -> bool:
+        return (self.use_ln[0] and not self.use_bn[0]
+                and self.acts[0] in ("relu", "linear"))
+
+    def _dropout(self, x, i, generator):
+        if not (self.training and self.drop[i] > 0.0):
+            return x
+        keep = 1.0 - self.drop[i]
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+        return x * mask / keep
+
+    def _layer0(self, x, generator):
+        """Layer 0 through the kernels: (N, L) -> (N, filt, time), and
+        whether the layer norm, activation and dropout are done."""
+        w, bias = self.conv[0].kernel()
+        w2d = w[:, 0, :].t().contiguous()  # (K, O)
+        pool = self.pool[0]
+        if not self._fused0():
+            y = conv_pool(x, w2d, pool).transpose(1, 2)
+            return (y if bias is None else y + bias[None, :, None]), False
+        ln = self.ln[0]
+        b0 = bias if bias is not None else w2d.new_zeros(w2d.shape[1])
+        drop, seed = 0.0, 0
+        if self.training and self.drop[0] > 0.0:
+            drop = self.drop[0]
+            seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
+                                 device=x.device, dtype=torch.int32)
+        z = conv_pool_ln_act(x, w2d, b0, ln.gamma.t().contiguous(),
+                             ln.beta.t().contiguous(), seed, pool, ln.eps,
+                             self.acts[0] == "relu", drop)
+        return z.transpose(1, 2), True
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if hasattr(self, "ln0"):
+            x = self.ln0(x)
+        if hasattr(self, "bn0"):
+            x = self.bn0(x)
+        N = x.shape[0]
+        for i in range(len(self.n_filt)):
+            done = False
+            if i == 0 and self._kernels(x):
+                x, done = self._layer0(x.contiguous(), generator)
+            else:
+                w, bias = (self.conv[0].kernel() if i == 0 else
+                           (self.conv[i].weight, self.conv[i].bias))
+                x = F.conv1d(x[:, None, :] if i == 0 else x, w, bias)
+                if self.pool[i] > 1:
+                    x = F.max_pool1d(x, self.pool[i])
+            if done:
+                continue
+            x = self.ln[i](x)
+            if self.use_bn[i]:
+                # torch BatchNorm1d on (N, C, L): per-channel statistics over
+                # N and L
+                C, T = x.shape[1], x.shape[2]
+                x = self.bn[i](x.transpose(1, 2).reshape(-1, C)).reshape(
+                    N, T, C).transpose(1, 2)
+            x = act_fun(self.acts[i])(x)
+            x = self._dropout(x, i, generator)
+        # the reference flattens (N, filt, time)
+        return x.reshape(N, -1)
+
+
+class _Conv0(nn.Conv1d):
+    """CNN's layer 0: a plain Conv1d over one input channel."""
+
+    def kernel(self):
+        return self.weight, self.bias
+
+
+class CNN(_ConvStack):
+    """Plain conv stack over raw samples (neural_networks.py:1464)."""
+
+    PREFIX = "cnn"
+
+    def first_layer(self, n_filt, len_filt, device):
+        return _Conv0(1, n_filt, len_filt, device=device)
+
+
+class SincNet(_ConvStack):
+    """Conv stack whose layer 0 is a SincConv (neural_networks.py:1559); the
+    original SincConv by default, as the reference's SincNet hardwires it,
+    `sinc_fast = True` for the half-window variant (other cut-off units,
+    not checkpoint-compatible with the default)."""
+
+    PREFIX = "sinc"
+
+    def first_layer(self, n_filt, len_filt, device):
+        return SincConv(self.options, n_filt, len_filt, device=device)

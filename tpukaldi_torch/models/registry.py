@@ -11,6 +11,7 @@ from typing import Dict, Type
 
 from torch import nn
 
+from .cnn import CNN, SincNet
 from .mlp import MLP
 from .quaternion import QLSTM
 from .recurrent import GRU, LSTM, liGRU
@@ -18,12 +19,12 @@ from .recurrent import GRU, LSTM, liGRU
 LIBRARIES = ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks")
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
-    "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU, "QLSTM": QLSTM}
+    "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU, "QLSTM": QLSTM,
+    "CNN": CNN, "SincNet": SincNet}
 
 # tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1)
 NOT_PORTED = (
-    "RNN", "minimalGRU", "CNN", "SincNet",
-    "logMelFb", "channel_averaging", "LSTM_cudnn", "GRU_cudnn", "RNN_cudnn",
+    "RNN", "minimalGRU", "logMelFb", "channel_averaging", "LSTM_cudnn", "GRU_cudnn", "RNN_cudnn",
     "fusionRNN", "fusionRNN_jit", "SRU", "PASE",
 )
 

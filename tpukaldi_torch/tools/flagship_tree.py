@@ -1,8 +1,10 @@
 """Synthetic Kaldi trees in real formats, and the recipe cfgs pointed at
 them: the TIMIT fMLLR recipes (the flagship `cfg/TIMIT/liGRU_fmllr.cfg` by
-default, or `recipe_cfg("LSTM")`, `recipe_cfg("GRU")`) over a TIMIT tree,
-and the DIRHA QLSTM recipe (`recipe_cfg("QLSTM")`, `cfg/DIRHA/QLSTM_mfcc.cfg`)
-over a DIRHA tree (`write_kaldi_tree(..., corpus="DIRHA")`), for training
+default, or `recipe_cfg("LSTM")`, `recipe_cfg("GRU")`) and the TIMIT
+raw-waveform recipes (`recipe_cfg("CNN")`, `cfg/TIMIT/CNN_raw.cfg`, and
+`recipe_cfg("SincNet")`, `SincNet_raw.cfg`) over a TIMIT tree, and the
+DIRHA QLSTM recipe (`recipe_cfg("QLSTM")`, `cfg/DIRHA/QLSTM_mfcc.cfg`) over
+a DIRHA tree (`write_kaldi_tree(..., corpus="DIRHA")`), for training
 (`write_train_cfg`) or production forward (`write_prod_cfg`) — inputs for
 running the port end to end without a corpus (`chip_smoke.py`, the tests)
 — and helpers to set up and check such a run: seeded initial or final
@@ -15,18 +17,26 @@ stream, and alignments, gzipped transition-id archives beside a binary
 `final.mdl`, so `N_out_lab_cd`/`N_out_lab_mono` and the prior counts
 resolve natively (hmm-info, ali-to-pdf, analyze-counts).  TIMIT keeps one
 alignment dir per split, DIRHA one for all three.  Features are
-pdf-conditioned Gaussians from a numpy seed.  The QLSTM's quaternion
+pdf-conditioned Gaussians from a numpy seed.  With `raw_wlen`, a tree also
+carries the raw stream the raw-waveform cfgs read,
+`data/raw_200ms/<split>/feats_raw.scp`: per utterance a waveform whose
+frequency follows each frame's pdf, plus noise, cut by `save_raw_fea`'s
+`window_signal` into one window of `raw_wlen` samples per label frame
+(3200 is the recipes' 200 ms at 16 kHz; narrower windows keep a test
+small), so features and labels share one rate.  The QLSTM's quaternion
 projection needs its spliced input, (2 + 1 + 2) x the stream width, to be a
 multiple of 4: a 40-dim stream gives 200.
 
 The LSTM, GRU and QLSTM recipes have no `*_impl` line (tpukaldi reads
 `auto` then), and an override of a field the cfg lacks is refused, so a run
 that wants another impl adds the line with `replace=`, e.g.
-`{"lstm_orthinit = True": "lstm_orthinit = True\nlstm_impl = scan"}`.
+`{"lstm_orthinit = True": "lstm_orthinit = True\nlstm_impl = scan"}`.  The
+raw recipes' layer 0 is chosen by `TPUKALDI_CONV_IMPL` (`models/cnn.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import io
 import os
@@ -59,22 +69,29 @@ from ..plan.planner import ExperimentPlan
 from ..train.checkpoint import save_all
 from ..train.chunk_runtime import ChunkRuntime, batch_seed, read_info
 from ..train.step import forward_step, train_step
+from .save_raw_fea import window_signal
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-# the recipe cfg of each recurrent class the port runs end to end
+# the recipe cfg of each front-end class the port runs end to end
 RECIPES = {
     "liGRU": ("TIMIT", "liGRU_fmllr.cfg"),
     "LSTM": ("TIMIT", "LSTM_fmllr.cfg"),
     "GRU": ("TIMIT", "GRU_fmllr.cfg"),
     "QLSTM": ("DIRHA", "QLSTM_mfcc.cfg"),
+    "CNN": ("TIMIT", "CNN_raw.cfg"),
+    "SincNet": ("TIMIT", "SincNet_raw.cfg"),
 }
+
+# the label frames of the raw stream: 25 ms windows every 10 ms at 16 kHz
+FS, LAB_WLEN, LAB_WSHIFT = 16000, 400, 160
 
 
 def recipe_cfg(arch_class: str) -> str:
-    """The recipe cfg of a recurrent class: the TIMIT fMLLR recipes of the
-    liGRU, LSTM and GRU, the DIRHA mfcc recipe of the QLSTM."""
+    """The recipe cfg of a front-end class: the TIMIT fMLLR recipes of the
+    liGRU, LSTM and GRU, the TIMIT raw-waveform recipes of the CNN and
+    SincNet, the DIRHA mfcc recipe of the QLSTM."""
     return os.path.join(_REPO, "cfg", *RECIPES[arch_class])
 
 
@@ -122,11 +139,16 @@ def write_kaldi_tree(
     splits: Dict[str, Tuple[int, int, int]],
     seed: int = 21,
     corpus: str = "TIMIT",
+    raw_wlen: Optional[int] = None,
 ) -> str:
     """Write the tree under `root` in `corpus`'s layout (TIMIT or DIRHA);
-    `splits` maps train/dev/test to (utterances, min frames, max frames)."""
+    `splits` maps train/dev/test to (utterances, min frames, max frames).
+    `raw_wlen` adds the raw stream, windows of that many samples."""
     tm = transition_model(n_phones, n_pdfs)
     rng = np.random.default_rng(seed)
+    # the waveforms draw from their own generator: the other streams stay
+    # the same with or without them
+    rng_raw = np.random.default_rng(seed + 1)
     means = rng.standard_normal((tm.num_pdfs, dim)) * 2.0
     os.makedirs(os.path.join(root, "exp", "tri3", "graph"), exist_ok=True)
     for n_split, (split, (n, lo, hi)) in enumerate(splits.items(), 1):
@@ -137,9 +159,15 @@ def write_kaldi_tree(
         write_transition_model(tm, os.path.join(alidir, "final.mdl"))
         cmvn: Dict[str, np.ndarray] = {}
         ali_buf = io.BytesIO()
+        raw = contextlib.nullcontext()
+        if raw_wlen:
+            raw_dir = os.path.join(root, "data", "raw_200ms", split)
+            os.makedirs(raw_dir, exist_ok=True)
+            raw = ArkScpWriter(os.path.join(raw_dir, "feats_raw.ark"),
+                               os.path.join(raw_dir, "feats_raw.scp"))
         with ArkScpWriter(os.path.join(d, "feats.ark"),
                           os.path.join(d, "feats.scp")) as w, \
-                open(os.path.join(d, "utt2spk"), "w") as u2s:
+                open(os.path.join(d, "utt2spk"), "w") as u2s, raw as rw:
             for i in range(n):
                 T = int(rng.integers(lo, hi + 1))
                 tids = rng.integers(1, tm.num_transition_ids + 1, T)
@@ -148,6 +176,9 @@ def write_kaldi_tree(
                 spk = f"{split}spk{i % 4}"
                 key = f"{spk}_u{i:04d}"
                 w.write(key, fea.astype(np.float32))
+                if raw_wlen:
+                    rw.write(key, raw_windows(pdfs, tm.num_pdfs, raw_wlen,
+                                              rng_raw))
                 u2s.write(f"{key} {spk}\n")
                 write_vec_int(ali_buf, tids, key=key)
                 cmvn[spk] = cmvn.get(spk, 0) + compute_cmvn_stats(fea)
@@ -162,6 +193,24 @@ def write_kaldi_tree(
                 for spk, st in cmvn.items():
                     write_mat(cf, st, key=spk)
     return root
+
+
+def raw_windows(pdfs: np.ndarray, n_pdfs: int, wlen: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """(T, wlen) float32 windows of a synthetic waveform for T label frames:
+    a sinusoid whose frequency follows each frame's pdf (150-3950 Hz), plus
+    noise, peak-normalised as `dump_raw_features` normalises, cut by
+    `window_signal`.  T * 160 + 400 samples give exactly T windows."""
+    T = len(pdfs)
+    n = T * LAB_WSHIFT + LAB_WLEN
+    frame = np.minimum(np.arange(n) // LAB_WSHIFT, T - 1)
+    freq = 150.0 + 3800.0 * pdfs[frame] / n_pdfs
+    sig = np.sin(2 * np.pi * freq * np.arange(n) / FS)
+    sig += 0.05 * rng.standard_normal(n)
+    sig /= np.abs(sig).max()
+    windows = window_signal(sig, wlen, LAB_WLEN, LAB_WSHIFT)
+    assert windows.shape == (T, wlen), windows.shape
+    return windows.astype(np.float32)
 
 
 def _write_cfg(text: str, tree: str, out_folder: str, cfg_path: str,
@@ -230,8 +279,9 @@ def write_prod_cfg(
 
 def _seeded_graph(cfg_path: str, dim: int):
     """The port's init of the cfg's graph from its `seed` (random weights),
-    on the CPU; `dim` is the tree's stream width, which each stream the
-    [model] reads splices (cw_left + 1 + cw_right) times."""
+    on the CPU; `dim` is the tree's stream width (for a raw stream, its
+    window length), which each stream the [model] reads splices (cw_left + 1
+    + cw_right) times."""
     exp = load_config(cfg_path)
     ds = next(iter(exp.datasets.values()))
     layout, off = {}, 0
@@ -291,13 +341,13 @@ def train_step_gradients(
     rt.ensure_initialized(chunk, with_optimizers=True)
     for module in rt.graph.modules.values():
         module.to(dtype)
-    batch = next(rt._batches(chunk, exp.batches.batch_size_train[0], True,
-                             task.seed))
+    batch_size = rt._effective_bs(chunk, exp.batches.batch_size_train[0])
+    batch = next(rt._batches(chunk, batch_size, True, task.seed))
     rt.generator.manual_seed(batch_seed(task.seed, 0))
     loss, _ = train_step(rt.graph, rt.optimizers,
                          torch.from_numpy(batch.feats).to(rt.device, dtype),
                          torch.from_numpy(batch.labs).to(rt.device),
-                         batch.n_valid_t, rt.generator)
+                         getattr(batch, "n_valid_t", None), rt.generator)
     grads = {f"{a}.{n}": p.grad.detach().clone()
              for a, m in rt.graph.modules.items()
              for n, p in m.named_parameters()}

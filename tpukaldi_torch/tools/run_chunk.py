@@ -26,8 +26,7 @@ from typing import List, Optional
 
 from ..config.cfg import ExperimentConfig, load_config
 from ..plan.planner import ChunkTask
-from ..train.chunk_runtime import ChunkRuntime
-from .run_exp import resolve_device
+from ..train.chunk_runtime import ChunkRuntime, resolve_device
 
 
 # _globalize_chunk_cfg and _task_from_info copy tpukaldi's

@@ -22,7 +22,6 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..config import ConfigError, load_config
 from ..config.cfg import ExperimentConfig
@@ -30,7 +29,12 @@ from ..decode.bridge import harvest_wer, run_decode
 from ..forward.counts import resolve_count_files
 from ..plan import ChunkTask, build_plan, repair_resume_point
 from ..plan.chunk_cfg import write_chunk_cfg
-from ..train.chunk_runtime import ChunkResult, ChunkRuntime, read_info
+from ..train.chunk_runtime import (
+    ChunkResult,
+    ChunkRuntime,
+    read_info,
+    resolve_device,
+)
 
 # per-chunk phases summed into the `phases ep=` line of res.res
 _PHASES = ("host_batch", "h2d", "dispatch", "drain", "ckpt_write",
@@ -41,15 +45,6 @@ def _log(out_folder: str, msg: str) -> None:
     print(msg)
     with open(os.path.join(out_folder, "log.log"), "a") as f:
         f.write(msg + "\n")
-
-
-def resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but torch sees no CUDA device "
-            f"(torch {torch.__version__}); pass --device cpu to run on the CPU")
-    return device
 
 
 # _aggregate, _result_from_info and dump_epoch_results copy tpukaldi's

@@ -88,6 +88,37 @@ def read_info(path: str) -> Dict[str, float]:
     return {k: float(v) for k, v in cp["results"].items()}
 
 
+# the raw-waveform recipes cut one window per label frame (cw 0/0) and run
+# at the label rate; what is missing is the rate-differing path
+_RATES_DIFFER = (
+    "chunks whose feature and label rates differ (PASE's and logMelFb's "
+    "signal streams, read with a 6-int max_seq_length) need the "
+    "rate-differing data path, which is not ported yet")
+
+
+def pin_float32() -> None:
+    """float32 convolutions and GEMMs on the card: cuDNN's TF32 off (on by
+    default in PyTorch) and cuBLAS's kept off, through the one API
+    (`allow_tf32`) whose getters the checks read; tpukaldi computes in
+    float32 off a TPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device.  A CUDA device must exist (no fallback to
+    the CPU), and resolving one pins float32 arithmetic (`pin_float32`)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch sees no CUDA device "
+                f"(torch {torch.__version__}); pass --device cpu to run on "
+                "the CPU")
+        pin_float32()
+    return device
+
+
 def batch_seed(task_seed: int, batch_index: int) -> int:
     """The dropout generator's seed for one train batch: a function of the
     task's seed and the batch index only, so a replayed chunk draws the same
@@ -101,7 +132,7 @@ class ChunkRuntime:
 
     def __init__(self, exp: ExperimentConfig, device):
         self.exp = exp
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # sequential iff any computed architecture is (reference
         # is_sequential_dict, utils.py:2006-2014)
         used = {s.arg1 for s in exp.model if s.op == "compute"}
@@ -223,9 +254,7 @@ class ChunkRuntime:
                          batch_size: int) -> ChunkResult:
         global train_batches, valid_batches
         if chunk.rates_differ:
-            raise NotImplementedError(
-                "raw-waveform chunks (feature and label rates differ) need "
-                "the conv front-ends, which are not ported yet")
+            raise NotImplementedError(_RATES_DIFFER)
         if (chunk.n_sentences if self.seq_model else chunk.n_frames) == 0:
             return ChunkResult(0.0, 0.0, 0.0, 0)
         batch_size = self._effective_bs(chunk, batch_size)
@@ -294,9 +323,7 @@ class ChunkRuntime:
         if chunk.n_sentences == 0:
             return ChunkResult(0.0, 0.0, 0.0, 0)
         if chunk.rates_differ:
-            raise NotImplementedError(
-                "raw-waveform chunks (feature and label rates differ) need "
-                "the conv front-ends, which are not ported yet")
+            raise NotImplementedError(_RATES_DIFFER)
         self.ensure_initialized(chunk)
         self.restore_from(task.pretrain_files)
         # same knob and defaults as tpukaldi: 32 on the accelerator, 8 on CPU
