@@ -18,12 +18,13 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
 80,60,60, leaky_relu, sgd), whose layer 0 runs the conv + pool kernels
 (K5f/K5b).
 
-1. Builds the port's twelve CUDA kernels (tpukaldi_torch/kernels/csrc/
-   {ligru,lstm,gru,lstm_lean}_{fwd,bwd}.cu, conv_pool_{fwd,bwd}.cu and
-   conv_ln_{fwd,bwd}.cu), one nvcc per source, all at once, for sm_90a into
-   build/tpukaldi_torch/, and prints each kernel's registers and spills
-   from ptxas's report.  The port's `resolve_device("cuda")` pins float32
-   (cuDNN's TF32 off) first; this script sets no precision flag itself.
+1. Builds the port's fourteen CUDA kernels (tpukaldi_torch/kernels/csrc/
+   {ligru,lstm,gru,lstm_lean}_{fwd,bwd}.cu, conv_pool_{fwd,bwd}.cu,
+   conv_ln_{fwd,bwd}.cu and conv_stack_{fwd,bwd}.cu), one nvcc per source,
+   all at once, for sm_90a into build/tpukaldi_torch/, and prints each
+   kernel's registers and spills from ptxas's report.  The port's
+   `resolve_device("cuda")` pins float32 (cuDNN's TF32 off) first; this
+   script sets no precision flag itself.
 2. Kernel phase, each kernel against its plain PyTorch version on the card:
    the forward recurrences (K1f liGRU, K2f LSTM, K3f GRU) at (T=778,
    B=64, H=550), the forward batch of 32 doubled by the bidirectional
@@ -41,12 +42,25 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
    and K6f on the serving batch of 32,000 windows (a slice held to the
-   plain version); the backwards given the kernel's own argmax.  Beside
-   each kernel: the least time the card could take for the same work
-   (bytes or operations, at the published peaks), and a library
+   plain version); the backwards given the kernel's own argmax.  K6 also
+   at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440, K=10, O=80, pool 3, drop
+   0.15).  Beside each kernel: the least time the card could take for the
+   same work (bytes or operations, at the published peaks), and a library
    yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f,
    F.conv1d + F.max_pool1d (+ the layer norm and relu as PyTorch ops, and
    their autograd backward) for the conv kernels.
+   The whole conv stack (`conv_stack_fused`, which no recipe calls: its
+   own entry point is its path) at CNN_raw's stack shapes (filters
+   128,60,60,60, K 129,5,5,3, pools 3,3,3,2 over 3200 samples): K7f and
+   K7b against their plain versions at the training batch of 128 windows,
+   at drop 0 and 0.15: every layer's output and stats, the argmax but at
+   near-ties, the same dropped elements; K7b given the kernel's own
+   residuals, and normwise against the plain backward on the plain
+   forward's; K7f at drop 0 against the port's per-layer path (`CNN`
+   at TPUKALDI_CONV_IMPL=pallas), whose forward and autograd backward are
+   the yardstick; K7f on the serving batch with its peak memory beside the
+   per-layer path's; then the stack's path, counted: three training steps
+   through `conv_stack_fused` with dropout and one forward.
 3. Serving phase, per recipe: the production forward over a synthetic
    Kaldi tree in real formats (40-dim fMLLR or mfcc, 192 test utterances
    of 150-778 frames; the raw tree 48 of 3200-sample windows per frame)
@@ -77,10 +91,13 @@ run on the card through the same autograd Function (`plain_recurrences`),
 since the kernel path is held to the same bf16 arithmetic.  A raw recipe's
 is `TPUKALDI_CONV_IMPL=nhc`, the composed path (cuDNN's conv, pooling and
 the separate layer norm, activation and dropout).  Each path is driven with
-every kernel's count set to 0 just before it and read just after.  Any
-failed check raises, so the exit code is not 0.  The last lines are the
-card's name and power limit, one JSON line with the kernels, and the
-result line.  Scratch files go to build/chip_smoke/.
+every kernel's count set to 0 just before it and read just after; no
+recipe path launches the stack's kernels.  Any failed check raises, so
+the exit code is not 0.  The last lines are the card's name and power
+limit, one JSON line with the kernels (the stack's with their launches on
+its own path and `recipe_launches`, their count on the recipe paths),
+and the result line.  Scratch files
+go to build/chip_smoke/.
 """
 
 from __future__ import annotations
@@ -209,7 +226,13 @@ KERNELS = {
                     "tpukaldi/kernels/conv1d.py:588"),
     "conv_ln_bwd": ("conv1d", "ln_bwd_launches", "LN_BWD_SOURCE",
                     "tpukaldi/kernels/conv1d.py:627"),
+    # the whole raw conv stack (`conv_stack_fused`), which no recipe calls
+    "conv_stack_fwd": ("conv_stack", "launches", "SOURCE",
+                       "tpukaldi/kernels/conv_stack.py:214"),
+    "conv_stack_bwd": ("conv_stack", "bwd_launches", "BWD_SOURCE",
+                       "tpukaldi/kernels/conv_stack.py:268"),
 }
+STACK_KERNELS = ("conv_stack_fwd", "conv_stack_bwd")
 # the conv kernels at the raw recipes' shapes: the training batch (128
 # windows of 3200 samples, K = 129, pool 3; O = 80 for SincNet's K5, 128
 # for CNN's K6), the serving batch (32 utterances padded to the 1000-frame
@@ -229,7 +252,33 @@ CONV_SERVE_PLAIN_N = 4000
 CONV_ATOL = 1e-5
 CONV_GRAD_RTOL = 2e-5
 CONV_DROP = 0.15  # CNN_raw's layer-0 dropout
+# cfg/TIMIT/CNN_fbank.cfg's layer 0, which the port routes to K6: spliced
+# fbank frames (40 x 11 = 440), K = 10, pool 3, 80 filters, batch 128
+CONV_FBANK = (128, 440, 10, 80, 3)
 RAW_PLAIN_FORWARD_BATCH = 8
+# the whole conv stack (K7f, K7b) at CNN_raw's shapes (its [architecture1]
+# cnn_* fields): the training batch of 128 windows and the serving batch;
+# a slice of the serving batch is held to the plain version
+STACK_TRAIN_N = 128
+STACK_SERVE_CHECK = 256
+# K7f vs its plain version and vs the per-layer path: outputs of order 1-10
+# after four chained float32 layer norms, each dividing by a std, with the
+# conv sums in other orders; K7b's gradients, given the kernel's own
+# residuals, relative to each tensor's max (dW sums 43.5k-131k terms)
+STACK_ATOL = 5e-5
+STACK_GRAD_RTOL = 1e-4
+# K7f's saved residuals: every layer's output (the next layer's input) and
+# its (mean, std) within STACK_ATOL; its argmax may differ from the plain
+# version's only at near-ties, at most this many elements per layer
+STACK_MAX_FLIPS = 10
+# K7b on the kernel's residuals against the plain backward on the plain
+# forward's own: a near-tie flip moves one pooled gradient to its
+# neighbouring row (a top-layer flip ~2e-3 of dx's norm at this shape), so
+# each gradient is held normwise, ||got - want|| / ||want||
+STACK_GRAD_NORM_RTOL = 1e-2
+# the stack's own path: steps through `conv_stack_fused` with dropout, then
+# one forward without a gradient
+STACK_STEPS = 3
 # the card's published peaks (H100 SXM, dense): memory, float32 outside
 # the tensor cores, bf16 tensor cores
 PEAK_BYTES = 3.35e12
@@ -654,7 +703,8 @@ def conv_kernel_phase(conv1d) -> dict:
     # (relu off, a linear layer 0, at the odd shape without dropout)
     shapes = [(N, L, K, O, pool, drop, True) for O in (80, 128)
               for drop in (0.0, CONV_DROP)] + [(*CONV_ODD, 0.0, False),
-                                               (*CONV_ODD, CONV_DROP, True)]
+                                               (*CONV_ODD, CONV_DROP, True),
+                                               (*CONV_FBANK, CONV_DROP, True)]
     for n_, l_, k_, o_, p_, drop, relu in shapes:
         x, w, bias, gt, bt, dy = _conv_inputs(n_, l_, k_, o_, p_, n_ + o_)
         tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
@@ -708,6 +758,17 @@ def conv_kernel_phase(conv1d) -> dict:
             r["err"] = max(r["err"], err)
         if drop:
             check(dropped == 0, f"conv_ln_fwd drops other elements at {tag}")
+        if (n_, l_, k_, o_, p_) == CONV_FBANK:
+            # CNN_fbank's layer 0 in training (no recipe run of it here)
+            times = [(median_ms(lambda: conv1d.conv1d_pool_ln_act(*ln), 5),
+                      conv_bound_ms("conv_ln_fwd", n_, l_, k_, o_, p_)[0]),
+                     (median_ms(lambda: conv1d.conv1d_pool_ln_act_bwd(
+                         *ln[:6], idx6, stats, dy, *ln[6:]), 5),
+                      conv_bound_ms("conv_ln_bwd", n_, l_, k_, o_, p_)[0])]
+            print(f"kernel conv_ln_fwd/conv_ln_bwd at cfg/TIMIT/CNN_fbank.cfg's "
+                  f"layer 0 {tag} drop={drop}: K6f {times[0][0]:.3f} ms (bound "
+                  f"{times[0][1]:.4f} ms), K6b {times[1][0]:.3f} ms (bound "
+                  f"{times[1][1]:.4f} ms)", flush=True)
         if not train or drop:
             continue
         # times at the training batch, and the library composites
@@ -788,6 +849,344 @@ def conv_kernel_phase(conv1d) -> dict:
     return rec
 
 
+def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):
+    """(least ms the card could take for one call of the whole conv stack,
+    "bytes" or "operations"), counted as `conv_bound_ms` counts a layer:
+    layer 0's forward convolves every position, an upper layer's the ct =
+    M * pool rows its pool reads, 2 N rows C K O flops each; a backward
+    needs only the pooled rows, the remat of the pooled value, dW and dX,
+    6 N M C K O flops.  Bytes: x, every layer's weights, bias and affine
+    maps read once; the forward writes the output and, with `residuals`
+    (training), every layer's output (the next layer's kept input), idx and
+    stats; the backward reads those and dz, and writes dx and every
+    gradient."""
+    fwd = name == "conv_stack_fwd"
+    nbytes = 4 * N * L * (1 if fwd else 2)
+    flops, C, lin = 0, 1, L
+    for i, (K, O, P) in enumerate(zip(len_filt, n_filt, pools)):
+        M = (lin - K + 1) // P
+        nmo = N * M * O
+        params = 4 * (C * K * O + O + 2 * M * O)
+        res = nmo + 8 * N * O  # idx, stats
+        last = i == len(n_filt) - 1
+        if fwd:
+            flops += 2 * N * ((lin - K + 1) if i == 0 else M * P) * C * K * O
+            nbytes += params + (4 * nmo if residuals or last else 0) + (
+                res if residuals else 0)
+        else:
+            flops += 6 * N * M * C * K * O
+            nbytes += 2 * params + res + (4 * N * lin * C if i else 0) + (
+                4 * nmo if last else 0)
+        C, lin = O, M
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = flops / PEAK_FLOPS["f32"] * 1e3
+    return (bytes_ms, "bytes") if bytes_ms > ops_ms else (ops_ms, "operations")
+
+
+def _cnn_raw_stack():
+    """CNN_raw's conv stack as its cfg gives it: the cnn_* fields of the
+    architecture named CNN_layers."""
+    import configparser
+
+    cp = configparser.ConfigParser()
+    cp.read(os.path.join(REPO, "cfg", "TIMIT", "CNN_raw.cfg"))
+    sec = next(cp[s] for s in cp.sections()
+               if cp[s].get("arch_name") == "CNN_layers")
+    return {k: v for k, v in sec.items() if k.startswith("cnn_")}
+
+
+def _stack_inputs(geo, N, n_filt, seed):
+    """x, w0, bias0, gt0, bt0, the upper layers and a gradient of the
+    output, on the card (weights at nn.Conv1d's scale, affine maps near 1
+    and 0)."""
+    g = torch.Generator().manual_seed(seed)
+    L, K0, M0, O0 = geo[0][0], geo[0][1], geo[0][4], n_filt[0]
+    x = torch.randn(N, L, generator=g)
+    w0 = torch.randn(K0, O0, generator=g) / K0 ** 0.5
+    first = [x, w0, torch.randn(O0, generator=g),
+             1 + 0.3 * torch.randn(M0, O0, generator=g),
+             0.3 * torch.randn(M0, O0, generator=g)]
+    ups = []
+    for (lin, K, P, ct, M), C, O in zip(geo[1:], n_filt, n_filt[1:]):
+        ups.append(tuple(t.cuda() for t in (
+            torch.randn(O, C, K, generator=g) / (C * K) ** 0.5,
+            torch.randn(O, generator=g), 1 + 0.3 * torch.randn(M, O, generator=g),
+            0.3 * torch.randn(M, O, generator=g))))
+    dz = torch.randn(N, geo[-1][4], n_filt[-1], generator=g)
+    return [t.cuda() for t in first], tuple(ups), dz.cuda()
+
+
+def _stack_grads(g):
+    """The stack backward's gradients as a flat list, names beside."""
+    names = ["dx", "dw0", "dbias0", "dgt0", "dbt0"] + [
+        f"{n}{i}" for i in range(1, len(g[5]) + 1)
+        for n in ("dW", "dbias", "dgamma", "dbeta")]
+    return names, [*g[:5], *(t for u in g[5] for t in u)]
+
+
+def _per_layer_cnn(opts, L, first, ups):
+    """The port's per-layer path over the same weights: `CNN` at
+    TPUKALDI_CONV_IMPL=pallas (K6 for layer 0, then cuDNN's conv,
+    F.max_pool1d, the layer norm and relu), in eval mode, without the input
+    layer norm and the dropout (the stack takes neither)."""
+    from tpukaldi_torch.models import CNN
+
+    n = len(ups) + 1
+    with _env(TPUKALDI_CONV_IMPL="pallas"):
+        cnn = CNN({**opts, "cnn_use_laynorm_inp": "False",
+                   "cnn_drop": ",".join(["0.0"] * n)}, L, device="cuda").eval()
+    x, w0, bias0, gt0, bt0 = first
+    with torch.no_grad():
+        cnn.conv[0].weight.copy_(w0.t()[:, None, :])
+        cnn.conv[0].bias.copy_(bias0)
+        cnn.ln[0].gamma.copy_(gt0.t())
+        cnn.ln[0].beta.copy_(bt0.t())
+        for i, (kernel, b, g, be) in enumerate(ups, 1):
+            cnn.conv[i].weight.copy_(kernel)
+            cnn.conv[i].bias.copy_(b)
+            cnn.ln[i].gamma.copy_(g.t())
+            cnn.ln[i].beta.copy_(be.t())
+    return cnn
+
+
+def stack_phase(modules) -> dict:
+    """K7f/K7b (the whole conv stack, layer 0 through K6) at CNN_raw's stack
+    shapes: against their plain versions at the training batch, at drop 0
+    and at the recipe's 0.15 (the same dropped elements in every layer), the
+    backward given the kernel's own residuals; K7f at drop 0 against the
+    port's per-layer path; times, bounds and the per-layer path as the
+    yardstick, at the training and the serving batch (peak memory beside);
+    then the stack's own path, counted: STACK_STEPS training steps through
+    `conv_stack_fused` with dropout seeds drawn on the card, and one
+    forward without a gradient.  Returns {kernel name: record}."""
+    from tpukaldi_torch.train import chunk_runtime
+
+    cs, conv1d = modules["conv_stack"], modules["conv1d"]
+    opts = _cnn_raw_stack()
+    n_filt, len_filt, pools = (
+        tuple(int(v) for v in opts[f"cnn_{k}"].split(","))
+        for k in ("n_filt", "len_filt", "max_pool_len"))
+    check(set(opts["cnn_act"].split(",")) == {"relu"},
+          f"CNN_raw's stack is expected all relu: {opts['cnn_act']}")
+    drops = tuple(float(d) for d in opts["cnn_drop"].split(","))
+    no_drop = (0.0,) * len(n_filt)
+    L, N, eps, seed = TREES["RAW"]["dim"], STACK_TRAIN_N, 1e-6, -12345
+    geo = cs.stack_geometry(L, len_filt, pools)
+    first, ups, dz = _stack_inputs(geo, N, n_filt, 17)
+    tag = (f"N={N} L={L} K={len_filt} filters={n_filt} pools={pools} "
+           f"(M={tuple(g[4] for g in geo)})")
+    rec = {name: {"err": 0.0} for name in STACK_KERNELS}
+    for d in (no_drop, drops):
+        a = (*first, ups, seed, pools, eps, True, d)
+        with torch.inference_mode():
+            out, idx0, stats0, res = cs.conv_stack_fwd(*a)
+            ref = cs.conv_stack_ref(*a)
+            gk = cs.conv_stack_bwd(*first, ups, seed, idx0, stats0, res, dz,
+                                   pools, eps, True, d)
+            gr = cs.conv_stack_bwd_ref(*first, ups, seed, idx0, stats0, res,
+                                       dz, pools, eps, True, d)
+            gp = cs.conv_stack_bwd_ref(*first, ups, seed, *ref[1:], dz, pools,
+                                       eps, True, d)
+            torch.cuda.synchronize()
+        # every output K7f keeps: each layer's map, its stats and its argmax
+        maps = [(h, hr) for (h, _, _), (hr, _, _) in zip(res, ref[3])] + [
+            (out, ref[0])]
+        f_err = max((h - hr).abs().max().item() for h, hr in maps)
+        s_err = max((a_[2] - b_[2]).abs().max().item()
+                    for a_, b_ in zip(((None, idx0, stats0), *res),
+                                      ((None, ref[1], ref[2]), *ref[3])))
+        flips = [(idx0 != ref[1]).sum().item()] + [
+            (a_[1] != b_[1]).sum().item() for a_, b_ in zip(res, ref[3])]
+        dropped = sum(((h == 0) != (hr == 0)).sum().item() for h, hr in maps)
+        names, got = _stack_grads(gk)
+        _, want = _stack_grads(gr)
+        _, plain = _stack_grads(gp)
+        rel = {n: ((g_ - w_).abs().max() / w_.abs().max().clamp_min(1e-30)).item()
+               for n, g_, w_ in zip(names, got, want) if "dbias" not in n}
+        worst = max(rel, key=rel.get)
+        nrel = {n: ((g_ - p_).norm() / p_.norm().clamp_min(1e-30)).item()
+                for n, g_, p_ in zip(names, got, plain) if "dbias" not in n}
+        nworst = max(nrel, key=nrel.get)
+        zeros = all(torch.equal(g_, torch.zeros_like(g_))
+                    for n, g_ in zip(names, got) if "dbias" in n)
+        print(f"kernel conv_stack_fwd {tag} drop={d[0]}: max_abs_err="
+              f"{f_err:.3e} over every layer's output, stats {s_err:.3e} "
+              f"(atol {STACK_ATOL:g}); argmax differs at {flips} of "
+              f"{[g_[4] * N * o for g_, o in zip(geo, n_filt)]} per layer "
+              f"(at most {STACK_MAX_FLIPS}); zero (dropped or relu) elements "
+              f"differ at {dropped}", flush=True)
+        print(f"kernel conv_stack_bwd {tag} drop={d[0]}: worst max_rel_err="
+              f"{rel[worst]:.3e} ({worst}) of each gradient's max (rtol "
+              f"{STACK_GRAD_RTOL:g}), given the kernel's residuals; against "
+              f"the plain backward on the plain forward's residuals worst "
+              f"norm_rel_err={nrel[nworst]:.3e} ({nworst}, rtol "
+              f"{STACK_GRAD_NORM_RTOL:g}); dbias exact zeros {zeros}",
+              flush=True)
+        check(math.isfinite(f_err) and f_err <= STACK_ATOL,
+              f"conv_stack_fwd disagrees with its plain version: {f_err}")
+        check(math.isfinite(s_err) and s_err <= STACK_ATOL,
+              f"conv_stack_fwd's stats disagree with the plain version's: "
+              f"{s_err}")
+        check(max(flips) <= STACK_MAX_FLIPS,
+              f"conv_stack_fwd's argmax differs at {flips} elements per layer")
+        check(all(math.isfinite(v) for v in rel.values())
+              and rel[worst] <= STACK_GRAD_RTOL,
+              f"conv_stack_bwd disagrees with its plain version: {rel}")
+        check(all(math.isfinite(v) for v in nrel.values())
+              and nrel[nworst] <= STACK_GRAD_NORM_RTOL,
+              f"conv_stack_bwd on the kernel's residuals disagrees with the "
+              f"plain backward on the plain forward's: {nrel}")
+        check(zeros, "conv_stack_bwd: a conv bias's gradient is not exactly 0")
+        if d[0]:
+            check(dropped == 0, "conv_stack_fwd drops other elements")
+        rec["conv_stack_fwd"]["err"] = max(rec["conv_stack_fwd"]["err"], f_err,
+                                           s_err)
+        rec["conv_stack_bwd"]["err"] = max(rec["conv_stack_bwd"]["err"],
+                                           rel[worst])
+        del out, idx0, stats0, res, ref, gk, gr, gp, got, want, plain, maps
+
+    # K7f at drop 0 against the per-layer path (which the recipe runs)
+    cnn = _per_layer_cnn(opts, L, first, ups)
+    x = first[0]
+    with torch.inference_mode():
+        out = cs.conv_stack_fwd(*first, ups, 0, pools, eps, True, no_drop,
+                                residuals=False)[0]
+        lay = cnn(x)
+        err = (out.transpose(1, 2).reshape(N, -1) - lay).abs().max().item()
+    print(f"kernel conv_stack_fwd vs the per-layer path (CNN at "
+          f"TPUKALDI_CONV_IMPL=pallas: K6f, then cuDNN conv, max-pool, layer "
+          f"norm, relu) {tag} drop=0: max_abs_err={err:.3e} (atol "
+          f"{STACK_ATOL:g})", flush=True)
+    check(math.isfinite(err) and err <= STACK_ATOL,
+          f"conv_stack_fwd disagrees with the per-layer path: {err}")
+
+    # times at the training batch (the recipe's dropout), and the per-layer
+    # path's forward and autograd backward as the yardstick
+    with torch.inference_mode():
+        a = (*first, ups, seed, pools, eps, True, drops)
+        _, idx0, stats0, res = cs.conv_stack_fwd(*a)
+        kept = sum(r[0].numel() * 4 for r in res) / 1e6
+        b = (*first, ups, seed, idx0, stats0, res, dz, pools, eps, True, drops)
+        timing = {
+            "conv_stack_fwd": (median_ms(lambda: cs.conv_stack_fwd(*a), 5),
+                               median_ms(lambda: cs.conv_stack_ref(*a), 3),
+                               median_ms(lambda: cnn(x), 3)),
+            "conv_stack_bwd": [median_ms(lambda: cs.conv_stack_bwd(*b), 5),
+                               median_ms(lambda: cs.conv_stack_bwd_ref(*b), 3)]}
+    xl = x.clone().requires_grad_()
+    leaves = [xl, *cnn.parameters()]
+    lay = cnn(xl)
+    g = dz.transpose(1, 2).reshape(N, -1)
+    timing["conv_stack_bwd"].append(median_ms(lambda: torch.autograd.grad(
+        lay, leaves, g, retain_graph=True), 3))
+    del lay, xl, leaves
+    for name, (ms, plain_ms, lib_ms) in timing.items():
+        bound, by = stack_bound_ms(name, N, L, len_filt, n_filt, pools)
+        rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound, bound_by=by)
+        print(f"kernel {name} {tag} drop={drops[0]}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, per-layer path {lib_ms:.3f} ms, bound "
+              f"{bound:.3f} ms ({by})", flush=True)
+    print(f"kernel conv_stack_fwd keeps each upper layer's input for the "
+          f"backward: {kept:.1f} MB at N={N}", flush=True)
+    # where K7f's and K7b's time goes, by device kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 3
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            cs.conv_stack_fwd(*a)
+            cs.conv_stack_bwd(*b)
+        torch.cuda.synchronize()
+    busy_us, per_op = _device_events(prof)
+    for op, (cnt, us) in sorted(per_op.items(), key=lambda kv: -kv[1][1]):
+        print(f"profile conv stack device op: {us / reps / 1e3:.3f} ms a "
+              f"forward + backward ({us / busy_us:.1%}) x{cnt // reps} "
+              f"{op[:90]}", flush=True)
+
+    # the serving batch: the forward alone (no residuals), and the
+    # per-layer path on the same windows
+    xs = torch.randn(CONV_SERVE_N, L, device="cuda")
+    serve = (ups, 0, pools, eps, True, no_drop)
+    with torch.inference_mode():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = cs.conv_stack_fwd(xs, *first[1:], *serve, residuals=False)[0]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = STACK_SERVE_CHECK
+        s_err = max((out[sl] - cs.conv_stack_ref(xs[sl], *first[1:], *serve)[0])
+                    .abs().max().item() for sl in (slice(0, n), slice(-n, None)))
+        del out
+        ms = median_ms(lambda: cs.conv_stack_fwd(xs, *first[1:], *serve,
+                                                 residuals=False), 3)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lay = cnn(xs)
+        peak_lay = torch.cuda.max_memory_allocated() / 2 ** 30
+        del lay
+        lib_ms = median_ms(lambda: cnn(xs), 3)
+    bound, by = stack_bound_ms("conv_stack_fwd", CONV_SERVE_N, L, len_filt,
+                               n_filt, pools, residuals=False)
+    print(f"kernel conv_stack_fwd serving N={CONV_SERVE_N} {tag[tag.index('L='):]}: "
+          f"max_abs_err={s_err:.3e} on {2 * n} windows (atol {STACK_ATOL:g}); "
+          f"kernel {ms:.3f} ms, peak {peak:.2f} GiB; per-layer path {lib_ms:.3f} "
+          f"ms, peak {peak_lay:.2f} GiB (the CNN_raw serving run's whole peak "
+          f"was 39.16 GiB on the same batch); bound {bound:.3f} ms ({by})",
+          flush=True)
+    check(math.isfinite(s_err) and s_err <= STACK_ATOL,
+          f"conv_stack_fwd disagrees with its plain version at serving: {s_err}")
+    del xs, cnn
+    torch.cuda.empty_cache()
+
+    # the stack's own path, counted
+    x, w0, bias0, gt0, bt0 = first
+    params = [t.clone().requires_grad_() for t in (w0, bias0, gt0, bt0)]
+    up_params = [[t.clone().requires_grad_() for t in u] for u in ups]
+    flat = params + [t for u in up_params for t in u]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    _reset_counts(modules, chunk_runtime)
+    losses = []
+    for _ in range(STACK_STEPS):
+        step_seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+        out = cs.conv_stack_fused(x, *params, up_params, step_seed, pools, eps,
+                                  True, drops)
+        loss = (out * dz).sum()
+        grads = torch.autograd.grad(loss, flat)
+        with torch.no_grad():
+            for p, gr in zip(flat, grads):
+                p -= 1e-3 * gr
+        losses.append(loss.item())
+        check(all(bool(torch.isfinite(gr).all()) for gr in grads),
+              "the stack's path: a non-finite gradient")
+        check(all(torch.equal(gr, torch.zeros_like(gr))
+                  for gr in grads[1::4]), "the stack's path: a conv bias's "
+              "gradient is not exactly 0")
+    with torch.no_grad():
+        served = cs.conv_stack_fused(x, *params, up_params, 0, pools, eps, True,
+                                     no_drop)
+    torch.cuda.synchronize()
+    counts = _counts(modules)
+    want = {"conv_stack_fwd": STACK_STEPS + 1, "conv_stack_bwd": STACK_STEPS,
+            "conv_ln_fwd": STACK_STEPS + 1, "conv_ln_bwd": STACK_STEPS}
+    check({k: n for k, n in counts.items() if n} == want,
+          f"the stack's path launched {counts}, expected {want}")
+    check(served.shape == (N, geo[-1][4], n_filt[-1])
+          and bool(torch.isfinite(served).all()),
+          f"the stack's output: {tuple(served.shape)}, finite "
+          f"{bool(torch.isfinite(served).all())}")
+    print(f"stack path: {STACK_STEPS} steps of conv_stack_fused at drop "
+          f"{drops[0]} (losses {', '.join(f'{v:.4f}' for v in losses)}) and one "
+          f"forward without a gradient, output {tuple(served.shape)} finite; "
+          f"launches {counts['conv_stack_fwd']} K7f, {counts['conv_stack_bwd']} "
+          f"K7b (with K6f {counts['conv_ln_fwd']}, K6b {counts['conv_ln_bwd']} "
+          f"for layer 0), no other kernel", flush=True)
+    for name in STACK_KERNELS:
+        rec[name]["launches"] = counts[name]
+    return rec
+
+
 def _reset_counts(modules, chunk_runtime) -> None:
     for mod, counter, _, _ in KERNELS.values():
         setattr(modules[mod], counter, 0)
@@ -801,10 +1200,12 @@ def _counts(modules):
 
 
 def _check_only(counts, recipe, what):
-    """No kernel but the recipe's own two launched in a path of it."""
+    """No kernel but the recipe's own two launched in a path of it.
+    Returns the stack kernels' counts (so 0) for the kernels line."""
     own = (RECIPES[recipe]["fwd"], RECIPES[recipe]["bwd"])
     others = {k: n for k, n in counts.items() if k not in own and n}
     check(not others, f"{what}: other kernels launched: {others}")
+    return {name: counts[name] for name in STACK_KERNELS}
 
 
 def _plain_path(recipe, modules):
@@ -924,7 +1325,7 @@ def serving_phase(modules, trees, recipe) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     counts, n_batches = _counts(modules), chunk_runtime.forward_batches
     launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
-    _check_only(counts, recipe, f"{recipe} serving")
+    stack_launches = _check_only(counts, recipe, f"{recipe} serving")
     posts, info = ft.forward_outputs(out)
 
     plain_ctx, plain_label = _plain_path(recipe, modules)
@@ -978,7 +1379,7 @@ def serving_phase(modules, trees, recipe) -> dict:
     print(f"serving {recipe} agreement: kernel vs plain path max_abs_err="
           f"{worst_plain:.3e} (atol {POSTERIOR_ATOL:g}), CUDA vs CPU path (2 "
           f"utterances) {cpu}", flush=True)
-    return {"cfg": cfg}
+    return {"cfg": cfg, "stack_launches": stack_launches}
 
 
 def _train_infos(out):
@@ -1014,7 +1415,7 @@ def train_phase(modules, trees, recipe) -> dict:
     wall = time.perf_counter() - t0
     counts = _counts(modules)
     launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
-    _check_only(counts, recipe, f"{recipe} training")
+    stack_launches = _check_only(counts, recipe, f"{recipe} training")
     n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
                                chunk_runtime.valid_batches,
                                chunk_runtime.forward_batches)
@@ -1101,7 +1502,8 @@ def train_phase(modules, trees, recipe) -> dict:
               f"{k}={v:.3f}" for k, v in plain.phases.items()), flush=True)
 
     step_check(modules, trees, recipe)
-    return {"launches": launches, "bwd_launches": bwd, "cfg": cfg}
+    return {"launches": launches, "bwd_launches": bwd, "cfg": cfg,
+            "stack_launches": stack_launches}
 
 
 def step_check(modules, trees, recipe) -> None:
@@ -1340,11 +1742,13 @@ def _ptxas(report):
     found = []
     for part in text.split("Compiling entry function")[1:]:
         name = re.search(r"([a-z_]+_kernel)", part)
+        taps = re.match(r"[^\n]*?_kernelILi(\d+)E", part)  # a template's K
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           part)
         check(bool(name and regs and spill), f"unreadable ptxas report {report}")
-        found.append((name.group(1), regs.group(1),
+        found.append((name.group(1) + (f"<{taps.group(1)}>" if taps else ""),
+                      regs.group(1),
                       f"{spill.group(1)} bytes spill stores, "
                       f"{spill.group(2)} bytes spill loads"))
     check(bool(found), f"no kernel in the ptxas report {report}")
@@ -1364,7 +1768,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from tpukaldi_torch.kernels import conv1d, gru, ligru, lstm
+    from tpukaldi_torch.kernels import conv1d, conv_stack, gru, ligru, lstm
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.train.chunk_runtime import resolve_device
 
@@ -1380,7 +1784,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
-    modules = {"ligru": ligru, "lstm": lstm, "gru": gru, "conv1d": conv1d}
+    modules = {"ligru": ligru, "lstm": lstm, "gru": gru, "conv1d": conv1d,
+               "conv_stack": conv_stack}
     build_kernels(modules)
 
     # a process's first torch.optim optimizer imports torch._dynamo (seconds
@@ -1394,6 +1799,7 @@ def main() -> int:
     k = _timed("kernels", kernel_phase,
                {"ligru": ligru, "lstm": lstm, "gru": gru, "lstm_lean": lstm})
     conv = _timed("conv kernels", conv_kernel_phase, conv1d)
+    stack = _timed("conv stack kernels and path", stack_phase, modules)
     shutil.rmtree(WORK, ignore_errors=True)
     t0 = time.perf_counter()
     # the raw tree is in TIMIT's layout, with the raw stream beside its
@@ -1406,14 +1812,31 @@ def main() -> int:
         for corpus, t in TREES.items()}
     print(f"synthetic trees: {time.perf_counter() - t0:.1f} s", flush=True)
     trained = {}
+    # the stack kernels' launches on every recipe path (each checked 0 by
+    # `_check_only`, as no recipe calls the stack)
+    recipe_stack = dict.fromkeys(STACK_KERNELS, 0)
     for recipe in RECIPES:
         s = _timed(f"{recipe} serving", serving_phase, modules, trees, recipe)
         trained[recipe] = _timed(f"{recipe} training", train_phase, modules,
                                  trees, recipe)
         _timed(f"{recipe} profile", profile_phase, recipe, s["cfg"],
                trained[recipe]["cfg"])
+        for name in STACK_KERNELS:
+            recipe_stack[name] += (s["stack_launches"][name]
+                                   + trained[recipe]["stack_launches"][name])
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def entry(name, rec, launches, **extra):
+        """A kernel's record on the kernels line."""
+        mod, _, attr, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda",
+                "source": "tpukaldi_torch/kernels/csrc/"
+                          + getattr(modules[mod], attr),
+                "replaces": replaces, "launches": launches, **extra,
+                "max_abs_err": rec["err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
 
     kernels = []
     for recipe, r in RECIPES.items():
@@ -1423,7 +1846,6 @@ def main() -> int:
                 ("bwd", LEAN_BWD_SHAPES if lean else BWD_SHAPES,
                  "bwd_launches")):
             name = r[kind]
-            mod, _, attr, replaces = KERNELS[name]
             if _raw(recipe):
                 rec = conv[name]
             else:
@@ -1437,15 +1859,11 @@ def main() -> int:
                 rec = dict(err=k["errs"][name], ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, bound_by=bound_by,
                            library_ms=None if lib is None else lib[0])
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": "tpukaldi_torch/kernels/csrc/"
-                          + getattr(modules[mod], attr),
-                "replaces": replaces,
-                "launches": trained[recipe][key],
-                "max_abs_err": rec["err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            kernels.append(entry(name, rec, trained[recipe][key]))
+    # the stack's kernels: launches on its own path, and on the recipe paths
+    kernels += [entry(name, stack[name], stack[name]["launches"],
+                      recipe_launches=recipe_stack[name])
+                for name in STACK_KERNELS]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,166 @@
+"""The knobs the port reads as tpukaldi does, and the ones it does not
+implement yet, which raise instead of running something else.
+
+1. `compute_dtype` (`[exp] compute_dtype`, overridden by
+   `TPUKALDI_COMPUTE_DTYPE`), read where the port builds its `ChunkRuntime`,
+   as tpukaldi's `ChunkRuntime._compute_dtype` reads it
+   (`tests/test_bf16.py::test_bad_compute_dtype_rejected`): float32 names
+   run, any name but float32 and bfloat16 raises `ValueError`, and bfloat16
+   raises `NotImplementedError` until the port has a bf16 mode, through
+   `run_experiment` (the shipped `cfg/TIMIT/liGRU_fmllr_bf16.cfg`) and
+   through `run_chunk`.
+2. `[exp] multi_gpu`, `TPUKALDI_NUM_HOSTS` and `TPUKALDI_MATMUL_PRECISION`
+   raise `NotImplementedError` in `run_experiment` before any output folder
+   is written.
+"""
+
+import os
+
+import pytest
+
+from tpukaldi_torch.plan.chunk_cfg import write_chunk_cfg
+from tpukaldi_torch.tools.flagship_tree import (
+    recipe_cfg,
+    train_plan,
+    write_kaldi_tree,
+    write_train_cfg,
+)
+from tpukaldi_torch.tools.run_chunk import run_chunk
+from tpukaldi_torch.tools.run_exp import run_experiment
+from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16_CFG = os.path.join(REPO, "cfg", "TIMIT", "liGRU_fmllr_bf16.cfg")
+SPLITS = {"train": (4, 30, 50), "dev": (2, 30, 50), "test": (3, 30, 60)}
+SHRINK = {
+    "ligru_lay = 550,550,550,550,550": "ligru_lay = 8",
+    "ligru_drop = 0.2,0.2,0.2,0.2,0.2": "ligru_drop = 0.0",
+    "ligru_use_laynorm = False,False,False,False,False":
+        "ligru_use_laynorm = False",
+    "ligru_use_batchnorm = True,True,True,True,True": "ligru_use_batchnorm = True",
+    "ligru_act = relu,relu,relu,relu,relu": "ligru_act = relu",
+    "n_epochs_tr = 24": "n_epochs_tr = 1",
+    "n_chunks = 5": "n_chunks = 1",
+}
+KNOBS = ("TPUKALDI_COMPUTE_DTYPE", "TPUKALDI_NUM_HOSTS", "TPUKALDI_HOST_ID",
+         "TPUKALDI_MATMUL_PRECISION")
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    return write_kaldi_tree(str(tmp_path_factory.mktemp("timit")), 10,
+                            n_phones=3, n_pdfs=9, splits=SPLITS)
+
+
+@pytest.fixture(autouse=True)
+def no_knobs(monkeypatch):
+    for name in KNOBS:
+        monkeypatch.delenv(name, raising=False)
+
+
+def _bf16_cfg(tree, tmp_path, dtype="bfloat16"):
+    out = str(tmp_path / "out")
+    return write_train_cfg(
+        tree, out, str(tmp_path / "run.cfg"),
+        {**SHRINK, "compute_dtype = bfloat16": f"compute_dtype = {dtype}"},
+        recipe=BF16_CFG), out
+
+
+@pytest.mark.parametrize("dtype", ["float32", " F32 ", ""])
+def test_float32_names_build_the_runtime(tree, tmp_path, dtype):
+    """float32, f32 and the empty name, in any case and with spaces, are
+    float32, which the port computes in."""
+    cfg, _ = _bf16_cfg(tree, tmp_path, dtype)
+    exp, _ = train_plan(cfg)
+    assert ChunkRuntime(exp, "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("dtype", ["float16", "fp8"])
+def test_bad_compute_dtype_rejected(tree, tmp_path, dtype):
+    """A name that is neither float32 nor bfloat16 raises ValueError, with
+    tpukaldi's message."""
+    cfg, _ = _bf16_cfg(tree, tmp_path, dtype)
+    exp, _ = train_plan(cfg)
+    with pytest.raises(ValueError, match="compute_dtype must be float32 or "
+                                         "bfloat16"):
+        ChunkRuntime(exp, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "BF16"])
+def test_bf16_cfg_raises_instead_of_running_float32(tree, tmp_path, dtype):
+    """The shipped bf16 recipe (its own `compute_dtype` line) raises
+    NotImplementedError in `run_experiment`, before any output is
+    written, rather than train in float32."""
+    cfg, out = _bf16_cfg(tree, tmp_path, dtype)
+    with pytest.raises(NotImplementedError, match="bf16 mode"):
+        run_experiment(cfg, device="cpu")
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("env, raises", [
+    ("bfloat16", NotImplementedError), (" bf16", NotImplementedError),
+    ("float16", ValueError), ("float32", None)])
+def test_compute_dtype_env_overrides_the_cfg(tree, tmp_path, monkeypatch, env,
+                                             raises):
+    """TPUKALDI_COMPUTE_DTYPE overrides the cfg field, both ways: over the
+    float32 recipe it raises for bf16, over the bf16 recipe float32 runs."""
+    monkeypatch.setenv("TPUKALDI_COMPUTE_DTYPE", env)
+    recipe = BF16_CFG if raises is None else recipe_cfg("liGRU")
+    cfg = write_train_cfg(tree, str(tmp_path / "out"), str(tmp_path / "r.cfg"),
+                          SHRINK, recipe=recipe)
+    exp, _ = train_plan(cfg)
+    if raises is None:
+        ChunkRuntime(exp, "cpu")
+        return
+    with pytest.raises(raises, match="compute_dtype"):
+        ChunkRuntime(exp, "cpu")
+
+
+def test_run_chunk_reads_compute_dtype(tree, tmp_path):
+    """A chunk cfg carries `compute_dtype` (`plan/chunk_cfg.py`), and the
+    standalone chunk runner raises on bfloat16 too."""
+    cfg, _ = _bf16_cfg(tree, tmp_path)
+    exp, plan = train_plan(cfg)
+    task = plan.epochs[0].tasks[0]
+    task.write_lst_files()
+    chunk_cfg = write_chunk_cfg(exp, task)
+    with open(chunk_cfg) as f:
+        assert "compute_dtype = bfloat16" in f.read()
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        run_chunk(chunk_cfg, "cpu")
+
+
+@pytest.mark.parametrize("knob", [
+    "multi_gpu", "TPUKALDI_NUM_HOSTS=2", "TPUKALDI_MATMUL_PRECISION=bfloat16",
+    "TPUKALDI_MATMUL_PRECISION=tensorfloat32"])
+def test_unported_run_knobs_raise_before_any_output(tree, tmp_path,
+                                                    monkeypatch, knob):
+    """Each knob that would make tpukaldi run otherwise (a data-parallel
+    mesh, forward tasks sharded across hosts, another matmul precision)
+    raises NotImplementedError naming it, and leaves no output folder."""
+    out = str(tmp_path / "out")
+    shrink = dict(SHRINK)
+    if knob == "multi_gpu":
+        shrink["multi_gpu = False"] = "multi_gpu = True"
+    else:
+        name, value = knob.split("=")
+        monkeypatch.setenv(name, value)
+        if name == "TPUKALDI_NUM_HOSTS":
+            monkeypatch.setenv("TPUKALDI_HOST_ID", "1")
+    cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), shrink)
+    with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
+        run_experiment(cfg, device="cpu")
+    assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("value", ["float32", " Highest ", ""])
+def test_float32_matmul_precision_runs(tree, tmp_path, monkeypatch, value):
+    """float32 and highest ask for what the port computes (TF32 off), and an
+    empty value is unset, as tpukaldi reads it: the run goes through."""
+    monkeypatch.setenv("TPUKALDI_MATMUL_PRECISION", value)
+    monkeypatch.setenv("TPUKALDI_NUM_HOSTS", "1")
+    out = str(tmp_path / "out")
+    cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), SHRINK)
+    run_experiment(cfg, device="cpu")
+    with open(os.path.join(out, "res.res")) as f:
+        assert f.read().startswith("ep=0 ")

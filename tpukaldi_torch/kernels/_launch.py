@@ -3,7 +3,9 @@ entry, check the tensors it is given, and launch on PyTorch's current
 stream, raising on a refused launch.
 
 Each library built from `csrc/<source>` exports `tpk_<name>(arguments...,
-stream)`, which returns `cudaGetLastError()`.  A recurrence kernel's takes
+stream)`, which returns `cudaGetLastError()`, or SMEM_REFUSED where the
+shapes need more shared memory than a block may use (the conv stack's
+entries, `csrc/stack_tile.cuh::kErrSmem`).  A recurrence kernel's takes
 (pointers..., T, B, H, ints...) and comes with `tpk_<name>_max_hidden()`,
 the largest H it takes (one thread per hidden unit).
 """
@@ -16,6 +18,8 @@ from typing import Callable, Sequence, Tuple
 import torch
 
 from . import _build
+
+SMEM_REFUSED = -1
 
 
 def entry(source: str, name: str, argtypes: Sequence) -> Callable[..., int]:
@@ -31,9 +35,12 @@ def entry(source: str, name: str, argtypes: Sequence) -> Callable[..., int]:
 def call(name: str, fn: Callable[..., int], device: torch.device, args,
          what: str) -> None:
     """`fn(args..., stream)` on the current stream of `device`; raise if the
-    launch was refused."""
+    launch was refused (ValueError for shapes past the shared memory)."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == SMEM_REFUSED:
+        raise ValueError(f"{name}: {what} needs more shared memory than a "
+                         f"block may use")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error "
                            f"{err} ({what})")

@@ -188,6 +188,25 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
                      f"epoch_wall={epoch_wall:.2f}\n")
 
 
+def check_run_knobs(exp: ExperimentConfig) -> None:
+    """The run-level knobs tpukaldi reads (tools/run_exp.py:95-120,
+    :187-190) that the port does not implement yet raise, naming the knob:
+    it runs one process on one device in float32, with TF32 off."""
+    if exp.multi_gpu:
+        raise NotImplementedError(
+            "[exp] multi_gpu = True: data-parallel training is not ported yet "
+            "(ROADMAP.md queue 1, 'DDP and export')")
+    if int(os.environ.get("TPUKALDI_NUM_HOSTS", "1")) > 1:
+        raise NotImplementedError(
+            "TPUKALDI_NUM_HOSTS > 1: sharding the forward stage across hosts "
+            "is not ported yet (ROADMAP.md queue 1, 'DDP and export')")
+    precision = os.environ.get("TPUKALDI_MATMUL_PRECISION", "").strip().lower()
+    if precision not in ("", "float32", "highest"):
+        raise NotImplementedError(
+            f"TPUKALDI_MATMUL_PRECISION={precision!r}: the port multiplies in "
+            "float32 only (float32 or highest; ROADMAP.md queue 1, 'bf16 mode')")
+
+
 def run_experiment(
     cfg_file: str,
     overrides: Optional[List[str]] = None,
@@ -195,6 +214,9 @@ def run_experiment(
 ) -> ExperimentConfig:
     device = resolve_device(device)
     exp = load_config(cfg_file, overrides=overrides)
+    # what the port cannot run raises before any output is written
+    check_run_knobs(exp)
+    runtime = ChunkRuntime(exp, device)
     out_folder = exp.out_folder
     os.makedirs(os.path.join(out_folder, "exp_files"), exist_ok=True)
     # snapshot the resolved config (reference run_exp.py:122-124)
@@ -210,7 +232,6 @@ def run_experiment(
     for removed in repair_resume_point(plan):
         _log(out_folder, f"[resume] {removed} invalidated (no restorable "
              "checkpoint); the chunk will be replayed deterministically")
-    runtime = ChunkRuntime(exp, device)
 
     res_file = os.path.join(out_folder, "res.res")
     if not os.path.exists(res_file):

@@ -119,6 +119,27 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def check_compute_dtype(exp: ExperimentConfig) -> None:
+    """The mixed-precision knob, read as tpukaldi reads it
+    (`train/chunk_runtime.py::_compute_dtype`): `TPUKALDI_COMPUTE_DTYPE`
+    overrides `[exp] compute_dtype`, stripped and lower-cased.  The port
+    computes in float32; bfloat16 raises until the port has a bf16 mode
+    (ROADMAP.md queue 1, "bf16 mode"), and any other name raises as in
+    tpukaldi."""
+    name = os.environ.get(
+        "TPUKALDI_COMPUTE_DTYPE",
+        exp.raw["exp"].get("compute_dtype", "float32")
+        if "exp" in exp.raw else "float32",
+    ).strip().lower()
+    if name in ("", "float32", "f32"):
+        return
+    if name in ("bfloat16", "bf16"):
+        raise NotImplementedError(
+            f"compute_dtype {name!r}: the port computes in float32 only; its "
+            "bf16 mode is still to port (ROADMAP.md queue 1, 'bf16 mode')")
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got {name!r}")
+
+
 def batch_seed(task_seed: int, batch_index: int) -> int:
     """The dropout generator's seed for one train batch: a function of the
     task's seed and the batch index only, so a replayed chunk draws the same
@@ -131,6 +152,7 @@ class ChunkRuntime:
     for one run."""
 
     def __init__(self, exp: ExperimentConfig, device):
+        check_compute_dtype(exp)
         self.exp = exp
         self.device = resolve_device(device)
         # sequential iff any computed architecture is (reference
