@@ -36,9 +36,14 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f is also held, step by step, to one plain step from its
-   own previous state, and K4f and K4b are timed beside the float32 K2f
-   and K2b on the same inputs.  The conv kernels (K5f, K5b, K6f, K6b) at
+   small shape.  K4f, one persistent cooperative launch with U resident in
+   shared memory and bf16 tensor-core products, is also held, step by step,
+   to one plain step from its own previous state, run at the edges of its
+   tiling, (37, 5, 36) and (50, 96, 1024), under the same tolerances, and
+   called twice on the same inputs (bitwise equal); its us per step, grid
+   (CTAs, units each) and shared memory a CTA are printed beside its time.
+   K4f and K4b are timed beside the float32 K2f and K2b on the same inputs.
+   The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
    and K6f on the serving batch of 32,000 windows (a slice held to the
@@ -126,6 +131,9 @@ BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
 # the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
 # doubled by the bidirectional flip-concat
 LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
+# K4f also at the edges of its tiling: an odd batch with H not a multiple of
+# 16, and a batch of more than 64 rows (h staged in chunks of fewer columns)
+LEAN_FWD_EDGE_SHAPES = ((37, 5, 36), (50, 96, 1024))
 LEAN_BWD_SHAPES = ((778, 32, 1024), (1000, 32, 1024))
 # kernel vs plain version on the card: both float32, the recurrent products
 # summed in another order per step, compounding over up to 1000 steps
@@ -523,11 +531,15 @@ def kernel_phase(mods) -> dict:
         lean = cell == "lstm_lean"
         fns = _cell_fns(cell, mod)
         name = f"{cell}_fwd"
-        for T, B, H in LEAN_FWD_SHAPES if lean else FWD_SHAPES:
+        for T, B, H in (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
+                        else FWD_SHAPES):
             ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
                 want = fns["fwd_ref"](ff, ws, mask)
+                # K4f sums in a fixed order: a second call gives the same bits
+                same = (all(torch.equal(a, b) for a, b in
+                            zip(got, fns["fwd"](ff, ws, mask))) if lean else True)
                 torch.cuda.synchronize()
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 rel = err / max(b.abs().max().item() for b in want)
@@ -545,11 +557,19 @@ def kernel_phase(mods) -> dict:
                   + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                   + (f", K2f at this shape {k2_ms:.3f} ms" if lean else ""),
                   flush=True)
+            if lean:
+                plan = mod.lean_fwd_plan(B, H)
+                print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
+                      f"per step; grid P={plan['ctas']} CTAs of u="
+                      f"{plan['units']} units, {plan['smem_bytes']} shared-memory "
+                      f"bytes a CTA, h staged {plan['chunk']} columns at a time; "
+                      f"repeat bitwise equal: {same}", flush=True)
             check(math.isfinite(err) and err <= atol,
                   f"{name} disagrees with its plain version at {(T, B, H)}: {err}")
             if lean:
                 check(math.isfinite(step) and step <= LEAN_STEP_ATOL,
                       f"{name} step disagrees at {(T, B, H)}: {step}")
+                check(same, f"{name}: two calls differ at {(T, B, H)}")
             errs[name] = max(errs.get(name, 0.0), err)
             timing[(name, T, B, H)] = (ms, plain_ms)
             if name in ("lstm_fwd", "lstm_lean_fwd") and name not in library:

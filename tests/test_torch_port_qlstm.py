@@ -7,7 +7,8 @@ sizes.
    lean (`autograd = False`) gradients against `quaternion_linear_leanvjp`'s.
 2. K4's plain versions and the Function against tpukaldi's
    `lstm_recurrence_lean` in interpret mode and its `jax.vjp`, at T = 13
-   and 37 (not multiples of its time block).
+   and 37 (not multiples of its time block) and at the edges of K4f's
+   tiling (an odd batch, H = 36, a batch of 70).
 3. `QLSTM` in eval mode, with and without lengths, under `qlstm_impl` scan
    and pallas, against tpukaldi's same impl from the same weights.
 4. The QLSTM weight map both ways.
@@ -118,15 +119,22 @@ def _lstm_inputs(T, B, H, seed):
     return ff, u, mask, g
 
 
-@pytest.mark.parametrize("T", [13, 37])
-def test_lean_recurrence_matches_jax(T):
+# (T, B, H) of the bf16-U recurrence checks: T not a multiple of tpukaldi's
+# time block, and the edges of K4f's tiling (an odd batch, H not a multiple
+# of 16, a batch over 64 rows); the first two keep their ids
+LEAN_SHAPES = [pytest.param(13, 4, 16, id="13"), pytest.param(37, 4, 16, id="37"),
+               pytest.param(9, 5, 36, id="T9-B5-H36"),
+               pytest.param(7, 70, 16, id="T7-B70-H16")]
+
+
+@pytest.mark.parametrize("T, B, H", LEAN_SHAPES)
+def test_lean_recurrence_matches_jax(T, B, H):
     """h and c of K4's plain forward; dff, dU and dmask of its plain
     backward and of `LSTMLeanRecurrence`, against tpukaldi's Pallas kernel
     in interpret mode and its VJP.  Both round h, U and dA to the same bf16
     operands and multiply exactly, so only the float32 sum order differs:
     ATOL absolute (the weight gradient relative to its max).  The float32
     recurrence is ~5e-4 away, so the test tells the two apart."""
-    B, H = 4, 16
     ff, u, mask, g = _lstm_inputs(T, B, H, seed=T)
     j = [jnp.asarray(x) for x in (ff, u, mask)]
     h_p, c_p = jax_lstm._lstm_lean_fwd_impl(*j, interpret=True)
@@ -357,25 +365,29 @@ def test_reset_parameters_is_seeded():
 
 
 @pytest.mark.cuda
-def test_lean_kernels_match_plain_on_card():
-    """K4f and K4b against their plain versions on the same card at a small
-    shape.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative to the max
-    on dU: both round to the same bf16 operands, but the float32 sums run
-    in other orders, and an operand that lands on a rounding tie moves its
-    step by 2^-8 of h."""
+@pytest.mark.parametrize("T, B, H", [(41, 6, 64)] + LEAN_SHAPES)
+def test_lean_kernels_match_plain_on_card(T, B, H):
+    """K4f and K4b against their plain versions on the same card at small
+    shapes, K4f's tiling edges among them.  1e-4 absolute on h, c, dff and
+    dmask, 1e-4 relative to the max on dU: both round to the same bf16
+    operands, but the float32 sums run in other orders, and an operand that
+    lands on a rounding tie moves its step by 2^-8 of h.  Two K4f calls on
+    the same inputs give the same bits (its sums run in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     ff, u, mask, g = (torch.from_numpy(x).cuda()
-                      for x in _lstm_inputs(41, 6, 64, seed=2))
+                      for x in _lstm_inputs(T, B, H, seed=2))
     before = (port_lstm.lean_launches, port_lstm.lean_bwd_launches)
     got_f = port_lstm.lstm_recurrence_lean(ff, u, mask)
+    again = port_lstm.lstm_recurrence_lean(ff, u, mask)
+    assert all(torch.equal(a, b) for a, b in zip(got_f, again))
     want_f = port_lstm.lstm_recurrence_lean_ref(ff, u, mask)
     got_b = port_lstm.lstm_recurrence_lean_bwd(ff, *got_f, g, u, mask)
     want_b = port_lstm.lstm_recurrence_lean_bwd_ref(ff, *got_f, g, u, mask)
     torch.cuda.synchronize()
     assert (port_lstm.lean_launches, port_lstm.lean_bwd_launches) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + 2, before[1] + 1)
     for a, b in zip(got_f, want_f):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     for name, a, b in zip(("dff", "du", "dmask"), got_b, want_b):

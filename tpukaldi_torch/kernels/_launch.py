@@ -7,7 +7,7 @@ stream)`, which returns `cudaGetLastError()`, or SMEM_REFUSED where the
 shapes need more shared memory than a block may use (the conv stack's
 entries, `csrc/stack_tile.cuh::kErrSmem`).  A recurrence kernel's takes
 (pointers..., T, B, H, ints...) and comes with `tpk_<name>_max_hidden()`,
-the largest H it takes (one thread per hidden unit).
+the largest H it takes.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def check_inputs(fn: str, H: int, max_hidden: int,
                          for name, (t, shape) in tensors.items()})
     if H > max_hidden:
         raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "
-                         f"{max_hidden} (one thread per hidden unit)")
+                         f"{max_hidden}")
 
 
 def launch(name: str, entry_fn: Callable[..., int], ptrs, T: int, B: int,

@@ -9,9 +9,9 @@
 //     dmask (B, H)     sum over t of dc * i * cand
 //
 // walking time backwards with h_prev[t] = h[t - 1], c_prev[t] = c[t - 1]
-// (zeros at t = 0), the gates recomputed from h_prev with the forward's own
-// bf16 products (lstm_lean_cell.cuh, so they equal the forward's bit for
-// bit):
+// (zeros at t = 0), the gates recomputed from h_prev with the forward's
+// bf16 products as one sequential float32 chain (lstm_lean_cell.cuh; K4f
+// sums them on the tensor cores, so the two agree to the sum order):
 //
 //     gh   = g[t] + dh                            dh, dc carried from t + 1
 //     da_o = gh * tanh(c) * o * (1 - o)
@@ -46,8 +46,8 @@
 // What bounds it.  Each step every CTA reads the bf16 U twice from L2 (upk
 // for the gates, utp for the dh chain), 16 H^2 bytes (16 MB at H = 1024,
 // inside the 50 MB L2), for 16 B H^2 flops across the B CTAs: one CTA's L2
-// read rate sets the step, as in K4f.  The persistent design (ROADMAP) is
-// later work.
+// read rate sets the step.  K4f's persistent design (U resident in shared
+// memory, lstm_lean_fwd.cu) is later work here.
 
 #include <cuda_runtime.h>
 

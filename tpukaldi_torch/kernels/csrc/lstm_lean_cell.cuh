@@ -1,6 +1,7 @@
-// The LSTM cell step with a bf16 recurrent weight, shared by the forward
-// kernel (lstm_lean_fwd.cu, K4f) and the backward kernel's gate remat
-// (lstm_lean_bwd.cu, K4b).
+// The LSTM cell step with a bf16 recurrent weight: the backward kernel's
+// gate remat (lstm_lean_bwd.cu, K4b) calls lean_gates, and the forward
+// kernel (lstm_lean_fwd.cu, K4f) applies the same gate functions
+// (lean_sigmoid, tanhf) to its tensor-core sums.
 //
 // For batch row b and hidden unit j it computes
 //
@@ -10,11 +11,10 @@
 // with every product exact in float32 (the product of two bf16 values fits
 // in float32's mantissa) and the sum accumulated in float32, k ascending.
 // tpukaldi's Pallas kernels (kernels/lstm.py, _lstm_lean_kernel and the
-// phase-1 remat of _lstm_lean_bwd_kernel) compute the same products, and
-// the backward insists that its remat gates equal the forward's bit for bit.
-// Both kernels therefore call this one function, with the same operands
-// (the bf16 rounding of the h that the forward wrote), so they execute the
-// same instructions in the same order.
+// phase-1 remat of _lstm_lean_bwd_kernel) compute the same products.  K4f
+// sums them in the tensor cores' order and then across warps, so K4b's
+// remat gates agree with K4f's to the float32 sum order, not bit for bit;
+// the operands are the same (the bf16 rounding of the h that K4f wrote).
 //
 // U arrives packed, once per call, as upk (H, H) of 8-byte words:
 // upk[k * H + j] = (U[k, j], U[k, H + j], U[k, 2H + j], U[k, 3H + j]) in

@@ -19,10 +19,15 @@ loops that mirror tpukaldi's `lstm_recurrence_scan` and `_bwd_scan`.
 (the QLSTM's recurrence): the same cell with h and U rounded to bf16 as the
 operands of every recurrent product, the products exact and summed in
 float32, and h and c kept in float32.  Its forward `lstm_recurrence_lean`
-launches `csrc/lstm_lean_fwd.cu` (K4f), its backward
+launches `csrc/lstm_lean_fwd.cu` (K4f): one persistent cooperative launch
+whose CTAs each keep a column slice of U in shared memory for all T steps,
+form the gates with bf16 tensor-core products and exchange h through a
+global ping-pong buffer, one grid barrier a step.  Its backward
 `lstm_recurrence_lean_bwd` launches `csrc/lstm_lean_bwd.cu` (K4b, dff and
-dmask) and then contracts dU = h_prev^T dff as one float32 GEMM, as
-tpukaldi's `_lean_bwd` does.  On CPU tensors they run
+dmask; one CTA per batch row, its gates rematerialised with a sequential
+float32 chain, so they agree with K4f's to the sum order) and then
+contracts dU = h_prev^T dff as one float32 GEMM, as tpukaldi's `_lean_bwd`
+does.  On CPU tensors they run
 `lstm_recurrence_lean_ref` and `lstm_recurrence_lean_bwd_ref`.  The port's
 LSTM runs the float32 kernels at every H, which is what tpukaldi computes
 off a TPU; the QLSTM picks by `qlstm_impl` (`models/quaternion.py`).
@@ -30,11 +35,12 @@ off a TPU; the QLSTM picks by `qlstm_impl` (`models/quaternion.py`).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import _launch
+from . import _build, _launch
 
 SOURCE = "lstm_fwd.cu"
 BWD_SOURCE = "lstm_bwd.cu"
@@ -226,8 +232,9 @@ class LSTMRecurrence(torch.autograd.Function):
 
 
 def _pack(u: torch.Tensor, H: int) -> torch.Tensor:
-    """bf16 (H, H, 4) with [k, j, g] = U[k, gH + j]: thread j's four gate
-    weights of row k side by side (`csrc/lstm_lean_cell.cuh`)."""
+    """bf16 (H, H, 4) with [k, j, g] = U[k, gH + j]: unit j's four gate
+    weights of row k side by side (`csrc/lstm_lean_cell.cuh`), so a K4f CTA's
+    slice of row k is one contiguous run."""
     return u.view(H, 4, H).permute(0, 2, 1).to(torch.bfloat16).contiguous()
 
 
@@ -246,7 +253,7 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
     global lean_launches
     if ff.device.type == "cpu":
         return lstm_recurrence_lean_ref(ff, u, mask)
-    entry, max_hidden = _launch.bind(LEAN_SOURCE, "lstm_lean_fwd", 5, 3)
+    entry, max_hidden = _launch.bind(LEAN_SOURCE, "lstm_lean_fwd", 7, 3)
     T, B, H = _launch.dims("lstm_recurrence_lean", ff, 4)
     _launch.check_inputs("lstm_recurrence_lean", H, max_hidden,
                          ff=(ff, (T, B, 4 * H)), u=(u, (H, 4 * H)),
@@ -255,10 +262,35 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
     c = torch.empty_like(h)
     if T == 0:
         return h, c
-    _launch.launch("lstm_lean_fwd", entry, (ff, _pack(u, H), mask, h, c),
-                   T, B, H)
+    # the kernel's scratch: the ping-pong buffer of h's bf16 operands, B and
+    # H padded to 16 (the padding stays zero), and the grid barrier's counter
+    hbuf = torch.zeros((2, _pad16(B), _pad16(H)), device=ff.device,
+                       dtype=torch.bfloat16)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
+    _launch.launch("lstm_lean_fwd", entry,
+                   (ff, _pack(u, H), mask, h, c, hbuf, bar), T, B, H)
     lean_launches += 1
     return h, c
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def lean_fwd_plan(B: int, H: int) -> dict:
+    """K4f's launch at (B, H) on the current card: its CTAs, the hidden
+    units each owns, each CTA's shared-memory bytes and the h columns it
+    stages at a time.  Raises where the card cannot hold the grid at once,
+    as the launch would."""
+    fn = getattr(_build.load(LEAN_SOURCE), "tpk_lstm_lean_fwd_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(B, H, out)
+    if err != 0:
+        raise RuntimeError(f"lstm_lean_fwd: no cooperative launch at B={B}, "
+                           f"H={H} (CUDA error {err})")
+    return dict(ctas=out[0], units=out[1], smem_bytes=out[2], chunk=out[3])
 
 
 def lstm_recurrence_lean_bwd(
