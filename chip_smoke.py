@@ -36,12 +36,14 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, one persistent cooperative launch with U resident in
-   shared memory and bf16 tensor-core products, is also held, step by step,
-   to one plain step from its own previous state, run at the edges of its
-   tiling, (37, 5, 36) and (50, 96, 1024), under the same tolerances, and
-   called twice on the same inputs (bitwise equal); its us per step, grid
-   (CTAs, units each) and shared memory a CTA are printed beside its time.
+   small shape.  K4f and K2f are each one persistent cooperative launch
+   with U resident in shared memory (K4f: bf16 tensor-core products; K2f:
+   float32 FMAs).  K4f is also held, step by step, to one plain step from
+   its own previous state, and run at the edges of its tiling, (37, 5, 36)
+   and (50, 96, 1024), under the same tolerances; K2f at (37, 5, 36), (50,
+   136, 550) (two passes) and (50, 96, 1024).  Both are called twice on the
+   same inputs (bitwise equal), and their us per step, grid (CTAs, units
+   each), shared memory a CTA and chunk width are printed beside the time.
    K4f and K4b are timed beside the float32 K2f and K2b on the same inputs.
    The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
@@ -127,6 +129,11 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 N_PDFS = 1944  # TIMIT's tri3 cd states; the DIRHA tree takes the same
 N_PHONES = 48
 FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
+# the persistent float32 K2f also at the edges of its tiling: an odd batch
+# with H not a multiple of 16, a batch of more than one pass (128 rows), and
+# the QLSTM's width under qlstm_impl = scan (the largest U slice, h staged
+# in chunks of fewer columns)
+FWD_EDGE_SHAPES = ((37, 5, 36), (50, 136, 550), (50, 96, 1024))
 BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
 # the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
 # doubled by the bidirectional flip-concat
@@ -529,17 +536,23 @@ def kernel_phase(mods) -> dict:
     errs, timing, library = {}, {}, {}
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
+        # the persistent kernels, K4f and K2f: their plans, edge shapes and
+        # a bitwise repeat
+        persistent = cell in ("lstm", "lstm_lean")
         fns = _cell_fns(cell, mod)
         name = f"{cell}_fwd"
         for T, B, H in (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
+                        else FWD_SHAPES + FWD_EDGE_SHAPES if persistent
                         else FWD_SHAPES):
             ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
                 want = fns["fwd_ref"](ff, ws, mask)
-                # K4f sums in a fixed order: a second call gives the same bits
+                # K4f and K2f sum in a fixed order: a second call gives the
+                # same bits
                 same = (all(torch.equal(a, b) for a, b in
-                            zip(got, fns["fwd"](ff, ws, mask))) if lean else True)
+                            zip(got, fns["fwd"](ff, ws, mask)))
+                        if persistent else True)
                 torch.cuda.synchronize()
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 rel = err / max(b.abs().max().item() for b in want)
@@ -557,8 +570,8 @@ def kernel_phase(mods) -> dict:
                   + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                   + (f", K2f at this shape {k2_ms:.3f} ms" if lean else ""),
                   flush=True)
-            if lean:
-                plan = mod.lean_fwd_plan(B, H)
+            if persistent:
+                plan = (mod.lean_fwd_plan if lean else mod.fwd_plan)(B, H)
                 print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step; grid P={plan['ctas']} CTAs of u="
                       f"{plan['units']} units, {plan['smem_bytes']} shared-memory "
@@ -569,7 +582,7 @@ def kernel_phase(mods) -> dict:
             if lean:
                 check(math.isfinite(step) and step <= LEAN_STEP_ATOL,
                       f"{name} step disagrees at {(T, B, H)}: {step}")
-                check(same, f"{name}: two calls differ at {(T, B, H)}")
+            check(same, f"{name}: two calls differ at {(T, B, H)}")
             errs[name] = max(errs.get(name, 0.0), err)
             timing[(name, T, B, H)] = (ms, plain_ms)
             if name in ("lstm_fwd", "lstm_lean_fwd") and name not in library:

@@ -38,6 +38,7 @@ from tpukaldi.models.recurrent import GRU as JaxGRU
 from tpukaldi.models.recurrent import LSTM as JaxLSTM
 from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
 from tpukaldi.train.chunk_runtime import read_info as tpk_read_info
+from tpukaldi_torch.kernels import _build
 from tpukaldi_torch.kernels import gru as port_gru
 from tpukaldi_torch.kernels import lstm as port_lstm
 from tpukaldi_torch.models import GRU, LSTM, resolve
@@ -47,6 +48,7 @@ from tpukaldi_torch.tools.flagship_tree import (
     write_kaldi_tree,
     write_train_cfg,
 )
+from tpukaldi_torch.tools import lstm_fwd_phases
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
 from torch_port_helpers import (
@@ -96,11 +98,13 @@ def _assert_grads(got, want_pallas, want_scan, names, du_names):
 
 
 # T not a multiple of the Pallas blocks (4 and 16 for the LSTM, 8 and 16 for
-# the GRU), so their padded time steps are exercised on tpukaldi's side
-@pytest.mark.parametrize("T,B", [(13, 2), (37, 6)])
-def test_lstm_recurrence_matches_jax(T, B):
+# the GRU), so their padded time steps are exercised on tpukaldi's side;
+# the LSTM also at K2f's tiling edge: an odd batch, H not a multiple of 16
+@pytest.mark.parametrize("T,B,H", [pytest.param(13, 2, 16, id="13-2"),
+                                   pytest.param(37, 6, 16, id="37-6"),
+                                   pytest.param(37, 5, 36, id="37-5-36")])
+def test_lstm_recurrence_matches_jax(T, B, H):
     """h and c of the forward; dff, dU and dmask of the backward."""
-    H = 16
     ff, u, mask, g = _lstm_inputs(T, B, H, seed=T * 10 + B)
     j = [jnp.asarray(x) for x in (ff, u, mask)]
     h_p, c_p = jax_lstm._lstm_pallas_fwd_impl(*j, interpret=True)
@@ -431,22 +435,65 @@ def test_cell_train_step_on_cpu_counts_no_launch(cls_name, impl):
     assert (mod.launches, mod.bwd_launches) == before
 
 
+def test_lstm_fwd_pack_is_gate_major():
+    """K2f's U operand: [k, j, g] = U[k, gH + j], float32 and contiguous, so
+    one unit's four gate weights of row k are one 16-byte word."""
+    H = 6
+    u = torch.arange(H * 4 * H, dtype=torch.float32).reshape(H, 4 * H)
+    upk = port_lstm._pack(u, H, torch.float32)
+    assert upk.dtype == torch.float32 and upk.is_contiguous()
+    assert upk.shape == (H, H, 4)
+    for k, j, g in ((0, 0, 0), (1, 2, 3), (5, 4, 1), (3, 5, 2)):
+        assert upk[k, j, g] == u[k, g * H + j]
+
+
+def test_lstm_fwd_phase_variants_cut_what_they_name():
+    """`tools/lstm_fwd_phases.py` builds K2f's variants by replacing lines
+    of `csrc/lstm_fwd.cu`: each line is there once, each variant differs
+    from the source, and a cut variant keeps the other phase."""
+    with open(os.path.join(_build._CSRC, port_lstm.SOURCE)) as f:
+        source = f.read()
+    got = lstm_fwd_phases.variants(source)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    assert "kk < 0" in got["no product"] and "i < 0" not in got["no product"]
+    assert "i < 0" in got["no h stream"] and "kk < 0" not in got["no h stream"]
+    assert "kk < 0" in got["neither"] and "i < 0" in got["neither"]
+    with pytest.raises(ValueError, match="not in the source once"):
+        lstm_fwd_phases.variants(source.replace("kRows = 4;", "kRows = 2;"))
+
+
 # ------------------------------------------------------------ (g) the card
+# K2f's main small shape, then the edges of its tiling: an odd batch with H
+# not a multiple of 16, a batch of two passes (more than 128 rows), and the
+# QLSTM's width under qlstm_impl = scan (h staged in narrower chunks)
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["lstm", "gru_relu", "gru_tanh"])
-def test_kernels_match_plain_on_card(cell):
+@pytest.mark.parametrize("cell,T,B,H", [
+    pytest.param("lstm", 41, 6, 64, id="lstm"),
+    pytest.param("lstm", 37, 5, 36, id="lstm-37-5-36"),
+    pytest.param("lstm", 50, 136, 550, id="lstm-50-136-550"),
+    pytest.param("lstm", 50, 96, 1024, id="lstm-50-96-1024"),
+    pytest.param("gru_relu", 41, 6, 64, id="gru_relu"),
+    pytest.param("gru_tanh", 41, 6, 64, id="gru_tanh")])
+def test_kernels_match_plain_on_card(cell, T, B, H):
     """Each forward and backward kernel against its plain version on the
     same card.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative to the
-    max on the weight gradients: the kernels sum the recurrent products
-    serially and the weight gradients in 16-row stages, cuBLAS in tiles."""
+    max on the weight gradients: the kernels sum the recurrent products in
+    their own order (K2f per depth slice, then across slices) and the
+    weight gradients in 16-row stages, cuBLAS in tiles.  Two K2f calls on
+    the same inputs give the same bits (its sums run in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     if cell == "lstm":
         ff, u, mask, g = (torch.from_numpy(x).cuda()
-                          for x in _lstm_inputs(41, 6, 64, seed=2))
+                          for x in _lstm_inputs(T, B, H, seed=2))
         before = (port_lstm.launches, port_lstm.bwd_launches)
         got_f = port_lstm.lstm_recurrence(ff, u, mask)
+        again = port_lstm.lstm_recurrence(ff, u, mask)
+        assert all(torch.equal(a, b) for a, b in zip(got_f, again))
+        fwd_calls = 2
         want_f = port_lstm.lstm_recurrence_ref(ff, u, mask)
         got_b = port_lstm.lstm_recurrence_bwd(ff, *want_f, g, u, mask)
         want_b = port_lstm.lstm_recurrence_bwd_ref(ff, *want_f, g, u, mask)
@@ -455,8 +502,9 @@ def test_kernels_match_plain_on_card(cell):
     else:
         act = cell.split("_")[1]
         ff, uzr, uh, mask, g = (torch.from_numpy(x).cuda()
-                                for x in _gru_inputs(41, 6, 64, seed=2))
+                                for x in _gru_inputs(T, B, H, seed=2))
         before = (port_gru.launches, port_gru.bwd_launches)
+        fwd_calls = 1
         got_f = (port_gru.gru_recurrence(ff, uzr, uh, mask, act),)
         want_f = (port_gru.gru_recurrence_ref(ff, uzr, uh, mask, act),)
         got_b = port_gru.gru_recurrence_bwd(ff, want_f[0], g, uzr, uh, mask,
@@ -466,7 +514,8 @@ def test_kernels_match_plain_on_card(cell):
         names = ("dff", "duzr", "duh", "dmask")
         mod = port_gru
     torch.cuda.synchronize()
-    assert (mod.launches, mod.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (mod.launches, mod.bwd_launches) == (before[0] + fwd_calls,
+                                                before[1] + 1)
     for a, b in zip(got_f, want_f):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     for name, a, b in zip(names, got_b, want_b):

@@ -30,8 +30,10 @@
 // 1. lstm_bwd_seq_kernel, the sequential pass: one CTA per batch row and
 //    one thread per hidden unit; the time loop runs backwards inside the
 //    block.  Each step thread j puts h_prev[j] in shared memory, recomputes
-//    its four gate columns from it as the forward kernel does (reading U
-//    row by row: a warp reads 32 neighbouring floats), forms dA, writes
+//    its four gate columns from it as one sequential fmaf chain over k
+//    (reading U row by row: a warp reads 32 neighbouring floats; K2f sums
+//    the same products per depth slice and then across slices, so the
+//    remat agrees with K2f's gates to the sum order), forms dA, writes
 //    dff[t] and puts dA in shared memory.  After __syncthreads() it forms
 //    dh[j] = sum_c dA[c] * U^T[c, j], reading U^T row by row, again
 //    coalesced.  dc_j stays in a register, dmask[b, j] accumulates in one

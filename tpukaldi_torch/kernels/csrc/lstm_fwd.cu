@@ -1,4 +1,4 @@
-// LSTM forward recurrence for Hopper (sm_90a).
+// LSTM forward recurrence for Hopper (sm_90a), float32.
 //
 // Replaces tpukaldi/kernels/lstm.py::_lstm_kernel (the Pallas forward,
 // launched from _lstm_pallas_fwd_impl).  For every batch row b it runs
@@ -11,101 +11,411 @@
 //     h  = o * tanh(c)                 h_0 = c_0 = 0
 //
 // and writes h and c for every step (the backward recomputes the gates from
-// them).  All tensors are float32 and contiguous: ff (T, B, 4H), U (H, 4H),
-// mask (B, H), h and c (T, B, H).
+// them).  All tensors are float32: ff (T, B, 4H), mask (B, H), h and c
+// (T, B, H); U arrives packed as upk (H, H, 4), upk[k, j, g] = U[k, gH + j],
+// made once per call by the wrapper, so that one unit's four gate weights
+// of row k are one 16-byte word.  Every step of T runs (the Pallas kernel
+// pads T to its time block; the padding sits at the end of time, so the
+// outputs are the same).
 //
-// Design: the liGRU forward kernel's (ligru_fwd.cu) with four gate columns.
-// One CTA per batch row, one thread per hidden unit; the time loop runs
-// inside the block.  h of the row lives in shared memory, double buffered,
-// so one __syncthreads() per step separates the reads of h_{t-1} from the
-// writes of h_t; c_j stays in thread j's register.  Thread j accumulates
-// columns j, H + j, 2H + j and 3H + j of h @ U in float32, reading U row by
-// row, so a warp reads 32 neighbouring floats four times per row
-// (coalesced).  Every step of T runs; nothing is padded to a time block.
+// Design: one persistent cooperative launch, K4f's (lstm_lean_fwd.cu) with
+// a float32 U and float32 products on the CUDA cores.
+// - Grid.  P CTAs, at most one per SM: CTA p owns u consecutive hidden
+//   units and their 4u gate columns, u the smallest number with
+//   P = ceil(H / u) <= the SM count (on an H100: u = 5, P = 110 at
+//   H = 550; u = 8, P = 128 at H = 1024); the last CTA may own fewer.
+//   A grid the card cannot hold at once is refused, not run.
+// - U stays in shared memory for all T steps: each CTA copies its slice of
+//   upk once with cp.async, H rows of 4u floats (44 KB at H = 550, u = 5;
+//   144 KB at H = 1024, u = 8), each row padded to an odd number of
+//   16-byte words and zero-padded to a multiple of 4 rows.
+// - h is exchanged through hbuf[2][Bp][Hp] in global memory (float32, B
+//   and H padded to 4, zeroed by the wrapper; persist_grid.cuh): each step
+//   every CTA streams the whole h_{t-1} through shared memory in chunks of
+//   up to 256 columns, double-buffered with cp.async.cg (L2 only, so no
+//   stale L1 line is read), and writes its own units' h_t into the other
+//   buffer; one grid barrier ends the step.  The chunk halves until U's
+//   slice, the two chunks and the partial sums fit the shared memory a
+//   block may opt in to (at H = 1024: 64 columns for 96 rows, 32 for 128).
+//   256 columns were 1-4% faster than 128, and 13-28% faster than 64, at
+//   B = 64 and 16 (tpukaldi_torch/tools/lstm_fwd_phases.py).
+// - The product is float32 fmaf on the CUDA cores, as tpukaldi's kernel is
+//   float32 and the port keeps TF32 off.  A thread owns a register tile of
+//   4 batch rows (r, r + m/4, r + m/2, r + 3m/4 of the pass's m rows, so
+//   that neighbouring threads read h rows in distinct banks) x one unit's 4
+//   gate columns: per k step of 4 it loads 4 float4 of h and 4 of U and
+//   runs 64 fmaf.  Where there are fewer tiles than the 256 threads, the
+//   depth is split too: slice s takes the k steps s, s + S, ...  Each
+//   thread sums its k steps in ascending order and the cell adds the
+//   slices' partial sums in ascending order, so two calls on the same
+//   inputs give the same bits.
+// - The cell: one thread per (batch row, owned unit) adds ff (loaded into
+//   registers when the step starts, in flight while h is staged and
+//   multiplied), applies tpukaldi's gate functions, carries c in a register
+//   and writes h to hbuf; the CTA then arrives at the barrier and writes h
+//   and c to the outputs, which no other CTA reads, while the others catch
+//   up.  A pass holds at most 128 batch rows (and at most 1024 / u, so
+//   that a thread holds at most 4 cells); more rows run as further passes
+//   in the same launch, each from h_0 = c_0 = 0.
 //
-// What bounds it.  Each step every CTA re-reads all of U (4H * H floats,
-// 4.84 MB at H = 550) from L2, twice K1f's bytes: T * B * 16 H^2 bytes of
-// L2 traffic for 8 T B H^2 flops.  Only B CTAs run (B <= 132 fills at most
-// one wave).  The persistent design that keeps a column slice of U resident
-// in each CTA's shared memory and exchanges h across CTAs every step
-// (Sparse Persistent RNNs, PAPERS.md, arXiv 1804.10223) removes the L2
-// re-reads; it is later work.
+// What bounds it.  The 4.84 MB of U (H = 550) that the one-CTA-per-row
+// design re-read from L2 every step, in every CTA, stays in shared memory.
+// Per step each CTA reads the whole float32 h from L2 (P x B x H x 4 bytes
+// across the grid, 15.5 MB at B = 64, H = 550), runs its share of the
+// product (B x 4u x H fmaf: 0.70 M at B = 64) and waits once at the grid
+// barrier.  tpukaldi_torch/tools/lstm_fwd_phases.py, which cuts phases out
+// of this source, split a step at (B, H) = (64, 550) on an H100 at 700 W
+// into 13.8 us: the product 7.1 us (about 40% of the SM's float32 rate, with 8 16-byte
+// shared loads to 64 fmaf and 8 warps an SM), the h stream 3.7 us, and the
+// barrier, the cell and the rest 3.4 us; at B = 16, 6.0 us (product 1.9,
+// stream 1.3, the rest 2.6).  Tiles of 8 rows were 5% faster at B = 64
+// and 5% slower at B = 16 (the training batch), the k loop unrolled twice
+// 3% faster and 1% slower.  The sums run per slice and then across
+// slices, so h agrees with K2b's sequential fmaf remat (lstm_bwd.cu)
+// to the sum order, not bit for bit.
 
 #include <cuda_runtime.h>
 
+#include "persist_grid.cuh"
+
 namespace {
 
-constexpr int kMaxHidden = 1024;  // one thread per hidden unit
+constexpr int kMaxHidden = 1024;  // as K2b's limit
+constexpr int kThreads = 256;
+constexpr int kRows = 4;            // batch rows of a thread's tile
+constexpr int kMaxRows = 128;       // batch rows of one pass
+constexpr int kMaxUnits = 16;       // hidden units one CTA may own
+constexpr int kMaxPos = 4;          // cells a thread holds: (b, j) pairs
+constexpr int kMaxChunk = 256;      // h columns staged at a time
+// partial sums in shared memory: slices x rows x 4 columns, at most one
+// float4 per thread of each of its 4 rows
+constexpr int kPartialFloats = kThreads * kRows * 4;
+
+// error code for a grid that cannot be resident at once
+constexpr int kErrNotResident = static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+__host__ __device__ constexpr int round_rows(int x) {
+  return (x + kRows - 1) / kRows * kRows;
+}
+
+// a row length of x floats padded to an odd number of 16-byte words, so
+// that 8 rows read at one column fall in 8 distinct groups of 4 banks
+__host__ __device__ constexpr int odd_words(int x) {
+  return (x / 4) % 2 ? x : x + 4;
+}
+
+struct Params {
+  const float* ff;
+  const float* upk;
+  const float* mask;
+  float* h_out;
+  float* c_out;
+  float* hbuf;    // [2][bp][kp]
+  unsigned* bar;  // grid barrier's arrival counter, zero at launch
+  int T, B, H;
+  int u;     // hidden units a CTA owns (the last CTA may own fewer)
+  int kp;    // H padded to 4: U's rows and hbuf's row length
+  int bp;    // B padded to 4: hbuf's rows
+  int rows;  // batch rows of a pass
+  int mmax;  // rows of the largest pass, padded to 4
+  int kc;    // h columns staged at a time (a multiple of 4)
+};
+
+struct Plan {
+  int u, ctas, kp, bp, rows, mmax, kc;
+  size_t smem;
+};
+
+// U's slice, the two staged h chunks, and the partial sums
+inline size_t smem_bytes(int kp, int u, int mmax, int kc) {
+  const size_t u_floats = static_cast<size_t>(kp) * odd_words(4 * u);
+  const size_t h_floats = 2 * static_cast<size_t>(mmax) * odd_words(kc);
+  return (u_floats + h_floats + kPartialFloats) * sizeof(float);
+}
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-__global__ void __launch_bounds__(kMaxHidden)
-lstm_fwd_kernel(const float* __restrict__ ff, const float* __restrict__ u,
-                const float* __restrict__ mask, float* __restrict__ h_out,
-                float* __restrict__ c_out, int T, int B, int H) {
-  extern __shared__ float h_smem[];  // 2 * H floats: h_{t-1}, h_t
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  const size_t four_h = 4 * static_cast<size_t>(H);
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_fwd_kernel(const Params p) {
+  const int H = p.H, kp = p.kp, kc = p.kc;
+  const int unit0 = blockIdx.x * p.u;
+  const int up = min(p.u, H - unit0);  // units this CTA owns
+  const int tid = threadIdx.x;
+  const int us_ld = odd_words(4 * p.u);
+  const int hs_ld = odd_words(kc);
 
-  float c_j = 0.0f;
-  const float m = active ? mask[static_cast<size_t>(b) * H + j] : 0.0f;
-  if (active) h_smem[j] = 0.0f;
+  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kp x us_ld
+  float* hs = us + static_cast<size_t>(kp) * us_ld;  // 2 x mmax x hs_ld
+  float* gs = hs + 2 * static_cast<size_t>(p.mmax) * hs_ld;  // partial sums
+
+  // U's slice: zero the padding, then the H real rows of up 16-byte words
+  for (int i = tid; i < kp * us_ld; i += kThreads) us[i] = 0.0f;
+  __syncthreads();
+  for (int i = tid; i < H * up; i += kThreads) {
+    const int k = i / up;
+    const int v = i - k * up;
+    tpk::cp_async16_cg(us + static_cast<size_t>(k) * us_ld + 4 * v,
+                       p.upk + (static_cast<size_t>(k) * H + unit0 + v) * 4);
+  }
+  tpk::cp_async_commit();
+  tpk::cp_async_wait<0>();
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    const float* h_prev = h_smem + (t & 1) * H;
-    float* h_next = h_smem + ((t + 1) & 1) * H;
-    if (active) {
-      float acc_f = 0.0f;
-      float acc_i = 0.0f;
-      float acc_o = 0.0f;
-      float acc_c = 0.0f;
-      const float* u_col = u + j;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float hk = h_prev[k];
-        const float* u_row = u_col + k * four_h;
-        acc_f = fmaf(hk, u_row[0], acc_f);
-        acc_i = fmaf(hk, u_row[H], acc_i);
-        acc_o = fmaf(hk, u_row[2 * H], acc_o);
-        acc_c = fmaf(hk, u_row[3 * H], acc_c);
+  const size_t buf_elems = static_cast<size_t>(p.bp) * kp;
+  const int nchunks = (kp + kc - 1) / kc;
+  unsigned arrived = 0;  // the barrier counter's value at the last barrier
+
+  for (int b0 = 0; b0 < p.B; b0 += p.rows) {
+    const int rows = min(p.rows, p.B - b0);
+    const int mp = round_rows(rows);
+    // tiles of 4 rows x one unit; slices of the depth where tiles are few
+    const int tr_n = mp / kRows;
+    const int ntile = tr_n * up;
+    const int S = max(1, kThreads / ntile);
+    const bool active = tid < ntile * S;
+    const int s_thr = tid / ntile;
+    const int tile = tid - s_thr * ntile;
+    const int tr = tile / up;
+    const int tc = tile - tr * up;
+    const int npos = rows * up;
+
+    float c[kMaxPos], m[kMaxPos], hv[kMaxPos], fv[kMaxPos][4];
+#pragma unroll
+    for (int i = 0; i < kMaxPos; ++i) {
+      const int q = tid + i * kThreads;
+      c[i] = 0.0f;
+      m[i] = 0.0f;
+      hv[i] = 0.0f;
+      if (q < npos) {
+        const int b = q / up;
+        m[i] = p.mask[static_cast<size_t>(b0 + b) * H + unit0 + q - b * up];
       }
-      const size_t row = static_cast<size_t>(t) * B + b;
-      const float* ff_t = ff + row * four_h;
-      const float f = sigmoidf(ff_t[j] + acc_f);
-      const float i = sigmoidf(ff_t[H + j] + acc_i);
-      const float o = sigmoidf(ff_t[2 * H + j] + acc_o);
-      const float cand = tanhf(ff_t[3 * H + j] + acc_c);
-      c_j = i * cand * m + f * c_j;
-      const float h_j = o * tanhf(c_j);
-      h_next[j] = h_j;
-      h_out[row * H + j] = h_j;
-      c_out[row * H + j] = c_j;
     }
-    __syncthreads();
+
+    for (int t = 0; t < p.T; ++t) {
+      const float* src = p.hbuf + (t & 1) * buf_elems + static_cast<size_t>(b0) * kp;
+      float* dst = p.hbuf + ((t + 1) & 1) * buf_elems + static_cast<size_t>(b0) * kp;
+
+      // stage h columns [ch * kc, ch * kc + width) of the pass's rows
+      auto stage = [&](int ch) {
+        const int k0 = ch * kc;
+        const int per_row = min(kc, kp - k0) / 4;
+        float* buf = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld;
+        for (int i = tid; i < mp * per_row; i += kThreads) {
+          const int r = i / per_row;
+          const int v = (i - r * per_row) * 4;
+          tpk::cp_async16_cg(buf + r * hs_ld + v,
+                             src + static_cast<size_t>(r) * kp + k0 + v);
+        }
+        tpk::cp_async_commit();
+      };
+
+      float acc[kRows][4];
+#pragma unroll
+      for (int x = 0; x < kRows * 4; ++x) acc[x / 4][x % 4] = 0.0f;
+
+      stage(0);
+      // this step's ff, in flight while h is staged and multiplied
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          const float* f = p.ff + (static_cast<size_t>(t) * p.B + b0 + b) * 4 * H
+                           + unit0 + q - b * up;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) fv[i][g] = f[static_cast<size_t>(g) * H];
+        }
+      }
+      for (int ch = 0; ch < nchunks; ++ch) {
+        if (ch + 1 < nchunks) {
+          stage(ch + 1);
+          tpk::cp_async_wait<1>();
+        } else {
+          tpk::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+          const float* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
+                            + tr * hs_ld;
+          const float* uc = us + static_cast<size_t>(ch) * kc * us_ld + 4 * tc;
+          const int ksteps = min(kc, kp - ch * kc) / 4;
+          for (int kk = s_thr; kk < ksteps; kk += S) {
+            float4 hr[kRows], uw[4];
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              hr[i] = *reinterpret_cast<const float4*>(
+                  hc + static_cast<size_t>(i) * tr_n * hs_ld + 4 * kk);
+            }
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              uw[d] = *reinterpret_cast<const float4*>(
+                  uc + static_cast<size_t>(4 * kk + d) * us_ld);
+            }
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              const float hk[4] = {hr[i].x, hr[i].y, hr[i].z, hr[i].w};
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                acc[i][0] = fmaf(hk[d], uw[d].x, acc[i][0]);
+                acc[i][1] = fmaf(hk[d], uw[d].y, acc[i][1]);
+                acc[i][2] = fmaf(hk[d], uw[d].z, acc[i][2]);
+                acc[i][3] = fmaf(hk[d], uw[d].w, acc[i][3]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // the buffer is staged again two chunks on
+      }
+
+      // the partial sums: gs[s][row][4 * unit + gate]
+      if (active) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          float* g = gs + (static_cast<size_t>(s_thr) * mp + tr + i * tr_n) * 4 * up
+                     + 4 * tc;
+          *reinterpret_cast<float4*>(g) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+      __syncthreads();
+
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          // q = b * up + jj: row b's partial sums of unit jj are gs[s][b][4q..]
+          float4 r = reinterpret_cast<const float4*>(gs)[q];
+          for (int s = 1; s < S; ++s) {
+            const float4 x = reinterpret_cast<const float4*>(gs)[s * mp * up + q];
+            r.x += x.x;
+            r.y += x.y;
+            r.z += x.z;
+            r.w += x.w;
+          }
+          const float f = sigmoidf(fv[i][0] + r.x);
+          const float ig = sigmoidf(fv[i][1] + r.y);
+          const float o = sigmoidf(fv[i][2] + r.z);
+          const float cand = tanhf(fv[i][3] + r.w);
+          c[i] = ig * cand * m[i] + f * c[i];
+          hv[i] = o * tanhf(c[i]);
+          const int b = q / up;
+          dst[static_cast<size_t>(b) * kp + unit0 + q - b * up] = hv[i];
+        }
+      }
+      // the other CTAs read only hbuf: arrive, then write h and c while
+      // they catch up
+      if (t + 1 < p.T) tpk::grid_arrive(p.bar);
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          const size_t out = (static_cast<size_t>(t) * p.B + b0 + b) * H + unit0 + q - b * up;
+          p.h_out[out] = hv[i];
+          p.c_out[out] = c[i];
+        }
+      }
+      if (t + 1 < p.T) {
+        arrived += gridDim.x;
+        tpk::grid_wait(p.bar, arrived);
+      }
+    }
   }
+}
+
+// The launch's shape for (B, H) on the current device, and whether the
+// card can hold its grid at once; returns a CUDA error code (0: fits).
+int make_plan(int B, int H, Plan* pl) {
+  if (B <= 0 || H <= 0 || H > kMaxHidden) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int u = (H + sms - 1) / sms;
+  if (u > kMaxUnits) return kErrNotResident;
+  pl->u = u;
+  pl->ctas = (H + u - 1) / u;
+  pl->kp = round4(H);
+  pl->bp = round_rows(B);
+  // a pass's rows: at most kMaxPos cells a thread
+  const int cap = kMaxRows < kMaxPos * kThreads / u / kRows * kRows
+                      ? kMaxRows : kMaxPos * kThreads / u / kRows * kRows;
+  pl->rows = B < cap ? B : cap;
+  pl->mmax = round_rows(pl->rows);
+  pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
+  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+         pl->kc > 16) {
+    pl->kc = round4(pl->kc / 2);
+  }
+  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc);
+  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  err = cudaFuncSetAttribute(lstm_fwd_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(pl->smem));
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lstm_fwd_kernel, kThreads, pl->smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * sms < pl->ctas) return kErrNotResident;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" int tpk_lstm_fwd_max_hidden() { return kMaxHidden; }
 
-// Launches on `stream` and returns cudaGetLastError(): a refused launch
-// (too many threads, too much shared memory) never runs, and only this
-// return value reports it.
-extern "C" int tpk_lstm_fwd(const float* ff, const float* u, const float* mask,
-                            float* h_out, float* c_out, int T, int B, int H,
-                            cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H > kMaxHidden) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
+// staged at a time) of the launch for (B, H); returns make_plan's code.
+extern "C" int tpk_lstm_fwd_plan(int B, int H, int* out) {
+  Plan pl;
+  const int err = make_plan(B, H, &pl);
+  if (err == 0) {
+    out[0] = pl.ctas;
+    out[1] = pl.u;
+    out[2] = static_cast<int>(pl.smem);
+    out[3] = pl.kc;
   }
-  const int threads = ((H + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(H) * sizeof(float);
-  lstm_fwd_kernel<<<B, threads, smem, stream>>>(ff, u, mask, h_out, c_out, T,
-                                                B, H);
-  return static_cast<int>(cudaGetLastError());
+  cudaGetLastError();  // a failed query leaves nothing behind
+  return err;
+}
+
+// Launches on `stream` and returns the error: a grid the card cannot hold
+// at once (cudaErrorCooperativeLaunchTooLarge), or what the cooperative
+// launch reports (a refused launch never runs, and only this value reports
+// it).  upk is (H, H, 4) float32, hbuf [2][round4(B)][round4(H)] float32
+// and bar one unsigned word, both zeroed by the caller.
+extern "C" int tpk_lstm_fwd(const float* ff, const float* upk, const float* mask,
+                            float* h_out, float* c_out, float* hbuf, void* bar,
+                            int T, int B, int H, cudaStream_t stream) {
+  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int err = make_plan(B, H, &pl);
+  if (err != 0) {
+    cudaGetLastError();
+    return err;
+  }
+  Params prm{ff, upk, mask, h_out, c_out, hbuf, static_cast<unsigned*>(bar),
+             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc};
+  void* args[] = {&prm};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      lstm_fwd_kernel, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }

@@ -10,10 +10,17 @@ recurrent weight (K4, the "lean" kernels).
 `LSTMRecurrence` is the counterpart of tpukaldi's
 `kernels/lstm.py::lstm_recurrence` (a `jax.custom_vjp`): its forward is
 `lstm_recurrence` and saves (ff, u, mask, h, c); its backward is
-`lstm_recurrence_bwd`.  On a CUDA tensor those launch `csrc/lstm_fwd.cu`
-and `csrc/lstm_bwd.cu` (design notes there) or raise; on a CPU tensor they
-run `lstm_recurrence_ref` and `lstm_recurrence_bwd_ref`, the Python time
-loops that mirror tpukaldi's `lstm_recurrence_scan` and `_bwd_scan`.
+`lstm_recurrence_bwd`.  On a CUDA tensor the forward launches
+`csrc/lstm_fwd.cu` (K2f): one persistent cooperative launch whose CTAs
+each keep a column slice of the float32 U in shared memory for all T
+steps, form the gates with float32 FMAs on the CUDA cores and exchange h
+through a global ping-pong buffer, one grid barrier a step (`fwd_plan`
+reports its grid).  The backward launches `csrc/lstm_bwd.cu` (K2b: one CTA
+per batch row, its gates rematerialised with a sequential float32 chain,
+so they agree with K2f's to the sum order), then the dU pass.  A CUDA
+tensor launches them or raises; on a CPU tensor they run
+`lstm_recurrence_ref` and `lstm_recurrence_bwd_ref`, the Python time loops
+that mirror tpukaldi's `lstm_recurrence_scan` and `_bwd_scan`.
 
 `LSTMLeanRecurrence` is the counterpart of tpukaldi's `lstm_recurrence_lean`
 (the QLSTM's recurrence): the same cell with h and U rounded to bf16 as the
@@ -167,13 +174,13 @@ def _lstm_bwd_loop(ff, h, c, g, u, mask, operand):
 
 def lstm_recurrence(ff: torch.Tensor, u: torch.Tensor,
                     mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward (h, c): launch the CUDA kernel on a CUDA tensor; the plain
-    version on CPU.  Builds no autograd graph of its own: `LSTMRecurrence`
-    is the differentiable entry."""
+    """Forward (h, c): launch K2f on a CUDA tensor (u is packed once per
+    call); the plain version on CPU.  Builds no autograd graph of its own:
+    `LSTMRecurrence` is the differentiable entry."""
     global launches
     if ff.device.type == "cpu":
         return lstm_recurrence_ref(ff, u, mask)
-    entry, max_hidden = _launch.bind(SOURCE, "lstm_fwd", 5, 3)
+    entry, max_hidden = _launch.bind(SOURCE, "lstm_fwd", 7, 3)
     T, B, H = _launch.dims("lstm_recurrence", ff, 4)
     _launch.check_inputs("lstm_recurrence", H, max_hidden,
                          ff=(ff, (T, B, 4 * H)), u=(u, (H, 4 * H)),
@@ -182,9 +189,24 @@ def lstm_recurrence(ff: torch.Tensor, u: torch.Tensor,
     c = torch.empty_like(h)
     if T == 0:
         return h, c
-    _launch.launch("lstm_fwd", entry, (ff, u, mask, h, c), T, B, H)
+    # the kernel's scratch: the ping-pong buffer of h, B and H padded to 4
+    # (the padding stays zero), and the grid barrier's counter
+    hbuf = torch.zeros((2, _pad(B, 4), _pad(H, 4)), device=ff.device,
+                       dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
+    _launch.launch("lstm_fwd", entry,
+                   (ff, _pack(u, H, torch.float32), mask, h, c, hbuf, bar),
+                   T, B, H)
     launches += 1
     return h, c
+
+
+def fwd_plan(B: int, H: int) -> dict:
+    """K2f's launch at (B, H) on the current card: its CTAs, the hidden
+    units each owns, each CTA's shared-memory bytes and the h columns it
+    stages at a time.  Raises where the card cannot hold the grid at once,
+    as the launch would."""
+    return _plan(SOURCE, "lstm_fwd", B, H)
 
 
 def lstm_recurrence_bwd(
@@ -231,11 +253,12 @@ class LSTMRecurrence(torch.autograd.Function):
         return lstm_recurrence_bwd(ff, h, c, g.contiguous(), u, mask)
 
 
-def _pack(u: torch.Tensor, H: int) -> torch.Tensor:
-    """bf16 (H, H, 4) with [k, j, g] = U[k, gH + j]: unit j's four gate
-    weights of row k side by side (`csrc/lstm_lean_cell.cuh`), so a K4f CTA's
-    slice of row k is one contiguous run."""
-    return u.view(H, 4, H).permute(0, 2, 1).to(torch.bfloat16).contiguous()
+def _pack(u: torch.Tensor, H: int,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(H, H, 4) of `dtype` with [k, j, g] = U[k, gH + j]: unit j's four gate
+    weights of row k side by side (`csrc/lstm_lean_cell.cuh`), so a K4f or
+    K2f CTA's slice of row k is one contiguous run."""
+    return u.view(H, 4, H).permute(0, 2, 1).to(dtype).contiguous()
 
 
 def _pack_t(u: torch.Tensor, H: int) -> torch.Tensor:
@@ -264,7 +287,7 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
         return h, c
     # the kernel's scratch: the ping-pong buffer of h's bf16 operands, B and
     # H padded to 16 (the padding stays zero), and the grid barrier's counter
-    hbuf = torch.zeros((2, _pad16(B), _pad16(H)), device=ff.device,
+    hbuf = torch.zeros((2, _pad(B, 16), _pad(H, 16)), device=ff.device,
                        dtype=torch.bfloat16)
     bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
     _launch.launch("lstm_lean_fwd", entry,
@@ -273,22 +296,25 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
     return h, c
 
 
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def lean_fwd_plan(B: int, H: int) -> dict:
-    """K4f's launch at (B, H) on the current card: its CTAs, the hidden
-    units each owns, each CTA's shared-memory bytes and the h columns it
-    stages at a time.  Raises where the card cannot hold the grid at once,
-    as the launch would."""
-    fn = getattr(_build.load(LEAN_SOURCE), "tpk_lstm_lean_fwd_plan")
+    """K4f's launch at (B, H) on the current card, as `fwd_plan` gives
+    K2f's."""
+    return _plan(LEAN_SOURCE, "lstm_lean_fwd", B, H)
+
+
+def _plan(source: str, name: str, B: int, H: int) -> dict:
+    """A persistent kernel's launch at (B, H) from its `tpk_<name>_plan`."""
+    fn = getattr(_build.load(source), f"tpk_{name}_plan")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
     err = fn(B, H, out)
     if err != 0:
-        raise RuntimeError(f"lstm_lean_fwd: no cooperative launch at B={B}, "
+        raise RuntimeError(f"{name}: no cooperative launch at B={B}, "
                            f"H={H} (CUDA error {err})")
     return dict(ctas=out[0], units=out[1], smem_bytes=out[2], chunk=out[3])
 
