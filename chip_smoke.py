@@ -36,15 +36,19 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f and K2f are each one persistent cooperative launch
-   with U resident in shared memory (K4f: bf16 tensor-core products; K2f:
-   float32 FMAs).  K4f is also held, step by step, to one plain step from
-   its own previous state, and run at the edges of its tiling, (37, 5, 36)
-   and (50, 96, 1024), under the same tolerances; K2f at (37, 5, 36), (50,
-   136, 550) (two passes) and (50, 96, 1024).  Both are called twice on the
-   same inputs (bitwise equal), and their us per step, grid (CTAs, units
-   each), shared memory a CTA and chunk width are printed beside the time.
-   K4f and K4b are timed beside the float32 K2f and K2b on the same inputs.
+   small shape.  K4f, K2f and K2b's sequential pass are each one
+   persistent cooperative launch with U resident in shared memory (K4f:
+   bf16 tensor-core products; K2f, K2b: float32 FMAs; K2b also runs a
+   parallel gate remat before it and the dU pass after it).  K4f is also
+   held, step by step, to one plain step from its own previous state, and
+   run at the edges of its tiling, (37, 5, 36) and (50, 96, 1024), under
+   the same tolerances; K2f and K2b at (37, 5, 36), (50, 136, 550) (two
+   passes) and (50, 96, 1024).  All three are called twice on the same
+   inputs (bitwise equal), and their us per step, grid (CTAs, units each),
+   shared memory a CTA and chunk width (K2b: the producers' partial sums
+   staged at a time, and its partial-sum buffer) are printed beside the
+   time.  K4f and K4b are timed beside the float32 K2f and K2b on the same
+   inputs.
    The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
@@ -53,7 +57,9 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440, K=10, O=80, pool 3, drop
    0.15).  Beside each kernel: the least time the card could take for the
    same work (bytes or operations, at the published peaks), and a library
-   yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f,
+   yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f
+   (float32, bf16) and its backward for K2b and K4b (input and recurrent
+   weight gradients, its input gradient held beside the kernel's dff),
    F.conv1d + F.max_pool1d (+ the layer norm and relu as PyTorch ops, and
    their autograd backward) for the conv kernels.
    The whole conv stack (`conv_stack_fused`, which no recipe calls: its
@@ -135,6 +141,9 @@ FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
 # in chunks of fewer columns)
 FWD_EDGE_SHAPES = ((37, 5, 36), (50, 136, 550), (50, 96, 1024))
 BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
+# the persistent K2b at K2f's edge shapes: its sequential pass runs on K2f's
+# grid, with a pass of more than 128 rows and U's largest slice
+BWD_EDGE_SHAPES = FWD_EDGE_SHAPES
 # the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
 # doubled by the bidirectional flip-concat
 LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
@@ -502,6 +511,24 @@ def bound_ms(name, T, B, H):
     return (bytes_ms, "bytes") if bytes_ms > ops_ms else (ops_ms, "operations")
 
 
+def _gate_perm(x, H):
+    """The gate columns [f | i | o | c] in cuDNN's order [i | f | c | o]."""
+    return torch.cat([x[..., H:2 * H], x[..., :H], x[..., 3 * H:],
+                      x[..., 2 * H:3 * H]], dim=-1)
+
+
+def _cudnn_lstm(ff, u, dtype):
+    """torch.nn.LSTM (cuDNN) with U as its recurrent weight, gates permuted,
+    an identity input weight and no bias, and ff permuted as its input."""
+    H = u.shape[0]
+    with torch.no_grad():
+        m = torch.nn.LSTM(4 * H, H, bias=False, device=ff.device, dtype=dtype)
+        m.weight_ih_l0.copy_(torch.eye(4 * H))
+        m.weight_hh_l0.copy_(_gate_perm(u, H).t())
+        m.flatten_parameters()
+    return m, _gate_perm(ff, H).to(dtype).contiguous()
+
+
 def library_ms(lstm, ff, u, dtype):
     """One cuDNN LSTM call (torch.nn.LSTM) over the same ff and U at mask 1,
     the gates permuted into its i, f, g, o order, with an identity input
@@ -509,17 +536,8 @@ def library_ms(lstm, ff, u, dtype):
     kernels do not: (ms of the call, ms of that GEMM alone, max |h - the
     kernel's h at mask 1|)."""
     H = u.shape[0]
-
-    def perm(x):
-        return torch.cat([x[..., H:2 * H], x[..., :H], x[..., 3 * H:],
-                          x[..., 2 * H:3 * H]], dim=-1)
-
+    m, x = _cudnn_lstm(ff, u, dtype)
     with torch.no_grad():
-        m = torch.nn.LSTM(4 * H, H, bias=False, device=ff.device, dtype=dtype)
-        m.weight_ih_l0.copy_(torch.eye(4 * H))
-        m.weight_hh_l0.copy_(perm(u).t())
-        m.flatten_parameters()
-        x = perm(ff).to(dtype).contiguous()
         ones = torch.ones(ff.shape[1], H, device=ff.device)
         kernel = (lstm.lstm_recurrence if dtype == torch.float32
                   else lstm.lstm_recurrence_lean)
@@ -527,6 +545,35 @@ def library_ms(lstm, ff, u, dtype):
         eye = torch.eye(4 * H, device=ff.device, dtype=dtype)
         gemm_ms = median_ms(lambda: x.view(-1, 4 * H) @ eye, 5)
         return median_ms(lambda: m(x), 5), gemm_ms, err
+
+
+def library_bwd_ms(lstm, ff, u, grad, dtype):
+    """cuDNN's backward of `library_ms`'s call: one forward with grad, then
+    torch.autograd.grad of its output against the input and weight_hh_l0
+    with grad_outputs `grad`, only the backward timed.  It also forms the
+    input weight's gradient and the input gradient through the identity
+    input weight, which the kernels do not.  That input gradient is the
+    kernels' dff at mask 1 with the gates permuted: (ms of the backward,
+    max |dx - the kernel's dff at mask 1|)."""
+    H = u.shape[0]
+    m, x = _cudnn_lstm(ff, u, dtype)
+    x.requires_grad_()
+    y = m(x)[0]
+    go = grad.to(dtype)
+
+    def backward():
+        return torch.autograd.grad(y, (x, m.weight_hh_l0), go,
+                                   retain_graph=True)
+
+    ms = median_ms(backward, 5)
+    with torch.no_grad():
+        ones = torch.ones(ff.shape[1], H, device=ff.device)
+        lean = "" if dtype == torch.float32 else "_lean"
+        h, c = getattr(lstm, f"lstm_recurrence{lean}")(ff, u, ones)
+        dff = getattr(lstm, f"lstm_recurrence{lean}_bwd")(ff, h, c, grad, u,
+                                                          ones)[0]
+        err = (backward()[0].float() - _gate_perm(dff, H)).abs().max().item()
+    return ms, err
 
 
 def kernel_phase(mods) -> dict:
@@ -595,12 +642,20 @@ def kernel_phase(mods) -> dict:
                       f"kernel at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         name = f"{cell}_bwd"
-        for T, B, H in LEAN_BWD_SHAPES if lean else BWD_SHAPES:
+        # K2b, persistent: its plan, K2f's edge shapes and a bitwise repeat
+        repeat = cell == "lstm"
+        for T, B, H in (LEAN_BWD_SHAPES if lean
+                        else BWD_SHAPES + BWD_EDGE_SHAPES if repeat
+                        else BWD_SHAPES):
             ff, ws, mask, grad = _recurrence_inputs(cell, T, B, H, T * B)
             with torch.inference_mode():
                 outs = fns["fwd"](ff, ws, mask)
                 got = fns["bwd"](ff, outs, grad, ws, mask)
                 want = fns["bwd_ref"](ff, outs, grad, ws, mask)
+                # K2b sums in a fixed order: a second call gives the same bits
+                same = (all(torch.equal(a, b) for a, b in
+                            zip(got, fns["bwd"](ff, outs, grad, ws, mask)))
+                        if repeat else True)
                 torch.cuda.synchronize()
                 e = {n: (a - b).abs().max().item()
                      for n, a, b in zip(fns["grads"], got, want)}
@@ -622,6 +677,16 @@ def kernel_phase(mods) -> dict:
                   f"{plain_ms:.3f} ms"
                   + (f", K2b at this shape {k2_ms:.3f} ms" if lean else ""),
                   flush=True)
+            if repeat:
+                plan = mod.bwd_plan(B, H)
+                print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
+                      f"per step (the whole call); sequential grid P="
+                      f"{plan['ctas']} CTAs of u={plan['units']} units, "
+                      f"{plan['smem_bytes']} shared-memory bytes a CTA, "
+                      f"{plan['chunk']} producers' partial sums staged at a "
+                      f"time, {4 * plan['pbuf_floats']} bytes of partial-sum "
+                      f"buffer; repeat bitwise equal: {same}", flush=True)
+            check(same, f"{name}: two calls differ at {(T, B, H)}")
             check(all(math.isfinite(v) for v in e.values()),
                   f"{name}: non-finite error at {(T, B, H)}")
             check(e["dff"] <= atol and e["dmask"] <= atol,
@@ -631,6 +696,14 @@ def kernel_phase(mods) -> dict:
                       f"{name} {n} disagrees at {(T, B, H)}: {e[n]} of {mx}")
             errs[name] = max(errs.get(name, 0.0), *e.values())
             timing[(name, T, B, H)] = (ms, plain_ms)
+            if name in ("lstm_bwd", "lstm_lean_bwd") and name not in library:
+                dtype = torch.bfloat16 if lean else torch.float32
+                lib_ms, lib_err = library_bwd_ms(mod, ff, ws[0], grad, dtype)
+                library[name] = (lib_ms, T, B, H)
+                print(f"library {name} T={T} B={B} H={H}: cuDNN LSTM backward "
+                      f"({str(dtype)[6:]}, input and weight_hh_l0 gradients) "
+                      f"{lib_ms:.3f} ms; its input gradient vs the kernel's dff "
+                      f"at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         # autograd through the Function (forward kernel, then backward
         # kernel) against autograd through the plain loop, at a small shape;
@@ -1654,6 +1727,7 @@ LAYERS = (
     ("K1f", ("ligru_fwd_kernel",)),
     ("K1b sequential", ("ligru_bwd_seq_kernel",)),
     ("K2f", ("lstm_fwd_kernel",)),
+    ("K2b remat", ("lstm_remat_kernel",)),
     ("K2b sequential", ("lstm_bwd_seq_kernel",)),
     ("K3f", ("gru_fwd_kernel",)),
     ("K3b sequential", ("gru_bwd_seq_kernel",)),

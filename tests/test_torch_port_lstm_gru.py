@@ -48,7 +48,7 @@ from tpukaldi_torch.tools.flagship_tree import (
     write_kaldi_tree,
     write_train_cfg,
 )
-from tpukaldi_torch.tools import lstm_fwd_phases
+from tpukaldi_torch.tools import lstm_bwd_phases, lstm_fwd_phases
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
 from torch_port_helpers import (
@@ -464,6 +464,38 @@ def test_lstm_fwd_phase_variants_cut_what_they_name():
         lstm_fwd_phases.variants(source.replace("kRows = 4;", "kRows = 2;"))
 
 
+def test_lstm_bwd_phase_variants_cut_what_they_name():
+    """`tools/lstm_bwd_phases.py` builds K2b's variants by replacing lines
+    of `csrc/lstm_bwd.cu` with `lstm_remat.cuh` written in: each line is
+    there once, each variant differs from the source, and each cut variant
+    cuts what it names and keeps the rest."""
+    source = lstm_bwd_phases.source()
+    with open(os.path.join(_build._CSRC, "lstm_remat.cuh")) as f:
+        assert f.read() in source
+    assert '#include "lstm_remat.cuh"' not in source
+    got = lstm_fwd_phases.variants(source, lstm_bwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"tile < 0": "product", "exchange = false": "exchange",
+            "t >= p.T;": "chain", "      cudaSuccess);": "du",
+            "== 1e-30f": "staging"}
+    want = {"no product": {"product"}, "no exchange": {"exchange"},
+            "neither": {"product", "exchange"}, "no chain": {"chain"},
+            "remat only": {"chain", "du"}, "no staging": {"staging"}}
+    for name, (_, exact) in lstm_bwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, names in want.items():
+        assert {cut for mark, cut in cuts.items()
+                if mark in got[name]} == names, name
+    for old, _ in (lstm_bwd_phases._NO_PRODUCT, lstm_bwd_phases._NO_EXCHANGE,
+                   lstm_bwd_phases._NO_CHAIN, lstm_bwd_phases._NO_DU):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            lstm_fwd_phases.variants(source.replace(old, ""),
+                                     lstm_bwd_phases.VARIANTS)
+
+
 # ------------------------------------------------------------ (g) the card
 # K2f's main small shape, then the edges of its tiling: an odd batch with H
 # not a multiple of 16, a batch of two passes (more than 128 rows), and the
@@ -480,9 +512,11 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
     """Each forward and backward kernel against its plain version on the
     same card.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative to the
     max on the weight gradients: the kernels sum the recurrent products in
-    their own order (K2f per depth slice, then across slices) and the
-    weight gradients in 16-row stages, cuBLAS in tiles.  Two K2f calls on
-    the same inputs give the same bits (its sums run in a fixed order)."""
+    their own order (K2f per depth slice, then across slices; K2b's remat
+    along the depth, its dh over the CTAs' partial sums) and the weight
+    gradients in 16-row stages, cuBLAS in tiles.  Two K2f calls, and two
+    K2b calls, on the same inputs give the same bits (their sums run in a
+    fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -496,6 +530,9 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
         fwd_calls = 2
         want_f = port_lstm.lstm_recurrence_ref(ff, u, mask)
         got_b = port_lstm.lstm_recurrence_bwd(ff, *want_f, g, u, mask)
+        again = port_lstm.lstm_recurrence_bwd(ff, *want_f, g, u, mask)
+        assert all(torch.equal(a, b) for a, b in zip(got_b, again))
+        bwd_calls = 2
         want_b = port_lstm.lstm_recurrence_bwd_ref(ff, *want_f, g, u, mask)
         names = ("dff", "du", "dmask")
         mod = port_lstm
@@ -504,7 +541,7 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
         ff, uzr, uh, mask, g = (torch.from_numpy(x).cuda()
                                 for x in _gru_inputs(T, B, H, seed=2))
         before = (port_gru.launches, port_gru.bwd_launches)
-        fwd_calls = 1
+        fwd_calls = bwd_calls = 1
         got_f = (port_gru.gru_recurrence(ff, uzr, uh, mask, act),)
         want_f = (port_gru.gru_recurrence_ref(ff, uzr, uh, mask, act),)
         got_b = port_gru.gru_recurrence_bwd(ff, want_f[0], g, uzr, uh, mask,
@@ -515,7 +552,7 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
         mod = port_gru
     torch.cuda.synchronize()
     assert (mod.launches, mod.bwd_launches) == (before[0] + fwd_calls,
-                                                before[1] + 1)
+                                                before[1] + bwd_calls)
     for a, b in zip(got_f, want_f):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     for name, a, b in zip(names, got_b, want_b):

@@ -15,12 +15,16 @@ recurrent weight (K4, the "lean" kernels).
 each keep a column slice of the float32 U in shared memory for all T
 steps, form the gates with float32 FMAs on the CUDA cores and exchange h
 through a global ping-pong buffer, one grid barrier a step (`fwd_plan`
-reports its grid).  The backward launches `csrc/lstm_bwd.cu` (K2b: one CTA
-per batch row, its gates rematerialised with a sequential float32 chain,
-so they agree with K2f's to the sum order), then the dU pass.  A CUDA
-tensor launches them or raises; on a CPU tensor they run
-`lstm_recurrence_ref` and `lstm_recurrence_bwd_ref`, the Python time loops
-that mirror tpukaldi's `lstm_recurrence_scan` and `_bwd_scan`.
+reports its grid).  The backward launches `csrc/lstm_bwd.cu` (K2b): the
+gates rematerialised for all T * B rows at once by a parallel tiled
+float32 pass (so they agree with K2f's to the sum order), then the dh
+chain as one persistent cooperative launch on K2f's grid, each CTA keeping
+K2f's slice of U in shared memory and exchanging partial dh sums through
+a global ping-pong buffer, one grid barrier a step (`bwd_plan` reports its
+grid), then the dU pass.  A CUDA tensor launches them or raises; on a CPU
+tensor they run `lstm_recurrence_ref` and `lstm_recurrence_bwd_ref`, the
+Python time loops that mirror tpukaldi's `lstm_recurrence_scan` and
+`_bwd_scan`.
 
 `LSTMLeanRecurrence` is the counterpart of tpukaldi's `lstm_recurrence_lean`
 (the QLSTM's recurrence): the same cell with h and U rounded to bf16 as the
@@ -213,12 +217,12 @@ def lstm_recurrence_bwd(
     ff: torch.Tensor, h: torch.Tensor, c: torch.Tensor, g: torch.Tensor,
     u: torch.Tensor, mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward: (dff, du, dmask) from the CUDA kernels on CUDA tensors; the
-    plain version on CPU."""
+    """Backward: (dff, du, dmask) from K2b on CUDA tensors (u is packed
+    once per call, as for K2f); the plain version on CPU."""
     global bwd_launches
     if ff.device.type == "cpu":
         return lstm_recurrence_bwd_ref(ff, h, c, g, u, mask)
-    entry, max_hidden = _launch.bind(BWD_SOURCE, "lstm_bwd", 10, 3)
+    entry, max_hidden = _launch.bind(BWD_SOURCE, "lstm_bwd", 12, 3)
     T, B, H = _launch.dims("lstm_recurrence_bwd", ff, 4)
     _launch.check_inputs("lstm_recurrence_bwd", H, max_hidden,
                          ff=(ff, (T, B, 4 * H)), h=(h, (T, B, H)),
@@ -229,11 +233,25 @@ def lstm_recurrence_bwd(
         return dff, torch.zeros_like(u), torch.zeros_like(mask)
     du = torch.empty_like(u)
     dmask = torch.empty_like(mask)
-    ut = u.t().contiguous()  # (4H, H): the dh chain reads it row by row
+    # the kernel's scratch: the ping-pong buffer of partial dh sums (every
+    # word read is written first) and the grid barrier's counter
+    pbuf = torch.empty(bwd_plan(B, H)["pbuf_floats"], device=ff.device,
+                       dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
     _launch.launch("lstm_bwd", entry,
-                   (ff, h, c, g, u, ut, mask, dff, du, dmask), T, B, H)
+                   (ff, h, c, g, u, _pack(u, H, torch.float32), mask, dff, du,
+                    dmask, pbuf, bar), T, B, H)
     bwd_launches += 1
     return dff, du, dmask
+
+
+def bwd_plan(B: int, H: int) -> dict:
+    """K2b's sequential launch at (B, H) on the current card: its CTAs, the
+    hidden units each owns, each CTA's shared-memory bytes, the producers'
+    partial sums it stages at a time (`chunk`) and the floats of the
+    partial-sum buffer.  Raises where the card cannot hold the grid at
+    once, as the launch would."""
+    return _plan(BWD_SOURCE, "lstm_bwd", B, H, "pbuf_floats")
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -306,17 +324,19 @@ def lean_fwd_plan(B: int, H: int) -> dict:
     return _plan(LEAN_SOURCE, "lstm_lean_fwd", B, H)
 
 
-def _plan(source: str, name: str, B: int, H: int) -> dict:
-    """A persistent kernel's launch at (B, H) from its `tpk_<name>_plan`."""
+def _plan(source: str, name: str, B: int, H: int, *extra: str) -> dict:
+    """A persistent kernel's launch at (B, H) from its `tpk_<name>_plan`,
+    which fills 4 ints and then one for each name in `extra`."""
     fn = getattr(_build.load(source), f"tpk_{name}_plan")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 4)()
+    keys = ("ctas", "units", "smem_bytes", "chunk", *extra)
+    out = (ctypes.c_int * len(keys))()
     err = fn(B, H, out)
     if err != 0:
         raise RuntimeError(f"{name}: no cooperative launch at B={B}, "
                            f"H={H} (CUDA error {err})")
-    return dict(ctas=out[0], units=out[1], smem_bytes=out[2], chunk=out[3])
+    return dict(zip(keys, out))
 
 
 def lstm_recurrence_lean_bwd(

@@ -52,11 +52,11 @@ VARIANTS = {
 }
 
 
-def variants(source: str) -> Dict[str, str]:
-    """Each variant's source; raises if a line it replaces is not in
-    `source` exactly once."""
+def variants(source: str, table=None) -> Dict[str, str]:
+    """Each variant's source (of `table`, VARIANTS by default); raises if a
+    line it replaces is not in `source` exactly once."""
     out = {}
-    for name, (reps, _) in VARIANTS.items():
+    for name, (reps, _) in (table or VARIANTS).items():
         text = source
         for old, new in reps:
             if text.count(old) != 1:
@@ -66,16 +66,18 @@ def variants(source: str) -> Dict[str, str]:
     return out
 
 
-def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """One nvcc per variant, all at once, into build/tpukaldi_torch/variants/."""
+def _build_all(sources: Dict[str, str],
+               stem: str = "lstm_fwd") -> Dict[str, ctypes.CDLL]:
+    """One nvcc per variant, all at once, into build/tpukaldi_torch/variants/
+    as `<stem>_v<i>`."""
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
-        src = os.path.join(out_dir, f"lstm_fwd_v{i}.cu")
+        src = os.path.join(out_dir, f"{stem}_v{i}.cu")
         with open(src, "w") as f:
             f.write(text)
-        lib = os.path.join(out_dir, f"liblstm_fwd_v{i}.so")
+        lib = os.path.join(out_dir, f"lib{stem}_v{i}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build._CSRC, "-o",
                lib, src]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
