@@ -36,19 +36,20 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, K2f and K2b's sequential pass are each one
-   persistent cooperative launch with U resident in shared memory (K4f:
-   bf16 tensor-core products; K2f, K2b: float32 FMAs; K2b also runs a
-   parallel gate remat before it and the dU pass after it).  K4f is also
-   held, step by step, to one plain step from its own previous state, and
-   run at the edges of its tiling, (37, 5, 36) and (50, 96, 1024), under
-   the same tolerances; K2f and K2b at (37, 5, 36), (50, 136, 550) (two
-   passes) and (50, 96, 1024).  All three are called twice on the same
-   inputs (bitwise equal), and their us per step, grid (CTAs, units each),
-   shared memory a CTA and chunk width (K2b: the producers' partial sums
-   staged at a time, and its partial-sum buffer) are printed beside the
-   time.  K4f and K4b are timed beside the float32 K2f and K2b on the same
-   inputs.
+   small shape.  K4f, K2f and the sequential passes of K2b and K4b are
+   each one persistent cooperative launch with U resident in shared memory
+   (K4f, K4b: bf16 tensor-core products; K2f, K2b: float32 FMAs; K2b and
+   K4b also run a parallel gate remat before it, and a dU pass after it,
+   K4b's the float32 GEMM, timed alone too).  K4f is also held, step by
+   step, to one plain step from its own previous state, and run at the
+   edges of its tiling, (37, 5, 36) and (50, 96, 1024), under the same
+   tolerances; K2f and K2b at (37, 5, 36), (50, 136, 550) (two passes) and
+   (50, 96, 1024); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024)
+   (two passes).  All four are called twice on the same inputs (bitwise
+   equal), and their us per step, grid (CTAs, units each), shared memory
+   a CTA and chunk width (K2b, K4b: the producers' partial sums staged at
+   a time, and the partial-sum buffer) are printed beside the time.  K4f
+   and K4b are timed beside the float32 K2f and K2b on the same inputs.
    The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
@@ -151,6 +152,10 @@ LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
 # 16, and a batch of more than 64 rows (h staged in chunks of fewer columns)
 LEAN_FWD_EDGE_SHAPES = ((37, 5, 36), (50, 96, 1024))
 LEAN_BWD_SHAPES = ((778, 32, 1024), (1000, 32, 1024))
+# the persistent K4b at K2b's edge shapes on K4f's grid: an odd batch with H
+# not a multiple of 16, U's largest slice at 96 rows, and a batch of two
+# passes (more than 128 rows)
+LEAN_BWD_EDGE_SHAPES = ((37, 5, 36), (50, 96, 1024), (50, 136, 1024))
 # kernel vs plain version on the card: both float32, the recurrent products
 # summed in another order per step, compounding over up to 1000 steps
 KERNEL_ATOL = 1e-4
@@ -642,20 +647,21 @@ def kernel_phase(mods) -> dict:
                       f"kernel at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         name = f"{cell}_bwd"
-        # K2b, persistent: its plan, K2f's edge shapes and a bitwise repeat
-        repeat = cell == "lstm"
-        for T, B, H in (LEAN_BWD_SHAPES if lean
-                        else BWD_SHAPES + BWD_EDGE_SHAPES if repeat
+        # K2b and K4b, persistent: their plans, edge shapes and a bitwise
+        # repeat
+        for T, B, H in (LEAN_BWD_SHAPES + LEAN_BWD_EDGE_SHAPES if lean
+                        else BWD_SHAPES + BWD_EDGE_SHAPES if persistent
                         else BWD_SHAPES):
             ff, ws, mask, grad = _recurrence_inputs(cell, T, B, H, T * B)
             with torch.inference_mode():
                 outs = fns["fwd"](ff, ws, mask)
                 got = fns["bwd"](ff, outs, grad, ws, mask)
                 want = fns["bwd_ref"](ff, outs, grad, ws, mask)
-                # K2b sums in a fixed order: a second call gives the same bits
+                # K2b and K4b sum in a fixed order: a second call gives the
+                # same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["bwd"](ff, outs, grad, ws, mask)))
-                        if repeat else True)
+                        if persistent else True)
                 torch.cuda.synchronize()
                 e = {n: (a - b).abs().max().item()
                      for n, a, b in zip(fns["grads"], got, want)}
@@ -666,6 +672,10 @@ def kernel_phase(mods) -> dict:
                     lambda: fns["bwd_ref"](ff, outs, grad, ws, mask), 3)
                 k2_ms = (median_ms(lambda: mod.lstm_recurrence_bwd(
                     ff, *outs, grad, *ws, mask), 3) if lean else None)
+                # K4b's dU, the float32 GEMM after its two launches, alone
+                h_prev = outs[0][:-1].reshape(-1, H)
+                du_ms = (median_ms(lambda: h_prev.t() @ got[0][1:].reshape(
+                    -1, 4 * H), 5) if lean else None)
             atol = LEAN_BWD_ATOL if lean else KERNEL_ATOL
             rtol = LEAN_DU_RTOL if lean else DU_RTOL
             print(f"kernel {name} T={T} B={B} H={H}: max_abs_err dff="
@@ -677,13 +687,17 @@ def kernel_phase(mods) -> dict:
                   f"{plain_ms:.3f} ms"
                   + (f", K2b at this shape {k2_ms:.3f} ms" if lean else ""),
                   flush=True)
-            if repeat:
-                plan = mod.bwd_plan(B, H)
+            if persistent:
+                plan = (mod.lean_bwd_plan if lean else mod.bwd_plan)(B, H)
                 print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
-                      f"per step (the whole call); sequential grid P="
-                      f"{plan['ctas']} CTAs of u={plan['units']} units, "
+                      f"per step (the whole call)"
+                      + (f", of which the dU GEMM alone {du_ms:.3f} ms"
+                         if lean else "") + "; sequential grid P="
+                      f"{plan['ctas']} CTAs of u={plan['units']} units"
+                      + (f" in {plan['groups']} groups of {plan['group_ctas']}"
+                         if lean else "") + ", "
                       f"{plan['smem_bytes']} shared-memory bytes a CTA, "
-                      f"{plan['chunk']} producers' partial sums staged at a "
+                      f"{plan['chunk']} blocks of partial sums staged at a "
                       f"time, {4 * plan['pbuf_floats']} bytes of partial-sum "
                       f"buffer; repeat bitwise equal: {same}", flush=True)
             check(same, f"{name}: two calls differ at {(T, B, H)}")
@@ -1732,7 +1746,8 @@ LAYERS = (
     ("K3f", ("gru_fwd_kernel",)),
     ("K3b sequential", ("gru_bwd_seq_kernel",)),
     ("K4f", ("lstm_lean_fwd_kernel",)),
-    ("K4b sequential", ("lstm_lean_bwd_kernel",)),
+    ("K4b remat", ("lstm_lean_remat_kernel",)),
+    ("K4b sequential", ("lstm_lean_bwd_seq_kernel",)),
     ("dU passes (K1b, K2b, K3b)", ("du_tile_kernel",)),
     # cuDNN's convolutions (the raw recipes' layers 1-3) before the GEMM
     # row, whose patterns their names share

@@ -37,6 +37,7 @@ from tpukaldi.models import quaternion as jax_q
 from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
 from tpukaldi.train.chunk_runtime import read_info as tpk_read_info
 from tpukaldi_torch.compat.jax_params import from_jax_params, to_jax_params
+from tpukaldi_torch.kernels import _build
 from tpukaldi_torch.kernels import lstm as port_lstm
 from tpukaldi_torch.models import QLSTM, QuaternionDense, resolve
 from tpukaldi_torch.models.quaternion import QuaternionLinearLean, hamilton_kernel
@@ -47,6 +48,7 @@ from tpukaldi_torch.tools.flagship_tree import (
     write_prod_cfg,
     write_train_cfg,
 )
+from tpukaldi_torch.tools import lstm_fwd_phases, lstm_lean_bwd_phases
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
 from torch_port_helpers import assert_trees_equal, jax_init, port_module
@@ -167,6 +169,70 @@ def test_lean_cpu_paths_count_no_launch():
     ff.requires_grad_()
     (port_lstm.LSTMLeanRecurrence.apply(ff, u, mask) * g).sum().backward()
     assert (port_lstm.lean_launches, port_lstm.lean_bwd_launches) == before
+
+
+def test_lean_bwd_operands_layout():
+    """K4b's bf16 operands: the remat's h_prev (the forward's h one step
+    back, zero at t = 0) and U, both with H padded to the remat's stage
+    depth with zeros, U's rows to 8 columns; and K4f's packed U."""
+    T, B, H = 3, 2, 36
+    h = torch.randn(T, B, H, generator=torch.Generator().manual_seed(1))
+    u = torch.randn(H, 4 * H, generator=torch.Generator().manual_seed(2))
+    hp, u16, upk = port_lstm.lean_bwd_operands(h, u)
+    hk = port_lstm._pad(H, port_lstm.LEAN_REMAT_DEPTH)
+    assert hk == 64 and hp.dtype == u16.dtype == upk.dtype == torch.bfloat16
+    assert hp.shape == (T * B, hk) and u16.shape == (hk, 4 * H)
+    assert not hp[:B].any() and not hp[:, H:].any() and not u16[H:].any()
+    assert torch.equal(hp[B:, :H].float(),
+                       h[:-1].reshape(-1, H).to(torch.bfloat16).float())
+    assert torch.equal(u16[:H].float(), u.to(torch.bfloat16).float())
+    assert torch.equal(upk, port_lstm._pack(u, H))
+    # an odd H: U's rows of 4H = 148 columns padded to 152
+    _, u16, _ = port_lstm.lean_bwd_operands(torch.zeros(T, B, 37),
+                                            torch.ones(37, 148))
+    assert u16.shape == (64, 152) and not u16[:, 148:].any()
+    assert torch.equal(u16[:37, :148].float(), torch.ones(37, 148))
+
+
+def test_lean_bwd_phase_variants_cut_what_they_name():
+    """`tools/lstm_lean_bwd_phases.py` builds K4b's variants by replacing
+    lines of `csrc/lstm_lean_bwd.cu`: each line is there once, each variant
+    differs from the source, and each cut variant cuts what it names and
+    keeps the rest."""
+    with open(os.path.join(_build._CSRC, port_lstm.LEAN_BWD_SOURCE)) as f:
+        source = f.read()
+    assert lstm_lean_bwd_phases.source() == source
+    got = lstm_fwd_phases.variants(source, lstm_lean_bwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"nt < 0": "product", "!= 1e-30f": "stores",
+            "__uint_as_float": "mma", "exchange = false": "exchange",
+            "t >= p.T;": "chain", "the remat alone": "sequential launch"}
+    want = {"no product": {"product"}, "no stores": {"stores"},
+            "no mma": {"mma"}, "no group barrier": set(),
+            "no exchange": {"exchange"}, "neither": {"product", "exchange"},
+            "no chain": {"chain"}, "remat only": {"sequential launch"}}
+    for name, (_, exact) in lstm_lean_bwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, names in want.items():
+        assert {cut for mark, cut in cuts.items()
+                if mark in got[name]} == names, name
+        # the one cut that removes its lines: the group's barrier
+        assert ("tpk::grid_wait(gbar" in got[name]) == (
+            name != "no group barrier"), name
+    assert "R <= 1;" in got["R 1"] and "R = nu; R <= nu;" in got["S 1"]
+    for old, _ in (lstm_lean_bwd_phases._NO_PRODUCT,
+                   lstm_lean_bwd_phases._NO_STORES,
+                   lstm_lean_bwd_phases._NO_MMA,
+                   lstm_lean_bwd_phases._NO_GROUP_SYNC,
+                   lstm_lean_bwd_phases._NO_EXCHANGE,
+                   lstm_lean_bwd_phases._NO_CHAIN,
+                   lstm_lean_bwd_phases._NO_SEQ):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            lstm_fwd_phases.variants(source.replace(old, ""),
+                                     lstm_lean_bwd_phases.VARIANTS)
 
 
 # ------------------------------------------------- 3, 4. the QLSTM module
@@ -365,14 +431,16 @@ def test_reset_parameters_is_seeded():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T, B, H", [(41, 6, 64)] + LEAN_SHAPES)
+@pytest.mark.parametrize("T, B, H", [(41, 6, 64)] + LEAN_SHAPES + [
+    pytest.param(6, 136, 16, id="T6-B136-H16-two-passes")])
 def test_lean_kernels_match_plain_on_card(T, B, H):
     """K4f and K4b against their plain versions on the same card at small
-    shapes, K4f's tiling edges among them.  1e-4 absolute on h, c, dff and
-    dmask, 1e-4 relative to the max on dU: both round to the same bf16
-    operands, but the float32 sums run in other orders, and an operand that
-    lands on a rounding tie moves its step by 2^-8 of h.  Two K4f calls on
-    the same inputs give the same bits (its sums run in a fixed order)."""
+    shapes, the edges of K4f's tiling and a batch of two passes (over 128
+    rows) among them.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative
+    to the max on dU: both round to the same bf16 operands, but the float32
+    sums run in other orders, and an operand that lands on a rounding tie
+    moves its step by 2^-8 of h.  Two K4f calls, and two K4b calls, on the
+    same inputs give the same bits (their sums run in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -384,10 +452,12 @@ def test_lean_kernels_match_plain_on_card(T, B, H):
     assert all(torch.equal(a, b) for a, b in zip(got_f, again))
     want_f = port_lstm.lstm_recurrence_lean_ref(ff, u, mask)
     got_b = port_lstm.lstm_recurrence_lean_bwd(ff, *got_f, g, u, mask)
+    again = port_lstm.lstm_recurrence_lean_bwd(ff, *got_f, g, u, mask)
+    assert all(torch.equal(a, b) for a, b in zip(got_b, again))
     want_b = port_lstm.lstm_recurrence_lean_bwd_ref(ff, *got_f, g, u, mask)
     torch.cuda.synchronize()
     assert (port_lstm.lean_launches, port_lstm.lean_bwd_launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 2)
     for a, b in zip(got_f, want_f):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
     for name, a, b in zip(("dff", "du", "dmask"), got_b, want_b):

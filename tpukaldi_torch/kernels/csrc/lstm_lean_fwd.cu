@@ -43,8 +43,8 @@
 //   order, so two calls on the same inputs give the same bits.
 // - The cell: one thread per (batch row, owned unit) adds ff (loaded into
 //   registers when the step starts, in flight while h is staged and
-//   multiplied), applies tpukaldi's gate functions as lean_gates does
-//   (lstm_lean_cell.cuh), carries c in a register and writes the bf16
+//   multiplied), applies tpukaldi's gate functions (lstm_lean_cell.cuh),
+//   carries c in a register and writes the bf16
 //   operand of h to hbuf; the CTA then arrives at the barrier and writes h
 //   and c (float32), which no other CTA reads, while the others catch up.
 //   A pass holds at most 128 batch rows (c in registers); more rows run as
@@ -58,8 +58,8 @@
 // barrier and the cell's latency, not by U: the 8 MB of U that the
 // one-CTA-per-row design re-read from L2 every step stays in shared memory.
 // The float32 sums run in the tensor cores' order and then across warps,
-// so h agrees with lstm_lean_cell.cuh's sequential fmaf chain (K4b's
-// remat) to the sum order, not bit for bit.
+// so the gates agree with K4b's remat (lstm_lean_bwd.cu), which sums the
+// same products in another order, to the sum order, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

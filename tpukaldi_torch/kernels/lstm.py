@@ -34,14 +34,19 @@ launches `csrc/lstm_lean_fwd.cu` (K4f): one persistent cooperative launch
 whose CTAs each keep a column slice of U in shared memory for all T steps,
 form the gates with bf16 tensor-core products and exchange h through a
 global ping-pong buffer, one grid barrier a step.  Its backward
-`lstm_recurrence_lean_bwd` launches `csrc/lstm_lean_bwd.cu` (K4b, dff and
-dmask; one CTA per batch row, its gates rematerialised with a sequential
-float32 chain, so they agree with K4f's to the sum order) and then
-contracts dU = h_prev^T dff as one float32 GEMM, as tpukaldi's `_lean_bwd`
-does.  On CPU tensors they run
-`lstm_recurrence_lean_ref` and `lstm_recurrence_lean_bwd_ref`.  The port's
-LSTM runs the float32 kernels at every H, which is what tpukaldi computes
-off a TPU; the QLSTM picks by `qlstm_impl` (`models/quaternion.py`).
+`lstm_recurrence_lean_bwd` launches `csrc/lstm_lean_bwd.cu` (K4b): the
+gates rematerialised for all T * B rows at once by a tiled bf16
+tensor-core GEMM (so they agree with K4f's to the sum order), then the dh
+chain as one persistent cooperative launch whose CTAs own K4f's units, in
+groups that share their bf16 dA (one group barrier a step); each keeps a
+slice of U in shared memory, forms partial dh sums on the tensor cores
+for the rows k of its slice and exchanges them through a global ping-pong
+buffer, one grid barrier a step (`lean_bwd_plan` reports its grid and
+groups); then dU = h_prev^T dff as one float32 GEMM, as tpukaldi's
+`_lean_bwd` contracts it.  On CPU tensors they run `lstm_recurrence_lean_ref` and
+`lstm_recurrence_lean_bwd_ref`.  The port's LSTM runs the float32 kernels
+at every H, which is what tpukaldi computes off a TPU; the QLSTM picks by
+`qlstm_impl` (`models/quaternion.py`).
 """
 
 from __future__ import annotations
@@ -57,6 +62,9 @@ SOURCE = "lstm_fwd.cu"
 BWD_SOURCE = "lstm_bwd.cu"
 LEAN_SOURCE = "lstm_lean_fwd.cu"
 LEAN_BWD_SOURCE = "lstm_lean_bwd.cu"
+# the depth of a stage of K4b's remat, to which its bf16 h_prev and U pad H
+# (`csrc/lstm_lean_bwd.cu`, kRmDepth)
+LEAN_REMAT_DEPTH = 32
 
 # kernel launches since the last reset (one per wrapper call that launched);
 # chip_smoke.py reads them to show that the main path went through the
@@ -274,15 +282,9 @@ class LSTMRecurrence(torch.autograd.Function):
 def _pack(u: torch.Tensor, H: int,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(H, H, 4) of `dtype` with [k, j, g] = U[k, gH + j]: unit j's four gate
-    weights of row k side by side (`csrc/lstm_lean_cell.cuh`), so a K4f or
-    K2f CTA's slice of row k is one contiguous run."""
+    weights of row k side by side, so a K4f, K4b, K2f or K2b CTA's slice
+    of row k is one contiguous run."""
     return u.view(H, 4, H).permute(0, 2, 1).to(dtype).contiguous()
-
-
-def _pack_t(u: torch.Tensor, H: int) -> torch.Tensor:
-    """bf16 (H, H, 4) with [k, j, g] = U[j, gH + k]: the transpose that
-    K4b's dh chain reads."""
-    return u.view(H, 4, H).permute(2, 0, 1).to(torch.bfloat16).contiguous()
 
 
 def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
@@ -344,13 +346,13 @@ def lstm_recurrence_lean_bwd(
     u: torch.Tensor, mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward (dff, du, dmask) with bf16 recurrent products: K4b on CUDA
-    tensors for dff and dmask, then du = h_prev^T dff as one float32 GEMM
-    over the T * B rows (h_prev[0] = 0 adds nothing); the plain version on
-    CPU."""
+    tensors for dff and dmask (its bf16 operands made once per call), then
+    du = h_prev^T dff as one float32 GEMM over the T * B rows (h_prev[0] =
+    0 adds nothing); the plain version on CPU."""
     global lean_bwd_launches
     if ff.device.type == "cpu":
         return lstm_recurrence_lean_bwd_ref(ff, h, c, g, u, mask)
-    entry, max_hidden = _launch.bind(LEAN_BWD_SOURCE, "lstm_lean_bwd", 9, 3)
+    entry, max_hidden = _launch.bind(LEAN_BWD_SOURCE, "lstm_lean_bwd", 12, 3)
     T, B, H = _launch.dims("lstm_recurrence_lean_bwd", ff, 4)
     _launch.check_inputs("lstm_recurrence_lean_bwd", H, max_hidden,
                          ff=(ff, (T, B, 4 * H)), h=(h, (T, B, H)),
@@ -360,12 +362,42 @@ def lstm_recurrence_lean_bwd(
     if T == 0:
         return dff, torch.zeros_like(u), torch.zeros_like(mask)
     dmask = torch.empty_like(mask)
+    # the chain's scratch: the ping-pong buffer of partial dh sums (every
+    # word read is written first), the groups' bf16 dA (its padding columns
+    # read as zeros) and the barriers' counters, the grid's and each group's
+    plan = lean_bwd_plan(B, H)
+    pbuf = torch.empty(plan["pbuf_floats"], device=ff.device,
+                       dtype=torch.float32)
+    dabuf = torch.zeros(plan["dabuf_halves"], device=ff.device,
+                        dtype=torch.bfloat16)
+    bar = torch.zeros(1 + plan["groups"], device=ff.device, dtype=torch.int32)
     _launch.launch("lstm_lean_bwd", entry,
-                   (ff, h, c, g, _pack(u, H), _pack_t(u, H), mask, dff, dmask),
-                   T, B, H)
+                   (ff, c, g, *lean_bwd_operands(h, u), mask, dff, dmask,
+                    pbuf, dabuf, bar), T, B, H)
     lean_bwd_launches += 1
     du = h[:-1].reshape(-1, H).t() @ dff[1:].reshape(-1, 4 * H)
     return dff, du, dmask
+
+
+def lean_bwd_operands(h: torch.Tensor, u: torch.Tensor):
+    """K4b's bf16 operands, made once per call: the remat's h_prev (T B,
+    hk), its first B rows zero, and U (hk, 4H padded to 8), both with H
+    padded to the remat's stage depth hk with zeros; and the chain's packed
+    U (`_pack`)."""
+    T, B, H = h.shape
+    hk = _pad(H, LEAN_REMAT_DEPTH)
+    hp = h.new_zeros((T * B, hk), dtype=torch.bfloat16)
+    hp[B:, :H] = h[:-1].reshape(-1, H)
+    u16 = u.new_zeros((hk, _pad(4 * H, 8)), dtype=torch.bfloat16)
+    u16[:H, :4 * H] = u
+    return hp, u16, _pack(u, H)
+
+
+def lean_bwd_plan(B: int, H: int) -> dict:
+    """K4b's sequential launch at (B, H) on the current card, as `bwd_plan`
+    gives K2b's, and its groups: `groups` of `group_ctas` CTAs each."""
+    return _plan(LEAN_BWD_SOURCE, "lstm_lean_bwd", B, H, "pbuf_floats",
+                 "groups", "group_ctas", "dabuf_halves")
 
 
 class LSTMLeanRecurrence(torch.autograd.Function):
