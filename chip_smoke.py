@@ -36,20 +36,23 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, K2f and the sequential passes of K2b and K4b are
-   each one persistent cooperative launch with U resident in shared memory
-   (K4f, K4b: bf16 tensor-core products; K2f, K2b: float32 FMAs; K2b and
-   K4b also run a parallel gate remat before it, and a dU pass after it,
-   K4b's the float32 GEMM, timed alone too).  K4f is also held, step by
-   step, to one plain step from its own previous state, and run at the
-   edges of its tiling, (37, 5, 36) and (50, 96, 1024), under the same
-   tolerances; K2f and K2b at (37, 5, 36), (50, 136, 550) (two passes) and
-   (50, 96, 1024); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024)
-   (two passes).  All four are called twice on the same inputs (bitwise
-   equal), and their us per step, grid (CTAs, units each), shared memory
-   a CTA and chunk width (K2b, K4b: the producers' partial sums staged at
-   a time, and the partial-sum buffer) are printed beside the time.  K4f
-   and K4b are timed beside the float32 K2f and K2b on the same inputs.
+   small shape.  K4f, K2f and the sequential passes of K2b, K3b and K4b
+   are each one persistent cooperative launch with U resident in shared
+   memory (K4f, K4b: bf16 tensor-core products; K2f, K2b, K3b: float32
+   FMAs; K2b, K3b and K4b also run a parallel gate remat before it, and dU
+   passes after it, K4b's the float32 GEMM, timed alone too; K3b's chain
+   exchanges partial sums twice a step).  K4f is also held, step by step,
+   to one plain step from its own previous state, and run at the edges of
+   its tiling, (37, 5, 36) and (50, 96, 1024), under the same tolerances;
+   K2f, K2b and K3b at (37, 5, 36), (50, 136, 550) (two passes) and
+   (50, 96, 1024), K3b in tanh (the recipe's) and also in relu at (778,
+   16, 550); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024) (two
+   passes).  All five are called twice on the same inputs (bitwise equal),
+   and their us per step, grid (CTAs, units each), shared memory a CTA and
+   chunk width (K2b, K3b, K4b: the producers' partial sums staged at a
+   time, and the partial-sum buffers) are printed beside the time.  K4f
+   and K4b are timed beside the float32 K2f and K2b on the same inputs,
+   K3b beside K2b at the same (T, B, H).
    The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
@@ -142,9 +145,11 @@ FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
 # in chunks of fewer columns)
 FWD_EDGE_SHAPES = ((37, 5, 36), (50, 136, 550), (50, 96, 1024))
 BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
-# the persistent K2b at K2f's edge shapes: its sequential pass runs on K2f's
-# grid, with a pass of more than 128 rows and U's largest slice
+# the persistent K2b and K3b at K2f's edge shapes: their sequential passes
+# run on K2f's grid, with a pass of more than 128 rows and U's largest slice
 BWD_EDGE_SHAPES = FWD_EDGE_SHAPES
+# K3b in relu too (the GRU recipe runs tanh), at the training shape
+GRU_RELU_BWD_SHAPES = ((778, 16, 550),)
 # the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
 # doubled by the bidirectional flip-concat
 LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
@@ -581,6 +586,15 @@ def library_bwd_ms(lstm, ff, u, grad, dtype):
     return ms, err
 
 
+def _k2b_ms(lstm, T, B, H):
+    """K2b's median ms at (T, B, H), on LSTM inputs made as the kernel
+    phase makes them: the float32 backward of the same shape beside K3b."""
+    ff, ws, mask, grad = _recurrence_inputs("lstm", T, B, H, T * B)
+    h, c = lstm.lstm_recurrence(ff, *ws, mask)
+    return median_ms(lambda: lstm.lstm_recurrence_bwd(ff, h, c, grad, *ws,
+                                                       mask), 3)
+
+
 def kernel_phase(mods) -> dict:
     """Every kernel against its plain version at the main paths' shapes;
     returns {kernel name: worst error}, {(kernel name, T, B, H): (ms, plain
@@ -588,13 +602,14 @@ def kernel_phase(mods) -> dict:
     errs, timing, library = {}, {}, {}
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
-        # the persistent kernels, K4f and K2f: their plans, edge shapes and
-        # a bitwise repeat
-        persistent = cell in ("lstm", "lstm_lean")
+        # the persistent kernels, forward K4f and K2f, backward K2b, K3b and
+        # K4b: their plans, edge shapes and a bitwise repeat
+        persistent_fwd = cell in ("lstm", "lstm_lean")
+        persistent_bwd = cell in ("lstm", "gru", "lstm_lean")
         fns = _cell_fns(cell, mod)
         name = f"{cell}_fwd"
         for T, B, H in (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
-                        else FWD_SHAPES + FWD_EDGE_SHAPES if persistent
+                        else FWD_SHAPES + FWD_EDGE_SHAPES if persistent_fwd
                         else FWD_SHAPES):
             ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
             with torch.inference_mode():
@@ -604,7 +619,7 @@ def kernel_phase(mods) -> dict:
                 # same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["fwd"](ff, ws, mask)))
-                        if persistent else True)
+                        if persistent_fwd else True)
                 torch.cuda.synchronize()
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 rel = err / max(b.abs().max().item() for b in want)
@@ -622,7 +637,7 @@ def kernel_phase(mods) -> dict:
                   + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
                   + (f", K2f at this shape {k2_ms:.3f} ms" if lean else ""),
                   flush=True)
-            if persistent:
+            if persistent_fwd:
                 plan = (mod.lean_fwd_plan if lean else mod.fwd_plan)(B, H)
                 print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step; grid P={plan['ctas']} CTAs of u="
@@ -647,21 +662,27 @@ def kernel_phase(mods) -> dict:
                       f"kernel at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         name = f"{cell}_bwd"
-        # K2b and K4b, persistent: their plans, edge shapes and a bitwise
-        # repeat
-        for T, B, H in (LEAN_BWD_SHAPES + LEAN_BWD_EDGE_SHAPES if lean
-                        else BWD_SHAPES + BWD_EDGE_SHAPES if persistent
-                        else BWD_SHAPES):
+        # K2b, K3b and K4b, persistent: their plans, edge shapes and a
+        # bitwise repeat; K3b also in relu (None: the cell's own act)
+        shapes = (LEAN_BWD_SHAPES + LEAN_BWD_EDGE_SHAPES if lean
+                  else BWD_SHAPES + BWD_EDGE_SHAPES if persistent_bwd
+                  else BWD_SHAPES)
+        runs = [(*shape, None) for shape in shapes]
+        if cell == "gru":
+            runs += [(*shape, "relu") for shape in GRU_RELU_BWD_SHAPES]
+        for T, B, H, act in runs:
+            fns = _cell_fns(cell, mod, act)
+            label = f"{name}" + (f" {act}" if act else "")
             ff, ws, mask, grad = _recurrence_inputs(cell, T, B, H, T * B)
             with torch.inference_mode():
                 outs = fns["fwd"](ff, ws, mask)
                 got = fns["bwd"](ff, outs, grad, ws, mask)
                 want = fns["bwd_ref"](ff, outs, grad, ws, mask)
-                # K2b and K4b sum in a fixed order: a second call gives the
-                # same bits
+                # K2b, K3b and K4b sum in a fixed order: a second call gives
+                # the same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["bwd"](ff, outs, grad, ws, mask)))
-                        if persistent else True)
+                        if persistent_bwd else True)
                 torch.cuda.synchronize()
                 e = {n: (a - b).abs().max().item()
                      for n, a, b in zip(fns["grads"], got, want)}
@@ -671,25 +692,28 @@ def kernel_phase(mods) -> dict:
                 plain_ms = median_ms(
                     lambda: fns["bwd_ref"](ff, outs, grad, ws, mask), 3)
                 k2_ms = (median_ms(lambda: mod.lstm_recurrence_bwd(
-                    ff, *outs, grad, *ws, mask), 3) if lean else None)
+                    ff, *outs, grad, *ws, mask), 3) if lean
+                    else _k2b_ms(mods["lstm"], T, B, H)
+                    if cell == "gru" and act is None else None)
                 # K4b's dU, the float32 GEMM after its two launches, alone
                 h_prev = outs[0][:-1].reshape(-1, H)
                 du_ms = (median_ms(lambda: h_prev.t() @ got[0][1:].reshape(
                     -1, 4 * H), 5) if lean else None)
             atol = LEAN_BWD_ATOL if lean else KERNEL_ATOL
             rtol = LEAN_DU_RTOL if lean else DU_RTOL
-            print(f"kernel {name} T={T} B={B} H={H}: max_abs_err dff="
+            print(f"kernel {label} T={T} B={B} H={H}: max_abs_err dff="
                   f"{e['dff']:.3e} dmask={e['dmask']:.3e} (atol "
                   f"{atol:g}), " + ", ".join(
                       f"{n}={e[n]:.3e} of max|{n}| {du_max[n]:.3f}"
                       for n in du_max)
                   + f" (rtol {rtol:g}); kernel {ms:.3f} ms, plain "
                   f"{plain_ms:.3f} ms"
-                  + (f", K2b at this shape {k2_ms:.3f} ms" if lean else ""),
+                  + (f", K2b at this shape {k2_ms:.3f} ms"
+                     if k2_ms is not None else ""),
                   flush=True)
-            if persistent:
+            if persistent_bwd:
                 plan = (mod.lean_bwd_plan if lean else mod.bwd_plan)(B, H)
-                print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
+                print(f"kernel {label} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step (the whole call)"
                       + (f", of which the dU GEMM alone {du_ms:.3f} ms"
                          if lean else "") + "; sequential grid P="
@@ -700,16 +724,17 @@ def kernel_phase(mods) -> dict:
                       f"{plan['chunk']} blocks of partial sums staged at a "
                       f"time, {4 * plan['pbuf_floats']} bytes of partial-sum "
                       f"buffer; repeat bitwise equal: {same}", flush=True)
-            check(same, f"{name}: two calls differ at {(T, B, H)}")
+            check(same, f"{label}: two calls differ at {(T, B, H)}")
             check(all(math.isfinite(v) for v in e.values()),
-                  f"{name}: non-finite error at {(T, B, H)}")
+                  f"{label}: non-finite error at {(T, B, H)}")
             check(e["dff"] <= atol and e["dmask"] <= atol,
-                  f"{name} dff/dmask disagree at {(T, B, H)}: {e}")
+                  f"{label} dff/dmask disagree at {(T, B, H)}: {e}")
             for n, mx in du_max.items():
                 check(e[n] <= rtol * mx,
-                      f"{name} {n} disagrees at {(T, B, H)}: {e[n]} of {mx}")
+                      f"{label} {n} disagrees at {(T, B, H)}: {e[n]} of {mx}")
             errs[name] = max(errs.get(name, 0.0), *e.values())
-            timing[(name, T, B, H)] = (ms, plain_ms)
+            if act is None:  # the kernels line times the recipe's act
+                timing[(name, T, B, H)] = (ms, plain_ms)
             if name in ("lstm_bwd", "lstm_lean_bwd") and name not in library:
                 dtype = torch.bfloat16 if lean else torch.float32
                 lib_ms, lib_err = library_bwd_ms(mod, ff, ws[0], grad, dtype)
@@ -1744,6 +1769,7 @@ LAYERS = (
     ("K2b remat", ("lstm_remat_kernel",)),
     ("K2b sequential", ("lstm_bwd_seq_kernel",)),
     ("K3f", ("gru_fwd_kernel",)),
+    ("K3b remat", ("gru_remat_zr_kernel", "gru_remat_a_kernel")),
     ("K3b sequential", ("gru_bwd_seq_kernel",)),
     ("K4f", ("lstm_lean_fwd_kernel",)),
     ("K4b remat", ("lstm_lean_remat_kernel",)),

@@ -59,20 +59,50 @@ def test_cfg_list_is_complete():
     assert "cfg/DIRHA/QLSTM_mfcc.cfg" in CFGS
 
 
-def test_host_feature_ops_match_tpukaldi():
+FEATURE_OPS = ("compute_cmvn_stats", "splice", "chunk_cmvn", "apply_cmvn",
+               "add_deltas")
+
+
+def _native_lib(mod, monkeypatch):
+    """`mod.lib()`, looked up once more if it cached a failed load: under
+    xdist another worker may have been writing tpukaldi's library (built in
+    its package dir, not atomically) when this worker first loaded it."""
+    found = mod.lib()
+    if found is None:
+        monkeypatch.setattr(mod, "_tried", False)
+        found = mod.lib()
+    return found
+
+
+@pytest.mark.parametrize("op", FEATURE_OPS)
+def test_host_feature_ops_match_tpukaldi(op, monkeypatch):
     """Splice, chunk CMVN, per-speaker CMVN and deltas of the port's copy
-    against tpukaldi's, exactly: the same numpy (or native) code on the
-    same input."""
+    against tpukaldi's, exactly, like against like: numpy against numpy
+    with both native libraries turned off, then native against native
+    where both libraries load.  (The native ops and numpy differ in the
+    last bits, e.g. chunk_cmvn by ~5e-7, so a side that fell back to numpy
+    alone is not compared with the other's native op.)"""
+    from tpukaldi import native as tpk_native
+    from tpukaldi_torch import native
+
     rng = np.random.default_rng(0)
     x = rng.standard_normal((50, 6)).astype(np.float32)
     stats = tpk_feats.compute_cmvn_stats(x)
-    np.testing.assert_array_equal(feats.compute_cmvn_stats(x), stats)
-    for name, args in (("splice", (x, 2, 3)), ("chunk_cmvn", (x,)),
-                       ("apply_cmvn", (x, stats, True)),
-                       ("add_deltas", (x, 2))):
-        got = getattr(feats, name)(*args)
-        want = getattr(tpk_feats, name)(*args)
-        np.testing.assert_array_equal(got, want, err_msg=name)
+    args = {"compute_cmvn_stats": (x,), "splice": (x, 2, 3),
+            "chunk_cmvn": (x,), "apply_cmvn": (x, stats, True),
+            "add_deltas": (x, 2)}[op]
+    libs = (_native_lib(tpk_native, monkeypatch),
+            _native_lib(native, monkeypatch))
+    with monkeypatch.context() as numpy_only:
+        for mod in (tpk_native, native):
+            numpy_only.setattr(mod, "lib", lambda: None)
+        np.testing.assert_array_equal(getattr(feats, op)(*args),
+                                      getattr(tpk_feats, op)(*args),
+                                      err_msg=f"{op}, numpy")
+    if all(lib is not None for lib in libs):
+        np.testing.assert_array_equal(getattr(feats, op)(*args),
+                                      getattr(tpk_feats, op)(*args),
+                                      err_msg=f"{op}, native")
 
 
 @pytest.mark.parametrize("n, wlen", [(399, 400), (401, 400), (1000, 400),

@@ -48,7 +48,11 @@ from tpukaldi_torch.tools.flagship_tree import (
     write_kaldi_tree,
     write_train_cfg,
 )
-from tpukaldi_torch.tools import lstm_bwd_phases, lstm_fwd_phases
+from tpukaldi_torch.tools import (
+    gru_bwd_phases,
+    lstm_bwd_phases,
+    lstm_fwd_phases,
+)
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
 from torch_port_helpers import (
@@ -496,6 +500,49 @@ def test_lstm_bwd_phase_variants_cut_what_they_name():
                                      lstm_bwd_phases.VARIANTS)
 
 
+def test_gru_bwd_phase_variants_cut_what_they_name():
+    """`tools/gru_bwd_phases.py` builds K3b's variants by replacing lines of
+    `csrc/gru_bwd.cu`: each line is there once, each variant differs from
+    the source, and each cut variant cuts what it names (both products,
+    both exchanges, both grid barriers) and keeps the rest."""
+    source = gru_bwd_phases.source()
+    with open(os.path.join(_build._CSRC, port_gru.BWD_SOURCE)) as f:
+        assert f.read() == source
+    got = lstm_fwd_phases.variants(source, gru_bwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"tile < 0": "product", "exchange = false": "exchange",
+            "// no exchange": "exchange", "t >= p.T;": "chain",
+            "// no dU": "du"}
+    want = {"no product": {"product"}, "no exchange": {"exchange"},
+            "neither": {"product", "exchange"},
+            "no barriers": {"product", "exchange", "barrier"},
+            "no chain": {"chain"}, "remat only": {"chain", "du"}}
+    for name, (_, exact) in gru_bwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, names in want.items():
+        text = got[name]
+        found = {cut for mark, cut in cuts.items() if mark in text}
+        if "tpk::grid_arrive" not in text:
+            found.add("barrier")
+        assert found == names, name
+        # each exchange is cut whole or not at all
+        assert ("exchange = false" in text) == ("// no exchange" in text)
+    # the two products, the two exchanges' sums and the two barriers are
+    # each one piece of code, called twice a step
+    assert source.count("auto product = ") == 1
+    assert source.count("product(") == 2
+    assert source.count("grid_barrier()") == 2
+    for old, _ in (gru_bwd_phases._NO_PRODUCT, *gru_bwd_phases._NO_EXCHANGE,
+                   *gru_bwd_phases._NO_BARRIERS, gru_bwd_phases._NO_CHAIN,
+                   gru_bwd_phases._NO_DU):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            lstm_fwd_phases.variants(source.replace(old, ""),
+                                     gru_bwd_phases.VARIANTS)
+
+
 # ------------------------------------------------------------ (g) the card
 # K2f's main small shape, then the edges of its tiling: an odd batch with H
 # not a multiple of 16, a batch of two passes (more than 128 rows), and the
@@ -507,7 +554,8 @@ def test_lstm_bwd_phase_variants_cut_what_they_name():
     pytest.param("lstm", 50, 136, 550, id="lstm-50-136-550"),
     pytest.param("lstm", 50, 96, 1024, id="lstm-50-96-1024"),
     pytest.param("gru_relu", 41, 6, 64, id="gru_relu"),
-    pytest.param("gru_tanh", 41, 6, 64, id="gru_tanh")])
+    pytest.param("gru_tanh", 41, 6, 64, id="gru_tanh"),
+    pytest.param("gru_tanh", 50, 136, 550, id="gru_tanh-50-136-550")])
 def test_kernels_match_plain_on_card(cell, T, B, H):
     """Each forward and backward kernel against its plain version on the
     same card.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative to the
@@ -515,8 +563,8 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
     their own order (K2f per depth slice, then across slices; K2b's remat
     along the depth, its dh over the CTAs' partial sums) and the weight
     gradients in 16-row stages, cuBLAS in tiles.  Two K2f calls, and two
-    K2b calls, on the same inputs give the same bits (their sums run in a
-    fixed order)."""
+    K2b or K3b calls, on the same inputs give the same bits (their sums run
+    in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -541,11 +589,14 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
         ff, uzr, uh, mask, g = (torch.from_numpy(x).cuda()
                                 for x in _gru_inputs(T, B, H, seed=2))
         before = (port_gru.launches, port_gru.bwd_launches)
-        fwd_calls = bwd_calls = 1
+        fwd_calls, bwd_calls = 1, 2
         got_f = (port_gru.gru_recurrence(ff, uzr, uh, mask, act),)
         want_f = (port_gru.gru_recurrence_ref(ff, uzr, uh, mask, act),)
         got_b = port_gru.gru_recurrence_bwd(ff, want_f[0], g, uzr, uh, mask,
                                             act)
+        again = port_gru.gru_recurrence_bwd(ff, want_f[0], g, uzr, uh, mask,
+                                            act)
+        assert all(torch.equal(a, b) for a, b in zip(got_b, again))
         want_b = port_gru.gru_recurrence_bwd_ref(ff, want_f[0], g, uzr, uh,
                                                  mask, act)
         names = ("dff", "duzr", "duh", "dmask")

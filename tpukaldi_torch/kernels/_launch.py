@@ -106,3 +106,18 @@ def launch(name: str, entry_fn: Callable[..., int], ptrs, T: int, B: int,
     call(name, entry_fn, ptrs[0].device,
          (*(t.data_ptr() for t in ptrs), T, B, H, *extra_ints),
          f"T={T}, B={B}, H={H}")
+
+
+def plan(source: str, name: str, B: int, H: int, *extra: str) -> dict:
+    """A persistent kernel's launch at (B, H) from its `tpk_<name>_plan`,
+    which fills 4 ints and then one for each name in `extra`."""
+    fn = getattr(_build.load(source), f"tpk_{name}_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keys = ("ctas", "units", "smem_bytes", "chunk", *extra)
+    out = (ctypes.c_int * len(keys))()
+    err = fn(B, H, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: no cooperative launch at B={B}, "
+                           f"H={H} (CUDA error {err})")
+    return dict(zip(keys, out))

@@ -43,15 +43,15 @@ __device__ __forceinline__ float remat_sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// out[r, c] = gate_c(ff[r, c] + sum_k h[r - shift, k] * u[k, c]) for
-// r < R, c < 4H; h is (R - shift, H), u (H, 4H), ff and out (R, 4H).
-__global__ void __launch_bounds__(kRematThreads, 2)
-lstm_remat_kernel(const float* __restrict__ h, int shift,
-                  const float* __restrict__ u, const float* __restrict__ ff,
-                  float* __restrict__ out, int R, int H) {
-  __shared__ __align__(16) float a_tile[kRematDepth][kRematALd];  // [k][row]
-  __shared__ __align__(16) float b_tile[kRematDepth][kRematBLd];  // [k][col]
-  const int N = 4 * H;
+// acc[i][q] = sum over k < K, in ascending order, of a[r - shift, k] *
+// b[k, c] for the block's tile: rows r = r0 + 4 ty + i (i < 4) and r0 + 64
+// + 4 ty + i - 4 (i >= 4), columns c = c0 + 4 tx + q, with r0 and c0 the
+// block's tile corner; a is (R - shift, K) (zeros above), b (K, N).  The
+// tiling of lstm_remat_kernel, shared with the GRU's remat (gru_remat.cuh).
+__device__ __forceinline__ void remat_tile(
+    const float* __restrict__ a, int shift, const float* __restrict__ b,
+    int N, int R, int K, float (&a_tile)[kRematDepth][kRematALd],
+    float (&b_tile)[kRematDepth][kRematBLd], float (&acc)[8][4]) {
   const int r0 = blockIdx.y * kRematRows;
   const int c0 = blockIdx.x * kRematCols;
   const int tid = threadIdx.x;
@@ -59,7 +59,7 @@ lstm_remat_kernel(const float* __restrict__ h, int shift,
   const int ty = tid / 16;  // rows 4 ty .. + 3 and 64 + 4 ty .. + 3
 
   // the words a thread stages: of A, 8 (row l / 16, depth l % 16, so that
-  // 16 neighbouring threads read 16 neighbouring floats of one row of h);
+  // 16 neighbouring threads read 16 neighbouring floats of one row of a);
   // of B, 4 (depth l / 64, column l % 64)
   constexpr int kAPer = kRematRows * kRematDepth / kRematThreads;
   constexpr int kBPer = kRematCols * kRematDepth / kRematThreads;
@@ -71,15 +71,15 @@ lstm_remat_kernel(const float* __restrict__ h, int shift,
       const int l = tid + e * kRematThreads;
       const int r = r0 + l / kRematDepth;
       const int k = k0 + l % kRematDepth;
-      a_reg[e] = (r >= shift && r < R && k < H)
-                     ? h[static_cast<size_t>(r - shift) * H + k] : 0.0f;
+      a_reg[e] = (r >= shift && r < R && k < K)
+                     ? a[static_cast<size_t>(r - shift) * K + k] : 0.0f;
     }
 #pragma unroll
     for (int e = 0; e < kBPer; ++e) {
       const int l = tid + e * kRematThreads;
       const int k = k0 + l / kRematCols;
       const int c = c0 + l % kRematCols;
-      b_reg[e] = (k < H && c < N) ? u[static_cast<size_t>(k) * N + c] : 0.0f;
+      b_reg[e] = (k < K && c < N) ? b[static_cast<size_t>(k) * N + c] : 0.0f;
     }
   };
   auto store = [&]() {
@@ -95,12 +95,16 @@ lstm_remat_kernel(const float* __restrict__ h, int shift,
     }
   };
 
-  float acc[8][4] = {};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+  }
   load(0);
-  for (int k0 = 0; k0 < H; k0 += kRematDepth) {
+  for (int k0 = 0; k0 < K; k0 += kRematDepth) {
     store();
     __syncthreads();
-    if (k0 + kRematDepth < H) load(k0 + kRematDepth);  // in flight meanwhile
+    if (k0 + kRematDepth < K) load(k0 + kRematDepth);  // in flight meanwhile
 #pragma unroll
     for (int k = 0; k < kRematDepth; ++k) {
       const float4 lo = *reinterpret_cast<const float4*>(&a_tile[k][4 * ty]);
@@ -117,6 +121,23 @@ lstm_remat_kernel(const float* __restrict__ h, int shift,
     }
     __syncthreads();  // the tiles are staged again next stage
   }
+}
+
+// out[r, c] = gate_c(ff[r, c] + sum_k h[r - shift, k] * u[k, c]) for
+// r < R, c < 4H; h is (R - shift, H), u (H, 4H), ff and out (R, 4H).
+__global__ void __launch_bounds__(kRematThreads, 2)
+lstm_remat_kernel(const float* __restrict__ h, int shift,
+                  const float* __restrict__ u, const float* __restrict__ ff,
+                  float* __restrict__ out, int R, int H) {
+  __shared__ __align__(16) float a_tile[kRematDepth][kRematALd];  // [k][row]
+  __shared__ __align__(16) float b_tile[kRematDepth][kRematBLd];  // [k][col]
+  const int N = 4 * H;
+  const int r0 = blockIdx.y * kRematRows;
+  const int c0 = blockIdx.x * kRematCols;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  float acc[8][4];
+  remat_tile(h, shift, u, N, R, H, a_tile, b_tile, acc);
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {

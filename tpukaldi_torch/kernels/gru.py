@@ -12,9 +12,12 @@ counterpart of tpukaldi's `kernels/gru.py::gru_recurrence` (a
 `jax.custom_vjp`): its forward is `gru_recurrence` and saves (ff, uzr, uh,
 mask, h); its backward is `gru_recurrence_bwd`.  On a CUDA tensor those
 launch `csrc/gru_fwd.cu` and `csrc/gru_bwd.cu` (design notes there) or
-raise; on a CPU tensor they run `gru_recurrence_ref` and
-`gru_recurrence_bwd_ref`, the Python time loops that mirror tpukaldi's
-`gru_recurrence_scan` and `_bwd_scan`.
+raise.  The backward, K3b, is a gate remat over all steps, then the dh
+chain as one persistent cooperative launch whose CTAs keep slices of Uh
+and Uzr in shared memory and exchange partial sums twice a step
+(`bwd_plan` reports its grid), then the dU passes.  On a CPU tensor they
+run `gru_recurrence_ref` and `gru_recurrence_bwd_ref`, the Python time
+loops that mirror tpukaldi's `gru_recurrence_scan` and `_bwd_scan`.
 """
 
 from __future__ import annotations
@@ -157,14 +160,26 @@ def gru_recurrence_bwd(
     duzr = torch.empty_like(uzr)
     duh = torch.empty_like(uh)
     dmask = torch.empty_like(mask)
-    rh = torch.empty_like(h)  # r * h_prev, written by the sequential pass
-    # the dh chain reads both transposes row by row
-    uht, uzrt = uh.t().contiguous(), uzr.t().contiguous()
+    rh = torch.empty_like(h)  # r * h_prev, written by the remat
+    # the chain's scratch: its two buffers of partial sums (every word read
+    # is written first) and the grid barrier's counter, zeroed every call
+    pbuf = torch.empty(bwd_plan(B, H)["pbuf_floats"], device=ff.device,
+                       dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
     _launch.launch("gru_bwd", entry,
-                   (ff, h, g, uzr, uh, uht, uzrt, mask, dff, duzr, duh, dmask,
-                    rh), T, B, H, (ACTS.index(act_name),))
+                   (ff, h, g, uzr, uh, mask, dff, duzr, duh, dmask, rh, pbuf,
+                    bar), T, B, H, (ACTS.index(act_name),))
     bwd_launches += 1
     return dff, duzr, duh, dmask
+
+
+def bwd_plan(B: int, H: int) -> dict:
+    """K3b's sequential launch at (B, H) on the current card: its CTAs, the
+    hidden units each owns, each CTA's shared-memory bytes, the producers'
+    partial sums it stages at a time (`chunk`) and the floats of its two
+    partial-sum buffers.  Raises where the card cannot hold the grid at
+    once, as the launch would."""
+    return _launch.plan(BWD_SOURCE, "gru_bwd", B, H, "pbuf_floats")
 
 
 class GRURecurrence(torch.autograd.Function):

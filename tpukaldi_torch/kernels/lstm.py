@@ -51,12 +51,11 @@ at every H, which is what tpukaldi computes off a TPU; the QLSTM picks by
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from . import _build, _launch
+from . import _launch
 
 SOURCE = "lstm_fwd.cu"
 BWD_SOURCE = "lstm_bwd.cu"
@@ -218,7 +217,7 @@ def fwd_plan(B: int, H: int) -> dict:
     units each owns, each CTA's shared-memory bytes and the h columns it
     stages at a time.  Raises where the card cannot hold the grid at once,
     as the launch would."""
-    return _plan(SOURCE, "lstm_fwd", B, H)
+    return _launch.plan(SOURCE, "lstm_fwd", B, H)
 
 
 def lstm_recurrence_bwd(
@@ -259,7 +258,7 @@ def bwd_plan(B: int, H: int) -> dict:
     partial sums it stages at a time (`chunk`) and the floats of the
     partial-sum buffer.  Raises where the card cannot hold the grid at
     once, as the launch would."""
-    return _plan(BWD_SOURCE, "lstm_bwd", B, H, "pbuf_floats")
+    return _launch.plan(BWD_SOURCE, "lstm_bwd", B, H, "pbuf_floats")
 
 
 class LSTMRecurrence(torch.autograd.Function):
@@ -323,22 +322,7 @@ def _pad(n: int, m: int) -> int:
 def lean_fwd_plan(B: int, H: int) -> dict:
     """K4f's launch at (B, H) on the current card, as `fwd_plan` gives
     K2f's."""
-    return _plan(LEAN_SOURCE, "lstm_lean_fwd", B, H)
-
-
-def _plan(source: str, name: str, B: int, H: int, *extra: str) -> dict:
-    """A persistent kernel's launch at (B, H) from its `tpk_<name>_plan`,
-    which fills 4 ints and then one for each name in `extra`."""
-    fn = getattr(_build.load(source), f"tpk_{name}_plan")
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    keys = ("ctas", "units", "smem_bytes", "chunk", *extra)
-    out = (ctypes.c_int * len(keys))()
-    err = fn(B, H, out)
-    if err != 0:
-        raise RuntimeError(f"{name}: no cooperative launch at B={B}, "
-                           f"H={H} (CUDA error {err})")
-    return dict(zip(keys, out))
+    return _launch.plan(LEAN_SOURCE, "lstm_lean_fwd", B, H)
 
 
 def lstm_recurrence_lean_bwd(
@@ -396,7 +380,7 @@ def lean_bwd_operands(h: torch.Tensor, u: torch.Tensor):
 def lean_bwd_plan(B: int, H: int) -> dict:
     """K4b's sequential launch at (B, H) on the current card, as `bwd_plan`
     gives K2b's, and its groups: `groups` of `group_ctas` CTAs each."""
-    return _plan(LEAN_BWD_SOURCE, "lstm_lean_bwd", B, H, "pbuf_floats",
+    return _launch.plan(LEAN_BWD_SOURCE, "lstm_lean_bwd", B, H, "pbuf_floats",
                  "groups", "group_ctas", "dabuf_halves")
 
 
