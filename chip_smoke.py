@@ -36,18 +36,19 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, K2f and the sequential passes of K2b, K3b and K4b
-   are each one persistent cooperative launch with U resident in shared
-   memory (K4f, K4b: bf16 tensor-core products; K2f, K2b, K3b: float32
-   FMAs; K2b, K3b and K4b also run a parallel gate remat before it, and dU
-   passes after it, K4b's the float32 GEMM, timed alone too; K3b's chain
-   exchanges partial sums twice a step).  K4f is also held, step by step,
-   to one plain step from its own previous state, and run at the edges of
-   its tiling, (37, 5, 36) and (50, 96, 1024), under the same tolerances;
-   K2f, K2b and K3b at (37, 5, 36), (50, 136, 550) (two passes) and
-   (50, 96, 1024), K3b in tanh (the recipe's) and also in relu at (778,
+   small shape.  K4f, K2f, K3f and the sequential passes of K2b, K3b and
+   K4b are each one persistent cooperative launch with U resident in
+   shared memory (K4f, K4b: bf16 tensor-core products; K2f, K3f, K2b, K3b:
+   float32 FMAs; K2b, K3b and K4b also run a parallel gate remat before
+   it, and dU passes after it, K4b's the float32 GEMM, timed alone too;
+   K3f exchanges h and r * h, K3b's chain partial sums, twice a step).
+   K4f is also held, step by step, to one plain step from its own previous
+   state, and run at the edges of its tiling, (37, 5, 36) and (50, 96,
+   1024), under the same tolerances; K2f, K3f, K2b and K3b at (37, 5, 36),
+   (50, 136, 550) (two passes) and (50, 96, 1024), K3f and K3b in tanh
+   (the recipe's) and also in relu, K3f at (778, 64, 550), K3b at (778,
    16, 550); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024) (two
-   passes).  All five are called twice on the same inputs (bitwise equal),
+   passes).  All six are called twice on the same inputs (bitwise equal),
    and their us per step, grid (CTAs, units each), shared memory a CTA and
    chunk width (K2b, K3b, K4b: the producers' partial sums staged at a
    time, and the partial-sum buffers) are printed beside the time.  K4f
@@ -150,6 +151,8 @@ BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
 BWD_EDGE_SHAPES = FWD_EDGE_SHAPES
 # K3b in relu too (the GRU recipe runs tanh), at the training shape
 GRU_RELU_BWD_SHAPES = ((778, 16, 550),)
+# K3f in relu too, at the serving shape
+GRU_RELU_FWD_SHAPES = ((778, 64, 550),)
 # the QLSTM's recurrence: H = 1024; forward batch 32 and training batch 16,
 # doubled by the bidirectional flip-concat
 LEAN_FWD_SHAPES = ((778, 64, 1024), (1000, 32, 1024))
@@ -602,21 +605,27 @@ def kernel_phase(mods) -> dict:
     errs, timing, library = {}, {}, {}
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
-        # the persistent kernels, forward K4f and K2f, backward K2b, K3b and
-        # K4b: their plans, edge shapes and a bitwise repeat
-        persistent_fwd = cell in ("lstm", "lstm_lean")
+        # the persistent kernels, forward K4f, K2f and K3f, backward K2b,
+        # K3b and K4b: their plans, edge shapes and a bitwise repeat
+        persistent_fwd = cell in ("lstm", "gru", "lstm_lean")
         persistent_bwd = cell in ("lstm", "gru", "lstm_lean")
-        fns = _cell_fns(cell, mod)
         name = f"{cell}_fwd"
-        for T, B, H in (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
-                        else FWD_SHAPES + FWD_EDGE_SHAPES if persistent_fwd
-                        else FWD_SHAPES):
+        # K3f also in relu (None: the cell's own act)
+        shapes = (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
+                  else FWD_SHAPES + FWD_EDGE_SHAPES if persistent_fwd
+                  else FWD_SHAPES)
+        runs = [(*shape, None) for shape in shapes]
+        if cell == "gru":
+            runs += [(*shape, "relu") for shape in GRU_RELU_FWD_SHAPES]
+        for T, B, H, act in runs:
+            fns = _cell_fns(cell, mod, act)
+            label = f"{name}" + (f" {act}" if act else "")
             ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
                 want = fns["fwd_ref"](ff, ws, mask)
-                # K4f and K2f sum in a fixed order: a second call gives the
-                # same bits
+                # K4f, K2f and K3f sum in a fixed order: a second call gives
+                # the same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["fwd"](ff, ws, mask)))
                         if persistent_fwd else True)
@@ -630,7 +639,7 @@ def kernel_phase(mods) -> dict:
                 k2_ms = (median_ms(lambda: mod.lstm_recurrence(ff, *ws, mask), 3)
                          if lean else None)
             atol = LEAN_SEQ_ATOL if lean else KERNEL_ATOL
-            print(f"kernel {name} T={T} B={B} H={H}: max_abs_err={err:.3e} "
+            print(f"kernel {label} T={T} B={B} H={H}: max_abs_err={err:.3e} "
                   f"max_rel_err={rel:.3e} (atol {atol:g})"
                   + (f", per step {step:.3e} (atol {LEAN_STEP_ATOL:g})"
                      if lean else "")
@@ -639,19 +648,20 @@ def kernel_phase(mods) -> dict:
                   flush=True)
             if persistent_fwd:
                 plan = (mod.lean_fwd_plan if lean else mod.fwd_plan)(B, H)
-                print(f"kernel {name} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
+                print(f"kernel {label} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step; grid P={plan['ctas']} CTAs of u="
                       f"{plan['units']} units, {plan['smem_bytes']} shared-memory "
                       f"bytes a CTA, h staged {plan['chunk']} columns at a time; "
                       f"repeat bitwise equal: {same}", flush=True)
             check(math.isfinite(err) and err <= atol,
-                  f"{name} disagrees with its plain version at {(T, B, H)}: {err}")
+                  f"{label} disagrees with its plain version at {(T, B, H)}: {err}")
             if lean:
                 check(math.isfinite(step) and step <= LEAN_STEP_ATOL,
-                      f"{name} step disagrees at {(T, B, H)}: {step}")
-            check(same, f"{name}: two calls differ at {(T, B, H)}")
+                      f"{label} step disagrees at {(T, B, H)}: {step}")
+            check(same, f"{label}: two calls differ at {(T, B, H)}")
             errs[name] = max(errs.get(name, 0.0), err)
-            timing[(name, T, B, H)] = (ms, plain_ms)
+            if act is None:  # the kernels line times the recipe's act
+                timing[(name, T, B, H)] = (ms, plain_ms)
             if name in ("lstm_fwd", "lstm_lean_fwd") and name not in library:
                 dtype = torch.bfloat16 if lean else torch.float32
                 lib_ms, gemm_ms, lib_err = library_ms(mod, ff, ws[0], dtype)

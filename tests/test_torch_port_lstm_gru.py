@@ -50,6 +50,7 @@ from tpukaldi_torch.tools.flagship_tree import (
 )
 from tpukaldi_torch.tools import (
     gru_bwd_phases,
+    gru_fwd_phases,
     lstm_bwd_phases,
     lstm_fwd_phases,
 )
@@ -543,6 +544,59 @@ def test_gru_bwd_phase_variants_cut_what_they_name():
                                      gru_bwd_phases.VARIANTS)
 
 
+def test_gru_fwd_phase_variants_cut_what_they_name():
+    """`tools/gru_fwd_phases.py` builds K3f's variants by replacing lines of
+    `csrc/gru_fwd.cu`: each line is there once, each variant differs from
+    the source, and each cut variant cuts what it names (both products,
+    both streams, both grid barriers, the time loop) and keeps the rest."""
+    source = gru_fwd_phases.source()
+    with open(os.path.join(_build._CSRC, port_gru.SOURCE)) as f:
+        assert f.read() == source
+    got = lstm_fwd_phases.variants(source, gru_fwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"kk < 0": "product", "i < 0": "stream", "t < 0; ++t": "steps"}
+    want = {"no product": {"product"}, "no stream": {"stream"},
+            "neither": {"product", "stream"},
+            "no barriers": {"product", "stream", "barrier"},
+            "no steps": {"steps"}}
+    for name, (_, exact) in gru_fwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, text in got.items():
+        found = {cut for mark, cut in cuts.items() if mark in text}
+        if "tpk::grid_arrive" not in text:
+            # both halves of the barrier go together
+            assert "tpk::grid_wait" not in text, name
+            found.add("barrier")
+        assert found == want.get(name, set()), name
+    # the two products, the two streams and the two barriers are each one
+    # piece of code, called twice a step
+    assert source.count("auto product = ") == 1
+    assert source.count("product(") == 2
+    assert source.count("auto stage = ") == 1
+    assert source.count("arrive();") == 2 and source.count("wait();") == 2
+    for old, _ in (gru_fwd_phases._NO_PRODUCT, gru_fwd_phases._NO_STREAM,
+                   *gru_fwd_phases._NO_BARRIERS, gru_fwd_phases._NO_STEPS):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            lstm_fwd_phases.variants(source.replace(old, ""),
+                                     gru_fwd_phases.VARIANTS)
+
+
+def test_gru_kernels_share_one_slice_layout():
+    """K3f and K3b keep Uh's and Uzr's column slices in shared memory in one
+    layout, packed by one loader (`csrc/gru_slices.cuh`): both sources
+    include it, call its loader once, and define no layout of their own."""
+    for name in (port_gru.SOURCE, port_gru.BWD_SOURCE):
+        with open(os.path.join(_build._CSRC, name)) as f:
+            text = f.read()
+        assert '#include "gru_slices.cuh"' in text, name
+        assert text.count("tpk::load_gru_slices(") == 1, name
+        for own in ("int uh_words(", "int uzr_words(", "int row_floats("):
+            assert own not in text, name
+
+
 # ------------------------------------------------------------ (g) the card
 # K2f's main small shape, then the edges of its tiling: an odd batch with H
 # not a multiple of 16, a batch of two passes (more than 128 rows), and the
@@ -555,16 +609,18 @@ def test_gru_bwd_phase_variants_cut_what_they_name():
     pytest.param("lstm", 50, 96, 1024, id="lstm-50-96-1024"),
     pytest.param("gru_relu", 41, 6, 64, id="gru_relu"),
     pytest.param("gru_tanh", 41, 6, 64, id="gru_tanh"),
-    pytest.param("gru_tanh", 50, 136, 550, id="gru_tanh-50-136-550")])
+    pytest.param("gru_tanh", 37, 5, 36, id="gru_tanh-37-5-36"),
+    pytest.param("gru_tanh", 50, 136, 550, id="gru_tanh-50-136-550"),
+    pytest.param("gru_relu", 50, 96, 1024, id="gru_relu-50-96-1024")])
 def test_kernels_match_plain_on_card(cell, T, B, H):
     """Each forward and backward kernel against its plain version on the
     same card.  1e-4 absolute on h, c, dff and dmask, 1e-4 relative to the
     max on the weight gradients: the kernels sum the recurrent products in
-    their own order (K2f per depth slice, then across slices; K2b's remat
-    along the depth, its dh over the CTAs' partial sums) and the weight
-    gradients in 16-row stages, cuBLAS in tiles.  Two K2f calls, and two
-    K2b or K3b calls, on the same inputs give the same bits (their sums run
-    in a fixed order)."""
+    their own order (K2f and K3f per depth slice, then across slices; K2b's
+    remat along the depth, its dh over the CTAs' partial sums) and the
+    weight gradients in 16-row stages, cuBLAS in tiles.  Two K2f or K3f
+    calls, and two K2b or K3b calls, on the same inputs give the same bits
+    (their sums run in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -589,8 +645,10 @@ def test_kernels_match_plain_on_card(cell, T, B, H):
         ff, uzr, uh, mask, g = (torch.from_numpy(x).cuda()
                                 for x in _gru_inputs(T, B, H, seed=2))
         before = (port_gru.launches, port_gru.bwd_launches)
-        fwd_calls, bwd_calls = 1, 2
+        fwd_calls, bwd_calls = 2, 2
         got_f = (port_gru.gru_recurrence(ff, uzr, uh, mask, act),)
+        again = port_gru.gru_recurrence(ff, uzr, uh, mask, act)
+        assert torch.equal(got_f[0], again)
         want_f = (port_gru.gru_recurrence_ref(ff, uzr, uh, mask, act),)
         got_b = port_gru.gru_recurrence_bwd(ff, want_f[0], g, uzr, uh, mask,
                                             act)

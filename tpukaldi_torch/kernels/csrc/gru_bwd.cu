@@ -40,11 +40,11 @@
 //    H = 550; u = 8, P = 128 at H = 1024; the last CTA may own fewer).  A
 //    grid the card cannot hold at once is refused, not run.  Each CTA
 //    keeps its column slices Uh[:, S_q] and [Uz | Ur][:, S_q] in shared
-//    memory for all T steps, packed once per call from Uh and Uzr (no
-//    transpose is made): row k holds Uh[k, S_q] in ceil(u / 4) 16-byte
-//    words, then Uz[k, j], Ur[k, j] side by side for j in S_q in
-//    ceil(2u / 4) words, the row padded to an odd number of words (44 KB
-//    at H = 550, 115 KB at H = 1024).  Per reverse step t:
+//    memory for all T steps, packed once per call from Uh and Uzr in the
+//    layout K3f reads too (gru_slices.cuh): row k holds Uh[k, S_q] in
+//    ceil(u / 4) 16-byte words, then Uz[k, j], Ur[k, j] side by side for
+//    j in S_q in ceil(2u / 4) words, the row padded to an odd number of
+//    words (44 KB at H = 550, 115 KB at H = 1024).  Per reverse step t:
 //    (a) the cell: one thread per (batch row b, owned unit j) reads a, z,
 //        r from dff[t], h_prev and g[t] (loaded while the exchange of the
 //        step before is staged), adds that exchange's partial sums to
@@ -109,6 +109,7 @@
 
 #include "du_tile.cuh"
 #include "gru_remat.cuh"
+#include "gru_slices.cuh"
 #include "persist_grid.cuh"
 
 namespace {
@@ -127,19 +128,6 @@ constexpr int kErrNotResident = static_cast<int>(cudaErrorCooperativeLaunchTooLa
 __host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
 __host__ __device__ constexpr int round_rows(int x) {
   return (x + kRows - 1) / kRows * kRows;
-}
-
-// a row length of x floats padded to an odd number of 16-byte words, so
-// that 8 rows read at one column fall in 8 distinct groups of 4 banks
-__host__ __device__ constexpr int odd_words(int x) {
-  return (x / 4) % 2 ? x : x + 4;
-}
-
-// 16-byte words of a row's Uh part and of its [Uz, Ur] part
-__host__ __device__ constexpr int uh_words(int u) { return (u + 3) / 4; }
-__host__ __device__ constexpr int uzr_words(int u) { return (2 * u + 3) / 4; }
-__host__ __device__ constexpr int row_floats(int u) {
-  return odd_words(4 * (uh_words(u) + uzr_words(u)));
 }
 
 __device__ __forceinline__ float sigmoid_grad(float s) {
@@ -173,7 +161,7 @@ struct Plan {
 // U's slices, this step's [da | da_z, da_r] of the CTA's units, and two
 // staged chunks of partial sums
 inline size_t smem_bytes(int kp, int u, int mmax, int pc) {
-  const size_t ld = row_floats(u);
+  const size_t ld = tpk::gru_row_floats(u);
   const size_t floats = (static_cast<size_t>(kp) + mmax) * ld
                         + 2 * static_cast<size_t>(pc) * mmax * u;
   return floats * sizeof(float);
@@ -188,9 +176,9 @@ gru_bwd_seq_kernel(const Params p) {
   const int unit0 = me * u;
   const int up = min(u, H - unit0);  // units this CTA owns
   const int tid = threadIdx.x;
-  const int ld = row_floats(u);
-  const int wh = uh_words(u);        // words of the drh product
-  const int wzr = uzr_words(u);      // words of the dh product
+  const int ld = tpk::gru_row_floats(u);
+  const int wh = tpk::gru_uh_words(u);    // words of the drh product
+  const int wzr = tpk::gru_uzr_words(u);  // words of the dh product
   const int zr0 = 4 * wh;            // a row's first [Uz, Ur] float
   const size_t three_h = 3 * static_cast<size_t>(H);
 
@@ -198,20 +186,9 @@ gru_bwd_seq_kernel(const Params p) {
   float* das = us + static_cast<size_t>(kp) * ld;             // mmax x ld
   float* stg = das + static_cast<size_t>(p.mmax) * ld;  // 2 x pc x mmax x u
 
-  // U's slices: zero the padding (and the cells' rows, of which a short
-  // pass leaves some unwritten), then the H real rows
-  for (int i = tid; i < (kp + p.mmax) * ld; i += kThreads) us[i] = 0.0f;
-  __syncthreads();
-  for (int i = tid; i < H * up; i += kThreads) {
-    const int k = i / up;
-    const int jj = i - k * up;
-    const int j = unit0 + jj;
-    float* row = us + static_cast<size_t>(k) * ld;
-    row[jj] = p.uh[static_cast<size_t>(k) * H + j];
-    row[zr0 + 2 * jj] = p.uzr[static_cast<size_t>(k) * 2 * H + j];
-    row[zr0 + 2 * jj + 1] = p.uzr[static_cast<size_t>(k) * 2 * H + H + j];
-  }
-  __syncthreads();
+  // U's slices, with the padding and the cells' rows (of which a short
+  // pass leaves some unwritten) zeroed
+  tpk::load_gru_slices(us, kp + p.mmax, p.uh, p.uzr, H, u, unit0, up);
 
   const size_t blk = static_cast<size_t>(p.mmax) * u;  // one producer's block
   const size_t buf_elems = static_cast<size_t>(P) * P * blk;

@@ -1,4 +1,4 @@
-// GRU forward recurrence for Hopper (sm_90a).
+// GRU forward recurrence for Hopper (sm_90a), float32.
 //
 // Replaces tpukaldi/kernels/gru.py::_gru_kernel (the Pallas forward,
 // launched from _gru_pallas_fwd_impl).  For every batch row b it runs
@@ -12,109 +12,441 @@
 // with act = relu (kAct 0) or tanh (kAct 1), and writes h for every step.
 // ff is in tpukaldi's gate order [h | z | r].  All tensors are float32 and
 // contiguous: ff (T, B, 3H), Uzr (H, 2H), Uh (H, H), mask (B, H), out
-// (T, B, H).
+// (T, B, H).  Every step of T runs; nothing is padded to a time block.
 //
-// Design: the liGRU forward kernel's (ligru_fwd.cu), with the GRU's second,
-// dependent product.  One CTA per batch row, one thread per hidden unit;
-// the time loop runs inside the block.  Each step thread j accumulates
-// columns j and H + j of h @ Uzr (reading Uzr row by row: coalesced), forms
-// z_j and r_j, and puts r_j * h_j in shared memory; after a barrier it
-// accumulates column j of (r * h) @ Uh, forms a_j and the new h_j, and
-// writes it to shared memory and to out.  A second barrier ends the step:
-// two per step, against the liGRU's one.  h_j stays in thread j's register
-// too.  Every step of T runs; nothing is padded to a time block.
+// Design: K2f's (lstm_fwd.cu), one persistent cooperative launch, with the
+// GRU's second, dependent product: two exchanges and two grid barriers a
+// step, as in K3b's chain (gru_bwd.cu).
+// - Grid.  P CTAs, at most one per SM: CTA q owns u consecutive hidden
+//   units S_q, u the smallest number with P = ceil(H / u) <= the SM count
+//   (on an H100: u = 5, P = 110 at H = 550; u = 8, P = 128 at H = 1024);
+//   the last CTA may own fewer.  A grid the card cannot hold at once is
+//   refused, not run.
+// - Uh[:, S_q] and [Uz | Ur][:, S_q] stay in shared memory for all T
+//   steps, copied once per call with cp.async in the layout K3b reads
+//   (gru_slices.cuh): 44 KB at H = 550, 115 KB at H = 1024.
+// - A step has two phases, each ending at a grid barrier:
+//   (a) every CTA streams h_{t-1} (the pass's rows x H) from hbuf through
+//       shared memory in chunks of up to 256 columns, double-buffered with
+//       cp.async.cg, runs h_{t-1} @ [Uz | Ur][:, S_q] (2u columns), forms z
+//       and r of its own (b, j) cells and writes r * h_{t-1} of S_q into
+//       rbuf; barrier 1;
+//   (b) it streams rbuf the same way, runs (r h_{t-1}) @ Uh[:, S_q] (u
+//       columns), forms a and h_t with h_{t-1}[S_q] and z kept in
+//       registers and writes h_t into hbuf; barrier 2; then h_t into the
+//       output, which no other CTA reads, while the others catch up.
+//   The step's three ff gates are loaded into registers when it starts, in
+//   flight while h is staged and multiplied.  The staging reads L2 only
+//   (cp.async.cg), so no CTA reads a stale L1 line of a buffer that another
+//   CTA rewrote a phase earlier.
+// - Why hbuf and rbuf need no ping-pong of their own, as K2f's hbuf does:
+//   every CTA's reads of hbuf at (a) of step t end before it arrives
+//   at barrier 1 of step t, and hbuf's next writes, at (b) of step t, come
+//   after that barrier; every read of rbuf at (b) of step t ends before the
+//   arrival at barrier 2 of step t, and rbuf's next writes, at (a) of step
+//   t + 1, come after it.  So each buffer's reads end before its next
+//   writes begin, parted by the other phase's barrier.  A pass's last step
+//   skips barrier 2: the next pass reads and writes other rows of both
+//   buffers (each holds every batch row).  The barrier counter grows by 2P
+//   a step.
+// - The products are float32 fmaf on the CUDA cores, as tpukaldi's kernel
+//   is float32 and the port keeps TF32 off.  A thread owns a register tile
+//   of 4 batch rows (r, r + m/4, r + m/2, r + 3m/4 of the pass's m rows, so
+//   that neighbouring threads read h rows in distinct banks) x one 16-byte
+//   word of the slice rows, 4 columns: per k step of 4 it loads 4 float4 of
+//   h and 4 of U and runs 64 fmaf.  Where there are fewer tiles than the
+//   256 threads (at the training batch B' = 16, u = 5: 12 tiles in (a), 8
+//   in (b)), the depth is split too: slice s takes the k steps s, s + S,
+//   ...  The Uh product has one column per unit, in ceil(u / 4) words (8
+//   columns for u = 5, 3 of them zeros).  A tile of 4 rows x 1 column over
+//   a slice of Uh stored by column would load 5 words for 16 fmaf, against
+//   the word tile's 8 for 64 (40 of them on real columns at u = 5), and
+//   leave twice as many slices to add, so (b) keeps the word tile.
+// - Each thread sums its k steps in ascending order and the cell adds the
+//   slices' partial sums in ascending order, so two calls on the same
+//   inputs give the same bits.  h agrees with K3b's remat (gru_remat.cuh)
+//   to the sum order, not bit for bit, as K2f's does with K2b's.
+// - A pass holds at most 128 batch rows (and at most 1024 / u, so that a
+//   thread holds at most 4 cells); more rows run as further passes in the
+//   same launch, each from h_0 = 0.
 //
-// What bounds it.  Each step every CTA re-reads Uzr and Uh (3H * H floats,
-// 3.63 MB at H = 550) from L2, 1.5 times K1f's bytes.  Only B CTAs run.
-// The persistent design (Sparse Persistent RNNs, PAPERS.md, arXiv
-// 1804.10223) that keeps slices of both resident is later work.
+// What bounds it.  The 3.63 MB of Uzr and Uh (H = 550) that the
+// one-CTA-per-row design re-read from L2 every step, in every CTA, stays in
+// shared memory.  Per step each CTA reads the pass's h_{t-1} and r h_{t-1}
+// from L2 (2 x P x B x H x 4 bytes across the grid, 31 MB at B = 64,
+// H = 550), runs its share of the two products (B x 3u x H fmaf, 0.53 M at
+// B = 64; its word tiles run 20 columns for the 15 real ones at u = 5) and
+// waits at two grid barriers.  tpukaldi_torch/tools/gru_fwd_phases.py,
+// which cuts phases out of this source, split a step on an H100 at 700 W
+// at (B, H) = (64, 550) into 19.1 us: the two products 7.1, the two
+// streams 7.8, the two grid barriers 1.9, the cells and the rest 3.7; at
+// B = 16 (the training batch), 10.3 us: 2.4, 3.7, 1.8 and 2.9.  Tiles of 8
+// rows were 2% faster at B = 64 and 8% slower at B = 16; chunks of 128
+// columns 7% slower at B = 64 and 2% faster at B = 16, of 64 columns
+// 18-19% slower at both.
 
 #include <cuda_runtime.h>
 
+#include "gru_slices.cuh"
+#include "persist_grid.cuh"
+
 namespace {
 
-constexpr int kMaxHidden = 1024;  // one thread per hidden unit
+constexpr int kMaxHidden = 1024;  // as K3b's limit
+constexpr int kThreads = 256;
+constexpr int kRows = 4;          // batch rows of a thread's tile
+constexpr int kMaxRows = 128;     // batch rows of one pass
+constexpr int kMaxUnits = 16;     // hidden units one CTA may own
+constexpr int kMaxPos = 4;        // cells a thread holds: (b, j) pairs
+constexpr int kMaxChunk = 256;    // h columns staged at a time
+// partial sums in shared memory: slices x rows x 4 columns of a word, at
+// most one float4 per thread of each of its tile's rows
+constexpr int kPartialFloats = kThreads * kRows * 4;
+
+// error code for a grid that cannot be resident at once
+constexpr int kErrNotResident = static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) / 4 * 4; }
+__host__ __device__ constexpr int round_rows(int x) {
+  return (x + kRows - 1) / kRows * kRows;
+}
+
+// a row length of x floats padded to an odd number of 16-byte words, so
+// that 8 rows read at one column fall in 8 distinct groups of 4 banks
+__host__ __device__ constexpr int odd_words(int x) {
+  return (x / 4) % 2 ? x : x + 4;
+}
+
+struct Params {
+  const float* ff;
+  const float* uzr;
+  const float* uh;
+  const float* mask;
+  float* out;
+  float* hbuf;    // [bp][kp] h_{t-1}, then [bp][kp] r h_{t-1} (rbuf); zeroed
+  unsigned* bar;  // grid barrier's arrival counter, zero at launch
+  int T, B, H;
+  int u;     // hidden units a CTA owns (the last CTA may own fewer)
+  int kp;    // H padded to 4: U's rows and the buffers' row length
+  int bp;    // B padded to kRows: the buffers' rows
+  int rows;  // batch rows of a pass
+  int mmax;  // rows of the largest pass, padded to kRows
+  int kc;    // columns staged at a time (a multiple of 4)
+};
+
+struct Plan {
+  int u, ctas, kp, bp, rows, mmax, kc;
+  size_t smem;
+};
+
+// U's slices, the two staged chunks, and the partial sums
+inline size_t smem_bytes(int kp, int u, int mmax, int kc) {
+  const size_t u_floats = static_cast<size_t>(kp) * tpk::gru_row_floats(u);
+  const size_t h_floats = 2 * static_cast<size_t>(mmax) * odd_words(kc);
+  return (u_floats + h_floats + kPartialFloats) * sizeof(float);
+}
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
 template <int kAct>
-__global__ void __launch_bounds__(kMaxHidden)
-gru_fwd_kernel(const float* __restrict__ ff, const float* __restrict__ uzr,
-               const float* __restrict__ uh, const float* __restrict__ mask,
-               float* __restrict__ out, int T, int B, int H) {
-  extern __shared__ float smem[];  // h (H floats), then r * h (H floats)
-  float* hs = smem;
-  float* rh = smem + H;
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  const bool active = j < H;
-  const size_t two_h = 2 * static_cast<size_t>(H);
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_kernel(const Params p) {
+  const int H = p.H, kp = p.kp, kc = p.kc, u = p.u;
+  const int unit0 = blockIdx.x * u;
+  const int up = min(u, H - unit0);  // units this CTA owns
+  const int tid = threadIdx.x;
+  const int ld = tpk::gru_row_floats(u);
+  const int wh = tpk::gru_uh_words(u);    // words of the Uh product
+  const int wzr = tpk::gru_uzr_words(u);  // words of the [Uz | Ur] product
+  const int hs_ld = odd_words(kc);
   const size_t three_h = 3 * static_cast<size_t>(H);
 
-  float h_j = 0.0f;
-  float z = 0.0f;
-  const float m = active ? mask[static_cast<size_t>(b) * H + j] : 0.0f;
-  if (active) hs[j] = 0.0f;
-  __syncthreads();
+  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kp x ld
+  float* hs = us + static_cast<size_t>(kp) * ld;  // 2 x mmax x hs_ld
+  float* gs = hs + 2 * static_cast<size_t>(p.mmax) * hs_ld;  // partial sums
 
-  for (int t = 0; t < T; ++t) {
-    const size_t row = static_cast<size_t>(t) * B + b;
-    const float* ff_t = ff + row * three_h;
-    if (active) {
-      float acc_z = 0.0f;
-      float acc_r = 0.0f;
-      const float* u_col = uzr + j;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        const float hk = hs[k];
-        acc_z = fmaf(hk, u_col[k * two_h], acc_z);
-        acc_r = fmaf(hk, u_col[k * two_h + H], acc_r);
+  tpk::load_gru_slices(us, kp, p.uh, p.uzr, H, u, unit0, up);
+
+  float* const hbuf = p.hbuf;
+  float* const rbuf = p.hbuf + static_cast<size_t>(p.bp) * kp;
+  const int nchunks = (kp + kc - 1) / kc;
+  unsigned arrived = 0;  // the barrier counter's value at the last barrier
+  auto arrive = [&]() { tpk::grid_arrive(p.bar); };
+  auto wait = [&]() {
+    arrived += gridDim.x;
+    tpk::grid_wait(p.bar, arrived);
+  };
+
+  for (int b0 = 0; b0 < p.B; b0 += p.rows) {
+    const int rows = min(p.rows, p.B - b0);
+    const int mp = round_rows(rows);
+    const int tr_n = mp / kRows;
+    const int npos = rows * up;
+
+    float m[kMaxPos], hv[kMaxPos], zv[kMaxPos], fv[kMaxPos][3];
+#pragma unroll
+    for (int i = 0; i < kMaxPos; ++i) {
+      const int q = tid + i * kThreads;
+      m[i] = 0.0f;
+      hv[i] = 0.0f;
+      zv[i] = 0.0f;
+      if (q < npos) {
+        const int b = q / up;
+        m[i] = p.mask[static_cast<size_t>(b0 + b) * H + unit0 + q - b * up];
       }
-      z = sigmoidf(ff_t[H + j] + acc_z);
-      const float r = sigmoidf(ff_t[2 * H + j] + acc_r);
-      rh[j] = r * h_j;
     }
-    __syncthreads();  // r * h complete; the reads of h are done
-    if (active) {
-      float acc = 0.0f;
-      const float* uh_col = uh + j;
-#pragma unroll 8
-      for (int k = 0; k < H; ++k) {
-        acc = fmaf(rh[k], uh_col[static_cast<size_t>(k) * H], acc);
+
+    // stage columns [ch * kc, ch * kc + width) of the pass's rows of src
+    auto stage = [&](const float* src, int ch) {
+      const int k0 = ch * kc;
+      const int per_row = min(kc, kp - k0) / 4;
+      float* buf = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld;
+      for (int i = tid; i < mp * per_row; i += kThreads) {
+        const int r = i / per_row;
+        const int v = (i - r * per_row) * 4;
+        tpk::cp_async16_cg(buf + r * hs_ld + v,
+                           src + static_cast<size_t>(b0 + r) * kp + k0 + v);
       }
-      const float a = ff_t[j] + acc;
-      const float act = kAct == 0 ? fmaxf(a, 0.0f) : tanhf(a);
-      h_j = z * h_j + (1.0f - z) * (act * m);
-      hs[j] = h_j;
-      out[row * H + j] = h_j;
+      tpk::cp_async_commit();
+    };
+    // the pass's rows of src times the slice rows' words [w0, w0 + nw), as
+    // partial sums gs[slice][row][4 * nw]; returns the slices
+    auto product = [&](const float* src, int w0, int nw) {
+      const int ntile = tr_n * nw;  // tiles of kRows rows x one word
+      const int S = max(1, kThreads / ntile);
+      const bool active = tid < ntile * S;
+      const int s_thr = tid / ntile;
+      const int tile = tid - s_thr * ntile;
+      const int tr = tile / nw;
+      const int tw = tile - tr * nw;
+      float acc[kRows][4];
+#pragma unroll
+      for (int x = 0; x < kRows * 4; ++x) acc[x / 4][x % 4] = 0.0f;
+      stage(src, 0);
+      for (int ch = 0; ch < nchunks; ++ch) {
+        if (ch + 1 < nchunks) {
+          stage(src, ch + 1);
+          tpk::cp_async_wait<1>();
+        } else {
+          tpk::cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+          const float* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
+                            + tr * hs_ld;
+          const float* uc = us + static_cast<size_t>(ch) * kc * ld + 4 * (w0 + tw);
+          const int ksteps = min(kc, kp - ch * kc) / 4;
+          for (int kk = s_thr; kk < ksteps; kk += S) {
+            float4 hr[kRows], uw[4];
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              hr[i] = *reinterpret_cast<const float4*>(
+                  hc + static_cast<size_t>(i) * tr_n * hs_ld + 4 * kk);
+            }
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              uw[d] = *reinterpret_cast<const float4*>(
+                  uc + static_cast<size_t>(4 * kk + d) * ld);
+            }
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) {
+              const float hk[4] = {hr[i].x, hr[i].y, hr[i].z, hr[i].w};
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                acc[i][0] = fmaf(hk[d], uw[d].x, acc[i][0]);
+                acc[i][1] = fmaf(hk[d], uw[d].y, acc[i][1]);
+                acc[i][2] = fmaf(hk[d], uw[d].z, acc[i][2]);
+                acc[i][3] = fmaf(hk[d], uw[d].w, acc[i][3]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // the buffer is staged again two chunks on
+      }
+      if (active) {
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          float* g = gs + (static_cast<size_t>(s_thr) * mp + tr + i * tr_n) * 4 * nw
+                     + 4 * tw;
+          *reinterpret_cast<float4*>(g) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+      __syncthreads();
+      return S;
+    };
+
+    for (int t = 0; t < p.T; ++t) {
+      // this step's ff, in flight while h is staged and multiplied
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          const float* f = p.ff + (static_cast<size_t>(t) * p.B + b0 + b) * three_h
+                           + unit0 + q - b * up;
+          fv[i][0] = f[0];
+          fv[i][1] = f[H];
+          fv[i][2] = f[2 * H];
+        }
+      }
+
+      // (a) z and r from h_{t-1} @ [Uz | Ur]; r h_{t-1} into rbuf, barrier 1
+      int S = product(hbuf, wh, wzr);
+      const size_t zr_ld = static_cast<size_t>(mp) * 4 * wzr;  // one slice
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          const int jj = q - b * up;
+          const float* g = gs + b * 4 * wzr + 2 * jj;
+          float uz = g[0], ur = g[1];
+          for (int s = 1; s < S; ++s) {
+            uz += g[s * zr_ld];
+            ur += g[s * zr_ld + 1];
+          }
+          zv[i] = sigmoidf(fv[i][1] + uz);
+          const float r = sigmoidf(fv[i][2] + ur);
+          rbuf[static_cast<size_t>(b0 + b) * kp + unit0 + jj] = r * hv[i];
+        }
+      }
+      arrive();
+      wait();
+
+      // (b) a from (r h_{t-1}) @ Uh; h_t into hbuf, barrier 2
+      S = product(rbuf, 0, wh);
+      const size_t h_ld = static_cast<size_t>(mp) * 4 * wh;  // one slice
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          const int jj = q - b * up;
+          const float* g = gs + b * 4 * wh + jj;
+          float ua = g[0];
+          for (int s = 1; s < S; ++s) ua += g[s * h_ld];
+          const float a = fv[i][0] + ua;
+          const float act = kAct == 0 ? fmaxf(a, 0.0f) : tanhf(a);
+          hv[i] = zv[i] * hv[i] + (1.0f - zv[i]) * (act * m[i]);
+          hbuf[static_cast<size_t>(b0 + b) * kp + unit0 + jj] = hv[i];
+        }
+      }
+      // the other CTAs read only hbuf: arrive, then write h while they
+      // catch up
+      const bool more = t + 1 < p.T;
+      if (more) arrive();
+#pragma unroll
+      for (int i = 0; i < kMaxPos; ++i) {
+        const int q = tid + i * kThreads;
+        if (q < npos) {
+          const int b = q / up;
+          p.out[(static_cast<size_t>(t) * p.B + b0 + b) * H + unit0 + q - b * up] =
+              hv[i];
+        }
+      }
+      if (more) wait();
     }
-    __syncthreads();  // h complete; the reads of r * h are done
   }
+}
+
+// the kernel for act 0 (relu) or 1 (tanh)
+inline void (*fwd_kernel(int act))(const Params) {
+  return act == 0 ? gru_fwd_kernel<0> : gru_fwd_kernel<1>;
+}
+
+// The launch's shape for (B, H) on the current device, and whether the
+// card can hold its grid at once; returns a CUDA error code (0: fits).
+int make_plan(int B, int H, int act, Plan* pl) {
+  if (B <= 0 || H <= 0 || H > kMaxHidden || act < 0 || act > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!coop) return static_cast<int>(cudaErrorNotSupported);
+  const int u = (H + sms - 1) / sms;
+  if (u > kMaxUnits) return kErrNotResident;
+  pl->u = u;
+  pl->ctas = (H + u - 1) / u;
+  pl->kp = round4(H);
+  pl->bp = round_rows(B);
+  // a pass's rows: at most kMaxPos cells a thread (which also keeps each
+  // product's tiles within the threads)
+  const int cap = kMaxRows < kMaxPos * kThreads / u / kRows * kRows
+                      ? kMaxRows : kMaxPos * kThreads / u / kRows * kRows;
+  pl->rows = B < cap ? B : cap;
+  pl->mmax = round_rows(pl->rows);
+  pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
+  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+         pl->kc > 16) {
+    pl->kc = round4(pl->kc / 2);
+  }
+  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc);
+  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  const auto kernel = fwd_kernel(act);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(pl->smem));
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, pl->smem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm * sms < pl->ctas) return kErrNotResident;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" int tpk_gru_fwd_max_hidden() { return kMaxHidden; }
 
-// act: 0 relu, 1 tanh.  Launches on `stream` and returns
-// cudaGetLastError(): a refused launch never runs, and only this return
-// value reports it.
+// out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, columns staged
+// at a time) of the launch for (B, H); returns make_plan's code.
+extern "C" int tpk_gru_fwd_plan(int B, int H, int* out) {
+  Plan pl;
+  const int err = make_plan(B, H, 1, &pl);
+  if (err == 0) {
+    out[0] = pl.ctas;
+    out[1] = pl.u;
+    out[2] = static_cast<int>(pl.smem);
+    out[3] = pl.kc;
+  }
+  cudaGetLastError();  // a failed query leaves nothing behind
+  return err;
+}
+
+// act: 0 relu, 1 tanh.  Launches on `stream` and returns the error: a grid
+// the card cannot hold at once (cudaErrorCooperativeLaunchTooLarge), or what
+// the cooperative launch reports (a refused launch never runs, and only this
+// value reports it).  hbuf is [2][round4(B)][round4(H)] float32 and bar one
+// unsigned word, both zeroed by the caller.
 extern "C" int tpk_gru_fwd(const float* ff, const float* uzr, const float* uh,
-                           const float* mask, float* out, int T, int B, int H,
-                           int act, cudaStream_t stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || H > kMaxHidden || act < 0 || act > 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
+                           const float* mask, float* out, float* hbuf, void* bar,
+                           int T, int B, int H, int act, cudaStream_t stream) {
+  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int err = make_plan(B, H, act, &pl);
+  if (err != 0) {
+    cudaGetLastError();
+    return err;
   }
-  const int threads = ((H + 31) / 32) * 32;
-  const size_t smem = 2 * static_cast<size_t>(H) * sizeof(float);
-  if (act == 0) {
-    gru_fwd_kernel<0><<<B, threads, smem, stream>>>(ff, uzr, uh, mask, out, T,
-                                                    B, H);
-  } else {
-    gru_fwd_kernel<1><<<B, threads, smem, stream>>>(ff, uzr, uh, mask, out, T,
-                                                    B, H);
-  }
-  return static_cast<int>(cudaGetLastError());
+  Params prm{ff, uzr, uh, mask, out, hbuf, static_cast<unsigned*>(bar),
+             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc};
+  void* args[] = {&prm};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      fwd_kernel(act), dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
 }

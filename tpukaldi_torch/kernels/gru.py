@@ -12,10 +12,14 @@ counterpart of tpukaldi's `kernels/gru.py::gru_recurrence` (a
 `jax.custom_vjp`): its forward is `gru_recurrence` and saves (ff, uzr, uh,
 mask, h); its backward is `gru_recurrence_bwd`.  On a CUDA tensor those
 launch `csrc/gru_fwd.cu` and `csrc/gru_bwd.cu` (design notes there) or
-raise.  The backward, K3b, is a gate remat over all steps, then the dh
-chain as one persistent cooperative launch whose CTAs keep slices of Uh
-and Uzr in shared memory and exchange partial sums twice a step
-(`bwd_plan` reports its grid), then the dU passes.  On a CPU tensor they
+raise.  The forward, K3f, is one persistent cooperative launch whose CTAs
+each keep column slices of Uzr and Uh in shared memory for all T steps
+and exchange h and r * h through global buffers, two grid barriers a step
+(`fwd_plan` reports its grid).  The backward, K3b, is a gate remat over
+all steps, then the dh chain as one persistent cooperative launch on K3f's
+grid, whose CTAs keep the same slices in shared memory (`csrc/
+gru_slices.cuh`) and exchange partial sums twice a step (`bwd_plan`
+reports its grid), then the dU passes.  On a CPU tensor they
 run `gru_recurrence_ref` and `gru_recurrence_bwd_ref`, the Python time
 loops that mirror tpukaldi's `gru_recurrence_scan` and `_bwd_scan`.
 """
@@ -123,7 +127,7 @@ def gru_recurrence(ff: torch.Tensor, uzr: torch.Tensor, uh: torch.Tensor,
     if ff.device.type == "cpu":
         return gru_recurrence_ref(ff, uzr, uh, mask, act_name)
     _act(act_name)
-    entry, max_hidden = _launch.bind(SOURCE, "gru_fwd", 5, 4)
+    entry, max_hidden = _launch.bind(SOURCE, "gru_fwd", 7, 4)
     T, B, H = _launch.dims("gru_recurrence", ff, 3)
     _launch.check_inputs("gru_recurrence", H, max_hidden,
                          ff=(ff, (T, B, 3 * H)), uzr=(uzr, (H, 2 * H)),
@@ -131,8 +135,14 @@ def gru_recurrence(ff: torch.Tensor, uzr: torch.Tensor, uh: torch.Tensor,
     out = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
     if T == 0:
         return out
-    _launch.launch("gru_fwd", entry, (ff, uzr, uh, mask, out), T, B, H,
-                   (ACTS.index(act_name),))
+    # the kernel's scratch: the exchange buffers of h_{t-1} and r * h_{t-1},
+    # B and H padded to 4 (the padding stays zero), and the grid barrier's
+    # counter
+    hbuf = torch.zeros((2, -(-B // 4) * 4, -(-H // 4) * 4), device=ff.device,
+                       dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
+    _launch.launch("gru_fwd", entry, (ff, uzr, uh, mask, out, hbuf, bar), T,
+                   B, H, (ACTS.index(act_name),))
     launches += 1
     return out
 
@@ -171,6 +181,14 @@ def gru_recurrence_bwd(
                     bar), T, B, H, (ACTS.index(act_name),))
     bwd_launches += 1
     return dff, duzr, duh, dmask
+
+
+def fwd_plan(B: int, H: int) -> dict:
+    """K3f's launch at (B, H) on the current card: its CTAs, the hidden
+    units each owns, each CTA's shared-memory bytes and the columns of h
+    (and of r * h) it stages at a time.  Raises where the card cannot hold
+    the grid at once, as the launch would."""
+    return _launch.plan(SOURCE, "gru_fwd", B, H)
 
 
 def bwd_plan(B: int, H: int) -> dict:
