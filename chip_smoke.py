@@ -36,19 +36,19 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, K2f, K3f and the sequential passes of K2b, K3b and
-   K4b are each one persistent cooperative launch with U resident in
-   shared memory (K4f, K4b: bf16 tensor-core products; K2f, K3f, K2b, K3b:
-   float32 FMAs; K2b, K3b and K4b also run a parallel gate remat before
+   small shape.  K4f, K1f, K2f, K3f and the sequential passes of K2b, K3b
+   and K4b are each one persistent cooperative launch with U resident in
+   shared memory (K4f, K4b: bf16 tensor-core products; K1f, K2f, K3f, K2b,
+   K3b: float32 FMAs; K2b, K3b and K4b also run a parallel gate remat before
    it, and dU passes after it, K4b's the float32 GEMM, timed alone too;
    K3f exchanges h and r * h, K3b's chain partial sums, twice a step).
    K4f is also held, step by step, to one plain step from its own previous
    state, and run at the edges of its tiling, (37, 5, 36) and (50, 96,
-   1024), under the same tolerances; K2f, K3f, K2b and K3b at (37, 5, 36),
-   (50, 136, 550) (two passes) and (50, 96, 1024), K3f and K3b in tanh
+   1024), under the same tolerances; K1f, K2f, K3f, K2b and K3b at (37, 5,
+   36), (50, 136, 550) (two passes) and (50, 96, 1024), K3f and K3b in tanh
    (the recipe's) and also in relu, K3f at (778, 64, 550), K3b at (778,
    16, 550); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024) (two
-   passes).  All six are called twice on the same inputs (bitwise equal),
+   passes).  All seven are called twice on the same inputs (bitwise equal),
    and their us per step, grid (CTAs, units each), shared memory a CTA and
    chunk width (K2b, K3b, K4b: the producers' partial sums staged at a
    time, and the partial-sum buffers) are printed beside the time.  K4f
@@ -140,10 +140,10 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 N_PDFS = 1944  # TIMIT's tri3 cd states; the DIRHA tree takes the same
 N_PHONES = 48
 FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
-# the persistent float32 K2f also at the edges of its tiling: an odd batch
-# with H not a multiple of 16, a batch of more than one pass (128 rows), and
-# the QLSTM's width under qlstm_impl = scan (the largest U slice, h staged
-# in chunks of fewer columns)
+# the persistent float32 K1f, K2f and K3f also at the edges of their
+# tiling: an odd batch with H not a multiple of 16, a batch of more than one
+# pass (128 rows), and the QLSTM's width under qlstm_impl = scan (the
+# largest U slice, h staged in chunks of fewer columns)
 FWD_EDGE_SHAPES = ((37, 5, 36), (50, 136, 550), (50, 96, 1024))
 BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
 # the persistent K2b and K3b at K2f's edge shapes: their sequential passes
@@ -605,9 +605,9 @@ def kernel_phase(mods) -> dict:
     errs, timing, library = {}, {}, {}
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
-        # the persistent kernels, forward K4f, K2f and K3f, backward K2b,
-        # K3b and K4b: their plans, edge shapes and a bitwise repeat
-        persistent_fwd = cell in ("lstm", "gru", "lstm_lean")
+        # the persistent kernels, forward K4f, K1f, K2f and K3f, backward
+        # K2b, K3b and K4b: their plans, edge shapes and a bitwise repeat
+        persistent_fwd = cell in ("ligru", "lstm", "gru", "lstm_lean")
         persistent_bwd = cell in ("lstm", "gru", "lstm_lean")
         name = f"{cell}_fwd"
         # K3f also in relu (None: the cell's own act)
@@ -624,8 +624,8 @@ def kernel_phase(mods) -> dict:
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
                 want = fns["fwd_ref"](ff, ws, mask)
-                # K4f, K2f and K3f sum in a fixed order: a second call gives
-                # the same bits
+                # K4f, K1f, K2f and K3f sum in a fixed order: a second call
+                # gives the same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["fwd"](ff, ws, mask)))
                         if persistent_fwd else True)

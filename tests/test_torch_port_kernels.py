@@ -16,6 +16,8 @@ import torch
 from tpukaldi.kernels.ligru import ligru_recurrence as jax_ligru
 from tpukaldi.kernels.ligru import ligru_recurrence_scan
 from tpukaldi_torch.kernels import ligru as port
+from tpukaldi_torch.tools import ligru_fwd_phases
+from tpukaldi_torch.tools.lstm_fwd_phases import variants
 
 ATOL = 1e-5
 
@@ -54,20 +56,92 @@ def test_ligru_cpu_path_counts_no_launch():
     assert port.launches == before
 
 
+@pytest.mark.parametrize("H,units", [(11, 4), (12, 5), (550, 6), (36, 1)])
+def test_ligru_fwd_pack_holds_whole_pairs(H, units):
+    """K1f's U operand (`_pack`) in the layout `csrc/ligru_fwd.cu` states:
+    CTA q's block of H rows of ld floats, ld the units' pairs two to a
+    16-byte word padded to an odd number of words (the kernel's
+    `row_floats`), each word two units' (uh, uz) pairs, zeros in the last
+    word's second pair at odd u, past the last CTA's units and in the
+    padding words; float32 and contiguous."""
+    u = torch.arange(1, H * 2 * H + 1, dtype=torch.float32).reshape(H, 2 * H)
+    ld = 4 * (-(-units // 2) | 1)
+    upk = port._pack(u, H, units, ld)
+    P = -(-H // units)
+    assert upk.dtype == torch.float32 and upk.is_contiguous()
+    assert upk.shape == (P, H, ld)
+    words = upk.view(P, H, ld // 4, 4)
+    for q in range(P):
+        for w in range(ld // 4):
+            for half in range(2):
+                jj = 2 * w + half
+                j = q * units + jj
+                pair = words[q, :, w, 2 * half:2 * half + 2]
+                if jj < units and j < H:
+                    assert torch.equal(pair[:, 0], u[:, j])
+                    assert torch.equal(pair[:, 1], u[:, H + j])
+                else:
+                    assert not pair.any()
+
+
+def test_ligru_fwd_phase_variants_cut_what_they_name():
+    """`tools/ligru_fwd_phases.py` builds K1f's variants by replacing lines
+    of `csrc/ligru_fwd.cu`: each line is there once, each variant differs
+    from the source, and each cut variant cuts what it names (the product,
+    the stream, the grid barrier, the time loop) and keeps the rest."""
+    source = ligru_fwd_phases.source()
+    got = variants(source, ligru_fwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"kk < 0": "product", "i < 0": "stream", "t < 0; ++t": "steps"}
+    want = {"no product": {"product"}, "no stream": {"stream"},
+            "neither": {"product", "stream"},
+            "no barriers": {"product", "stream", "barrier"},
+            "no steps": {"steps"}}
+    for name, (_, exact) in ligru_fwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, text in got.items():
+        found = {cut for mark, cut in cuts.items() if mark in text}
+        if "tpk::grid_arrive" not in text:
+            # both halves of the barrier go together
+            assert "tpk::grid_wait" not in text, name
+            found.add("barrier")
+        assert found == want.get(name, set()), name
+    # the variants of the same arithmetic change only what they name
+    assert "kRows = 8;" in got["rows 8"]
+    assert "kMaxChunk = 128;" in got["chunk 128"]
+    assert "u += u % 2;" not in got["odd u"] and "u += u % 2;" in source
+    for old, _ in (ligru_fwd_phases._NO_PRODUCT, ligru_fwd_phases._NO_STREAM,
+                   *ligru_fwd_phases._NO_BARRIERS, ligru_fwd_phases._NO_STEPS):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            variants(source.replace(old, ""), ligru_fwd_phases.VARIANTS)
+
+
+# K1f's main small shape, then the edges of its tiling, as K2f's: an odd
+# batch with H not a multiple of 16, a batch of two passes (more than 128
+# rows), and the widest U slice (h staged in narrower chunks)
 @pytest.mark.cuda
-def test_ligru_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("T,B,H", [(41, 6, 64), (37, 5, 36), (50, 136, 550),
+                                   (50, 96, 1024)])
+def test_ligru_kernel_matches_plain_on_card(T, B, H):
     """The CUDA kernel against its plain version on the same card.  1e-4:
-    the kernel sums h @ U serially, cuBLAS in tiles, and the difference
-    compounds over the recurrence's steps."""
+    the kernel sums h @ U per depth slice and then across slices, cuBLAS in
+    tiles, and the difference compounds over the recurrence's steps.  Two
+    calls on the same inputs give the same bits (the kernel's sums run in a
+    fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    ff, u, mask = _inputs(41, 6, 64, seed=2)
+    ff, u, mask = _inputs(T, B, H, seed=2)
     args = [torch.from_numpy(a).cuda() for a in (ff, u, mask)]
     before = port.launches
     with torch.inference_mode():
         got = port.ligru_recurrence(*args)
+        again = port.ligru_recurrence(*args)
         want = port.ligru_recurrence_ref(*args)
     torch.cuda.synchronize()
-    assert port.launches == before + 1
+    assert port.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

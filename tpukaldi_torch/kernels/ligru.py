@@ -10,8 +10,13 @@ and their plain PyTorch versions.
 `kernels/ligru.py::ligru_recurrence` (a `jax.custom_vjp`): its forward is
 `ligru_recurrence` and saves (ff, u, mask, h); its backward is
 `ligru_recurrence_bwd`.  On a CUDA tensor those launch `csrc/ligru_fwd.cu`
-and `csrc/ligru_bwd.cu` (design notes there) or raise; on a CPU tensor they
-run `ligru_recurrence_ref` and `ligru_recurrence_bwd_ref`, the Python time
+and `csrc/ligru_bwd.cu` (design notes there) or raise.  The forward, K1f,
+is one persistent cooperative launch whose CTAs each keep the (Uh, Uz)
+column pairs of their hidden units in shared memory for all T steps
+(packed once per call by `_pack`) and exchange h through a global
+ping-pong buffer, one grid barrier a step (`fwd_plan` reports its grid).
+The backward, K1b, runs one CTA per batch row.  On a CPU tensor they run
+`ligru_recurrence_ref` and `ligru_recurrence_bwd_ref`, the Python time
 loops that mirror tpukaldi's `ligru_recurrence_scan` and `_bwd_scan`.
 """
 
@@ -20,6 +25,7 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import _launch
 
@@ -94,13 +100,13 @@ def ligru_recurrence_bwd_ref(
 
 def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
                      mask: torch.Tensor) -> torch.Tensor:
-    """Forward: launch the CUDA kernel on a CUDA tensor; the plain version on
-    CPU.  Builds no autograd graph of its own: `LiGRURecurrence` is the
-    differentiable entry."""
+    """Forward: launch the CUDA kernel on a CUDA tensor (u is packed once
+    per call); the plain version on CPU.  Builds no autograd graph of its
+    own: `LiGRURecurrence` is the differentiable entry."""
     global launches
     if ff.device.type == "cpu":
         return ligru_recurrence_ref(ff, u, mask)
-    entry, max_hidden = _launch.bind(SOURCE, "ligru_fwd", 4, 3)
+    entry, max_hidden = _launch.bind(SOURCE, "ligru_fwd", 6, 4)
     T, B, H = _launch.dims("ligru_recurrence", ff, 2)
     _launch.check_inputs("ligru_recurrence", H, max_hidden,
                          ff=(ff, (T, B, 2 * H)), u=(u, (H, 2 * H)),
@@ -108,9 +114,38 @@ def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
     out = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
     if T == 0:
         return out
-    _launch.launch("ligru_fwd", entry, (ff, u, mask, out), T, B, H)
+    plan = fwd_plan(B, H)
+    # the kernel's scratch: the ping-pong buffer of h, B and H padded to 4
+    # (the padding stays zero), and the grid barrier's counter
+    hbuf = torch.zeros((2, -(-B // 4) * 4, -(-H // 4) * 4), device=ff.device,
+                       dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
+    _launch.launch("ligru_fwd", entry,
+                   (ff, _pack(u, H, plan["units"], plan["row_floats"]), mask,
+                    out, hbuf, bar), T, B, H, (plan["units"],))
     launches += 1
     return out
+
+
+def _pack(u: torch.Tensor, H: int, units: int, ld: int) -> torch.Tensor:
+    """K1f's U operand for the plan's `units` a CTA and `ld` floats a row
+    (`fwd_plan`'s `row_floats`): (P, H, ld) with P = ceil(H / units),
+    [q, k, 2 jj : 2 jj + 2] = (Uh[k, j], Uz[k, j]) for unit j = q units + jj
+    of CTA q, zeros past its units (and past H), so that CTA q's slice is
+    one contiguous run and each 16-byte word holds whole pairs."""
+    P = -(-H // units)
+    pairs = u.view(H, 2, H).transpose(1, 2)  # [k, j] = (Uh[k, j], Uz[k, j])
+    pairs = F.pad(pairs, (0, 0, 0, P * units - H)).reshape(H, P, 2 * units)
+    rows = F.pad(pairs, (0, ld - 2 * units))
+    return rows.transpose(0, 1).contiguous()
+
+
+def fwd_plan(B: int, H: int) -> dict:
+    """K1f's launch at (B, H) on the current card: its CTAs, the hidden
+    units each owns, each CTA's shared-memory bytes, the columns of h it
+    stages at a time and the floats of a packed U row.  Raises where the
+    card cannot hold the grid at once, as the launch would."""
+    return _launch.plan(SOURCE, "ligru_fwd", B, H, "row_floats")
 
 
 def ligru_recurrence_bwd(
