@@ -36,22 +36,24 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    backward: error of h (and the LSTMs' c), of dff, dmask and the weight
    gradients, and median time of each; and autograd through each Function
    (forward kernel, then backward kernel) against its plain versions at a
-   small shape.  K4f, K1f, K2f, K3f and the sequential passes of K2b, K3b
-   and K4b are each one persistent cooperative launch with U resident in
-   shared memory (K4f, K4b: bf16 tensor-core products; K1f, K2f, K3f, K2b,
-   K3b: float32 FMAs; K2b, K3b and K4b also run a parallel gate remat before
-   it, and dU passes after it, K4b's the float32 GEMM, timed alone too;
-   K3f exchanges h and r * h, K3b's chain partial sums, twice a step).
+   small shape.  K4f, K1f, K2f, K3f and the sequential passes of K1b, K2b,
+   K3b and K4b are each one persistent cooperative launch with U resident
+   in shared memory (K4f, K4b: bf16 tensor-core products; K1f, K2f, K3f,
+   K1b, K2b, K3b: float32 FMAs; K1b, K2b, K3b and K4b also run a parallel
+   gate remat before it, and dU passes after it, K4b's the float32 GEMM,
+   timed alone too; K1b's chain streams dA, K3f exchanges h and r * h, K3b's
+   chain partial sums, twice a step).
    K4f is also held, step by step, to one plain step from its own previous
    state, and run at the edges of its tiling, (37, 5, 36) and (50, 96,
-   1024), under the same tolerances; K1f, K2f, K3f, K2b and K3b at (37, 5,
-   36), (50, 136, 550) (two passes) and (50, 96, 1024), K3f and K3b in tanh
+   1024), under the same tolerances; K1f, K2f, K3f, K1b, K2b and K3b at (37,
+   5, 36), (50, 136, 550) (two passes) and (50, 96, 1024), K3f and K3b in tanh
    (the recipe's) and also in relu, K3f at (778, 64, 550), K3b at (778,
    16, 550); K4b at (37, 5, 36), (50, 96, 1024) and (50, 136, 1024) (two
-   passes).  All seven are called twice on the same inputs (bitwise equal),
+   passes).  All eight are called twice on the same inputs (bitwise equal),
    and their us per step, grid (CTAs, units each), shared memory a CTA and
    chunk width (K2b, K3b, K4b: the producers' partial sums staged at a
-   time, and the partial-sum buffers) are printed beside the time.  K4f
+   time, and the partial-sum buffers; K1b: the units' dA pairs staged at a
+   time, and the dA buffer) are printed beside the time.  K4f
    and K4b are timed beside the float32 K2f and K2b on the same inputs,
    K3b beside K2b at the same (T, B, H).
    The conv kernels (K5f, K5b, K6f, K6b) at
@@ -146,8 +148,9 @@ FWD_SHAPES = ((778, 64, 550), (1000, 16, 550))
 # largest U slice, h staged in chunks of fewer columns)
 FWD_EDGE_SHAPES = ((37, 5, 36), (50, 136, 550), (50, 96, 1024))
 BWD_SHAPES = ((778, 16, 550), (1000, 16, 550))
-# the persistent K2b and K3b at K2f's edge shapes: their sequential passes
-# run on K2f's grid, with a pass of more than 128 rows and U's largest slice
+# the persistent K1b, K2b and K3b at K2f's edge shapes: their sequential
+# passes run on K1f's and K2f's grids, with a pass of more than 128 rows and
+# U's largest slice
 BWD_EDGE_SHAPES = FWD_EDGE_SHAPES
 # K3b in relu too (the GRU recipe runs tanh), at the training shape
 GRU_RELU_BWD_SHAPES = ((778, 16, 550),)
@@ -606,9 +609,9 @@ def kernel_phase(mods) -> dict:
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
         # the persistent kernels, forward K4f, K1f, K2f and K3f, backward
-        # K2b, K3b and K4b: their plans, edge shapes and a bitwise repeat
+        # K1b, K2b, K3b and K4b: their plans, edge shapes and a bitwise repeat
         persistent_fwd = cell in ("ligru", "lstm", "gru", "lstm_lean")
-        persistent_bwd = cell in ("lstm", "gru", "lstm_lean")
+        persistent_bwd = cell in ("ligru", "lstm", "gru", "lstm_lean")
         name = f"{cell}_fwd"
         # K3f also in relu (None: the cell's own act)
         shapes = (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
@@ -672,7 +675,7 @@ def kernel_phase(mods) -> dict:
                       f"kernel at mask 1: max_abs_err={lib_err:.3e}", flush=True)
 
         name = f"{cell}_bwd"
-        # K2b, K3b and K4b, persistent: their plans, edge shapes and a
+        # K1b, K2b, K3b and K4b, persistent: their plans, edge shapes and a
         # bitwise repeat; K3b also in relu (None: the cell's own act)
         shapes = (LEAN_BWD_SHAPES + LEAN_BWD_EDGE_SHAPES if lean
                   else BWD_SHAPES + BWD_EDGE_SHAPES if persistent_bwd
@@ -688,8 +691,8 @@ def kernel_phase(mods) -> dict:
                 outs = fns["fwd"](ff, ws, mask)
                 got = fns["bwd"](ff, outs, grad, ws, mask)
                 want = fns["bwd_ref"](ff, outs, grad, ws, mask)
-                # K2b, K3b and K4b sum in a fixed order: a second call gives
-                # the same bits
+                # K1b, K2b, K3b and K4b sum in a fixed order: a second call
+                # gives the same bits
                 same = (all(torch.equal(a, b) for a, b in
                             zip(got, fns["bwd"](ff, outs, grad, ws, mask)))
                         if persistent_bwd else True)
@@ -723,6 +726,13 @@ def kernel_phase(mods) -> dict:
                   flush=True)
             if persistent_bwd:
                 plan = (mod.lean_bwd_plan if lean else mod.bwd_plan)(B, H)
+                # K1b streams dA; K2b, K3b and K4b exchange partial sums
+                staged = (f"{plan['chunk']} units' dA pairs staged at a time, "
+                          f"{4 * plan['dabuf_floats']} bytes of dA buffer"
+                          if cell == "ligru" else
+                          f"{plan['chunk']} blocks of partial sums staged at a "
+                          f"time, {4 * plan['pbuf_floats']} bytes of "
+                          "partial-sum buffer")
                 print(f"kernel {label} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step (the whole call)"
                       + (f", of which the dU GEMM alone {du_ms:.3f} ms"
@@ -731,9 +741,7 @@ def kernel_phase(mods) -> dict:
                       + (f" in {plan['groups']} groups of {plan['group_ctas']}"
                          if lean else "") + ", "
                       f"{plan['smem_bytes']} shared-memory bytes a CTA, "
-                      f"{plan['chunk']} blocks of partial sums staged at a "
-                      f"time, {4 * plan['pbuf_floats']} bytes of partial-sum "
-                      f"buffer; repeat bitwise equal: {same}", flush=True)
+                      f"{staged}; repeat bitwise equal: {same}", flush=True)
             check(same, f"{label}: two calls differ at {(T, B, H)}")
             check(all(math.isfinite(v) for v in e.values()),
                   f"{label}: non-finite error at {(T, B, H)}")
@@ -1774,6 +1782,7 @@ LAYERS = (
                                "conv_pool_dw_part_kernel",
                                "reduce_windows_kernel")),
     ("K1f", ("ligru_fwd_kernel",)),
+    ("K1b remat", ("ligru_remat_kernel",)),
     ("K1b sequential", ("ligru_bwd_seq_kernel",)),
     ("K2f", ("lstm_fwd_kernel",)),
     ("K2b remat", ("lstm_remat_kernel",)),

@@ -8,6 +8,8 @@ with the same operation order per step except the h @ U sum, whose
 reordering moves the last bits only.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,8 +17,9 @@ import torch
 
 from tpukaldi.kernels.ligru import ligru_recurrence as jax_ligru
 from tpukaldi.kernels.ligru import ligru_recurrence_scan
+from tpukaldi_torch.kernels import _build
 from tpukaldi_torch.kernels import ligru as port
-from tpukaldi_torch.tools import ligru_fwd_phases
+from tpukaldi_torch.tools import ligru_bwd_phases, ligru_fwd_phases
 from tpukaldi_torch.tools.lstm_fwd_phases import variants
 
 ATOL = 1e-5
@@ -82,6 +85,78 @@ def test_ligru_fwd_pack_holds_whole_pairs(H, units):
                     assert torch.equal(pair[:, 1], u[:, H + j])
                 else:
                     assert not pair.any()
+
+
+@pytest.mark.parametrize("H,units", [(11, 4), (13, 6), (550, 6), (36, 1),
+                                     (1, 2)])
+def test_ligru_bwd_pack_holds_whole_pairs(H, units):
+    """K1b's U operand (`_pack_bwd`) in the layout `csrc/ligru_bwd.cu`
+    states: CTA q's block of H rows k of ld floats, each 16-byte word two
+    units' (Uh[j, k], Uz[j, k]) pairs, i.e. U's row j = q units + jj, then
+    zeros in the last word's second pair at odd u, past the last CTA's units
+    (13 = 2 x 6 + 1 leaves a CTA of one unit) and in the padding words;
+    float32, contiguous, so that each CTA's block is one contiguous run."""
+    u = torch.arange(1, H * 2 * H + 1, dtype=torch.float32).reshape(H, 2 * H)
+    ld = 4 * (-(-units // 2) | 1)
+    upk = port._pack_bwd(u, H, units, ld)
+    P = -(-H // units)
+    assert upk.dtype == torch.float32 and upk.is_contiguous()
+    assert upk.shape == (P, H, ld)
+    words = upk.view(P, H, ld // 4, 4)
+    for q in range(P):
+        for w in range(ld // 4):
+            for half in range(2):
+                jj = 2 * w + half
+                j = q * units + jj
+                pair = words[q, :, w, 2 * half:2 * half + 2]
+                if jj < units and j < H:
+                    assert torch.equal(pair[:, 0], u[j, :H])
+                    assert torch.equal(pair[:, 1], u[j, H:])
+                else:
+                    assert not pair.any()
+    # the backward's pairs are the forward's of U's transposed halves
+    ut = torch.cat([u[:, :H].t(), u[:, H:].t()], dim=1).contiguous()
+    assert torch.equal(upk, port._pack(ut, H, units, ld))
+
+
+def test_ligru_bwd_phase_variants_cut_what_they_name():
+    """`tools/ligru_bwd_phases.py` builds K1b's variants by replacing lines
+    of `csrc/ligru_bwd.cu`: each line is there once, each variant differs
+    from the source, and each cut variant cuts what it names (the product,
+    the stream, the grid barrier, the chain's steps, dU) and keeps the
+    rest."""
+    source = ligru_bwd_phases.source()
+    with open(os.path.join(_build._CSRC, port.BWD_SOURCE)) as f:
+        assert f.read() == source
+    got = variants(source, ligru_bwd_phases.VARIANTS)
+    assert got["as built"] == source
+    assert all(text != source for name, text in got.items()
+               if name != "as built")
+    cuts = {"kk < 0": "product", "i < 0": "stream", "t >= p.T;": "steps",
+            "// no dU": "du"}
+    want = {"no product": {"product"}, "no stream": {"stream"},
+            "neither": {"product", "stream"},
+            "no barriers": {"product", "stream", "barrier"},
+            "no steps": {"steps"}, "remat only": {"steps", "du"}}
+    for name, (_, exact) in ligru_bwd_phases.VARIANTS.items():
+        assert exact == (name not in want), name
+    for name, text in got.items():
+        found = {cut for mark, cut in cuts.items() if mark in text}
+        if "tpk::grid_arrive" not in text:
+            # both halves of the barrier go together
+            assert "tpk::grid_wait" not in text, name
+            found.add("barrier")
+        assert found == want.get(name, set()), name
+    # the variants of the same arithmetic change only what they name
+    assert "kRows = 8;" in got["rows 8"]
+    for width in (128, 512, 1024):
+        assert f"kMaxChunk = {width};" in got[f"chunk {width}"]
+    for old, _ in (ligru_bwd_phases._NO_PRODUCT, ligru_bwd_phases._NO_STREAM,
+                   *ligru_bwd_phases._NO_BARRIERS, ligru_bwd_phases._NO_STEPS,
+                   ligru_bwd_phases._NO_DU):
+        assert source.count(old) == 1
+        with pytest.raises(ValueError, match="not in the source once"):
+            variants(source.replace(old, ""), ligru_bwd_phases.VARIANTS)
 
 
 def test_ligru_fwd_phase_variants_cut_what_they_name():

@@ -117,22 +117,34 @@ def test_ligru_cpu_backward_counts_no_launch():
     assert (port_ligru.launches, port_ligru.bwd_launches) == before
 
 
+# K1b's first small shape, then the edges of its chain, as K1f's: an odd
+# batch with H not a multiple of 16, a batch of two passes (more than 128
+# rows), and the widest U slice (dA staged in narrower chunks); the edges
+# with the gradient of h at chip_smoke.py's scale (0.01)
 @pytest.mark.cuda
-def test_ligru_backward_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("T,B,H,g_scale", [(41, 6, 64, 1.0), (37, 5, 36, 0.01),
+                                           (50, 136, 550, 0.01),
+                                           (50, 96, 1024, 0.01)])
+def test_ligru_backward_kernel_matches_plain_on_card(T, B, H, g_scale):
     """K1b against its plain version on the same card.  dff and dmask to
     1e-5 absolute, dU to 1e-5 relative to max|dU|: the kernel sums h_prev @
-    U and dA @ U^T serially and dU in 16-row stages, cuBLAS in tiles."""
+    U serially, dA @ U^T per depth slice and then across slices, and dU in
+    16-row stages, cuBLAS in tiles.  Two calls on the same inputs give the
+    same bits (the kernel's sums run in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     ff, u, mask, g = (torch.from_numpy(x).cuda()
-                      for x in _recurrence_inputs(41, 6, 64, seed=2))
+                      for x in _recurrence_inputs(T, B, H, seed=2))
+    g = g * g_scale
     h = port_ligru.ligru_recurrence_ref(ff, u, mask)
     before = port_ligru.bwd_launches
     got = port_ligru.ligru_recurrence_bwd(ff, h, g, u, mask)
+    again = port_ligru.ligru_recurrence_bwd(ff, h, g, u, mask)
     want = port_ligru.ligru_recurrence_bwd_ref(ff, h, g, u, mask)
     torch.cuda.synchronize()
-    assert port_ligru.bwd_launches == before + 1
+    assert port_ligru.bwd_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     for name, a, b in zip(("dff", "du", "dmask"), got, want):
         atol = 1e-5 * (b.abs().max().item() if name == "du" else 1.0)
         torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=name)

@@ -15,7 +15,12 @@ is one persistent cooperative launch whose CTAs each keep the (Uh, Uz)
 column pairs of their hidden units in shared memory for all T steps
 (packed once per call by `_pack`) and exchange h through a global
 ping-pong buffer, one grid barrier a step (`fwd_plan` reports its grid).
-The backward, K1b, runs one CTA per batch row.  On a CPU tensor they run
+The backward, K1b, is three launches: a gate remat over all T * B rows, a
+persistent cooperative dh chain on K1f's grid whose CTAs each keep their
+units' rows of [Uh | Uz] in shared memory (packed once per call by
+`_pack_bwd`) and stream dA through a global ping-pong buffer, one grid
+barrier a step (`bwd_plan` reports its grid), then the dU pass.  On a
+CPU tensor they run
 `ligru_recurrence_ref` and `ligru_recurrence_bwd_ref`, the Python time
 loops that mirror tpukaldi's `ligru_recurrence_scan` and `_bwd_scan`.
 """
@@ -33,7 +38,7 @@ SOURCE = "ligru_fwd.cu"
 BWD_SOURCE = "ligru_bwd.cu"
 
 # kernel launches since the last reset (one per wrapper call that launched:
-# the backward's call runs its sequential and dU kernels); chip_smoke.py
+# the backward's call runs its remat, chain and dU kernels); chip_smoke.py
 # reads them to show that the main path went through the kernels
 launches = 0
 bwd_launches = 0
@@ -133,8 +138,24 @@ def _pack(u: torch.Tensor, H: int, units: int, ld: int) -> torch.Tensor:
     [q, k, 2 jj : 2 jj + 2] = (Uh[k, j], Uz[k, j]) for unit j = q units + jj
     of CTA q, zeros past its units (and past H), so that CTA q's slice is
     one contiguous run and each 16-byte word holds whole pairs."""
+    # [k, j] = (Uh[k, j], Uz[k, j])
+    return _pack_pairs(u.view(H, 2, H).transpose(1, 2), H, units, ld)
+
+
+def _pack_bwd(u: torch.Tensor, H: int, units: int, ld: int) -> torch.Tensor:
+    """K1b's U operand, `_pack`'s layout over U's rows instead of its
+    columns (`bwd_plan`'s `units` and `row_floats`): [q, k, 2 jj : 2 jj + 2]
+    = (Uh[j, k], Uz[j, k]) for unit j = q units + jj of CTA q, what dh[j] =
+    sum over k of da_h[k] Uh[j, k] + da_z[k] Uz[j, k] reads."""
+    # [k, j] = (Uh[j, k], Uz[j, k])
+    return _pack_pairs(u.view(H, 2, H).permute(2, 0, 1), H, units, ld)
+
+
+def _pack_pairs(pairs: torch.Tensor, H: int, units: int,
+                ld: int) -> torch.Tensor:
+    """(H, H, 2) pairs [k, j] -> (P, H, ld): CTA q's units' pairs of every
+    row k side by side, zero-padded past its units, past H and to ld."""
     P = -(-H // units)
-    pairs = u.view(H, 2, H).transpose(1, 2)  # [k, j] = (Uh[k, j], Uz[k, j])
     pairs = F.pad(pairs, (0, 0, 0, P * units - H)).reshape(H, P, 2 * units)
     rows = F.pad(pairs, (0, ld - 2 * units))
     return rows.transpose(0, 1).contiguous()
@@ -152,12 +173,12 @@ def ligru_recurrence_bwd(
     ff: torch.Tensor, h: torch.Tensor, g: torch.Tensor, u: torch.Tensor,
     mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Backward: (dff, du, dmask) from the CUDA kernels on CUDA tensors; the
-    plain version on CPU."""
+    """Backward: (dff, du, dmask) from the CUDA kernels on CUDA tensors (u
+    is packed once per call); the plain version on CPU."""
     global bwd_launches
     if ff.device.type == "cpu":
         return ligru_recurrence_bwd_ref(ff, h, g, u, mask)
-    entry, max_hidden = _launch.bind(BWD_SOURCE, "ligru_bwd", 9, 3)
+    entry, max_hidden = _launch.bind(BWD_SOURCE, "ligru_bwd", 11, 4)
     T, B, H = _launch.dims("ligru_recurrence_bwd", ff, 2)
     _launch.check_inputs("ligru_recurrence_bwd", H, max_hidden,
                          ff=(ff, (T, B, 2 * H)), h=(h, (T, B, H)),
@@ -168,11 +189,28 @@ def ligru_recurrence_bwd(
         return dff, torch.zeros_like(u), torch.zeros_like(mask)
     du = torch.empty_like(u)
     dmask = torch.empty_like(mask)
-    ut = u.t().contiguous()  # (2H, H): the dh chain reads it row by row
+    plan = bwd_plan(B, H)
+    # the chain's scratch: the ping-pong buffer of dA, zeroed (its padding
+    # pairs meet U's zero rows), and the grid barrier's counter
+    dabuf = torch.zeros(plan["dabuf_floats"], device=ff.device,
+                        dtype=torch.float32)
+    bar = torch.zeros(1, device=ff.device, dtype=torch.int32)
     _launch.launch("ligru_bwd", entry,
-                   (ff, h, g, u, ut, mask, dff, du, dmask), T, B, H)
+                   (ff, h, g, u,
+                    _pack_bwd(u, H, plan["units"], plan["row_floats"]), mask,
+                    dff, du, dmask, dabuf, bar), T, B, H, (plan["units"],))
     bwd_launches += 1
     return dff, du, dmask
+
+
+def bwd_plan(B: int, H: int) -> dict:
+    """K1b's chain at (B, H) on the current card: its CTAs, the hidden
+    units each owns, each CTA's shared-memory bytes, the units' dA pairs it
+    stages at a time (`chunk`), the floats of a packed U row and of the dA
+    ping-pong buffer.  Raises where the card cannot hold the grid at once,
+    as the launch would."""
+    return _launch.plan(BWD_SOURCE, "ligru_bwd", B, H, "row_floats",
+                        "dabuf_floats")
 
 
 class LiGRURecurrence(torch.autograd.Function):
