@@ -60,9 +60,12 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
    and K6f on the serving batch of 32,000 windows (a slice held to the
-   plain version); the backwards given the kernel's own argmax.  K6 also
-   at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440, K=10, O=80, pool 3, drop
-   0.15).  Beside each kernel: the least time the card could take for the
+   plain version); the backwards given the kernel's own argmax (K6b its
+   own ypool, the pooled value K6f keeps in training), with dX and without
+   (`need_dx=False`, for a layer 0 whose input needs no gradient): their
+   other gradients bitwise equal between the two, and two calls bitwise
+   equal.  K6 also at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440,
+   K=10, O=80, pool 3, drop 0.15).  Beside each kernel: the least time the card could take for the
    same work (bytes or operations, at the published peaks), and a library
    yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f
    (float32, bf16) and its backward for K2b and K4b (input and recurrent
@@ -88,7 +91,8 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    made from a seed: the recipe's forward kernel once per layer per forward
    batch and no backward launch, finite 1944-wide posterior matrices
    agreeing with the plain path and, for two utterances, with the CPU path,
-   and the peak device memory.
+   and the peak device memory.  The plain path serves at the same forward
+   batch, the port's default of 8 utterances.
 4. Training phase, per recipe, the slice's main path: the cfg over the same
    tree (train 64 utterances of 150-778 frames, dev 16; raw: 32 and 8),
    with 2 epochs of 2 train chunks and no sequence-length curriculum,
@@ -275,8 +279,9 @@ KERNELS = {
 STACK_KERNELS = ("conv_stack_fwd", "conv_stack_bwd")
 # the conv kernels at the raw recipes' shapes: the training batch (128
 # windows of 3200 samples, K = 129, pool 3; O = 80 for SincNet's K5, 128
-# for CNN's K6), the serving batch (32 utterances padded to the 1000-frame
-# bucket: 32,000 windows), and an odd shape (N not a multiple of 8, K <
+# for CNN's K6), a serving batch (32 utterances padded to the 1000-frame
+# bucket: 32,000 windows, at TPUKALDI_FORWARD_BATCH=32; the default of 8
+# makes a quarter of it), and an odd shape (N not a multiple of 8, K <
 # 128, a pool tail, a partial filter tile)
 CONV_TRAIN = (128, 3200, 129, 3)
 CONV_SERVE_N = 32000
@@ -295,7 +300,6 @@ CONV_DROP = 0.15  # CNN_raw's layer-0 dropout
 # cfg/TIMIT/CNN_fbank.cfg's layer 0, which the port routes to K6: spliced
 # fbank frames (40 x 11 = 440), K = 10, pool 3, 80 filters, batch 128
 CONV_FBANK = (128, 440, 10, 80, 3)
-RAW_PLAIN_FORWARD_BATCH = 8
 # the whole conv stack (K7f, K7b) at CNN_raw's shapes (its [architecture1]
 # cnn_* fields): the training batch of 128 windows and the serving batch;
 # a slice of the serving batch is held to the plain version
@@ -792,29 +796,33 @@ def kernel_phase(mods) -> dict:
     return {"errs": errs, "timing": timing, "library": library}
 
 
-def conv_bound_ms(name, N, L, K, O, pool, residuals=True):
+def conv_bound_ms(name, N, L, K, O, pool, residuals=True, need_dx=True):
     """(least ms the card could take for one call, "bytes" or "operations"):
     each input read and each output written once at the memory's peak,
     against the float32 multiply-adds at the float32 peak.  The forwards
     convolve every position, 2 N (L-K+1) K O flops; a backward needs only
-    the pooled rows' gradients, dX and dW 2 N M K O each, and K6b
-    recomputes the pooled value from x, 2 N M K O more.  `residuals`: the
-    forwards' idx (and K6f's stats) are written (training)."""
+    the pooled rows' gradients, dW 2 N M K O and, with `need_dx`, dX as
+    many again (reading w and writing dx); K6b reads K6f's pooled value
+    (ypool) and recomputes none.  `residuals`: the forwards' idx (and K6f's
+    stats and ypool) are written (training)."""
     Lc = L - K + 1
     M = Lc // pool
     nmo = N * M * O
+    bwd_flops = (4 if need_dx else 2) * N * M * K * O
     flops = {"conv_pool_fwd": 2 * N * Lc * K * O, "conv_ln_fwd": 2 * N * Lc * K * O,
-             "conv_pool_bwd": 4 * N * M * K * O, "conv_ln_bwd": 6 * N * M * K * O}
+             "conv_pool_bwd": bwd_flops, "conv_ln_bwd": bwd_flops}
     x, w = 4 * N * L, 4 * K * O
     idx = nmo if residuals else 0
     stats = 8 * N * O if residuals else 0
+    ypool = 4 * nmo if residuals else 0
     ln_in = 4 * O + 8 * M * O  # bias, gt, bt
+    dx = w + x if need_dx else 0  # w read, dx written
     nbytes = {
         "conv_pool_fwd": x + w + 4 * nmo + idx,
-        "conv_pool_bwd": x + 4 * nmo + nmo + w + x + w,
-        "conv_ln_fwd": x + w + ln_in + 4 * nmo + idx + stats,
-        "conv_ln_bwd": x + w + ln_in + nmo + 8 * N * O + 4 * nmo
-                       + x + w + ln_in,
+        "conv_pool_bwd": x + 4 * nmo + nmo + dx + w,
+        "conv_ln_fwd": x + w + ln_in + 4 * nmo + idx + stats + ypool,
+        "conv_ln_bwd": x + ln_in + nmo + 8 * N * O + 4 * nmo + 4 * nmo
+                       + dx + w + ln_in,
     }
     bytes_ms = nbytes[name] / PEAK_BYTES * 1e3
     ops_ms = flops[name] / PEAK_FLOPS["f32"] * 1e3
@@ -853,11 +861,15 @@ def conv_kernel_phase(conv1d) -> dict:
     batch for O = 80 and 128 (K6 also at drop 0.15, where kernel and plain
     version must drop the same elements), at an odd shape, and K5f/K6f on
     the serving batch (a slice of its windows held to the plain version).
-    The backwards are held given the kernel's own idx: a sum in another
-    order can flip a near-tie argmax, which moves a gradient to the
-    neighbouring sample.  Times: median of 5 launches, the plain version's
-    of 3, the library composite's of 3.  Returns {kernel name: record} at
-    the recipe's shape (K5 at O = 80, K6 at O = 128)."""
+    The backwards are held given the kernel's own idx (K6b also its own
+    ypool): a sum in another order can flip a near-tie argmax, which moves
+    a gradient to the neighbouring sample; each with dX and without (for
+    a layer 0 whose input needs no gradient), whose other gradients must be
+    bitwise those with dX, and twice, bitwise equal.  Times: median of 5
+    launches, the plain version's of 3, the library composite's of 3.
+    Returns {kernel name: record} at the recipe's shape (K5 at O = 80, K6
+    at O = 128; the backwards with dX, as the raw recipes run them: their
+    input layer norm trains a gain and a shift)."""
     import torch.nn.functional as F
 
     N, L, K, pool = CONV_TRAIN
@@ -873,35 +885,48 @@ def conv_kernel_phase(conv1d) -> dict:
         tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
         train = (n_, l_, k_, p_) == CONV_TRAIN
         with torch.inference_mode():
-            got = {}
+            got, same = {}, {}
             if drop == 0.0:
                 y, idx = conv1d.conv1d_pool(x, w, p_)
                 y_r, idx_r = conv1d.conv1d_pool_ref(x, w, p_)
-                dx, dw = conv1d.conv1d_pool_bwd(x, dy, idx, w, p_)
+                g5 = [conv1d.conv1d_pool_bwd(x, dy, idx, w, p_, need)
+                      for need in (True, False, True)]
                 dx_r, dw_r = conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, p_)
                 torch.cuda.synchronize()
                 got["conv_pool_fwd"] = ((y - y_r).abs().max().item(),
                                         (idx != idx_r).sum().item())
                 got["conv_pool_bwd"] = max(
                     ((a - b).abs().max() / b.abs().max()).item()
-                    for a, b in ((dx, dx_r), (dw, dw_r)))
+                    for a, b in zip(g5[0], (dx_r, dw_r)))
+                same["conv_pool_bwd"] = (
+                    g5[1][0] is None and torch.equal(g5[1][1], g5[0][1]),
+                    all(torch.equal(a, b) for a, b in zip(g5[0], g5[2])))
+                del g5
             ln = (x, w, bias, gt, bt, seed, p_, eps, relu, drop)
-            z, idx6, stats = conv1d.conv1d_pool_ln_act(*ln)
+            z, idx6, stats, ypool = conv1d.conv1d_pool_ln_act(*ln)
             z_r, idx6_r, stats_r = conv1d.conv1d_pool_ln_act_ref(*ln)
-            gk = conv1d.conv1d_pool_ln_act_bwd(*ln[:6], idx6, stats, dy,
-                                               *ln[6:])
+            y6 = conv1d._pooled_at(conv1d._conv(x, w), idx6, p_)
+            res6 = (idx6, stats, ypool, dy)
+            gk = [conv1d.conv1d_pool_ln_act_bwd(*ln[:6], *res6, *ln[6:], need)
+                  for need in (True, False, True)]
             gr = conv1d.conv1d_pool_ln_act_bwd_ref(*ln[:6], idx6, stats, dy,
                                                    *ln[6:])
             torch.cuda.synchronize()
             dropped = ((z == 0) != (z_r == 0)).sum().item()
             got["conv_ln_fwd"] = (max((z - z_r).abs().max().item(),
-                                      (stats - stats_r).abs().max().item()),
+                                      (stats - stats_r).abs().max().item(),
+                                      (ypool - y6).abs().max().item()),
                                   (idx6 != idx6_r).sum().item())
-            check(torch.equal(gk[2], torch.zeros_like(bias)),
+            check(torch.equal(gk[0][2], torch.zeros_like(bias)),
                   f"conv_ln_bwd: dbias is not an exact zero at {tag}")
             got["conv_ln_bwd"] = max(
                 ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-                for i, (a, b) in enumerate(zip(gk, gr)) if i != 2)
+                for i, (a, b) in enumerate(zip(gk[0], gr)) if i != 2)
+            same["conv_ln_bwd"] = (
+                gk[1][0] is None and all(torch.equal(a, b)
+                                         for a, b in zip(gk[1][1:], gk[0][1:])),
+                all(torch.equal(a, b) for a, b in zip(gk[0], gk[2])))
+            del gk, y6
         for name, e in got.items():
             fwd = name.endswith("_fwd")
             err = e[0] if fwd else e
@@ -909,70 +934,86 @@ def conv_kernel_phase(conv1d) -> dict:
             print(f"kernel {name} {tag} drop={drop}"
                   + ("" if relu or not name.startswith("conv_ln") else
                      " linear") + ": "
-                  + (f"max_abs_err={err:.3e} (atol {tol:g}), argmax differs at "
-                     f"{e[1]} of {z.numel()}" if fwd else
+                  + (f"max_abs_err={err:.3e} (atol {tol:g})"
+                     + (" over out, stats and ypool"
+                        if name == "conv_ln_fwd" else "")
+                     + f", argmax differs at {e[1]} of {z.numel()}" if fwd else
                      f"max_rel_err={err:.3e} of each gradient's max (rtol "
-                     f"{tol:g}), given the kernel's idx")
+                     f"{tol:g}), given the kernel's idx; without dX the rest "
+                     f"bitwise equal: {same[name][0]}; repeat bitwise equal: "
+                     f"{same[name][1]}")
                   + (f", dropped elements differ at {dropped}"
                      if name == "conv_ln_fwd" and drop else ""), flush=True)
             check(math.isfinite(err) and err <= tol,
                   f"{name} disagrees with its plain version at {tag}: {err}")
+            if not fwd:
+                check(all(same[name]), f"{name} at {tag}: without dX or on a "
+                      f"repeat, the gradients are not bitwise the same")
             r = rec.setdefault(name, {"err": 0.0})
             r["err"] = max(r["err"], err)
         if drop:
             check(dropped == 0, f"conv_ln_fwd drops other elements at {tag}")
         if (n_, l_, k_, o_, p_) == CONV_FBANK:
-            # CNN_fbank's layer 0 in training (no recipe run of it here)
+            # CNN_fbank's layer 0 in training (no recipe run of it here);
+            # its input, spliced features, needs no gradient
             times = [(median_ms(lambda: conv1d.conv1d_pool_ln_act(*ln), 5),
                       conv_bound_ms("conv_ln_fwd", n_, l_, k_, o_, p_)[0]),
                      (median_ms(lambda: conv1d.conv1d_pool_ln_act_bwd(
-                         *ln[:6], idx6, stats, dy, *ln[6:]), 5),
-                      conv_bound_ms("conv_ln_bwd", n_, l_, k_, o_, p_)[0])]
+                         *ln[:6], *res6, *ln[6:], False), 5),
+                      conv_bound_ms("conv_ln_bwd", n_, l_, k_, o_, p_,
+                                    need_dx=False)[0])]
             print(f"kernel conv_ln_fwd/conv_ln_bwd at cfg/TIMIT/CNN_fbank.cfg's "
                   f"layer 0 {tag} drop={drop}: K6f {times[0][0]:.3f} ms (bound "
-                  f"{times[0][1]:.4f} ms), K6b {times[1][0]:.3f} ms (bound "
-                  f"{times[1][1]:.4f} ms)", flush=True)
+                  f"{times[0][1]:.4f} ms), K6b without dX {times[1][0]:.3f} ms "
+                  f"(bound {times[1][1]:.4f} ms)", flush=True)
         if not train or drop:
             continue
-        # times at the training batch, and the library composites
-        lib_in = [t.clone().requires_grad_() for t in (x, w, bias, gt, bt)]
+        # times at the training batch, and the library composites; the
+        # backwards with dX (the recipes' path, recorded) and without
         for name, kernel, plain in (
-                ("conv_pool_fwd", lambda: conv1d.conv1d_pool(x, w, p_),
-                 lambda: conv1d.conv1d_pool_ref(x, w, p_)),
+                ("conv_pool_fwd", lambda _: conv1d.conv1d_pool(x, w, p_),
+                 lambda _: conv1d.conv1d_pool_ref(x, w, p_)),
                 ("conv_pool_bwd",
-                 lambda: conv1d.conv1d_pool_bwd(x, dy, idx, w, p_),
-                 lambda: conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, p_)),
-                ("conv_ln_fwd", lambda: conv1d.conv1d_pool_ln_act(*ln),
-                 lambda: conv1d.conv1d_pool_ln_act_ref(*ln)),
-                ("conv_ln_bwd", lambda: conv1d.conv1d_pool_ln_act_bwd(
-                    *ln[:6], idx6, stats, dy, *ln[6:]),
-                 lambda: conv1d.conv1d_pool_ln_act_bwd_ref(
-                    *ln[:6], idx6, stats, dy, *ln[6:]))):
-            ms = median_ms(kernel, 5)
-            plain_ms = median_ms(plain, 3)
+                 lambda nd: conv1d.conv1d_pool_bwd(x, dy, idx, w, p_, nd),
+                 lambda nd: conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, p_, nd)),
+                ("conv_ln_fwd", lambda _: conv1d.conv1d_pool_ln_act(*ln),
+                 lambda _: conv1d.conv1d_pool_ln_act_ref(*ln)),
+                ("conv_ln_bwd", lambda nd: conv1d.conv1d_pool_ln_act_bwd(
+                    *ln[:6], *res6, *ln[6:], nd),
+                 lambda nd: conv1d.conv1d_pool_ln_act_bwd_ref(
+                    *ln[:6], idx6, stats, dy, *ln[6:], nd))):
             use_ln = name.startswith("conv_ln")
-            if name.endswith("_fwd"):
-                with torch.no_grad():
-                    lib_ms = median_ms(lambda: _conv_composite(
-                        F, x, w, bias, gt, bt, p_, eps, use_ln), 3)
-            else:
-                out = _conv_composite(F, *lib_in, p_, eps, use_ln)
-                g = dy.transpose(1, 2)
-                leaves = lib_in if use_ln else lib_in[:2]
-                lib_ms = median_ms(lambda: torch.autograd.grad(
-                    out, leaves, g, retain_graph=True), 3)
-                del out
-            bound, by = conv_bound_ms(name, n_, l_, k_, o_, p_)
-            print(f"kernel {name} N={n_} L={l_} K={k_} O={o_} pool={p_}: "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-                  f"composite {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})",
-                  flush=True)
-            own = o_ == (80 if name.startswith("conv_pool") else 128)
-            if own:
-                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound, bound_by=by,
-                                 shape=(n_, l_, k_, o_, p_))
-        del lib_in
+            fwd = name.endswith("_fwd")
+            for need_dx in ((True,) if fwd else (True, False)):
+                ms = median_ms(lambda: kernel(need_dx), 5)
+                plain_ms = median_ms(lambda: plain(need_dx), 3)
+                if fwd:
+                    with torch.no_grad():
+                        lib_ms = median_ms(lambda: _conv_composite(
+                            F, x, w, bias, gt, bt, p_, eps, use_ln), 3)
+                else:
+                    lib_in = [t.clone().requires_grad_(i > 0 or need_dx)
+                              for i, t in enumerate((x, w, bias, gt, bt))]
+                    out = _conv_composite(F, *lib_in, p_, eps, use_ln)
+                    g = dy.transpose(1, 2)
+                    leaves = [t for t in (lib_in if use_ln else lib_in[:2])
+                              if t.requires_grad]
+                    lib_ms = median_ms(lambda: torch.autograd.grad(
+                        out, leaves, g, retain_graph=True), 3)
+                    del out, lib_in
+                bound, by = conv_bound_ms(name, n_, l_, k_, o_, p_,
+                                          need_dx=need_dx)
+                print(f"kernel {name} N={n_} L={l_} K={k_} O={o_} pool={p_}"
+                      + ("" if fwd else
+                         f" {'with' if need_dx else 'without'} dX")
+                      + f": kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                      f"library composite {lib_ms:.3f} ms, bound {bound:.3f} "
+                      f"ms ({by})", flush=True)
+                own = o_ == (80 if name.startswith("conv_pool") else 128)
+                if own and need_dx:
+                    rec[name].update(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound,
+                                     bound_by=by, shape=(n_, l_, k_, o_, p_))
     # the serving batch: the forwards alone (no idx, no stats)
     for name, O in (("conv_pool_fwd", 80), ("conv_ln_fwd", 128)):
         M = (L - K + 1) // pool
@@ -1016,13 +1057,14 @@ def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):
     """(least ms the card could take for one call of the whole conv stack,
     "bytes" or "operations"), counted as `conv_bound_ms` counts a layer:
     layer 0's forward convolves every position, an upper layer's the ct =
-    M * pool rows its pool reads, 2 N rows C K O flops each; a backward
-    needs only the pooled rows, the remat of the pooled value, dW and dX,
-    6 N M C K O flops.  Bytes: x, every layer's weights, bias and affine
-    maps read once; the forward writes the output and, with `residuals`
-    (training), every layer's output (the next layer's kept input), idx and
-    stats; the backward reads those and dz, and writes dx and every
-    gradient."""
+    M * pool rows its pool reads, 2 N rows C K O flops each; an upper
+    layer's backward needs only the pooled rows, the remat of the pooled
+    value, dW and dX, 6 N M C K O flops, and layer 0's dW and dX, 4 N M K
+    O, on the pooled value K6f keeps.  Bytes: x, every layer's weights,
+    bias and affine maps read once; the forward writes the output and, with
+    `residuals` (training), every layer's output (the next layer's kept
+    input), idx and stats, and layer 0's pooled value; the backward reads
+    those and dz, and writes dx and every gradient."""
     fwd = name == "conv_stack_fwd"
     nbytes = 4 * N * L * (1 if fwd else 2)
     flops, C, lin = 0, 1, L
@@ -1035,10 +1077,10 @@ def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):
         if fwd:
             flops += 2 * N * ((lin - K + 1) if i == 0 else M * P) * C * K * O
             nbytes += params + (4 * nmo if residuals or last else 0) + (
-                res if residuals else 0)
+                res + (0 if i else 4 * nmo) if residuals else 0)
         else:
-            flops += 6 * N * M * C * K * O
-            nbytes += 2 * params + res + (4 * N * lin * C if i else 0) + (
+            flops += (6 if i else 4) * N * M * C * K * O
+            nbytes += 2 * params + res + (4 * N * lin * C if i else 4 * nmo) + (
                 4 * nmo if last else 0)
         C, lin = O, M
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -1142,10 +1184,10 @@ def stack_phase(modules) -> dict:
     for d in (no_drop, drops):
         a = (*first, ups, seed, pools, eps, True, d)
         with torch.inference_mode():
-            out, idx0, stats0, res = cs.conv_stack_fwd(*a)
+            out, idx0, stats0, ypool0, res = cs.conv_stack_fwd(*a)
             ref = cs.conv_stack_ref(*a)
-            gk = cs.conv_stack_bwd(*first, ups, seed, idx0, stats0, res, dz,
-                                   pools, eps, True, d)
+            gk = cs.conv_stack_bwd(*first, ups, seed, idx0, stats0, ypool0,
+                                   res, dz, pools, eps, True, d)
             gr = cs.conv_stack_bwd_ref(*first, ups, seed, idx0, stats0, res,
                                        dz, pools, eps, True, d)
             gp = cs.conv_stack_bwd_ref(*first, ups, seed, *ref[1:], dz, pools,
@@ -1206,7 +1248,8 @@ def stack_phase(modules) -> dict:
                                            s_err)
         rec["conv_stack_bwd"]["err"] = max(rec["conv_stack_bwd"]["err"],
                                            rel[worst])
-        del out, idx0, stats0, res, ref, gk, gr, gp, got, want, plain, maps
+        del out, idx0, stats0, ypool0, res, ref, gk, gr, gp, got, want, plain
+        del maps
 
     # K7f at drop 0 against the per-layer path (which the recipe runs)
     cnn = _per_layer_cnn(opts, L, first, ups)
@@ -1227,15 +1270,17 @@ def stack_phase(modules) -> dict:
     # path's forward and autograd backward as the yardstick
     with torch.inference_mode():
         a = (*first, ups, seed, pools, eps, True, drops)
-        _, idx0, stats0, res = cs.conv_stack_fwd(*a)
+        _, idx0, stats0, ypool0, res = cs.conv_stack_fwd(*a)
         kept = sum(r[0].numel() * 4 for r in res) / 1e6
-        b = (*first, ups, seed, idx0, stats0, res, dz, pools, eps, True, drops)
+        tail = (res, dz, pools, eps, True, drops)
+        b = (*first, ups, seed, idx0, stats0, ypool0, *tail)
+        b_plain = (*first, ups, seed, idx0, stats0, *tail)
         timing = {
             "conv_stack_fwd": (median_ms(lambda: cs.conv_stack_fwd(*a), 5),
                                median_ms(lambda: cs.conv_stack_ref(*a), 3),
                                median_ms(lambda: cnn(x), 3)),
             "conv_stack_bwd": [median_ms(lambda: cs.conv_stack_bwd(*b), 5),
-                               median_ms(lambda: cs.conv_stack_bwd_ref(*b), 3)]}
+                               median_ms(lambda: cs.conv_stack_bwd_ref(*b_plain), 3)]}
     xl = x.clone().requires_grad_()
     leaves = [xl, *cnn.parameters()]
     lay = cnn(xl)
@@ -1491,16 +1536,11 @@ def serving_phase(modules, trees, recipe) -> dict:
     stack_launches = _check_only(counts, recipe, f"{recipe} serving")
     posts, info = ft.forward_outputs(out)
 
+    # the plain path at the same forward batch as the kernel path's
     plain_ctx, plain_label = _plain_path(recipe, modules)
-    # the composed path's layer-0 conv output alone would take 50 GB at the
-    # 32,000 windows of a forward batch of 32 utterances padded to 1000
-    # frames: its run forwards 8 utterances a batch (a frame's posteriors
-    # do not depend on the batch of a frame-level model in eval mode)
-    fwd_env = (_env(TPUKALDI_FORWARD_BATCH=str(RAW_PLAIN_FORWARD_BATCH))
-               if _raw(recipe) else contextlib.nullcontext())
     _reset_counts(modules, chunk_runtime)
     t0 = time.perf_counter()
-    with plain_ctx, fwd_env:
+    with plain_ctx:
         run_experiment(cfg_plain, device="cuda")
     wall_plain = time.perf_counter() - t0
     check(not any(_counts(modules).values()),
@@ -1516,8 +1556,10 @@ def serving_phase(modules, trees, recipe) -> dict:
     check(worst_plain <= POSTERIOR_ATOL,
           f"{recipe}: kernel path vs plain path posteriors differ by {worst_plain}")
     # every forward batch ran its layers through the kernel; the test
-    # utterances in batches of at most 32 take at least n / 32 batches
-    fwd_bs = int(os.environ.get("TPUKALDI_FORWARD_BATCH", "32"))
+    # utterances in batches of at most the port's default forward batch
+    # take at least n / that many batches
+    fwd_bs = int(os.environ.get("TPUKALDI_FORWARD_BATCH",
+                                str(chunk_runtime.DEFAULT_FORWARD_BATCH)))
     check(n_batches >= math.ceil(len(names) / fwd_bs),
           f"{n_batches} forward batches for {len(names)} utterances")
     check(launches == r["layers"] * n_batches and bwd == 0,
@@ -1778,9 +1820,12 @@ LAYERS = (
     ("K6f", ("conv_ln_fwd_kernel",)),
     ("K6b layer-norm pass", ("conv_ln_bwd_kernel",)),
     ("K5f", ("conv_pool_fwd_kernel",)),
-    ("K5b/K6b dX, dW passes", ("conv_pool_dx_kernel",
-                               "conv_pool_dw_part_kernel",
-                               "reduce_windows_kernel")),
+    # dX runs where layer 0's input needs a gradient: in both raw recipes,
+    # whose input layer norm (cnn_use_laynorm_inp, sinc_use_laynorm_inp)
+    # has a gain and a shift to train
+    ("K5b/K6b dX pass", ("conv_pool_dx_tile_kernel",)),
+    ("K5b/K6b dW pass, window sums", ("conv_pool_dw_part_kernel",
+                                      "reduce_windows_kernel")),
     ("K1f", ("ligru_fwd_kernel",)),
     ("K1b remat", ("ligru_remat_kernel",)),
     ("K1b sequential", ("ligru_bwd_seq_kernel",)),

@@ -663,13 +663,63 @@ def test_fused_dropout_seed_replays():
     assert not torch.equal(outs[0], outs[2])
 
 
+@pytest.mark.parametrize("fused, drop", [(False, 0.0), (True, 0.0),
+                                         (True, 0.15)])
+def test_functions_give_a_waveform_no_gradient(fused, drop):
+    """A waveform that needs no gradient gets none: `ConvPool` and
+    `ConvPoolLnAct` then skip dx (their plain backwards' `need_dx=False`
+    returns None), and dW (and dgt, dbt, dbias) are bitwise those of the
+    call that computes dx."""
+    x, w, bias, gt, bt, dy = (_t(a) for a in
+                              _conv_inputs(3, 500, 40, 16, 3, seed=5))
+    grads = {}
+    for need in (True, False):
+        xx = x.clone().requires_grad_(need)
+        leaves = [t.clone().requires_grad_()
+                  for t in ((w, bias, gt, bt) if fused else (w,))]
+        if fused:
+            out = conv1d.ConvPoolLnAct.apply(xx, *leaves, 7, 3, EPS, True,
+                                             drop)
+        else:
+            out = conv1d.ConvPool.apply(xx, *leaves, 3)
+        (out * dy).sum().backward()
+        grads[need] = (xx.grad, [t.grad for t in leaves])
+    assert grads[True][0] is not None and grads[False][0] is None
+    for a, b in zip(grads[True][1], grads[False][1]):
+        assert torch.equal(a, b)
+    idx = conv1d.conv1d_pool_ref(x, w, 3)[1]
+    dx, dw = conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, 3, need_dx=False)
+    assert dx is None
+    assert torch.equal(dw, conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, 3)[1])
+
+
+def test_fused_entries_keep_no_pooled_value_on_cpu():
+    """On the CPU the fused forward keeps no ypool (the plain backward
+    recomputes the pooled value through idx, as tpukaldi's does), and the
+    backward, given none, is the plain backward."""
+    x, w, bias, gt, bt, dy = (_t(a) for a in
+                              _conv_inputs(2, 400, 40, 16, 3, seed=6))
+    _, idx, stats, ypool = conv1d.conv1d_pool_ln_act(x, w, bias, gt, bt, 0,
+                                                     3, EPS, True)
+    assert ypool is None
+    want = conv1d.conv1d_pool_ln_act_bwd_ref(x, w, bias, gt, bt, 0, idx,
+                                             stats, dy, 3, EPS, True, 0.0)
+    got = conv1d.conv1d_pool_ln_act_bwd(x, w, bias, gt, bt, 0, idx, stats,
+                                        None, dy, 3, EPS, True, 0.0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("drop", [0.0, 0.15])
 def test_conv_kernels_match_plain_on_card(drop):
     """K5f/K5b and K6f/K6b against their plain versions on the same card
     at a small odd shape; the backwards given the kernel's own idx (a sum
-    in another order can flip a near-tie).  1e-5 absolute on the outputs,
-    1e-4 of each gradient's max; the same dropped elements."""
+    in another order can flip a near-tie).  1e-5 absolute on the outputs
+    and on K6f's saved pooled value, 1e-4 of each gradient's max; the same
+    dropped elements.  Without dx (`need_dx=False`) the backwards return
+    none, and their other gradients are bitwise those of the call with
+    dx."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (the kernels have no CPU mode)")
     chunk_runtime.pin_float32()
@@ -678,19 +728,29 @@ def test_conv_kernels_match_plain_on_card(drop):
     y, idx = conv1d.conv1d_pool(x, w, 3)
     y_r, _ = conv1d.conv1d_pool_ref(x, w, 3)
     torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5)
-    for a, b in zip(conv1d.conv1d_pool_bwd(x, dy, idx, w, 3),
-                    conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, 3)):
+    got = conv1d.conv1d_pool_bwd(x, dy, idx, w, 3)
+    for a, b in zip(got, conv1d.conv1d_pool_bwd_ref(x, dy, idx, w, 3)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * b.abs().max().item())
-    out, idx, stats = conv1d.conv1d_pool_ln_act(x, w, bias, gt, bt, -5, 3,
-                                                EPS, True, drop)
+    no_dx = conv1d.conv1d_pool_bwd(x, dy, idx, w, 3, need_dx=False)
+    assert no_dx[0] is None and torch.equal(no_dx[1], got[1])
+    out, idx, stats, ypool = conv1d.conv1d_pool_ln_act(
+        x, w, bias, gt, bt, -5, 3, EPS, True, drop)
     out_r, _, _ = conv1d.conv1d_pool_ln_act_ref(x, w, bias, gt, bt, -5, 3,
                                                 EPS, True, drop)
     torch.testing.assert_close(out, out_r, rtol=0, atol=1e-5)
     assert torch.equal(out == 0, out_r == 0)
+    torch.testing.assert_close(ypool, conv1d._pooled_at(conv1d._conv(x, w),
+                                                        idx, 3),
+                               rtol=0, atol=1e-5)
     got = conv1d.conv1d_pool_ln_act_bwd(x, w, bias, gt, bt, -5, idx, stats,
-                                        dy, 3, EPS, True, drop)
+                                        ypool, dy, 3, EPS, True, drop)
     want = conv1d.conv1d_pool_ln_act_bwd_ref(x, w, bias, gt, bt, -5, idx,
                                              stats, dy, 3, EPS, True, drop)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * max(b.abs().max().item(), 1e-30))
+    no_dx = conv1d.conv1d_pool_ln_act_bwd(x, w, bias, gt, bt, -5, idx, stats,
+                                          ypool, dy, 3, EPS, True, drop,
+                                          need_dx=False)
+    assert no_dx[0] is None
+    assert all(torch.equal(a, b) for a, b in zip(no_dx[1:], got[1:]))

@@ -291,6 +291,30 @@ def test_cpu_stack_counts_no_launch():
     assert [getattr(m, c) for m, c in counters] == before
 
 
+def test_stack_gives_a_waveform_no_gradient():
+    """Through `ConvStack`, a waveform that needs no gradient gets none,
+    and every other gradient is bitwise that of the call that computes dx;
+    the CPU forward keeps no layer-0 pooled value (ypool0 None)."""
+    x, w0, bias0, gt0, bt0, layers, dz = _stack_inputs(
+        3, 136, 9, [(8, 3)], (2, 2), seed=4)
+    grads = {}
+    for need in (True, False):
+        xx = _t(x).requires_grad_(need)
+        leaves = [_t(a).requires_grad_() for a in (w0, bias0, gt0, bt0)]
+        ups = [[_t(a).requires_grad_() for a in u] for u in layers]
+        out = conv_stack.conv_stack_fused(xx, *leaves, ups, 5, (2, 2), EPS,
+                                          True, (0.15, 0.15))
+        (out * _t(dz)).sum().backward()
+        grads[need] = (xx.grad, [t.grad for t in (*leaves, *ups[0])])
+    assert grads[True][0] is not None and grads[False][0] is None
+    for a, b in zip(grads[True][1], grads[False][1]):
+        assert torch.equal(a, b)
+    ups = [tuple(_t(a) for a in u) for u in layers]
+    fwd = conv_stack.conv_stack_fwd(*(_t(a) for a in (x, w0, bias0, gt0, bt0)),
+                                    ups, 5, (2, 2), EPS, True, (0.15, 0.15))
+    assert len(fwd) == 5 and fwd[3] is None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("drop", [0.0, 0.15])
 def test_stack_kernels_match_plain_on_card(drop):
@@ -315,7 +339,7 @@ def test_stack_kernels_match_plain_on_card(drop):
     cu = lambda a: _t(a).cuda()  # noqa: E731
     args = [cu(a) for a in (x, w0, bias0, gt0, bt0)]
     ups = [tuple(cu(a) for a in u) for u in layers]
-    out, idx0, stats0, res = conv_stack.conv_stack_fwd(
+    out, idx0, stats0, ypool0, res = conv_stack.conv_stack_fwd(
         *args, ups, -5, pools, EPS, True, drops)
     ref = conv_stack.conv_stack_ref(*args, ups, -5, pools, EPS, True, drops)
     maps = [(r[0], rr[0]) for r, rr in zip(res, ref[3])] + [(out, ref[0])]
@@ -327,8 +351,8 @@ def test_stack_kernels_match_plain_on_card(drop):
     for (idx, stats), (idx_r, stats_r) in zip(kept, plain):
         torch.testing.assert_close(stats, stats_r, rtol=0, atol=5e-5)
         assert (idx != idx_r).sum().item() <= 2
-    got = conv_stack.conv_stack_bwd(*args, ups, -5, idx0, stats0, res, cu(dz),
-                                    pools, EPS, True, drops)
+    got = conv_stack.conv_stack_bwd(*args, ups, -5, idx0, stats0, ypool0, res,
+                                    cu(dz), pools, EPS, True, drops)
     want = conv_stack.conv_stack_bwd_ref(*args, ups, -5, idx0, stats0, res,
                                          cu(dz), pools, EPS, True, drops)
     want_plain = conv_stack.conv_stack_bwd_ref(*args, ups, -5, *ref[1:],

@@ -19,7 +19,11 @@ from tpukaldi.kernels.ligru import ligru_recurrence as jax_ligru
 from tpukaldi.kernels.ligru import ligru_recurrence_scan
 from tpukaldi_torch.kernels import _build
 from tpukaldi_torch.kernels import ligru as port
-from tpukaldi_torch.tools import ligru_bwd_phases, ligru_fwd_phases
+from tpukaldi_torch.tools import (
+    conv_bwd_phases,
+    ligru_bwd_phases,
+    ligru_fwd_phases,
+)
 from tpukaldi_torch.tools.lstm_fwd_phases import variants
 
 ATOL = 1e-5
@@ -192,6 +196,46 @@ def test_ligru_fwd_phase_variants_cut_what_they_name():
         assert source.count(old) == 1
         with pytest.raises(ValueError, match="not in the source once"):
             variants(source.replace(old, ""), ligru_fwd_phases.VARIANTS)
+
+
+def test_conv_bwd_phase_variants_cut_what_they_name():
+    """`tools/conv_bwd_phases.py` builds K5b's and K6b's variants by
+    replacing lines across `csrc/conv_pool_bwd.cu`, `conv_ln_bwd.cu`,
+    `conv_pool_bwd.cuh` and `conv_tile.cuh`: each line is there once in
+    all, each variant differs from the sources, each `<launch> only`
+    variant keeps that kind of launch and cuts the three others, and the
+    tilings change only the constant they name."""
+    files = conv_bwd_phases.sources()
+    got = conv_bwd_phases.variant_files(files)
+    assert got["as built"] == files
+    assert all(texts != files for name, texts in got.items()
+               if name != "as built")
+    marks = {"ln": "conv_ln_bwd_kernel<<<", "dx": "conv_pool_dx_tile_kernel<<<",
+             "dw": "conv_pool_dw_part_kernel<<<",
+             "sums": "reduce_windows_kernel<<<"}
+    for name, (_, exact) in conv_bwd_phases.VARIANTS.items():
+        assert exact == (not name.endswith(" only")), name
+        text = "".join(got[name].values())
+        cut = {part for part, mark in marks.items()
+               if f"if (false) {mark}" in text}
+        assert all(text.count(mark) == 1 for mark in marks.values()), name
+        want = set(marks) - {name.split()[0]} if not exact else set()
+        assert cut == want, name
+    changed = {"R 3": "kDxRun = 3;", "R 7": "kDxRun = 7;",
+               "R 9": "kDxRun = 9;", "filters 4": "kDxFilt = 4;",
+               "filters 16": "kDxFilt = 16;",
+               "threads 256": "kDxThreads = 256;",
+               "unroll 2": "#pragma unroll 2\n      for (int k0 = 0;",
+               "dw warps 4": "kDwWarps = 4;", "dw warps 16": "kDwWarps = 16;"}
+    for name, mark in changed.items():
+        diff = [f for f in files if got[name][f] != files[f]]
+        assert len(diff) == 1 and mark in got[name][diff[0]], name
+    for line in (conv_bwd_phases._LN, conv_bwd_phases._DX,
+                 conv_bwd_phases._DW, conv_bwd_phases._SUM):
+        assert sum(t.count(line) for t in files.values()) == 1
+        broken = {f: t.replace(line, "") for f, t in files.items()}
+        with pytest.raises(ValueError, match="not in the sources once"):
+            conv_bwd_phases.variant_files(broken)
 
 
 # K1f's main small shape, then the edges of its tiling, as K2f's: an odd

@@ -12,8 +12,12 @@ implement yet, which raise instead of running something else.
 2. `[exp] multi_gpu`, `TPUKALDI_NUM_HOSTS` and `TPUKALDI_MATMUL_PRECISION`
    raise `NotImplementedError` in `run_experiment` before any output folder
    is written.
+3. `TPUKALDI_PROFILE_DIR` gets a profiler trace of the whole run, as
+   tpukaldi's `run_experiment` writes one, also when the run raises; and
+   `TPUKALDI_FORWARD_BATCH` defaults to 8, tpukaldi's default off a TPU.
 """
 
+import json
 import os
 
 import pytest
@@ -21,12 +25,15 @@ import pytest
 from tpukaldi_torch.plan.chunk_cfg import write_chunk_cfg
 from tpukaldi_torch.tools.flagship_tree import (
     recipe_cfg,
+    save_seeded_finals,
     train_plan,
     write_kaldi_tree,
+    write_prod_cfg,
     write_train_cfg,
 )
 from tpukaldi_torch.tools.run_chunk import run_chunk
 from tpukaldi_torch.tools.run_exp import run_experiment
+from tpukaldi_torch.train import chunk_runtime
 from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +50,8 @@ SHRINK = {
     "n_chunks = 5": "n_chunks = 1",
 }
 KNOBS = ("TPUKALDI_COMPUTE_DTYPE", "TPUKALDI_NUM_HOSTS", "TPUKALDI_HOST_ID",
-         "TPUKALDI_MATMUL_PRECISION")
+         "TPUKALDI_MATMUL_PRECISION", "TPUKALDI_PROFILE_DIR",
+         "TPUKALDI_FORWARD_BATCH")
 
 
 @pytest.fixture(scope="module")
@@ -164,3 +172,47 @@ def test_float32_matmul_precision_runs(tree, tmp_path, monkeypatch, value):
     run_experiment(cfg, device="cpu")
     with open(os.path.join(out, "res.res")) as f:
         assert f.read().startswith("ep=0 ")
+
+
+@pytest.mark.parametrize("ends", ["done", "raises"])
+def test_profile_dir_gets_a_trace_of_the_run(tree, tmp_path, monkeypatch,
+                                            ends):
+    """With TPUKALDI_PROFILE_DIR set, a CPU run writes one Chrome trace of
+    the whole run into that directory when it ends, by an exception too
+    (tpukaldi stops its trace in a `finally`)."""
+    prof = tmp_path / "prof"
+    monkeypatch.setenv("TPUKALDI_PROFILE_DIR", str(prof))
+    out = str(tmp_path / "out")
+    shrink = dict(SHRINK)
+    if ends == "raises":
+        shrink["multi_gpu = False"] = "multi_gpu = True"
+    cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), shrink)
+    if ends == "raises":
+        with pytest.raises(NotImplementedError, match="multi_gpu"):
+            run_experiment(cfg, device="cpu")
+    else:
+        run_experiment(cfg, device="cpu")
+    traces = os.listdir(prof)
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    with open(prof / traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert events
+    if ends == "done":
+        # the run's own work is in it: its chunks' steps ran on the CPU
+        assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_forward_batch_defaults_to_tpukaldis_off_a_tpu(tmp_path):
+    """Without TPUKALDI_FORWARD_BATCH the forward stage takes 8 utterances
+    a batch on every device (tpukaldi takes 32 only on a TPU): 10 test
+    utterances run in 2 forward batches."""
+    assert chunk_runtime.DEFAULT_FORWARD_BATCH == 8
+    splits = {"train": (2, 30, 40), "dev": (2, 30, 40), "test": (10, 30, 40)}
+    small = write_kaldi_tree(str(tmp_path / "timit"), 10, n_phones=3,
+                             n_pdfs=9, splits=splits)
+    out = str(tmp_path / "out")
+    cfg = write_prod_cfg(small, out, str(tmp_path / "run.cfg"), SHRINK)
+    save_seeded_finals(cfg, dim=10)
+    chunk_runtime.forward_batches = 0
+    run_experiment(cfg, device="cpu")
+    assert chunk_runtime.forward_batches == 2

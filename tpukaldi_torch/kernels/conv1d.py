@@ -15,7 +15,9 @@ backward rebuilds it bit for bit (`drop_mask`).
 
 `ConvPool` and `ConvPoolLnAct` are the counterparts of tpukaldi's
 `kernels/conv1d.py::conv1d_pool` and `conv1d_pool_ln_act` (each a
-`jax.custom_vjp`).  On a CUDA tensor their forwards launch
+`jax.custom_vjp`); their backwards compute dx only where x needs a
+gradient (a waveform fed in as it is does not; the raw recipes' input layer
+norm, whose gain and shift train, does).  On a CUDA tensor their forwards launch
 `csrc/conv_pool_fwd.cu` (K5f) and `csrc/conv_ln_fwd.cu` (K6f), their
 backwards `csrc/conv_pool_bwd.cu` (K5b) and `csrc/conv_ln_bwd.cu` (K6b), or
 raise; on a CPU tensor they run the plain versions (`*_ref`), which follow
@@ -23,7 +25,9 @@ tpukaldi's `_xla_conv_pool`, `_xla_conv_pool_ln_act` and the Pallas
 kernels' backward arithmetic.  The layouts are tpukaldi's: x (N, L), w (K,
 O), outputs (N, M, O), the affine maps gt and bt (M, O), stats (N, 2, O) =
 (mean, std).  dbias is an exact zero: the layer norm's mean cancels the
-bias.
+bias.  In training K6f also keeps the pooled conv value before the bias,
+`ypool` (N, M, O), which K6b reads instead of recomputing it (the plain
+backward recomputes it through idx, as tpukaldi's does).
 """
 
 from __future__ import annotations
@@ -93,11 +97,11 @@ def conv1d_pool_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 def conv1d_pool_bwd_ref(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
-                        w: torch.Tensor, pool: int
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        w: torch.Tensor, pool: int, need_dx: bool = True
+                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """The pooled gradient dy (N, M, O) scattered through the saved argmax
     onto the conv rows (tpukaldi's `_pool_scatter`), then the conv's
-    gradients: (dx (N, L), dw (K, O))."""
+    gradients: (dx (N, L), or None without `need_dx`, dw (K, O))."""
     N, L = x.shape
     K, O = w.shape
     M = dy.shape[1]
@@ -107,8 +111,8 @@ def conv1d_pool_bwd_ref(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
     wt = w.t()[:, None, :].contiguous()
     dx, dw, _ = torch.ops.aten.convolution_backward(
         dconv.transpose(1, 2).contiguous(), x[:, None, :], wt, None, [1], [0],
-        [1], False, [0], 1, [True, True, False])
-    return dx[:, 0, :], dw[:, 0, :].t()
+        [1], False, [0], 1, [need_dx, True, False])
+    return (dx[:, 0, :] if need_dx else None), dw[:, 0, :].t()
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -185,12 +189,14 @@ def conv1d_pool_ln_act_bwd_ref(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, gt: torch.Tensor,
     bt: torch.Tensor, seed: Seed, idx: torch.Tensor, stats: torch.Tensor,
     dz: torch.Tensor, pool: int, eps: float, relu: bool, drop: float,
-) -> Tuple[torch.Tensor, ...]:
+    need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], ...]:
     """The backward of `conv1d_pool_ln_act_ref` as tpukaldi's
     `_fused_bwd_kernel` computes it: the pooled pre-norm activation
     recomputed through idx, the dropout mask and the relu gate rebuilt, the
     layer norm's backward per window with s floored at 1e-30, then the
-    conv-pool backward.  -> (dx, dw, dbias (exact 0), dgt, dbt)."""
+    conv-pool backward.  -> (dx, or None without `need_dx`, dw, dbias
+    (exact 0), dgt, dbt)."""
     y = _pooled_at(_conv(x, w), idx, pool) + bias
     M = y.shape[1]
     mu, s = stats[:, 0:1], stats[:, 1:2]
@@ -208,7 +214,7 @@ def conv1d_pool_ln_act_bwd_ref(
     B = (dzg * c).sum(1, keepdim=True)
     fac = (B * r * r) / (max(M - 1, 1) * s.clamp_min(1e-30))
     dy = r * dzg - c * fac - (r / M) * A
-    dx, dw = conv1d_pool_bwd_ref(x, dy, idx, w, pool)
+    dx, dw = conv1d_pool_bwd_ref(x, dy, idx, w, pool, need_dx)
     return dx, dw, torch.zeros_like(bias), dgt, dbt
 
 
@@ -280,33 +286,34 @@ def conv1d_pool(x: torch.Tensor, w: torch.Tensor, pool: int,
 
 
 def conv1d_pool_bwd(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
-                    w: torch.Tensor, pool: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dx, dw): K5b on CUDA tensors, the plain version on CPU."""
+                    w: torch.Tensor, pool: int, need_dx: bool = True
+                    ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """(dx, dw): K5b on CUDA tensors, the plain version on CPU; dx is None,
+    and its pass skipped, without `need_dx`."""
     global bwd_launches
     N, L, K, O, M = _geometry("conv1d_pool_bwd", x, w, pool)
     if x.device.type == "cpu":
-        return conv1d_pool_bwd_ref(x, dy, idx, w, pool)
+        return conv1d_pool_bwd_ref(x, dy, idx, w, pool, need_dx)
     _kernel_pool("conv1d_pool_bwd", pool)
     _launch.check_tensors(
         "conv1d_pool_bwd", x=(x, (N, L), torch.float32),
         dy=(dy, (N, M, O), torch.float32), idx=(idx, (N, M, O), torch.int8),
         w=(w, (K, O), torch.float32))
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w)
     dw_part = torch.empty((N, K, O), device=x.device, dtype=torch.float32)
     fn = _launch.entry(BWD_SOURCE, "conv_pool_bwd", [_P] * 7 + [_I] * 5)
     _launch.call("conv_pool_bwd", fn, x.device,
                  (x.data_ptr(), dy.data_ptr(), idx.data_ptr(), w.data_ptr(),
-                  dw_part.data_ptr(), dx.data_ptr(), dw.data_ptr(), N, L, K, O,
+                  dw_part.data_ptr(), _ptr(dx), dw.data_ptr(), N, L, K, O,
                   pool), f"N={N}, L={L}, K={K}, O={O}, pool={pool}")
     bwd_launches += 1
     return dx, dw
 
 
-def _ln_smem_check(fn: str, source: str, L: int, K: int, pool: int) -> None:
-    """K6 holds a window's pooled rows of 32 filters in shared memory."""
-    smem = getattr(_build.load(source), "tpk_conv_ln_smem_bytes")
+def _ln_smem_check(fn: str, L: int, K: int, pool: int) -> None:
+    """K6f holds a window's pooled rows of 32 filters in shared memory."""
+    smem = getattr(_build.load(LN_SOURCE), "tpk_conv_ln_smem_bytes")
     smem.argtypes = [_I, _I, _I]
     smem.restype = ctypes.c_long
     need = smem(L, K, pool)
@@ -320,92 +327,105 @@ def conv1d_pool_ln_act(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, gt: torch.Tensor,
     bt: torch.Tensor, seed: Seed, pool: int, eps: float, relu: bool,
     drop: float = 0.0, residuals: bool = True,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """(out, idx, stats): K6f on a CUDA tensor (idx and stats not written
-    when `residuals` is False: inference needs neither), the plain version
-    on CPU.  `seed` is an int or an int32 scalar tensor (read on the card by
-    the kernel).  Builds no autograd graph: `ConvPoolLnAct` is the
-    differentiable entry."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """(out, idx, stats, ypool): K6f on a CUDA tensor (idx, stats and the
+    pooled value before the bias, ypool (N, M, O), for K6b; none of them
+    written when `residuals` is False: inference needs none), the plain
+    version on CPU (ypool None: the plain backward recomputes it).  `seed`
+    is an int or an int32 scalar tensor (read on the card by the kernel).
+    Builds no autograd graph: `ConvPoolLnAct` is the differentiable
+    entry."""
     global ln_launches
     N, L, K, O, M = _geometry("conv1d_pool_ln_act", x, w, pool)
     if x.device.type == "cpu":
         seed = int(seed) if drop > 0.0 else 0
-        return conv1d_pool_ln_act_ref(x, w, bias, gt, bt, seed, pool, eps,
-                                      relu, drop)
+        return (*conv1d_pool_ln_act_ref(x, w, bias, gt, bt, seed, pool, eps,
+                                        relu, drop), None)
     _kernel_pool("conv1d_pool_ln_act", pool)
     _launch.check_tensors(
         "conv1d_pool_ln_act", x=(x, (N, L), torch.float32),
         w=(w, (K, O), torch.float32), bias=(bias, (O,), torch.float32),
         gt=(gt, (M, O), torch.float32), bt=(bt, (M, O), torch.float32))
-    _ln_smem_check("conv1d_pool_ln_act", LN_SOURCE, L, K, pool)
+    _ln_smem_check("conv1d_pool_ln_act", L, K, pool)
     seed_t = _seed_tensor(seed, x.device) if drop > 0.0 else None
     out = torch.empty((N, M, O), device=x.device, dtype=torch.float32)
-    idx = stats = None
+    idx = stats = ypool = None
     if residuals:
         idx = torch.empty((N, M, O), device=x.device, dtype=torch.int8)
         stats = torch.empty((N, 2, O), device=x.device, dtype=torch.float32)
+        ypool = torch.empty_like(out)
     threshold, scale, on = _drop_args(drop)
     fn = _launch.entry(LN_SOURCE, "conv_ln_fwd",
-                       [_P] * 9 + [_I] * 5 + [_F, _I, _U, _F, _I])
+                       [_P] * 10 + [_I] * 5 + [_F, _I, _U, _F, _I])
     _launch.call("conv_ln_fwd", fn, x.device,
                  (x.data_ptr(), w.data_ptr(), bias.data_ptr(), gt.data_ptr(),
                   bt.data_ptr(), _ptr(seed_t), out.data_ptr(), _ptr(idx),
-                  _ptr(stats), N, L, K, O, pool, eps, int(relu), threshold,
-                  scale, on), f"N={N}, L={L}, K={K}, O={O}, pool={pool}")
+                  _ptr(stats), _ptr(ypool), N, L, K, O, pool, eps, int(relu),
+                  threshold, scale, on),
+                 f"N={N}, L={L}, K={K}, O={O}, pool={pool}")
     ln_launches += 1
-    return out, idx, stats
+    return out, idx, stats, ypool
 
 
 def conv1d_pool_ln_act_bwd(
     x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, gt: torch.Tensor,
     bt: torch.Tensor, seed: Seed, idx: torch.Tensor, stats: torch.Tensor,
-    dz: torch.Tensor, pool: int, eps: float, relu: bool, drop: float,
-) -> Tuple[torch.Tensor, ...]:
-    """(dx, dw, dbias, dgt, dbt): K6b on CUDA tensors (dbias the exact zero),
-    the plain version on CPU."""
+    ypool: Optional[torch.Tensor], dz: torch.Tensor, pool: int, eps: float,
+    relu: bool, drop: float, need_dx: bool = True,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dx, dw, dbias, dgt, dbt): K6b on CUDA tensors from the forward's
+    residuals idx, stats and ypool (dbias the exact zero), the plain version
+    on CPU (which recomputes the pooled value and takes no ypool); dx is
+    None, and its pass skipped, without `need_dx`."""
     global ln_bwd_launches
     N, L, K, O, M = _geometry("conv1d_pool_ln_act_bwd", x, w, pool)
     if x.device.type == "cpu":
         seed = int(seed) if drop > 0.0 else 0
         return conv1d_pool_ln_act_bwd_ref(x, w, bias, gt, bt, seed, idx,
-                                          stats, dz, pool, eps, relu, drop)
+                                          stats, dz, pool, eps, relu, drop,
+                                          need_dx)
     _kernel_pool("conv1d_pool_ln_act_bwd", pool)
+    if ypool is None:
+        raise ValueError("conv1d_pool_ln_act_bwd: the kernel reads K6f's "
+                         "ypool, which its forward writes with residuals")
     _launch.check_tensors(
         "conv1d_pool_ln_act_bwd", x=(x, (N, L), torch.float32),
         w=(w, (K, O), torch.float32), bias=(bias, (O,), torch.float32),
         gt=(gt, (M, O), torch.float32), bt=(bt, (M, O), torch.float32),
         idx=(idx, (N, M, O), torch.int8),
         stats=(stats, (N, 2, O), torch.float32),
+        ypool=(ypool, (N, M, O), torch.float32),
         dz=(dz, (N, M, O), torch.float32))
-    _ln_smem_check("conv1d_pool_ln_act_bwd", LN_BWD_SOURCE, L, K, pool)
     seed_t = _seed_tensor(seed, x.device) if drop > 0.0 else None
     f32 = dict(device=x.device, dtype=torch.float32)
     # scratch: the pooled gradient and the per-window terms of dgt and dbt
     # and of dw, summed over the windows in a second pass
     dyp, dgp, dbp = (torch.empty((N, M, O), **f32) for _ in range(3))
     dw_part = torch.empty((N, K, O), **f32)
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w)
     dgt = torch.empty_like(gt)
     dbt = torch.empty_like(bt)
     threshold, scale, on = _drop_args(drop)
     fn = _launch.entry(LN_BWD_SOURCE, "conv_ln_bwd",
-                       [_P] * 17 + [_I] * 5 + [_F, _I, _U, _F, _I])
+                       [_P] * 18 + [_I] * 5 + [_F, _I, _U, _F, _I])
     _launch.call("conv_ln_bwd", fn, x.device,
                  (x.data_ptr(), w.data_ptr(), bias.data_ptr(), gt.data_ptr(),
                   bt.data_ptr(), _ptr(seed_t), idx.data_ptr(),
-                  stats.data_ptr(), dz.data_ptr(), dyp.data_ptr(),
-                  dgp.data_ptr(), dbp.data_ptr(), dw_part.data_ptr(),
-                  dx.data_ptr(), dw.data_ptr(), dgt.data_ptr(), dbt.data_ptr(),
-                  N, L, K, O, pool, eps, int(relu), threshold, scale, on),
-                 f"N={N}, L={L}, K={K}, O={O}, pool={pool}")
+                  stats.data_ptr(), ypool.data_ptr(), dz.data_ptr(),
+                  dyp.data_ptr(), dgp.data_ptr(), dbp.data_ptr(),
+                  dw_part.data_ptr(), _ptr(dx), dw.data_ptr(), dgt.data_ptr(),
+                  dbt.data_ptr(), N, L, K, O, pool, eps, int(relu), threshold,
+                  scale, on), f"N={N}, L={L}, K={K}, O={O}, pool={pool}")
     ln_bwd_launches += 1
     return dx, dw, torch.zeros_like(bias), dgt, dbt
 
 
 class ConvPool(torch.autograd.Function):
-    """y = conv1d_pool(x, w, pool) with K5b as its gradient; saves (x, w,
-    idx), as tpukaldi's `_conv_pool_vjp_fwd` does."""
+    """y = conv1d_pool(x, w, pool) with K5b as its gradient (dx only where x
+    needs one); saves (x, w, idx), as tpukaldi's `_conv_pool_vjp_fwd`
+    does."""
 
     @staticmethod
     def forward(ctx, x, w, pool):
@@ -417,29 +437,30 @@ class ConvPool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, idx = ctx.saved_tensors
-        dx, dw = conv1d_pool_bwd(x, dy.contiguous(), idx, w, ctx.pool)
+        dx, dw = conv1d_pool_bwd(x, dy.contiguous(), idx, w, ctx.pool,
+                                 ctx.needs_input_grad[0])
         return dx, dw, None
 
 
 class ConvPoolLnAct(torch.autograd.Function):
     """out = conv1d_pool_ln_act(x, w, bias, gt, bt, seed, ...) with K6b as
-    its gradient; saves (x, w, bias, gt, bt, seed, idx, stats), as
-    tpukaldi's `_fused_vjp_fwd` does (no mask: the backward rebuilds it)."""
+    its gradient (dx only where x needs one); saves (x, w, bias, gt, bt,
+    seed, idx, stats), as tpukaldi's `_fused_vjp_fwd` does (no mask: the
+    backward rebuilds it), and on the card K6f's ypool."""
 
     @staticmethod
     def forward(ctx, x, w, bias, gt, bt, seed, pool, eps, relu, drop):
-        out, idx, stats = conv1d_pool_ln_act(x, w, bias, gt, bt, seed, pool,
-                                             eps, relu, drop)
+        out, idx, stats, ypool = conv1d_pool_ln_act(x, w, bias, gt, bt, seed,
+                                                    pool, eps, relu, drop)
         seed_t = seed if isinstance(seed, torch.Tensor) else torch.tensor(seed)
-        ctx.save_for_backward(x, w, bias, gt, bt, seed_t, idx, stats)
+        ctx.save_for_backward(x, w, bias, gt, bt, seed_t, idx, stats, ypool)
         ctx.args = (pool, eps, relu, drop)
         return out
 
     @staticmethod
     def backward(ctx, dz):
-        x, w, bias, gt, bt, seed, idx, stats = ctx.saved_tensors
-        grads = conv1d_pool_ln_act_bwd(x, w, bias, gt, bt, seed, idx, stats,
-                                       dz.contiguous(), *ctx.args)
+        grads = conv1d_pool_ln_act_bwd(*ctx.saved_tensors, dz.contiguous(),
+                                       *ctx.args, ctx.needs_input_grad[0])
         return (*grads, None, None, None, None, None)
 
 

@@ -25,7 +25,8 @@ layouts: x (N, L), w0 (K0, O0), gt0 and bt0 (M0, O0), per upper layer
 time-major; the result (N, M_last, O_last)).  On a CUDA tensor its forward
 launches K6f for layer 0 and then `csrc/conv_stack_fwd.cu` (K7f) once per
 upper layer; its backward launches `csrc/conv_stack_bwd.cu` (K7b) per upper
-layer from the top down, then K6b for layer 0; or they raise.  On a CPU
+layer from the top down, then K6b for layer 0 on K6f's saved pooled value
+(dx only where x needs a gradient); or they raise.  On a CPU
 tensor they run the plain versions (`conv_stack_ref`,
 `conv_stack_bwd_ref`), which follow tpukaldi's `_stack_fwd_kernel` and
 `_stack_bwd_kernel`.  Every conv bias's gradient is an exact zero: the
@@ -271,17 +272,19 @@ def _seed_of(seed: Seed, drops: Sequence[float], device):
 def conv_stack_fwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
                    pools: Sequence[int], eps: float, relu: bool,
                    drops: Sequence[float], residuals: bool = True):
-    """(out, idx0, stats0, per upper layer (input h, idx, stats)): K6f and
-    K7f on a CUDA tensor (without `residuals`, for inference, none of idx,
-    stats and the inputs are kept), the plain version on CPU.  Builds no
-    autograd graph: `ConvStack` is the differentiable entry."""
+    """(out, idx0, stats0, ypool0, per upper layer (input h, idx, stats)):
+    K6f and K7f on a CUDA tensor (without `residuals`, for inference, none
+    of idx, stats, ypool0 and the inputs are kept), the plain version on
+    CPU (ypool0 None: its backward recomputes layer 0's pooled value).
+    Builds no autograd graph: `ConvStack` is the differentiable entry."""
     global launches
     geo = _geometry(x, w0, bias0, gt0, bt0, ups, pools, drops)
     seed = _seed_of(seed, drops, x.device)
     if x.device.type == "cpu":
-        return conv_stack_ref(x, w0, bias0, gt0, bt0, ups, seed, pools, eps,
-                              relu, drops)
-    z, idx0, stats0 = conv1d.conv1d_pool_ln_act(
+        out, idx0, stats0, res = conv_stack_ref(x, w0, bias0, gt0, bt0, ups,
+                                                seed, pools, eps, relu, drops)
+        return out, idx0, stats0, None, res
+    z, idx0, stats0, ypool0 = conv1d.conv1d_pool_ln_act(
         x, w0, bias0, gt0, bt0, 0 if seed is None else seed, pools[0], eps,
         relu, drops[0], residuals)
     fn = _launch.entry(SOURCE, "stack_upper_fwd",
@@ -312,22 +315,25 @@ def conv_stack_fwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
         res.append((z if residuals else None, idx, stats))
         z = out
     launches += 1
-    return z, idx0, stats0, tuple(res)
+    return z, idx0, stats0, ypool0, tuple(res)
 
 
 def conv_stack_bwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
-                   idx0, stats0, ups_res: Sequence[UpperRes], dz,
+                   idx0, stats0, ypool0, ups_res: Sequence[UpperRes], dz,
                    pools: Sequence[int], eps: float, relu: bool,
-                   drops: Sequence[float]):
+                   drops: Sequence[float], need_dx: bool = True):
     """(dx, dw0, dbias0, dgt0, dbt0, per upper layer (dW, dbias, dgamma,
-    dbeta)): K7b and K6b on CUDA tensors (every dbias the exact zero), the
-    plain version on CPU."""
+    dbeta)): K7b and K6b on CUDA tensors (every dbias the exact zero; K6b
+    reads ypool0), the plain version on CPU (which takes no ypool0); dx is
+    None without `need_dx`."""
     global bwd_launches
     geo = _geometry(x, w0, bias0, gt0, bt0, ups, pools, drops)
     seed = _seed_of(seed, drops, x.device)
     if x.device.type == "cpu":
-        return conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups, seed, idx0,
-                                  stats0, ups_res, dz, pools, eps, relu, drops)
+        *grads0, dups = conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups, seed,
+                                           idx0, stats0, ups_res, dz, pools,
+                                           eps, relu, drops)
+        return ((grads0[0] if need_dx else None), *grads0[1:], dups)
     fn = _launch.entry(BWD_SOURCE, "stack_upper_bwd",
                        [_P] * 17 + [_I] * 7 + [_U, _F, _I, _U, _F, _I])
     N = x.shape[0]
@@ -366,8 +372,8 @@ def conv_stack_bwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
         dups.append((dw, torch.zeros_like(b), dg, dbe))
         d = dh
     grads0 = conv1d.conv1d_pool_ln_act_bwd(
-        x, w0, bias0, gt0, bt0, 0 if seed is None else seed, idx0, stats0, d,
-        pools[0], eps, relu, drops[0])
+        x, w0, bias0, gt0, bt0, 0 if seed is None else seed, idx0, stats0,
+        ypool0, d, pools[0], eps, relu, drops[0], need_dx)
     bwd_launches += 1
     return (*grads0, tuple(reversed(dups)))
 
@@ -378,19 +384,19 @@ def _unflatten(flat, n: int):
 
 class ConvStack(torch.autograd.Function):
     """out = the stack, with K7b (and K6b) as its gradient; saves the
-    inputs, the forward's idx and stats of every layer and each upper
-    layer's input.  The upper layers' tensors come flattened after the
-    static arguments, four per layer."""
+    inputs, the forward's idx and stats of every layer, layer 0's pooled
+    value and each upper layer's input.  The upper layers' tensors come
+    flattened after the static arguments, four per layer."""
 
     @staticmethod
     def forward(ctx, x, w0, bias0, gt0, bt0, seed, pools, eps, relu, drops,
                 *ups_flat):
         ups = _unflatten(ups_flat, 4)
-        out, idx0, stats0, res = conv_stack_fwd(x, w0, bias0, gt0, bt0, ups,
-                                                seed, pools, eps, relu, drops)
+        out, idx0, stats0, ypool0, res = conv_stack_fwd(
+            x, w0, bias0, gt0, bt0, ups, seed, pools, eps, relu, drops)
         seed_t = seed if isinstance(seed, torch.Tensor) else torch.tensor(seed)
         ctx.save_for_backward(x, w0, bias0, gt0, bt0, seed_t, idx0, stats0,
-                              *ups_flat, *(t for r in res for t in r))
+                              ypool0, *ups_flat, *(t for r in res for t in r))
         ctx.args = (pools, eps, relu, drops)
         ctx.n_flat = len(ups_flat)
         return out
@@ -398,11 +404,12 @@ class ConvStack(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz):
         saved = ctx.saved_tensors
-        x, w0, bias0, gt0, bt0, seed, idx0, stats0 = saved[:8]
-        ups = _unflatten(saved[8:8 + ctx.n_flat], 4)
-        res = _unflatten(saved[8 + ctx.n_flat:], 3)
-        *grads0, dups = conv_stack_bwd(x, w0, bias0, gt0, bt0, ups, seed, idx0,
-                                       stats0, res, dz.contiguous(), *ctx.args)
+        first = saved[:9]
+        ups = _unflatten(saved[9:9 + ctx.n_flat], 4)
+        res = _unflatten(saved[9 + ctx.n_flat:], 3)
+        *grads0, dups = conv_stack_bwd(*first[:5], ups, *first[5:], res,
+                                       dz.contiguous(), *ctx.args,
+                                       ctx.needs_input_grad[0])
         return (*grads0, None, None, None, None, None,
                 *(t for u in dups for t in u))
 

@@ -11,9 +11,9 @@
 //
 // keep = tpukaldi's hash of (seed, window n, element m * O + o) below the
 // threshold (conv_tile.cuh::drop_keep).  Writes out (N, M, O) and, when
-// they are not null (training), idx (N, M, O) int8 and stats (N, 2, O) =
-// (mu, s), which K6b reads.  float32 throughout; seed is an int32 on the
-// device.
+// they are not null (training), idx (N, M, O) int8, stats (N, 2, O) = (mu,
+// s) and ypool (N, M, O), the pooled conv value before the bias, which K6b
+// reads.  float32 throughout; seed is an int32 on the device.
 //
 // Design: one block per (window n, tile of 32 filters), 16 warps.  The
 // block stages the whole window and the tile's weights in shared memory,
@@ -27,8 +27,8 @@
 //
 // What bounds it: the conv's 2 N (L-K+1) K O flops (13 GFLOP at the
 // training batch (128, 3200, 129, 128), 0.2 ms at 67 TFLOP/s) against the
-// bytes of x, gt, bt, out, idx and stats (86 MB there, 0.03 ms); serving
-// writes out alone, 13 GB for 24,896 windows.
+// bytes of x, gt, bt, out, idx, stats and ypool (153 MB there, 0.05 ms);
+// serving writes out alone, 13 GB for 24,896 windows.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,9 +42,9 @@ conv_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ gt,
                    const float* __restrict__ bt, const int* __restrict__ seed_p,
                    float* __restrict__ out, int8_t* __restrict__ idx,
-                   float* __restrict__ stats, int L, int K, int O, int M,
-                   int pool, float eps, int relu, uint32_t threshold,
-                   float scale, int drop_on) {
+                   float* __restrict__ stats, float* __restrict__ ypool, int L,
+                   int K, int O, int M, int pool, float eps, int relu,
+                   uint32_t threshold, float scale, int drop_on) {
   extern __shared__ float smem[];
   const int Kp = tpk::padded_taps(K);
   const int R = tpk::run_rows(pool);
@@ -74,7 +74,9 @@ conv_ln_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (row < M) {
         ys[row * tpk::kFilt + lane] = m + b0;
         if (idx != nullptr && active) {
-          idx[win + static_cast<size_t>(row) * O + o] = static_cast<int8_t>(arg);
+          const size_t e = win + static_cast<size_t>(row) * O + o;
+          idx[e] = static_cast<int8_t>(arg);
+          ypool[e] = m;
         }
       }
     });
@@ -119,15 +121,15 @@ extern "C" long tpk_conv_ln_smem_bytes(int L, int K, int pool) {
 }
 
 // Launches on `stream` and returns cudaGetLastError(): a refused launch
-// never runs, and only this return value reports it.  idx and stats may be
-// null (inference).
+// never runs, and only this return value reports it.  idx, stats and
+// ypool are all null (inference) or none is (training).
 extern "C" int tpk_conv_ln_fwd(const float* x, const float* w,
                                const float* bias, const float* gt,
                                const float* bt, const int* seed, float* out,
-                               int8_t* idx, float* stats, int N, int L, int K,
-                               int O, int pool, float eps, int relu,
-                               unsigned threshold, float scale, int drop_on,
-                               cudaStream_t stream) {
+                               int8_t* idx, float* stats, float* ypool, int N,
+                               int L, int K, int O, int pool, float eps,
+                               int relu, unsigned threshold, float scale,
+                               int drop_on, cudaStream_t stream) {
   if (!tpk::geometry_ok(N, L, K, O, pool)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -140,7 +142,7 @@ extern "C" int tpk_conv_ln_fwd(const float* x, const float* w,
   const int M = (L - K + 1) / pool;
   const dim3 grid(N, (O + tpk::kFilt - 1) / tpk::kFilt);
   conv_ln_fwd_kernel<<<grid, tpk::kLnWarps * 32, smem, stream>>>(
-      x, w, bias, gt, bt, seed, out, idx, stats, L, K, O, M, pool, eps, relu,
-      threshold, scale, drop_on);
+      x, w, bias, gt, bt, seed, out, idx, stats, ypool, L, K, O, M, pool, eps,
+      relu, threshold, scale, drop_on);
   return static_cast<int>(cudaGetLastError());
 }

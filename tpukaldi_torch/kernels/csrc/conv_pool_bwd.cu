@@ -9,17 +9,24 @@
 //     dx[n, t] = sum_o sum_k dconv[n, t - k, o] * w[k, o]
 //     dw[k, o] = sum_n sum_m x[n, m * pool + idx[n, m, o] + k] * dy[n, m, o]
 //
-// in float32, three passes (conv_pool_bwd.cuh): dX in gather form, one thread
-// per sample, over a shared tile of the scattered gradient (no atomics);
-// each window's share of dW, summed in levels of at most 32 terms (16 rows,
-// 32 stages, blocks), into dw_part (N, K, O); then the windows, 32 at a
-// time.  A replayed step gives the same bits.  The Pallas kernel keeps dW
-// in an output block resident over its sequential grid; Hopper's blocks run
-// in no order, hence the partials and the second pass.
+// in float32, three passes (conv_pool_bwd.cuh): dX in gather form, only
+// where the caller asks for it (a null dx skips it, for an input that
+// needs no gradient, such as a waveform fed in as it is), each thread
+// kDxRun consecutive samples over a shared tile of the scattered gradient
+// (no atomics); each window's share of dW, summed in levels of at most 32
+// terms (16 rows, 32 stages, blocks), into dw_part (N, K, O); then the
+// windows, 32 at a time.  A replayed step gives the same bits, and dw is
+// the same with or without dx.  The Pallas kernel keeps dW in an output
+// block resident over its sequential grid; Hopper's blocks run in no
+// order, hence the partials and the second pass.
 //
-// What bounds it: dX's N L K O fmaf (6.8 G at the training batch (128,
-// 3200, 129, 128), 0.2 ms at 67 TFLOP/s) and dW's N M K O; the dX pass
-// reads two shared words per fmaf, which sets its pace.
+// What bounds it: dW's 2 N M K O flops (2.7 GFLOP at the training batch
+// (128, 3200, 129, 80), 0.04 ms at 67 TFLOP/s) and, where dX is asked for,
+// as many again (a third of the dense N L K O fmaf the gather form runs).
+// The dX pass runs the dense form at a quarter of a shared load per fmaf
+// (a sliding window of kTapChunk new samples and two 16-byte weight
+// broadcasts per kDxRun x kTapChunk fmaf); the dW pass at about one
+// shared word per fmaf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,7 +35,7 @@
 
 // Launches on `stream` and returns cudaGetLastError(): a refused launch
 // never runs, and only this return value reports it.  dw_part is scratch
-// of N * K * O floats.
+// of N * K * O floats; dx may be null (no dX pass).
 extern "C" int tpk_conv_pool_bwd(const float* x, const float* dy,
                                  const int8_t* idx, const float* w,
                                  float* dw_part, float* dx, float* dw, int N,

@@ -1,8 +1,8 @@
 // The conv-pool backward passes that K5b (conv_pool_bwd.cu) and K6b
 // (conv_ln_bwd.cu) share: from the pooled gradient dy (N, M, O) and the
-// forward's argmax idx (N, M, O) int8, dX (N, L) in gather form and dW (K,
-// O) through per-window partials and a window sum.  No atomics: a replayed
-// step gives the same bits.
+// forward's argmax idx (N, M, O) int8, dX (N, L) in gather form, where a
+// caller asks for it, and dW (K, O) through per-window partials and a
+// window sum.  No atomics: a replayed step gives the same bits.
 
 #pragma once
 
@@ -15,62 +15,114 @@ namespace tpk {
 
 // taps a warp of the dW pass owns: k = warp + kDwWarps * i, i < kDwTaps
 constexpr int kDwWarps = 8;
-constexpr int kDwTaps = (kMaxTaps + kTapChunk - 1) / kTapChunk * kTapChunk / kDwWarps;
-constexpr int kDxSamples = 256;  // samples of dX per block, one per thread
+constexpr int kDwTaps = (kMaxTaps + kDwWarps - 1) / kDwWarps;
 
-// dX of one window, in gather form (no atomics): block (n, sample block),
-// thread = sample t.  Per filter tile the pooled gradient is scattered
-// through idx onto the conv positions the block's samples reach,
-// dct[c][s - sbeg], then dx[t] = sum over filters c and taps k of
-// dct[c][t - k] * w[k, c], in that order.
-__global__ void __launch_bounds__(kDxSamples)
-conv_pool_dx_kernel(const float* __restrict__ dy, const int8_t* __restrict__ idx,
-                    const float* __restrict__ w, float* __restrict__ dx, int L,
-                    int K, int O, int M, int pool) {
+// The dX pass, register-tiled: a thread computes kDxRun consecutive
+// samples.  kDxRun is odd, so the 32 lanes of a warp, kDxRun words apart,
+// read 32 distinct shared-memory banks.
+constexpr int kDxRun = 5;
+constexpr int kDxThreads = 128;
+constexpr int kDxSpan = kDxRun * kDxThreads;  // samples of dX per block
+constexpr int kDxFilt = 8;                    // filters per shared tile
+
+// conv positions a dX block reads: its samples and the Kp - 1 before them
+inline __host__ __device__ int dx_width(int Kp) { return kDxSpan + Kp - 1; }
+
+// dX of one window, in gather form (no atomics): block (n, span of kDxSpan
+// samples), thread = kDxRun consecutive samples t.  Per tile of kDxFilt
+// filters the pooled gradient is scattered through idx onto the conv
+// positions the block's samples reach, dct[c][s - sbeg], and the tile's
+// weights are staged transposed, wt[c][k]; then
+//
+//     dx[t] = sum over filters o, then taps k < Kp, of dconv[t - k, o] w[k, o]
+//
+// one fmaf chain per sample in that order (the taps K .. Kp - 1 carry zero
+// weights and add exact zeros).  Per filter and chunk of kTapChunk taps a
+// thread loads kTapChunk new dconv values into a sliding register window
+// (the rest slide over from the chunk before) and the chunk's weights as
+// two 16-byte broadcasts, for kDxRun * kTapChunk fmaf.
+__global__ void __launch_bounds__(kDxThreads)
+conv_pool_dx_tile_kernel(const float* __restrict__ dy,
+                         const int8_t* __restrict__ idx,
+                         const float* __restrict__ w, float* __restrict__ dx,
+                         int L, int K, int O, int M, int pool) {
   extern __shared__ float smem[];
+  constexpr int kWin = kDxRun + kTapChunk - 1;
   const int Kp = padded_taps(K);
-  const int width = kDxSamples + K - 1;  // conv positions t0 - K + 1 .. t0 + 255
-  float* dct = smem;                      // kFilt * width
-  float* ws = dct + kFilt * width;        // Kp * kFilt
+  const int width = dx_width(Kp);
+  float* wt = smem;                 // kDxFilt x Kp, 32-byte rows
+  float* dct = wt + kDxFilt * Kp;   // kDxFilt x width
   const int n = blockIdx.x;
-  const int t0 = blockIdx.y * kDxSamples;
-  const int sbeg = t0 - (K - 1);
-  const int send = t0 + kDxSamples;  // exclusive
+  const int t0 = blockIdx.y * kDxSpan;
+  const int sbeg = t0 - (Kp - 1);  // dct[c][i] is dconv at position sbeg + i
+  const int send = t0 + kDxSpan;   // exclusive
   const int pbeg = sbeg > 0 ? sbeg / pool : 0;
   const int pend = min(M, (send - 1) / pool + 1);  // exclusive
   const size_t win = static_cast<size_t>(n) * M * O;
   const int tid = threadIdx.x;
-  float acc = 0.0f;
-  for (int o0 = 0; o0 < O; o0 += kFilt) {
+  const int lt = tid * kDxRun;  // the thread's first sample, from t0
+  float acc[kDxRun];
+#pragma unroll
+  for (int j = 0; j < kDxRun; ++j) acc[j] = 0.0f;
+  for (int o0 = 0; o0 < O; o0 += kDxFilt) {
     __syncthreads();  // the previous tile's reads are done
-    for (int i = tid; i < kFilt * width; i += blockDim.x) dct[i] = 0.0f;
-    load_filters(w, K, O, o0, Kp, ws);
+    for (int i = tid; i < kDxFilt * width; i += kDxThreads) dct[i] = 0.0f;
+    for (int i = tid; i < kDxFilt * Kp; i += kDxThreads) {
+      const int k = i % Kp;
+      const int o = o0 + i / Kp;
+      wt[i] = (k < K && o < O) ? w[static_cast<size_t>(k) * O + o] : 0.0f;
+    }
     __syncthreads();
-    for (int i = tid; i < (pend - pbeg) * kFilt; i += blockDim.x) {
-      const int p = pbeg + i / kFilt;
-      const int c = i % kFilt;
-      const int o = o0 + c;
+    for (int i = tid; i < (pend - pbeg) * kDxFilt; i += kDxThreads) {
+      const int p = pbeg + i / kDxFilt;
+      const int o = o0 + i % kDxFilt;
       if (o < O) {
         const size_t e = win + static_cast<size_t>(p) * O + o;
         const int s = p * pool + idx[e];
-        if (s >= sbeg && s < send) dct[c * width + s - sbeg] = dy[e];
+        if (s >= sbeg && s < send) dct[(i % kDxFilt) * width + s - sbeg] = dy[e];
       }
     }
     __syncthreads();
-    const float* col = dct + tid + K - 1;  // col[-k] = dconv at t0 + tid - k
-    for (int c = 0; c < kFilt; ++c) {
-      for (int k = 0; k < K; ++k) {
-        acc = fmaf(col[c * width - k], ws[k * kFilt + c], acc);
+    for (int c = 0; c < kDxFilt; ++c) {
+      // xr[i] = dct[c][lt + Kp - kTapChunk - k0 + i] for the chunk k0: the
+      // product of sample lt + j and tap k0 + kk reads xr[j + 7 - kk]
+      const float* col = dct + c * width + lt + Kp - kTapChunk;
+      const float4* wc = reinterpret_cast<const float4*>(wt + c * Kp);
+      float xr[kWin];
+#pragma unroll
+      for (int i = 0; i < kWin; ++i) xr[i] = col[i];
+      for (int k0 = 0; k0 < Kp; k0 += kTapChunk) {
+        const float4 wa = wc[k0 / 4];
+        const float4 wb = wc[k0 / 4 + 1];
+        const float wr[kTapChunk] = {wa.x, wa.y, wa.z, wa.w,
+                                     wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+        for (int kk = 0; kk < kTapChunk; ++kk) {
+#pragma unroll
+          for (int j = 0; j < kDxRun; ++j) {
+            acc[j] = fmaf(xr[j + kTapChunk - 1 - kk], wr[kk], acc[j]);
+          }
+        }
+        if (k0 + kTapChunk < Kp) {
+          // the next chunk's window starts kTapChunk positions earlier
+#pragma unroll
+          for (int i = kWin - 1; i >= kTapChunk; --i) xr[i] = xr[i - kTapChunk];
+#pragma unroll
+          for (int i = 0; i < kTapChunk; ++i) xr[i] = col[i - k0 - kTapChunk];
+        }
       }
     }
   }
-  const int t = t0 + tid;
-  if (t < L) dx[static_cast<size_t>(n) * L + t] = acc;
+#pragma unroll
+  for (int j = 0; j < kDxRun; ++j) {
+    const int t = t0 + lt + j;
+    if (t < L) dx[static_cast<size_t>(n) * L + t] = acc[j];
+  }
 }
 
 inline size_t dx_smem_bytes(int K) {
-  return (static_cast<size_t>(kFilt) * (kDxSamples + K - 1) +
-          static_cast<size_t>(padded_taps(K)) * kFilt) * sizeof(float);
+  const int Kp = padded_taps(K);
+  return static_cast<size_t>(kDxFilt) * (Kp + dx_width(Kp)) * sizeof(float);
 }
 
 // the dW pass reads taps up to kDwWarps * kDwTaps - 1 past a row's argmax
@@ -187,6 +239,7 @@ inline cudaError_t launch_reduce(const float* part, int N, size_t E,
 }
 
 // The conv-pool backward from the pooled gradient dy and idx: dx (N, L),
+// skipped where dx is null (a caller whose input needs no gradient), and
 // dw (K, O) through the per-window partials dw_part (N, K, O)
 inline cudaError_t launch_conv_pool_bwd(const float* x, const float* dy,
                                         const int8_t* idx, const float* w,
@@ -198,18 +251,21 @@ inline cudaError_t launch_conv_pool_bwd(const float* x, const float* dy,
   const size_t dx_smem = dx_smem_bytes(K);
   const size_t dw_smem = dw_smem_bytes(M, pool);
   if (dx_smem > kMaxSmem || dw_smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_pool_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(dx_smem));
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  if (dx != nullptr) {
+    err = cudaFuncSetAttribute(conv_pool_dx_tile_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(dx_smem));
+    if (err != cudaSuccess) return err;
+    const dim3 dx_grid(N, (L + kDxSpan - 1) / kDxSpan);
+    conv_pool_dx_tile_kernel<<<dx_grid, kDxThreads, dx_smem, stream>>>(
+        dy, idx, w, dx, L, K, O, M, pool);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   err = cudaFuncSetAttribute(conv_pool_dw_part_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dw_smem));
-  if (err != cudaSuccess) return err;
-  const dim3 dx_grid(N, (L + kDxSamples - 1) / kDxSamples);
-  conv_pool_dx_kernel<<<dx_grid, kDxSamples, dx_smem, stream>>>(
-      dy, idx, w, dx, L, K, O, M, pool);
-  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   conv_pool_dw_part_kernel<<<dim3(N, tiles), kDwWarps * 32, dw_smem, stream>>>(
       x, dy, idx, dw_part, L, K, O, M, pool);

@@ -1,9 +1,8 @@
 // What the raw-waveform layer-0 kernels share (conv_pool_fwd.cu K5f,
 // conv_pool_bwd.cu K5b, conv_ln_fwd.cu K6f, conv_ln_bwd.cu K6b): the window
-// and filter loads, the conv of a run of positions, its max-pool, the
-// single-position conv that the backward's remat calls, the layer norm's
-// affine step and block sums, and the dropout hash.  The backwards' dX and
-// dW passes are in conv_pool_bwd.cuh.
+// and filter loads, the conv of a run of positions, its max-pool, the layer
+// norm's affine step and block sums, and the dropout hash.  The backwards'
+// dX and dW passes are in conv_pool_bwd.cuh.
 //
 // Layouts (tpukaldi's): x (N, L) float32, w (K, O) float32, pooled outputs
 // and their gradients (N, M, O) with M = (L - K + 1) / pool, idx (N, M, O)
@@ -11,12 +10,11 @@
 // lanes of a warp read one x sample (a broadcast) and kFilt consecutive
 // weights (no bank conflict) from shared memory.
 //
-// Bit-equal remat: the forward computes each conv value as one chain of
-// fmaf over the taps k = 0 .. Kp - 1 in order (conv_run), and the backward's
-// conv_at runs the same chain for one position, so the pooled value K6b
-// recomputes through idx equals the one K6f normalised, bit for bit, and the
-// relu gate opens where the forward's did.  Taps K .. Kp - 1 carry zero
+// The forward computes each conv value as one chain of fmaf over the taps
+// k = 0 .. Kp - 1 in order (conv_run).  Taps K .. Kp - 1 carry zero
 // weights, and the window is zero-padded past L, so they add exact zeros.
+// K6f saves the pooled value in training, so K6b normalises the same bits
+// and opens the relu gate where the forward did.
 
 #pragma once
 
@@ -84,14 +82,6 @@ __device__ __forceinline__ void conv_run(const float* xs, const float* ws,
       for (int j = 0; j < kRun; ++j) acc[j] = fmaf(xr[j + kk], wr[kk], acc[j]);
     }
   }
-}
-
-// the same chain for the one conv position s
-__device__ __forceinline__ float conv_at(const float* xs, const float* ws,
-                                         int s, int col, int Kp) {
-  float acc = 0.0f;
-  for (int k = 0; k < Kp; ++k) acc = fmaf(xs[s + k], ws[k * kFilt + col], acc);
-  return acc;
 }
 
 // Max-pool a run: for each of its run_rows(pool) rows, emit(row, max,

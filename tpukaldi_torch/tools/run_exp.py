@@ -213,6 +213,29 @@ def run_experiment(
     device="cuda",
 ) -> ExperimentConfig:
     device = resolve_device(device)
+    # TPUKALDI_PROFILE_DIR: a profiler trace of the whole run, written when
+    # it ends, by an exception too (tpukaldi/tools/run_exp.py:91-110)
+    profile_dir = os.environ.get("TPUKALDI_PROFILE_DIR")
+    if not profile_dir:
+        return _run_experiment(cfg_file, overrides, device)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return _run_experiment(cfg_file, overrides, device)
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"run_exp_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+
+
+def _run_experiment(cfg_file: str, overrides: Optional[List[str]],
+                    device) -> ExperimentConfig:
     exp = load_config(cfg_file, overrides=overrides)
     # what the port cannot run raises before any output is written
     check_run_knobs(exp)
