@@ -65,7 +65,9 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    (`need_dx=False`, for a layer 0 whose input needs no gradient): their
    other gradients bitwise equal between the two, and two calls bitwise
    equal.  K6 also at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440,
-   K=10, O=80, pool 3, drop 0.15).  Beside each kernel: the least time the card could take for the
+   K=10, O=80, pool 3, drop 0.15).  K5f and K6f also at forced ties (x
+   and w in {-1, 0, 1}: the argmax exactly the plain version's) and on
+   their launch's other paths (row blocks, one pooled-row buffer).  Beside each kernel: the least time the card could take for the
    same work (bytes or operations, at the published peaks), and a library
    yardstick the port never calls: cuDNN's LSTM at mask 1 for K2f and K4f
    (float32, bf16) and its backward for K2b and K4b (input and recurrent
@@ -296,10 +298,31 @@ CONV_SERVE_PLAIN_N = 4000
 # in their own blocked order, held relative to each tensor's max
 CONV_ATOL = 1e-5
 CONV_GRAD_RTOL = 2e-5
+# K5f's and K6f's argmax against the plain version's on random inputs: a
+# conv value summed in another order flips a near-tie, at most this many
+# elements per call (both counted 0 at every conv shape in the runs before
+# the register tile, which keeps every chain; the stack's bound,
+# STACK_MAX_FLIPS).  Exact ties almost never occur in such inputs, so this
+# bound catches a misplaced window or a wrong sum order, not a wrong tie
+# rule: CONV_TIES holds that.
+CONV_MAX_FLIPS = 10
 CONV_DROP = 0.15  # CNN_raw's layer-0 dropout
 # cfg/TIMIT/CNN_fbank.cfg's layer 0, which the port routes to K6: spliced
 # fbank frames (40 x 11 = 440), K = 10, pool 3, 80 filters, batch 128
 CONV_FBANK = (128, 440, 10, 80, 3)
+# K5f's and K6f's first-match argmax where ties are common: x and w drawn
+# from {-1, 0, 1}, so every conv value is an integer, exact in any sum
+# order, and many pooling windows reach their max twice; the kernels'
+# argmax must be the plain version's at every element (a last-match rule
+# flips every tie) and their pooled values its bits.  At the training
+# window (the long block) and CNN_fbank's (the short block)
+CONV_TIES = ((16, 3200, 129, 80, 3), (16, 440, 10, 80, 3))
+# the forwards' other launch paths, held to the plain version: K5f in row
+# blocks (a long window at pool 1, its last block short) and K6f with one
+# pooled-row buffer; odd L, so the second window's start is not 16-byte
+# aligned and its span takes the plain per-thread load
+CONV_LONG_K5 = (2, 20001, 129, 16, 1)
+CONV_LONG_K6 = (2, 4501, 129, 20, 3)
 # the whole conv stack (K7f, K7b) at CNN_raw's shapes (its [architecture1]
 # cnn_* fields): the training batch of 128 windows and the serving batch;
 # a slice of the serving batch is held to the plain version
@@ -418,6 +441,23 @@ def median_ms(fn, reps: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """The device's ms a call of fn, without the host's share: n calls
+    queued behind a sleep of the card long enough for the host to launch
+    them all, between two events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the card's ~2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def _recurrence_inputs(cell, T, B, H, seed):
@@ -856,16 +896,32 @@ def _conv_inputs(N, L, K, O, pool, seed):
     return [t.cuda() for t in (x, w, bias, gt, bt, dy)]
 
 
+def _fwd_geometry(conv1d, name, N, L, K, O, pool) -> str:
+    """K5f's or K6f's tile and launch at a shape (`conv1d.fwd_plan`)."""
+    source = conv1d.SOURCE if name == "conv_pool_fwd" else conv1d.LN_SOURCE
+    p = conv1d.fwd_plan(source, N, L, K, O, pool)
+    return (f"tile {p['positions']} positions x {p['filters_per_thread']} "
+            f"filters a conv thread, {p['filters']} filters and "
+            f"{p['threads']} threads a block, {p['items']} items on a grid "
+            f"of {p['grid']}, {p['smem_bytes']} B shared, {p['buffers']} "
+            f"pooled-row buffers, {p['blocks_per_sm']} blocks per SM"
+            + (f", {p['rows']} rows an item, {p['row_blocks']} row blocks a "
+               f"window" if "rows" in p else ""))
+
+
 def conv_kernel_phase(conv1d) -> dict:
     """K5f/K5b and K6f/K6b against their plain versions: at the training
     batch for O = 80 and 128 (K6 also at drop 0.15, where kernel and plain
     version must drop the same elements), at an odd shape, and K5f/K6f on
-    the serving batch (a slice of its windows held to the plain version).
-    The backwards are held given the kernel's own idx (K6b also its own
+    the serving batch (a slice of its windows held to the plain version),
+    their argmax flips against the plain version's at most CONV_MAX_FLIPS
+    and each one's tile and launch printed beside its time.  The
+    backwards are held given the kernel's own idx (K6b also its own
     ypool): a sum in another order can flip a near-tie argmax, which moves
     a gradient to the neighbouring sample; each with dX and without (for
     a layer 0 whose input needs no gradient), whose other gradients must be
-    bitwise those with dX, and twice, bitwise equal.  Times: median of 5
+    bitwise those with dX, and twice, bitwise equal; then
+    `conv_fwd_edges`.  Times: median of 5
     launches, the plain version's of 3, the library composite's of 3.
     Returns {kernel name: record} at the recipe's shape (K5 at O = 80, K6
     at O = 128; the backwards with dX, as the raw recipes run them: their
@@ -937,7 +993,8 @@ def conv_kernel_phase(conv1d) -> dict:
                   + (f"max_abs_err={err:.3e} (atol {tol:g})"
                      + (" over out, stats and ypool"
                         if name == "conv_ln_fwd" else "")
-                     + f", argmax differs at {e[1]} of {z.numel()}" if fwd else
+                     + f", argmax differs at {e[1]} of {z.numel()} (at most "
+                       f"{CONV_MAX_FLIPS})" if fwd else
                      f"max_rel_err={err:.3e} of each gradient's max (rtol "
                      f"{tol:g}), given the kernel's idx; without dX the rest "
                      f"bitwise equal: {same[name][0]}; repeat bitwise equal: "
@@ -946,7 +1003,10 @@ def conv_kernel_phase(conv1d) -> dict:
                      if name == "conv_ln_fwd" and drop else ""), flush=True)
             check(math.isfinite(err) and err <= tol,
                   f"{name} disagrees with its plain version at {tag}: {err}")
-            if not fwd:
+            if fwd:
+                check(e[1] <= CONV_MAX_FLIPS, f"{name}'s argmax differs from "
+                      f"its plain version's at {e[1]} elements at {tag}")
+            else:
                 check(all(same[name]), f"{name} at {tag}: without dX or on a "
                       f"repeat, the gradients are not bitwise the same")
             r = rec.setdefault(name, {"err": 0.0})
@@ -955,7 +1015,13 @@ def conv_kernel_phase(conv1d) -> dict:
             check(dropped == 0, f"conv_ln_fwd drops other elements at {tag}")
         if (n_, l_, k_, o_, p_) == CONV_FBANK:
             # CNN_fbank's layer 0 in training (no recipe run of it here);
-            # its input, spliced features, needs no gradient
+            # its input, spliced features, needs no gradient.  A call here
+            # is short, so the host's share is much of its time alone: K6f
+            # also on the device alone, its seed a tensor on the card as
+            # the recipes pass it (an int's copy would wait for the queue)
+            seed_t = torch.tensor(seed, dtype=torch.int32, device="cuda")
+            dev_ms = queued_ms(lambda: conv1d.conv1d_pool_ln_act(
+                *ln[:5], seed_t, *ln[6:]))
             times = [(median_ms(lambda: conv1d.conv1d_pool_ln_act(*ln), 5),
                       conv_bound_ms("conv_ln_fwd", n_, l_, k_, o_, p_)[0]),
                      (median_ms(lambda: conv1d.conv1d_pool_ln_act_bwd(
@@ -963,8 +1029,11 @@ def conv_kernel_phase(conv1d) -> dict:
                       conv_bound_ms("conv_ln_bwd", n_, l_, k_, o_, p_,
                                     need_dx=False)[0])]
             print(f"kernel conv_ln_fwd/conv_ln_bwd at cfg/TIMIT/CNN_fbank.cfg's "
-                  f"layer 0 {tag} drop={drop}: K6f {times[0][0]:.3f} ms (bound "
-                  f"{times[0][1]:.4f} ms), K6b without dX {times[1][0]:.3f} ms "
+                  f"layer 0 {tag} drop={drop}: K6f {times[0][0]:.3f} ms "
+                  f"({dev_ms:.4f} ms a call on the device alone; bound "
+                  f"{times[0][1]:.4f} ms; "
+                  f"{_fwd_geometry(conv1d, 'conv_ln_fwd', n_, l_, k_, o_, p_)}"
+                  f"), K6b without dX {times[1][0]:.3f} ms "
                   f"(bound {times[1][1]:.4f} ms)", flush=True)
         if not train or drop:
             continue
@@ -1008,7 +1077,9 @@ def conv_kernel_phase(conv1d) -> dict:
                          f" {'with' if need_dx else 'without'} dX")
                       + f": kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                       f"library composite {lib_ms:.3f} ms, bound {bound:.3f} "
-                      f"ms ({by})", flush=True)
+                      f"ms ({by})"
+                      + (f"; {_fwd_geometry(conv1d, name, n_, l_, k_, o_, p_)}"
+                         if fwd else ""), flush=True)
                 own = o_ == (80 if name.startswith("conv_pool") else 128)
                 if own and need_dx:
                     rec[name].update(ms=ms, plain_ms=plain_ms,
@@ -1044,13 +1115,80 @@ def conv_kernel_phase(conv1d) -> dict:
               f"pool={pool}: max_abs_err={err:.3e} on {2 * n} windows (atol "
               f"{CONV_ATOL:g}); kernel {ms:.3f} ms ({M * O * 4 * CONV_SERVE_N / 1e9:.2f}"
               f" GB out, peak {peak:.2f} GiB), bound {bound:.3f} ms ({by}); "
-              f"plain at N={CONV_SERVE_PLAIN_N} {plain_ms:.3f} ms", flush=True)
+              f"plain at N={CONV_SERVE_PLAIN_N} {plain_ms:.3f} ms; "
+              f"{_fwd_geometry(conv1d, name, CONV_SERVE_N, L, K, O, pool)}",
+              flush=True)
         check(math.isfinite(err) and err <= CONV_ATOL,
               f"{name} disagrees with its plain version at serving: {err}")
         rec[name]["err"] = max(rec[name]["err"], err)
         del x
     torch.cuda.empty_cache()
+    conv_fwd_edges(conv1d)
     return rec
+
+
+def conv_fwd_edges(conv1d) -> None:
+    """K5f and K6f at forced ties (CONV_TIES: the argmax exactly the plain
+    version's, the pooled values its bits, out within CONV_ATOL) and on
+    their launch's other paths (CONV_LONG_K5, CONV_LONG_K6: within
+    CONV_ATOL, argmax flips at most CONV_MAX_FLIPS), each with its
+    launch printed."""
+    eps, seed = 1e-6, -12345
+    for n_, l_, k_, o_, p_ in CONV_TIES:
+        tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
+        g = torch.Generator().manual_seed(n_ + l_)
+        x = torch.randint(-1, 2, (n_, l_), generator=g).float().cuda()
+        w = torch.randint(-1, 2, (k_, o_), generator=g).float().cuda()
+        _, _, bias, gt, bt, _ = _conv_inputs(n_, l_, k_, o_, p_, n_ + l_)
+        ln = (x, w, bias, gt, bt, seed, p_, eps, True, 0.0)
+        with torch.inference_mode():
+            c = conv1d._conv(x, w)
+            M = c.shape[1] // p_
+            c4 = c[:, :M * p_].reshape(n_, M, p_, o_)
+            ties = ((c4 == c4.amax(2, keepdim=True)).sum(2) > 1).sum().item()
+            y, idx = conv1d.conv1d_pool(x, w, p_)
+            y_r, idx_r = conv1d.conv1d_pool_ref(x, w, p_)
+            z, idx6, _, ypool = conv1d.conv1d_pool_ln_act(*ln)
+            z_r, idx6_r, _ = conv1d.conv1d_pool_ln_act_ref(*ln)
+            flips = ((idx != idx_r).sum().item(), (idx6 != idx6_r).sum().item())
+            exact = torch.equal(y, y_r) and torch.equal(ypool, y_r)
+            err = (z - z_r).abs().max().item()
+        print(f"kernel conv_pool_fwd/conv_ln_fwd at forced ties {tag}: "
+              f"{ties} of {idx.numel()} pooled values reached twice or more; "
+              f"argmax differs at {flips[0]} (K5f) and {flips[1]} (K6f), "
+              f"must be 0; pooled values bitwise the plain version's: "
+              f"{exact}; K6f max_abs_err={err:.3e} (atol {CONV_ATOL:g}); K5f "
+              f"{_fwd_geometry(conv1d, 'conv_pool_fwd', n_, l_, k_, o_, p_)}"
+              f"; K6f {_fwd_geometry(conv1d, 'conv_ln_fwd', n_, l_, k_, o_, p_)}",
+              flush=True)
+        check(ties > 0 and flips == (0, 0) and exact and err <= CONV_ATOL,
+              f"K5f/K6f at forced ties {tag}: argmax flips {flips}, pooled "
+              f"values exact {exact}, K6f error {err}")
+    for name, (n_, l_, k_, o_, p_) in (("conv_pool_fwd", CONV_LONG_K5),
+                                       ("conv_ln_fwd", CONV_LONG_K6)):
+        tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
+        x, w, bias, gt, bt, _ = _conv_inputs(n_, l_, k_, o_, p_, n_ + l_)
+        with torch.inference_mode():
+            if name == "conv_pool_fwd":
+                y, idx = conv1d.conv1d_pool(x, w, p_)
+                y_r, idx_r = conv1d.conv1d_pool_ref(x, w, p_)
+                err = (y - y_r).abs().max().item()
+            else:
+                ln = (x, w, bias, gt, bt, seed, p_, eps, True, CONV_DROP)
+                y, idx, stats, ypool = conv1d.conv1d_pool_ln_act(*ln)
+                y_r, idx_r, stats_r = conv1d.conv1d_pool_ln_act_ref(*ln)
+                y6 = conv1d._pooled_at(conv1d._conv(x, w), idx, p_)
+                err = max((y - y_r).abs().max().item(),
+                          (stats - stats_r).abs().max().item(),
+                          (ypool - y6).abs().max().item())
+            flips = (idx != idx_r).sum().item()
+        print(f"kernel {name} {tag}: max_abs_err={err:.3e} (atol "
+              f"{CONV_ATOL:g}), argmax differs at {flips} of {idx.numel()} "
+              f"(at most {CONV_MAX_FLIPS}); "
+              f"{_fwd_geometry(conv1d, name, n_, l_, k_, o_, p_)}", flush=True)
+        check(math.isfinite(err) and err <= CONV_ATOL
+              and flips <= CONV_MAX_FLIPS,
+              f"{name} at {tag}: error {err}, argmax flips {flips}")
 
 
 def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):

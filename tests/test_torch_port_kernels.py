@@ -21,6 +21,7 @@ from tpukaldi_torch.kernels import _build
 from tpukaldi_torch.kernels import ligru as port
 from tpukaldi_torch.tools import (
     conv_bwd_phases,
+    conv_fwd_phases,
     ligru_bwd_phases,
     ligru_fwd_phases,
 )
@@ -236,6 +237,58 @@ def test_conv_bwd_phase_variants_cut_what_they_name():
         broken = {f: t.replace(line, "") for f, t in files.items()}
         with pytest.raises(ValueError, match="not in the sources once"):
             conv_bwd_phases.variant_files(broken)
+
+
+def test_conv_fwd_phase_variants_cut_what_they_name():
+    """`tools/conv_fwd_phases.py` builds K5f's and K6f's variants by
+    replacing lines across `csrc/conv_pool_fwd.cu`, `conv_ln_fwd.cu` and
+    their headers: each line is there once in all, each variant differs
+    from the sources, `conv only` cuts the pipeline's epilogue call and
+    `epilogue only` its conv, and the tilings change only the constant
+    they name."""
+    m = conv_fwd_phases
+    files = m.sources()
+    assert set(files) == set(m.FILES)
+    got = m.variant_files(files, m.VARIANTS)
+    assert got["as built"] == files
+    assert all(texts != files for name, texts in got.items()
+               if name != "as built")
+    cuts = {"epilogue": f"if (false) {m._EPI.lstrip()}",
+            "conv": f"if (false) {m._CONV.lstrip()}"}
+    want = {"conv only": {"epilogue"}, "epilogue only": {"conv"}}
+    for name, (_, exact) in m.VARIANTS.items():
+        assert exact == (name not in want), name
+        text = "".join(got[name].values())
+        assert {cut for cut, mark in cuts.items()
+                if mark in text} == want.get(name, set()), name
+    header = "conv_fwd.cuh"
+    changed = {"P 24 F 2": (header, ["kFwdRun = 24;", "kTileF = 2;"]),
+               "F 2": (header, ["kTileF = 2;"]),
+               "filters 32": (header, ["kFwdFilt = 32;"]),
+               "K5f warps 8 + 8": ("conv_pool_fwd.cu", ["FwdWarps<8, 8>;"]),
+               "K6f warps 12 + 4": ("conv_ln_fwd.cu", ["FwdWarps<12, 4>;"]),
+               "K6f warps 8 + 4": ("conv_ln_fwd.cu", ["FwdWarps<8, 4>;"]),
+               "long block only": (header, ["inline bool fwd_short(int M, "
+                                            "int pool) {\n  return false;"]),
+               "short block only": (header, ["inline bool fwd_short(int M, "
+                                             "int pool) {\n  return true;"]),
+               "K6f short 4 + 4": ("conv_ln_fwd.cu",
+                                   ["Short = tpk::FwdWarps<4, 4>;"]),
+               "balanced grid": (header, ["  const int most = "]),
+               "one buffer": (header, ["kMaxBufs = 1;"]),
+               "not persistent": (header, ["kPersistent = false;"]),
+               "plain stage": (header, ["  if (false) {\n    done = "])}
+    assert set(changed) | set(want) | {"as built"} == set(m.VARIANTS)
+    for name, (where, marks) in changed.items():
+        diff = [f for f in files if got[name][f] != files[f]]
+        assert diff == [where], name
+        assert all(mark in got[name][where] for mark in marks), name
+    for line in (m._EPI, m._CONV, m._STAGE, m._K5_WARPS, m._K6_WARPS,
+                 m._K6_SHORT, m._SHORT, m._GRID):
+        assert sum(t.count(line) for t in files.values()) == 1
+        broken = {f: t.replace(line, "") for f, t in files.items()}
+        with pytest.raises(ValueError, match="not in the sources once"):
+            m.variant_files(broken, m.VARIANTS)
 
 
 # K1f's main small shape, then the edges of its tiling, as K2f's: an odd

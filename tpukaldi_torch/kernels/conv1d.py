@@ -312,7 +312,7 @@ def conv1d_pool_bwd(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
 
 
 def _ln_smem_check(fn: str, L: int, K: int, pool: int) -> None:
-    """K6f holds a window's pooled rows of 32 filters in shared memory."""
+    """K6f holds a window's pooled rows of 16 filters in shared memory."""
     smem = getattr(_build.load(LN_SOURCE), "tpk_conv_ln_smem_bytes")
     smem.argtypes = [_I, _I, _I]
     smem.restype = ctypes.c_long
@@ -321,6 +321,37 @@ def _ln_smem_check(fn: str, L: int, K: int, pool: int) -> None:
         raise ValueError(
             f"{fn}: a window of L={L} (K={K}, pool={pool}) needs {need} bytes "
             f"of shared memory, more than the {SMEM_LIMIT} a block may use")
+
+
+_PLAN_KEYS = {
+    SOURCE: ("threads", "filters", "positions", "filters_per_thread",
+             "rows", "row_blocks", "items", "grid", "smem_bytes",
+             "blocks_per_sm", "buffers"),
+    LN_SOURCE: ("threads", "filters", "positions", "filters_per_thread",
+                "items", "grid", "smem_bytes", "blocks_per_sm", "buffers"),
+}
+
+
+def fwd_plan(source: str, N: int, L: int, K: int, O: int, pool: int,
+             lib: Optional[ctypes.CDLL] = None) -> dict:
+    """The launch of K5f (`source` SOURCE) or K6f (LN_SOURCE) at a shape,
+    from its `tpk_<name>_plan` (in `lib`, the source's own build by
+    default): threads a block (the long block's, or the short block's for
+    a short window), filters a block tile, conv positions and filters a
+    conv thread computes, items (window, tile, block of rows), grid, shared
+    bytes, the blocks an SM holds and the pooled-row buffers (K5f also its
+    rows an item and row blocks a window)."""
+    name = source[:-3]
+    fn = getattr(lib or _build.load(source), f"tpk_{name}_plan")
+    fn.argtypes = [_I] * 5 + [_P]
+    fn.restype = _I
+    keys = _PLAN_KEYS[source]
+    out = (ctypes.c_int * len(keys))()
+    err = fn(N, L, K, O, pool, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: no launch at N={N}, L={L}, K={K}, O={O}, "
+                           f"pool={pool} (CUDA error {err})")
+    return dict(zip(keys, out))
 
 
 def conv1d_pool_ln_act(
