@@ -78,10 +78,10 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    own entry point is its path) at CNN_raw's stack shapes (filters
    128,60,60,60, K 129,5,5,3, pools 3,3,3,2 over 3200 samples): K7f and
    K7b against their plain versions at the training batch of 128 windows,
-   at drop 0 and 0.15: every layer's output and stats, the argmax but at
-   near-ties, the same dropped elements; K7b given the kernel's own
-   residuals, and normwise against the plain backward on the plain
-   forward's; K7f at drop 0 against the port's per-layer path (`CNN`
+   at drop 0 and 0.15: every layer's output, stats and kept pooled value,
+   the argmax but at near-ties, the same dropped elements; K7b given the
+   kernel's own residuals, and normwise against the plain backward on the
+   plain forward's, two calls bitwise equal; K7f at drop 0 against the port's per-layer path (`CNN`
    at TPUKALDI_CONV_IMPL=pallas), whose forward and autograd backward are
    the yardstick; K7f on the serving batch with its peak memory beside the
    per-layer path's; then the stack's path, counted: three training steps
@@ -1195,14 +1195,14 @@ def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):
     """(least ms the card could take for one call of the whole conv stack,
     "bytes" or "operations"), counted as `conv_bound_ms` counts a layer:
     layer 0's forward convolves every position, an upper layer's the ct =
-    M * pool rows its pool reads, 2 N rows C K O flops each; an upper
-    layer's backward needs only the pooled rows, the remat of the pooled
-    value, dW and dX, 6 N M C K O flops, and layer 0's dW and dX, 4 N M K
-    O, on the pooled value K6f keeps.  Bytes: x, every layer's weights,
-    bias and affine maps read once; the forward writes the output and, with
-    `residuals` (training), every layer's output (the next layer's kept
-    input), idx and stats, and layer 0's pooled value; the backward reads
-    those and dz, and writes dx and every gradient."""
+    M * pool rows its pool reads, 2 N rows C K O flops each; a layer's
+    backward needs only the pooled rows, dW and dX, 4 N M C K O flops, on
+    the pooled value its forward kept (K6f's ypool for layer 0, and since
+    K7b stopped recomputing it, K7f's y for each upper layer).  Bytes: x,
+    every layer's weights, bias and affine maps read once; the forward
+    writes the output and, with `residuals` (training), every layer's
+    output (the next layer's kept input), idx, stats and pooled value; the
+    backward reads those and dz, and writes dx and every gradient."""
     fwd = name == "conv_stack_fwd"
     nbytes = 4 * N * L * (1 if fwd else 2)
     flops, C, lin = 0, 1, L
@@ -1210,15 +1210,15 @@ def stack_bound_ms(name, N, L, len_filt, n_filt, pools, residuals=True):
         M = (lin - K + 1) // P
         nmo = N * M * O
         params = 4 * (C * K * O + O + 2 * M * O)
-        res = nmo + 8 * N * O  # idx, stats
+        res = nmo + 8 * N * O + 4 * nmo  # idx, stats, the pooled value
         last = i == len(n_filt) - 1
         if fwd:
             flops += 2 * N * ((lin - K + 1) if i == 0 else M * P) * C * K * O
             nbytes += params + (4 * nmo if residuals or last else 0) + (
-                res + (0 if i else 4 * nmo) if residuals else 0)
+                res if residuals else 0)
         else:
-            flops += (6 if i else 4) * N * M * C * K * O
-            nbytes += 2 * params + res + (4 * N * lin * C if i else 4 * nmo) + (
+            flops += 4 * N * M * C * K * O
+            nbytes += 2 * params + res + (4 * N * lin * C if i else 0) + (
                 4 * nmo if last else 0)
         C, lin = O, M
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -1295,8 +1295,10 @@ def _per_layer_cnn(opts, L, first, ups):
 def stack_phase(modules) -> dict:
     """K7f/K7b (the whole conv stack, layer 0 through K6) at CNN_raw's stack
     shapes: against their plain versions at the training batch, at drop 0
-    and at the recipe's 0.15 (the same dropped elements in every layer), the
-    backward given the kernel's own residuals; K7f at drop 0 against the
+    and at the recipe's 0.15 (the same dropped elements in every layer;
+    every layer's output, stats, argmax and kept pooled value y), the
+    backward given the kernel's own residuals and bitwise equal to itself
+    on a second call (no atomics); K7f at drop 0 against the
     port's per-layer path; times, bounds and the per-layer path as the
     yardstick, at the training and the serving batch (peak memory beside);
     then the stack's own path, counted: STACK_STEPS training steps through
@@ -1326,15 +1328,19 @@ def stack_phase(modules) -> dict:
             ref = cs.conv_stack_ref(*a)
             gk = cs.conv_stack_bwd(*first, ups, seed, idx0, stats0, ypool0,
                                    res, dz, pools, eps, True, d)
+            gk2 = cs.conv_stack_bwd(*first, ups, seed, idx0, stats0, ypool0,
+                                    res, dz, pools, eps, True, d)
             gr = cs.conv_stack_bwd_ref(*first, ups, seed, idx0, stats0, res,
                                        dz, pools, eps, True, d)
             gp = cs.conv_stack_bwd_ref(*first, ups, seed, *ref[1:], dz, pools,
                                        eps, True, d)
             torch.cuda.synchronize()
         # every output K7f keeps: each layer's map, its stats and its argmax
-        maps = [(h, hr) for (h, _, _), (hr, _, _) in zip(res, ref[3])] + [
+        maps = [(r[0], rr[0]) for r, rr in zip(res, ref[3])] + [
             (out, ref[0])]
         f_err = max((h - hr).abs().max().item() for h, hr in maps)
+        y_err = max((r[3] - rr[3]).abs().max().item()
+                    for r, rr in zip(res, ref[3]))
         s_err = max((a_[2] - b_[2]).abs().max().item()
                     for a_, b_ in zip(((None, idx0, stats0), *res),
                                       ((None, ref[1], ref[2]), *ref[3])))
@@ -1343,6 +1349,9 @@ def stack_phase(modules) -> dict:
         dropped = sum(((h == 0) != (hr == 0)).sum().item() for h, hr in maps)
         names, got = _stack_grads(gk)
         _, want = _stack_grads(gr)
+        repeat = all(torch.equal(a_, b_)
+                     for a_, b_ in zip(got, _stack_grads(gk2)[1])
+                     if a_ is not None)
         _, plain = _stack_grads(gp)
         rel = {n: ((g_ - w_).abs().max() / w_.abs().max().clamp_min(1e-30)).item()
                for n, g_, w_ in zip(names, got, want) if "dbias" not in n}
@@ -1353,7 +1362,8 @@ def stack_phase(modules) -> dict:
         zeros = all(torch.equal(g_, torch.zeros_like(g_))
                     for n, g_ in zip(names, got) if "dbias" in n)
         print(f"kernel conv_stack_fwd {tag} drop={d[0]}: max_abs_err="
-              f"{f_err:.3e} over every layer's output, stats {s_err:.3e} "
+              f"{f_err:.3e} over every layer's output, stats {s_err:.3e}, "
+              f"kept pooled value y {y_err:.3e} "
               f"(atol {STACK_ATOL:g}); argmax differs at {flips} of "
               f"{[g_[4] * N * o for g_, o in zip(geo, n_filt)]} per layer "
               f"(at most {STACK_MAX_FLIPS}); zero (dropped or relu) elements "
@@ -1363,13 +1373,16 @@ def stack_phase(modules) -> dict:
               f"{STACK_GRAD_RTOL:g}), given the kernel's residuals; against "
               f"the plain backward on the plain forward's residuals worst "
               f"norm_rel_err={nrel[nworst]:.3e} ({nworst}, rtol "
-              f"{STACK_GRAD_NORM_RTOL:g}); dbias exact zeros {zeros}",
-              flush=True)
+              f"{STACK_GRAD_NORM_RTOL:g}); dbias exact zeros {zeros}; a second "
+              f"call bitwise equal (no atomics): {repeat}", flush=True)
         check(math.isfinite(f_err) and f_err <= STACK_ATOL,
               f"conv_stack_fwd disagrees with its plain version: {f_err}")
         check(math.isfinite(s_err) and s_err <= STACK_ATOL,
               f"conv_stack_fwd's stats disagree with the plain version's: "
               f"{s_err}")
+        check(math.isfinite(y_err) and y_err <= STACK_ATOL,
+              f"conv_stack_fwd's kept pooled value disagrees with the plain "
+              f"version's: {y_err}")
         check(max(flips) <= STACK_MAX_FLIPS,
               f"conv_stack_fwd's argmax differs at {flips} elements per layer")
         check(all(math.isfinite(v) for v in rel.values())
@@ -1380,13 +1393,15 @@ def stack_phase(modules) -> dict:
               f"conv_stack_bwd on the kernel's residuals disagrees with the "
               f"plain backward on the plain forward's: {nrel}")
         check(zeros, "conv_stack_bwd: a conv bias's gradient is not exactly 0")
+        check(repeat, "conv_stack_bwd: two calls on the same inputs differ")
         if d[0]:
             check(dropped == 0, "conv_stack_fwd drops other elements")
         rec["conv_stack_fwd"]["err"] = max(rec["conv_stack_fwd"]["err"], f_err,
-                                           s_err)
+                                           s_err, y_err)
         rec["conv_stack_bwd"]["err"] = max(rec["conv_stack_bwd"]["err"],
                                            rel[worst])
-        del out, idx0, stats0, ypool0, res, ref, gk, gr, gp, got, want, plain
+        del out, idx0, stats0, ypool0, res, ref, gk, gk2, gr, gp, got, want
+        del plain
         del maps
 
     # K7f at drop 0 against the per-layer path (which the recipe runs)
@@ -1410,6 +1425,7 @@ def stack_phase(modules) -> dict:
         a = (*first, ups, seed, pools, eps, True, drops)
         _, idx0, stats0, ypool0, res = cs.conv_stack_fwd(*a)
         kept = sum(r[0].numel() * 4 for r in res) / 1e6
+        kept_y = sum(r[3].numel() * 4 for r in res) / 1e6
         tail = (res, dz, pools, eps, True, drops)
         b = (*first, ups, seed, idx0, stats0, ypool0, *tail)
         b_plain = (*first, ups, seed, idx0, stats0, *tail)
@@ -1433,8 +1449,9 @@ def stack_phase(modules) -> dict:
         print(f"kernel {name} {tag} drop={drops[0]}: kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, per-layer path {lib_ms:.3f} ms, bound "
               f"{bound:.3f} ms ({by})", flush=True)
-    print(f"kernel conv_stack_fwd keeps each upper layer's input for the "
-          f"backward: {kept:.1f} MB at N={N}", flush=True)
+    print(f"kernel conv_stack_fwd keeps each upper layer's input and pooled "
+          f"value for the backward: {kept:.1f} and {kept_y:.1f} MB at N={N}",
+          flush=True)
     # where K7f's and K7b's time goes, by device kernel
     from torch.profiler import ProfilerActivity, profile
 

@@ -14,6 +14,10 @@ small sizes.
    layout).
 4. The gate, the geometry, the shape checks, the launch counters, and the
    kernels against their plain versions on a card (skipped without one).
+5. The pooled value y each upper layer keeps for the backward: the plain
+   forward's equals the plain backward's recompute of it, the plain
+   backward gives the same bits with y and without, `ConvStack` saves it,
+   and `conv_stack_bwd` refuses a y of the wrong shape or dtype.
 
 Inputs come from numpy with a seed.  Each tolerance is stated where it is
 used.
@@ -320,9 +324,10 @@ def test_stack_gives_a_waveform_no_gradient():
 def test_stack_kernels_match_plain_on_card(drop):
     """K7f and K7b (with K6 for layer 0) against the plain stack on the
     same card, at a small odd shape with 60-filter upper layers.  K7f:
-    every layer's output and its (mean, std) within 5e-5 (four chained
-    float32 layer norms), the same dropped elements, the argmax the same
-    but at near-ties (at most 2 elements a layer).  K7b: the gradients
+    every layer's output, its (mean, std) and the pooled value it keeps
+    within 5e-5 (four chained float32 layer norms), the same dropped
+    elements, the argmax the same but at near-ties (at most 2 elements a
+    layer).  K7b: two calls bitwise equal (no atomics); the gradients
     within 1e-4 of each tensor's max given the kernel's own residuals (a
     sum in another order can flip a near-tie argmax), and within 1e-2
     normwise of the plain backward run on the plain forward's residuals (a
@@ -351,15 +356,102 @@ def test_stack_kernels_match_plain_on_card(drop):
     for (idx, stats), (idx_r, stats_r) in zip(kept, plain):
         torch.testing.assert_close(stats, stats_r, rtol=0, atol=5e-5)
         assert (idx != idx_r).sum().item() <= 2
+    for r, rr in zip(res, ref[3]):
+        torch.testing.assert_close(r[3], rr[3], rtol=0, atol=5e-5)
     got = conv_stack.conv_stack_bwd(*args, ups, -5, idx0, stats0, ypool0, res,
                                     cu(dz), pools, EPS, True, drops)
+    again = conv_stack.conv_stack_bwd(*args, ups, -5, idx0, stats0, ypool0,
+                                      res, cu(dz), pools, EPS, True, drops)
     want = conv_stack.conv_stack_bwd_ref(*args, ups, -5, idx0, stats0, res,
                                          cu(dz), pools, EPS, True, drops)
     want_plain = conv_stack.conv_stack_bwd_ref(*args, ups, -5, *ref[1:],
                                                cu(dz), pools, EPS, True, drops)
     flat = lambda g: [*g[:5], *(t for u in g[5] for t in u)]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
     for a, b, p in zip(flat(got), flat(want), flat(want_plain)):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * max(b.abs().max().item(), 1e-30))
         assert (a - p).norm().item() <= 1e-2 * max(p.norm().item(), 1e-30)
     assert all(torch.equal(u[1], torch.zeros_like(u[1])) for u in got[5])
+
+
+# ------------------------------------------------- 5. the kept pooled value
+# (N, L, K0, upper layers as (O, K), pools)
+Y_CASES = {
+    9: (5, 136, 9, [(8, 3), (8, 3)], (2, 2, 2)),
+    129: (3, 256, 129, [(16, 5)], (2, 3)),
+}
+
+
+def _y_stack(K0, drop, seed):
+    """The plain forward of a Y_CASES stack on the CPU: (inputs as torch
+    tensors, the upper layers, dz, pools, drops, the forward's result)."""
+    N, L, K0, ups, pools = Y_CASES[K0]
+    x, w0, bias0, gt0, bt0, layers, dz = _stack_inputs(N, L, K0, ups, pools,
+                                                       seed=seed)
+    first = [_t(a) for a in (x, w0, bias0, gt0, bt0)]
+    tl = [tuple(_t(a) for a in u) for u in layers]
+    drops = (drop,) * len(pools)
+    fwd = conv_stack.conv_stack_ref(*first, tl, SEED, pools, EPS, True, drops)
+    return first, tl, _t(dz), pools, drops, fwd
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.15])
+@pytest.mark.parametrize("K0", sorted(Y_CASES))
+def test_plain_y_is_the_backward_recompute(K0, drop):
+    """Each upper layer's y from the plain forward (max-pool of the conv
+    plus bias) is bit for bit what the plain backward recomputes from the
+    layer's input and argmax when no y is given."""
+    first, tl, _, pools, _, fwd = _y_stack(K0, drop, seed=K0)
+    for i, ((h, idx, _, y), (w, b, _, _)) in enumerate(zip(fwd[3], tl), 1):
+        assert y.shape == idx.shape and y.dtype == torch.float32
+        assert torch.equal(conv_stack.recompute_y(h, w, b, idx, pools[i]), y)
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.15])
+@pytest.mark.parametrize("K0", sorted(Y_CASES))
+def test_plain_bwd_given_y_equals_itself_without(K0, drop):
+    """`conv_stack_bwd_ref` on the forward's y gives every gradient bit
+    for bit as it does with each y None (recomputed)."""
+    first, tl, dz, pools, drops, fwd = _y_stack(K0, drop, seed=K0 + 1)
+    _, idx0, stats0, res = fwd
+    bare = tuple((h, idx, stats, None) for h, idx, stats, _ in res)
+    got = conv_stack.conv_stack_bwd_ref(*first, tl, SEED, idx0, stats0, res,
+                                        dz, pools, EPS, True, drops)
+    want = conv_stack.conv_stack_bwd_ref(*first, tl, SEED, idx0, stats0, bare,
+                                         dz, pools, EPS, True, drops)
+    flat = lambda g: [*g[:5], *(t for u in g[5] for t in u)]  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+
+
+def test_function_saves_four_residuals_per_upper_layer():
+    """`ConvStack` saves the 9 tensors of its inputs and layer 0, the four
+    tensors of each upper layer, and four residuals of each upper layer
+    (input h, idx, stats, y), y equal to the plain forward's."""
+    first, tl, dz, pools, drops, fwd = _y_stack(9, 0.15, seed=3)
+    leaves = [t.clone().requires_grad_() for t in first]
+    ups = [[t.clone().requires_grad_() for t in u] for u in tl]
+    out = conv_stack.conv_stack_fused(*leaves, ups, SEED, pools, EPS, True,
+                                      drops)
+    saved = out.grad_fn.saved_tensors
+    n_up = len(tl)
+    assert len(saved) == 9 + 4 * n_up + 4 * n_up
+    kept = saved[9 + 4 * n_up:]
+    for i, (h, idx, stats, y) in enumerate(fwd[3]):
+        got = kept[4 * i:4 * i + 4]
+        assert torch.equal(got[0], h) and torch.equal(got[1], idx)
+        assert torch.equal(got[2], stats) and torch.equal(got[3], y)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype"])
+def test_bwd_refuses_a_wrong_y(bad):
+    """A kept pooled value of the wrong shape or dtype raises ValueError
+    before anything runs."""
+    first, tl, dz, pools, drops, fwd = _y_stack(9, 0.0, seed=4)
+    _, idx0, stats0, res = fwd
+    h, idx, stats, y = res[0]
+    y = y[:, :-1] if bad == "shape" else y.double()
+    res = ((h, idx, stats, y), *res[1:])
+    with pytest.raises(ValueError, match="pooled value y"):
+        conv_stack.conv_stack_bwd(*first, tl, SEED, idx0, stats0, None, res,
+                                  dz, pools, EPS, True, drops)

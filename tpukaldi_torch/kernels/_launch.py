@@ -69,8 +69,11 @@ def dims(fn: str, ff: torch.Tensor, gates: int) -> Tuple[int, int, int]:
 
 def check_tensors(fn: str, **tensors: Tuple[torch.Tensor, Tuple[int, ...],
                                             torch.dtype]) -> None:
-    """Each (tensor, expected shape, dtype) contiguous, on one CUDA device,
-    with its shape and dtype."""
+    """Each (tensor, expected shape, dtype) given, contiguous, on one CUDA
+    device, with its shape and dtype."""
+    missing = [name for name, (t, _, _) in tensors.items() if t is None]
+    if missing:
+        raise ValueError(f"{fn}: {', '.join(missing)} not given")
     got = {name: tuple(t.shape) for name, (t, _, _) in tensors.items()}
     want = {name: tuple(shape) for name, (_, shape, _) in tensors.items()}
     if got != want:

@@ -31,8 +31,10 @@ tensor they run the plain versions (`conv_stack_ref`,
 `conv_stack_bwd_ref`), which follow tpukaldi's `_stack_fwd_kernel` and
 `_stack_bwd_kernel`.  Every conv bias's gradient is an exact zero: the
 layer norm's mean cancels it.  The forward keeps each upper layer's input
-for the backward (tpukaldi recomputes the stack instead).  No module of the
-port calls the stack, as no module of tpukaldi does.
+and its pooled value y = max-pool(conv) + bias for the backward (tpukaldi
+recomputes the stack instead; the plain backward recomputes y where it is
+not given).  No module of the port calls the stack, as no module of
+tpukaldi does.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _launch, conv1d
+from . import _build, _launch, conv1d
 from .conv1d import Seed
 
 SOURCE = "conv_stack_fwd.cu"
@@ -54,7 +56,7 @@ MASK_LANES = 128  # the element id's row stride in every layer's mask
 LAYER0_FILTERS = 128
 # the kernels' limits (csrc/stack_tile.cuh's kMaxUpperK, kMaxChannels),
 # restated for the gate, which runs on the CPU as well
-MAX_UPPER_K = 8  # taps an upper layer's kernel holds in registers
+MAX_UPPER_K = 8  # taps an upper layer's kernels unroll
 MAX_CHANNELS = 128  # filters, and so input channels, of an upper layer
 
 # kernel launches since the last reset (one per wrapper call that launched:
@@ -66,10 +68,11 @@ bwd_launches = 0
 
 # per upper layer: (kernel (O, I, K), bias (O,), gamma (M, O), beta (M, O)),
 # and what the forward keeps of it: (its input h (N, lin, I), idx (N, M, O)
-# int8, stats (N, 2, O) = (mean, std)); none of them when serving
+# int8, stats (N, 2, O) = (mean, std), y (N, M, O) the pooled value plus
+# bias); none of them when serving
 Upper = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 UpperRes = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
-                 Optional[torch.Tensor]]
+                 Optional[torch.Tensor], Optional[torch.Tensor]]
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
 
@@ -92,11 +95,11 @@ def stack_supported(len_filt: Sequence[int], n_filt: Sequence[int],
     with the reason (there is nothing to fall back to).  Layer 0 is K6's
     (K0 <= 129, pool <= 12) with 128 filters: the stack's masks id the
     elements m * 128 + o, which K6's m * O + o equal only at O = 128.  An
-    upper layer takes K <= 8 taps (held in registers), pool <= 12 (a
-    thread's run of conv rows) and at most 128 filters.  Every layer leaves
-    a pooled row.  The kernels' C entries refuse a layer that needs more
-    shared memory than a block may use (a ValueError at launch).  tpukaldi's 128-lane and VMEM conditions are its TPU's, and are not
-    copied."""
+    upper layer takes K <= 8 taps (the kernels unroll them), pool <= 12 and
+    at most 128 filters.  Every layer leaves a pooled row.  The kernels' C
+    entries refuse a layer that needs more shared memory than a block may
+    use (a ValueError at launch).  tpukaldi's 128-lane and VMEM conditions
+    are its TPU's, and are not copied."""
     n = len(n_filt)
     if n < 2 or len(len_filt) != n or len(pools) != n:
         raise ValueError(
@@ -166,6 +169,14 @@ def _upper_conv(h: torch.Tensor, w: torch.Tensor, ct: int) -> torch.Tensor:
     return F.conv1d(h[:, :ct + K - 1].transpose(1, 2), w).transpose(1, 2)
 
 
+def recompute_y(h, w, b, idx, pool: int) -> torch.Tensor:
+    """An upper layer's pooled value plus bias (N, M, O) from its input h
+    and the forward's argmax idx: the plain backward's recompute of the y
+    that the forward keeps (the same conv, so the same bits)."""
+    conv = _upper_conv(h, w, idx.shape[1] * pool)
+    return conv1d._pooled_at(conv, idx, pool) + b
+
+
 def stack_mask(seed: Seed, N: int, layer: int, M: int, O: int, drop: float,
                device=None) -> torch.Tensor:
     """Layer `layer`'s keep mask (N, M, O): tpukaldi's hash of window id
@@ -194,17 +205,26 @@ def conv_stack_ref(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
                    pools: Sequence[int], eps: float, relu: bool,
                    drops: Sequence[float]):
     """-> (out (N, M_last, O_last), idx0, stats0, per upper layer
-    (input h, idx, stats)): K6's plain version, then each upper layer."""
+    (input h, idx, stats, y)): K6's plain version, then each upper layer."""
     z, idx0, stats0 = conv1d.conv1d_pool_ln_act_ref(
         x, w0, bias0, gt0, bt0, seed, pools[0], eps, relu, drops[0])
+    out, res = upper_ref(z, ups, seed, pools, eps, relu, drops)
+    return out, idx0, stats0, res
+
+
+def upper_ref(z, ups: Sequence[Upper], seed: Seed, pools: Sequence[int],
+              eps: float, relu: bool, drops: Sequence[float]):
+    """The upper layers' plain forward from layer 0's output z -> (out,
+    per upper layer (input h, idx, stats, y))."""
     res = []
     for i, (w, b, g, be) in enumerate(ups, 1):
         P = pools[i]
         m, idx = conv1d._pool_argmax(_upper_conv(z, w, g.shape[0] * P), P)
-        out, stats = _ln_act_drop(m + b, g, be, seed, i, eps, relu, drops[i])
-        res.append((z, idx, stats))
+        y = m + b
+        out, stats = _ln_act_drop(y, g, be, seed, i, eps, relu, drops[i])
+        res.append((z, idx, stats, y))
         z = out
-    return z, idx0, stats0, tuple(res)
+    return z, tuple(res)
 
 
 def conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups: Sequence[Upper],
@@ -212,21 +232,38 @@ def conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups: Sequence[Upper],
                        dz, pools: Sequence[int], eps: float, relu: bool,
                        drops: Sequence[float]):
     """The stack's backward as tpukaldi's `_stack_bwd_kernel` computes it,
-    from the top layer down: each upper layer's pooled value recomputed at
-    the saved argmax from its saved input, the mask and the relu gate
+    from the top layer down: each upper layer's pooled value y as the
+    forward kept it, or, where it is None, recomputed at the saved argmax
+    from the saved input (the same bits), the mask and the relu gate
     rebuilt from z = xhat * g + be, the layer norm's backward with s
     floored at 1e-30, the scatter through the pool, then dW and dX; layer 0
     through K6's plain backward.  -> (dx, dw0, dbias0, dgt0, dbt0, per
+    upper layer (dW, dbias (exact 0), dgamma, dbeta))."""
+    d, dups = upper_bwd_ref(ups, seed, ups_res, dz, pools, eps, relu, drops)
+    grads0 = conv1d.conv1d_pool_ln_act_bwd_ref(
+        x, w0, bias0, gt0, bt0, seed, idx0, stats0, d.contiguous(), pools[0],
+        eps, relu, drops[0])
+    return (*grads0, dups)
+
+
+def upper_bwd_ref(ups: Sequence[Upper], seed: Seed,
+                  ups_res: Sequence[UpperRes], dz, pools: Sequence[int],
+                  eps: float, relu: bool, drops: Sequence[float]):
+    """The upper layers' plain backward, from the top layer down, as
+    `conv_stack_bwd_ref` runs it -> (the gradient of layer 0's output, per
     upper layer (dW, dbias (exact 0), dgamma, dbeta))."""
     d = dz
     dups = []
     for i in range(len(ups), 0, -1):
         w, b, g, be = ups[i - 1]
-        h, idx, stats = ups_res[i - 1]
+        h, idx, stats, y = ups_res[i - 1]
         P, K = pools[i], w.shape[2]
         N, M, O = idx.shape
         ct = M * P
-        y = conv1d._pooled_at(_upper_conv(h, w, ct), idx, P) + b
+        if y is None:
+            y = recompute_y(h, w, b, idx, P)
+        # one layout, given or recomputed: the sums below follow it
+        y = y.contiguous()
         mu, s = stats[:, 0:1], stats[:, 1:2]
         r = 1.0 / (s + eps)
         c = y - mu
@@ -253,10 +290,7 @@ def conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups: Sequence[Upper],
             [1], False, [0], 1, [True, True, False])
         d = F.pad(dh.transpose(1, 2), (0, 0, 0, h.shape[1] - (ct + K - 1)))
         dups.append((dw, torch.zeros_like(b), dg, dbe))
-    grads0 = conv1d.conv1d_pool_ln_act_bwd_ref(
-        x, w0, bias0, gt0, bt0, seed, idx0, stats0, d.contiguous(), pools[0],
-        eps, relu, drops[0])
-    return (*grads0, tuple(reversed(dups)))
+    return d, tuple(reversed(dups))
 
 
 # ----------------------------------------------------------------- kernels
@@ -269,12 +303,23 @@ def _seed_of(seed: Seed, drops: Sequence[float], device):
             if any(d > 0.0 for d in drops) else None)
 
 
+def _scratch(source: str, name: str, *dims) -> int:
+    """The floats of scratch the C entry `tpk_<name>` asks for at these
+    dimensions (its `tpk_<name>_scratch`)."""
+    fn = getattr(_build.load(source), f"tpk_{name}_scratch")
+    if fn.restype is not ctypes.c_long:
+        fn.argtypes = [_I] * len(dims)
+        fn.restype = ctypes.c_long
+    return fn(*dims)
+
+
 def conv_stack_fwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
                    pools: Sequence[int], eps: float, relu: bool,
                    drops: Sequence[float], residuals: bool = True):
-    """(out, idx0, stats0, ypool0, per upper layer (input h, idx, stats)):
+    """(out, idx0, stats0, ypool0, per upper layer (input h, idx, stats, y)):
     K6f and K7f on a CUDA tensor (without `residuals`, for inference, none
-    of idx, stats, ypool0 and the inputs are kept), the plain version on
+    of idx, stats, y, ypool0 and the inputs are kept: each upper layer's
+    epilogue normalises its pooled value in place), the plain version on
     CPU (ypool0 None: its backward recomputes layer 0's pooled value).
     Builds no autograd graph: `ConvStack` is the differentiable entry."""
     global launches
@@ -288,8 +333,9 @@ def conv_stack_fwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
         x, w0, bias0, gt0, bt0, 0 if seed is None else seed, pools[0], eps,
         relu, drops[0], residuals)
     fn = _launch.entry(SOURCE, "stack_upper_fwd",
-                       [_P] * 9 + [_I] * 7 + [_U, _F, _I, _U, _F, _I])
+                       [_P] * 11 + [_I] * 7 + [_U, _F, _I, _U, _F, _I])
     N = x.shape[0]
+    f32 = dict(device=x.device, dtype=torch.float32)
     res = []
     for i, (w, b, g, be) in enumerate(ups, 1):
         lin, K, P, ct, M = geo[i]
@@ -298,24 +344,38 @@ def conv_stack_fwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
             "conv_stack_fwd", h=(z, (N, lin, C), torch.float32),
             kernel=(w, (O, C, K), torch.float32), bias=(b, (O,), torch.float32),
             gamma=(g, (M, O), torch.float32), beta=(be, (M, O), torch.float32))
-        out = torch.empty((N, M, O), device=x.device, dtype=torch.float32)
-        idx = stats = None
+        out = torch.empty((N, M, O), **f32)
+        y, idx, stats = out, None, None
         if residuals:
+            y = torch.empty((N, M, O), **f32)
             idx = torch.empty((N, M, O), device=x.device, dtype=torch.int8)
-            stats = torch.empty((N, 2, O), device=x.device, dtype=torch.float32)
+            stats = torch.empty((N, 2, O), **f32)
+        scratch = torch.empty(
+            _scratch(SOURCE, "stack_upper_fwd", C, K, O), **f32)
         threshold, scale, on = conv1d._drop_args(drops[i])
         _launch.call("stack_upper_fwd", fn, x.device,
                      (z.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
                       be.data_ptr(), conv1d._ptr(seed if on else None),
-                      out.data_ptr(), conv1d._ptr(idx), conv1d._ptr(stats), N,
-                      lin, C, K, O, P, M, i * SALT, eps, int(relu), threshold,
-                      scale, on),
+                      y.data_ptr(), out.data_ptr(), conv1d._ptr(idx),
+                      conv1d._ptr(stats), scratch.data_ptr(), N, lin, C, K, O,
+                      P, M, i * SALT, eps, int(relu), threshold, scale, on),
                      f"layer {i}: N={N}, lin={lin}, C={C}, K={K}, O={O}, "
                      f"pool={P}")
-        res.append((z if residuals else None, idx, stats))
+        res.append((z, idx, stats, y) if residuals else (None,) * 4)
         z = out
     launches += 1
     return z, idx0, stats0, ypool0, tuple(res)
+
+
+def _check_y(y, shape) -> None:
+    """A pooled value given to the plain backward must be a float32 (N, M,
+    O) tensor."""
+    if (not isinstance(y, torch.Tensor) or tuple(y.shape) != tuple(shape)
+            or y.dtype != torch.float32):
+        got = (f"{tuple(y.shape)} {y.dtype}" if isinstance(y, torch.Tensor)
+               else repr(y))
+        raise ValueError(f"conv_stack_bwd: an upper layer's pooled value y "
+                         f"must be float32 {tuple(shape)}, got {got}")
 
 
 def conv_stack_bwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
@@ -323,53 +383,68 @@ def conv_stack_bwd(x, w0, bias0, gt0, bt0, ups: Sequence[Upper], seed: Seed,
                    pools: Sequence[int], eps: float, relu: bool,
                    drops: Sequence[float], need_dx: bool = True):
     """(dx, dw0, dbias0, dgt0, dbt0, per upper layer (dW, dbias, dgamma,
-    dbeta)): K7b and K6b on CUDA tensors (every dbias the exact zero; K6b
-    reads ypool0), the plain version on CPU (which takes no ypool0); dx is
-    None without `need_dx`."""
+    dbeta)): K7b and K6b on CUDA tensors (every dbias the exact zero; K7b
+    reads each upper layer's y, K6b ypool0), the plain version on CPU
+    (which takes no ypool0, and recomputes a y that is None); dx is None
+    without `need_dx`.  On CPU a y of the wrong shape or dtype raises
+    ValueError; on the card every residual is checked before its layer's
+    launch (a missing or misshapen one raises ValueError, a wrong dtype
+    TypeError)."""
     global bwd_launches
     geo = _geometry(x, w0, bias0, gt0, bt0, ups, pools, drops)
+    N = x.shape[0]
     seed = _seed_of(seed, drops, x.device)
     if x.device.type == "cpu":
+        for i, r in enumerate(ups_res, 1):
+            if r[3] is not None:
+                _check_y(r[3], (N, geo[i][4], ups[i - 1][0].shape[0]))
         *grads0, dups = conv_stack_bwd_ref(x, w0, bias0, gt0, bt0, ups, seed,
                                            idx0, stats0, ups_res, dz, pools,
                                            eps, relu, drops)
         return ((grads0[0] if need_dx else None), *grads0[1:], dups)
     fn = _launch.entry(BWD_SOURCE, "stack_upper_bwd",
-                       [_P] * 17 + [_I] * 7 + [_U, _F, _I, _U, _F, _I])
-    N = x.shape[0]
+                       [_P] * 12 + [_I] * 7 + [_U, _F, _I, _U, _F, _I])
     f32 = dict(device=x.device, dtype=torch.float32)
+    # one scratch buffer for every layer (stream-ordered reuse), and the
+    # zero dbias of every layer in one tensor
+    scratch = torch.empty(max(
+        _scratch(BWD_SOURCE, "stack_upper_bwd", N, u[0].shape[1],
+                 u[0].shape[2], u[0].shape[0], geo[i][2], geo[i][4])
+        for i, u in enumerate(ups, 1)), **f32)
+    dbias = torch.zeros(sum(u[1].numel() for u in ups), **f32).split(
+        [u[1].numel() for u in ups])
     d = dz
     dups = []
     for i in range(len(ups), 0, -1):
         w, b, g, be = ups[i - 1]
-        h, idx, stats = ups_res[i - 1]
+        h, idx, stats, y = ups_res[i - 1]
         lin, K, P, ct, M = geo[i]
         C, O = w.shape[1], w.shape[0]
         _launch.check_tensors(
             "conv_stack_bwd", h=(h, (N, lin, C), torch.float32),
-            kernel=(w, (O, C, K), torch.float32), bias=(b, (O,), torch.float32),
+            kernel=(w, (O, C, K), torch.float32),
             gamma=(g, (M, O), torch.float32), beta=(be, (M, O), torch.float32),
             idx=(idx, (N, M, O), torch.int8),
             stats=(stats, (N, 2, O), torch.float32),
-            dz=(d, (N, M, O), torch.float32))
-        # scratch: the pooled gradient, the per-window terms of dgamma and
-        # dbeta and of dW, summed over the windows in a second pass
-        dy, dgp, dbp = (torch.empty((N, M, O), **f32) for _ in range(3))
-        dw_part = torch.empty((N, O, C, K), **f32)
+            y=(y, (N, M, O), torch.float32), dz=(d, (N, M, O), torch.float32))
+        # scratch: the pooled gradient (first), dconv, the per-window terms
+        # of dW, dgamma and dbeta, the flipped weights; the entry writes
+        # dW, dgamma and dbeta one after the other
         dh = torch.empty((N, lin, C), **f32)
-        dw, dg, dbe = (torch.empty_like(t) for t in (w, g, be))
+        grads = torch.empty(O * C * K + 2 * M * O, **f32)
+        dw, dg, dbe = (part.view(t.shape) for part, t in zip(
+            grads.split([O * C * K, M * O, M * O]), (w, g, be)))
         threshold, scale, on = conv1d._drop_args(drops[i])
         _launch.call("stack_upper_bwd", fn, x.device,
-                     (h.data_ptr(), w.data_ptr(), b.data_ptr(), g.data_ptr(),
-                      be.data_ptr(), conv1d._ptr(seed if on else None),
-                      idx.data_ptr(), stats.data_ptr(), d.data_ptr(),
-                      dy.data_ptr(), dgp.data_ptr(), dbp.data_ptr(),
-                      dw_part.data_ptr(), dh.data_ptr(), dw.data_ptr(),
-                      dg.data_ptr(), dbe.data_ptr(), N, lin, C, K, O, P, M,
+                     (h.data_ptr(), w.data_ptr(), g.data_ptr(), be.data_ptr(),
+                      conv1d._ptr(seed if on else None), idx.data_ptr(),
+                      stats.data_ptr(), y.data_ptr(), d.data_ptr(),
+                      scratch.data_ptr(), dh.data_ptr(), grads.data_ptr(), N,
+                      lin, C, K, O, P, M,
                       i * SALT, eps, int(relu), threshold, scale, on),
                      f"layer {i}: N={N}, lin={lin}, C={C}, K={K}, O={O}, "
                      f"pool={P}")
-        dups.append((dw, torch.zeros_like(b), dg, dbe))
+        dups.append((dw, dbias[i - 1], dg, dbe))
         d = dh
     grads0 = conv1d.conv1d_pool_ln_act_bwd(
         x, w0, bias0, gt0, bt0, 0 if seed is None else seed, idx0, stats0,
@@ -385,8 +460,9 @@ def _unflatten(flat, n: int):
 class ConvStack(torch.autograd.Function):
     """out = the stack, with K7b (and K6b) as its gradient; saves the
     inputs, the forward's idx and stats of every layer, layer 0's pooled
-    value and each upper layer's input.  The upper layers' tensors come
-    flattened after the static arguments, four per layer."""
+    value, and each upper layer's input and pooled value (four residuals an
+    upper layer).  The upper layers' tensors come flattened after the
+    static arguments, four per layer."""
 
     @staticmethod
     def forward(ctx, x, w0, bias0, gt0, bt0, seed, pools, eps, relu, drops,
@@ -406,7 +482,7 @@ class ConvStack(torch.autograd.Function):
         saved = ctx.saved_tensors
         first = saved[:9]
         ups = _unflatten(saved[9:9 + ctx.n_flat], 4)
-        res = _unflatten(saved[9 + ctx.n_flat:], 3)
+        res = _unflatten(saved[9 + ctx.n_flat:], 4)
         *grads0, dups = conv_stack_bwd(*first[:5], ups, *first[5:], res,
                                        dz.contiguous(), *ctx.args,
                                        ctx.needs_input_grad[0])

@@ -37,9 +37,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <map>
-#include <mutex>
-#include <tuple>
 #include <type_traits>
 #include <utility>
 
@@ -478,37 +475,25 @@ __device__ __forceinline__ void fwd_pipeline(const float* __restrict__ x,
 // The grid: what the card holds at once (persistent), at most an item a
 // block; 0 if the runtime refuses the shared memory.  The SM count and the
 // blocks an SM holds are asked of the runtime once per device, kernel and
-// shared size (the kernel's limit raised to kMaxSmem then), not at every
+// shared size (the kernel's limit raised to kMaxSmem first), not at every
 // launch.
 template <typename W, typename Kernel>
 inline int fwd_grid(Kernel kernel, const FwdGeom& g, size_t smem,
                     int* per_sm) {
-  static std::mutex lock;
-  static std::map<std::tuple<int, const void*, size_t>, std::pair<int, int>>
-      known;
-  int dev = 0;
   *per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  std::lock_guard<std::mutex> hold(lock);
-  const auto key =
-      std::make_tuple(dev, reinterpret_cast<const void*>(kernel), smem);
-  auto it = known.find(key);
-  if (it == known.end()) {
-    int sms = 0, fit = 0;
-    if (cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kMaxSmem)) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
-                                                      W::kThreads, smem) !=
-            cudaSuccess) {
-      return 0;
-    }
-    it = known.emplace(key, std::make_pair(sms, fit)).first;
+  const int sms = sm_count();
+  int fit = 0;
+  if (sms == 0 || allow_smem(kernel) != cudaSuccess ||
+      device_cached(
+          std::make_pair(reinterpret_cast<const void*>(kernel), smem),
+          [&](int, int* v) {
+            return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                v, kernel, W::kThreads, smem);
+          },
+          &fit) != cudaSuccess) {
+    return 0;
   }
-  const int sms = it->second.first;
-  *per_sm = it->second.second;
+  *per_sm = fit;
   if (*per_sm == 0) return 0;
   return kPersistent ? min(g.items, sms * *per_sm) : g.items;
 }

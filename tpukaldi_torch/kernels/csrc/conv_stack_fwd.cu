@@ -3,7 +3,7 @@
 // Replaces tpukaldi/kernels/conv_stack.py::_stack_fwd_kernel (launched from
 // _stack_fwd), which runs the whole stack for 8 windows in one program with
 // every activation in VMEM.  Here layer 0 is K6f (conv_ln_fwd.cu) and this
-// kernel runs once per upper layer i >= 1, per window n and filter o, over
+// entry runs once per upper layer i >= 1, per window n and filter o, over
 // the layer's input h (N, lin, C), the previous layer's output:
 //
 //     c[t]  = sum_{c, k} h[n, t + k, c] * W[o, c, k]     t < M * pool
@@ -14,28 +14,31 @@
 //
 // keep = tpukaldi's hash of (seed, window id wid0 + n, element m * 128 + o)
 // below the threshold (conv_tile.cuh::drop_keep), wid0 = i * 2^20.  Writes
-// out (N, M, O), the next layer's input, and, when they are not null
-// (training), idx (N, M, O) int8 and stats (N, 2, O) = (mu, s), which K7b
-// reads.  float32 throughout; seed is an int32 on the device.
+// out (N, M, O), the next layer's input, and y (N, M, O), the pooled value
+// plus bias; in training also idx (N, M, O) int8 and stats (N, 2, O) = (mu,
+// s), which K7b reads with y.  Serving passes y == out (the epilogue
+// normalises in place) and null idx and stats.  float32 throughout; seed is
+// an int32 on the device.
 //
-// Design: one block per (window n, tile of 32 filters), 16 warps, as K6f.
-// A Hopper block has 227 KB of shared memory, so the VMEM-resident stack
-// does not carry over: layer 0's pooled map alone is 512 KB a window.  The
-// layer norm is per filter over time, so each filter tile is independent:
-// the block keeps its tile's weights (C K 32 floats, 80 KB at C = 128, K =
-// 5) and its pooled rows (M x 32) in shared memory and reads h from global
-// memory (L1 and L2) as broadcasts.  A warp takes runs of 12 conv positions
-// (stack_tile.cuh::upper_run: per channel 12 + K - 1 loads of h and K of
-// weights for 12 K fmaf), max-pools them in registers, and the moments and
-// the normalised, activated, dropped rows follow as in K6f.
+// Design: three launches.  (1) The weights into the GEMM's layout (C K rows
+// of the padded filters, stack_tile.cuh::prep_weights_kernel).  (2) The conv
+// and max-pool as stack_tile.cuh's register-tiled implicit GEMM: block
+// (span of pooled rows, 64 filters, window), 8 conv positions x 8 filters a
+// thread, the channels staged 16 at a time by cp.async, double-buffered;
+// the conv rows then go through shared memory to be pooled, and y and idx
+// to global memory.  Each conv value is the one chain of fmaf (c outer, k
+// inner) of the kernel before it, so y and idx are its bits.  (3) The layer
+// norm over time couples a (window, filter)'s M pooled rows, so it is a
+// second kernel: block (window, 32 filters), 16 warps, y read into shared
+// memory, then the moments, the affine map, relu and dropout with the code
+// and sum order of the kernel before it, so stats and out keep their bits.
+// One kernel that held a window's whole conv would need a block of 4x the
+// positions for CNN_raw's layer 1 and leave the card a quarter full.
 //
 // What bounds it: the conv's 2 N ct C K O flops (10.0 GFLOP for CNN_raw's
 // layer 1 at the training batch of 128 windows, 0.15 ms at 67 TFLOP/s);
-// the bytes of h, out, idx and stats are 81 MB there (0.02 ms).  Each
-// fmaf also costs (12 + 2K - 1) / (12 K) of a load from L1 or shared
-// memory; the kernel runs at about a tenth of the float32 peak (PERF.md,
-// section 6), which staging h in shared memory or an implicit GEMM on the
-// tensor cores would lift.
+// the bytes of h, out, y, idx and stats are 91 MB there (0.03 ms).  The
+// tile needs 22 shared loads a thread for 320 fmaf; 60 filters pad to 64.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,21 +47,16 @@
 
 namespace {
 
-template <int K>
 __global__ void __launch_bounds__(tpk::kLnWarps * 32)
-stack_upper_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ gt,
-                       const float* __restrict__ bt,
-                       const int* __restrict__ seed_p, float* __restrict__ out,
-                       int8_t* __restrict__ idx, float* __restrict__ stats,
-                       int lin, int C, int O, int M, int pool, uint32_t wid0,
-                       float eps, int relu, uint32_t threshold, float scale,
-                       int drop_on) {
+stack_ln_fwd_kernel(const float* y, const float* __restrict__ gt,
+                    const float* __restrict__ bt,
+                    const int* __restrict__ seed_p, float* out,
+                    float* __restrict__ stats, int O, int M, uint32_t wid0,
+                    float eps, int relu, uint32_t threshold, float scale,
+                    int drop_on) {
   extern __shared__ float smem[];
-  float* ws = smem;                        // C K x kFilt
-  float* ys = ws + C * K * tpk::kFilt;     // M x kFilt pooled rows + bias
-  float* red = ys + M * tpk::kFilt;        // 2 x kLnWarps x kFilt
+  float* ys = smem;                  // M x kFilt pooled rows + bias
+  float* red = ys + M * tpk::kFilt;  // 2 x kLnWarps x kFilt
   const int n = blockIdx.x;
   const int o0 = blockIdx.y * tpk::kFilt;
   const int lane = threadIdx.x % 32;
@@ -66,25 +64,12 @@ stack_upper_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
   const int o = o0 + lane;
   const bool active = o < O;
   const size_t win = static_cast<size_t>(n) * M * O;
-  const float* hn = h + static_cast<size_t>(n) * lin * C;
-  tpk::load_upper_filters(w, C, K, O, o0, ws);
-  __syncthreads();
-
-  const float b0 = active ? bias[o] : 0.0f;
-  const int R = tpk::run_rows(pool);
-  const int runs = tpk::ln_runs(M, pool);
-  for (int g = warp; g < runs; g += tpk::kLnWarps) {
-    float acc[tpk::kRun];
-    tpk::upper_run<K>(hn, ws, g * R * pool, lin, C, lane, acc);
-    tpk::pool_run(acc, pool, [&](int r, float m, int arg) {
-      const int row = g * R + r;
-      if (row < M) {
-        ys[row * tpk::kFilt + lane] = m + b0;
-        if (idx != nullptr && active) {
-          idx[win + static_cast<size_t>(row) * O + o] = static_cast<int8_t>(arg);
-        }
-      }
-    });
+  // every read of y precedes the barrier, every write of out follows it:
+  // y may be out
+  for (int i = threadIdx.x; i < M * tpk::kFilt; i += blockDim.x) {
+    const int oo = o0 + i % tpk::kFilt;
+    ys[i] = oo < O ? y[win + static_cast<size_t>(i / tpk::kFilt) * O + oo]
+                   : 0.0f;
   }
   __syncthreads();
 
@@ -119,58 +104,56 @@ stack_upper_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-struct FwdArgs {
-  const float *h, *w, *bias, *gt, *bt;
-  const int* seed;
-  float* out;
-  int8_t* idx;
-  float* stats;
-  int N, lin, C, O, pool, M;
-  uint32_t wid0;
-  float eps;
-  int relu;
-  uint32_t threshold;
-  float scale;
-  int drop_on;
-  size_t smem;
+struct ConvArgs {
+  tpk::GemmArgs g;
+  int N;
 };
 
 template <int K>
-struct FwdLaunch {
-  static cudaError_t run(const FwdArgs& a, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stack_upper_fwd_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(a.smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid(a.N, (a.O + tpk::kFilt - 1) / tpk::kFilt);
-    stack_upper_fwd_kernel<K><<<grid, tpk::kLnWarps * 32, a.smem, stream>>>(
-        a.h, a.w, a.bias, a.gt, a.bt, a.seed, a.out, a.idx, a.stats, a.lin,
-        a.C, a.O, a.M, a.pool, a.wid0, a.eps, a.relu, a.threshold, a.scale,
-        a.drop_on);
-    return cudaGetLastError();
+struct ConvLaunch {
+  static cudaError_t run(const ConvArgs& a, cudaStream_t stream) {
+    return tpk::launch_gemm<K, true>(a.g, a.N, stream);
   }
 };
 
 }  // namespace
 
+// Floats of scratch the entry takes: the weights in the GEMM's layout
+extern "C" long tpk_stack_upper_fwd_scratch(int C, int K, int O) {
+  return static_cast<long>(C) * K * tpk::gemm_cols_pad(O);
+}
+
 // One upper layer.  Launches on `stream` and returns cudaGetLastError(): a
 // refused launch never runs, and only this return value reports it
-// (tpk::kErrSmem where the layer needs too much shared memory).  idx and
-// stats may be null (inference).
+// (tpk::kErrSmem where the layer needs too much shared memory).  y may be
+// out, and idx and stats null (inference); scratch holds
+// tpk_stack_upper_fwd_scratch floats.
 extern "C" int tpk_stack_upper_fwd(const float* h, const float* w,
                                    const float* bias, const float* gt,
-                                   const float* bt, const int* seed,
+                                   const float* bt, const int* seed, float* y,
                                    float* out, int8_t* idx, float* stats,
-                                   int N, int lin, int C, int K, int O,
-                                   int pool, int M, unsigned wid0, float eps,
-                                   int relu, unsigned threshold, float scale,
+                                   float* scratch, int N, int lin, int C,
+                                   int K, int O, int pool, int M,
+                                   unsigned wid0, float eps, int relu,
+                                   unsigned threshold, float scale,
                                    int drop_on, cudaStream_t stream) {
   if (!tpk::upper_geometry_ok(N, lin, C, K, O, pool, M)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = tpk::upper_smem_bytes(C, K, M);
-  if (smem > tpk::kMaxSmem) return tpk::kErrSmem;
-  const FwdArgs a{h, w, bias, gt, bt, seed, out, idx, stats, N, lin, C, O,
-                  pool, M, wid0, eps, relu, threshold, scale, drop_on, smem};
-  return static_cast<int>(tpk::dispatch_taps<FwdLaunch>(K, a, stream));
+  const size_t ln_smem = tpk::ln_smem_bytes(M);
+  if (ln_smem > tpk::kMaxSmem) return tpk::kErrSmem;
+  cudaError_t err = tpk::launch_prep(w, O, C, K, 0, scratch, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ConvArgs a{{h, lin, C, scratch, 0, 0, M * pool, y, idx, bias, O,
+                    pool, M},
+                   N};
+  err = tpk::dispatch_taps<ConvLaunch>(K, a, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = tpk::allow_smem(stack_ln_fwd_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(N, (O + tpk::kFilt - 1) / tpk::kFilt);
+  stack_ln_fwd_kernel<<<grid, tpk::kLnWarps * 32, ln_smem, stream>>>(
+      y, gt, bt, seed, out, stats, O, M, wid0, eps, relu, threshold, scale,
+      drop_on);
+  return static_cast<int>(cudaGetLastError());
 }

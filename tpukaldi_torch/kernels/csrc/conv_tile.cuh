@@ -2,9 +2,10 @@
 // conv_pool_bwd.cu K5b, conv_ln_fwd.cu K6f, conv_ln_bwd.cu K6b) and the
 // conv stack's (K7f, K7b): the geometry, the layer norm's affine step and
 // the dropout hash; the backwards' and the stack's window load, max-pool of
-// a run of conv positions and block sums.  The backwards' dX and dW passes
-// are in conv_pool_bwd.cuh, the forwards' register tile and pipeline (their
-// own window load and max-pool) in conv_fwd.cuh.
+// a run of conv positions and block sums; the runtime queries their
+// launches keep (SM count, shared-memory limit, occupancy).  The backwards'
+// dX and dW passes are in conv_pool_bwd.cuh, the forwards' register tile
+// and pipeline (their own window load and max-pool) in conv_fwd.cuh.
 //
 // Layouts (tpukaldi's): x (N, L) float32, w (K, O) float32, pooled outputs
 // and their gradients (N, M, O) with M = (L - K + 1) / pool, idx (N, M, O)
@@ -16,6 +17,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <utility>
 
 namespace tpk {
 
@@ -112,6 +117,56 @@ __device__ inline float warp_sum(float part, float* red) {
   float tot = 0.0f;
   for (int w = 0; w < kLnWarps; ++w) tot += red[w * kFilt + lane];
   return tot;
+}
+
+// A runtime query's answer for the current device and `key`: ask(dev, &v)
+// once, then the kept v (an error is returned, and not kept).  Each Ask
+// type, one a call site, keeps its own answers.
+template <typename Key, typename Ask>
+inline cudaError_t device_cached(const Key& key, Ask ask, int* out) {
+  static std::mutex lock;
+  static std::map<std::pair<int, Key>, int> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> hold(lock);
+  const auto k = std::make_pair(dev, key);
+  auto it = known.find(k);
+  if (it == known.end()) {
+    int v = 0;
+    err = ask(dev, &v);
+    if (err != cudaSuccess) return err;
+    it = known.emplace(k, v).first;
+  }
+  *out = it->second;
+  return cudaSuccess;
+}
+
+// the streaming multiprocessors of the current device; 0 on an error
+inline int sm_count() {
+  int sms = 0;
+  const cudaError_t err = device_cached(
+      0,
+      [](int dev, int* v) {
+        return cudaDeviceGetAttribute(v, cudaDevAttrMultiProcessorCount, dev);
+      },
+      &sms);
+  return err == cudaSuccess ? sms : 0;
+}
+
+// a kernel's dynamic shared memory raised to kMaxSmem, once per device
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel) {
+  int done = 0;
+  return device_cached(
+      reinterpret_cast<const void*>(kernel),
+      [&](int, int* v) {
+        *v = 1;
+        return cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(kMaxSmem));
+      },
+      &done);
 }
 
 // the shared geometry checks of the four entries

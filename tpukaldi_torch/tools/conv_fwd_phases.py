@@ -125,11 +125,12 @@ VARIANTS = {
 }
 
 
-def sources(src_dir: str = _build._CSRC) -> Dict[str, str]:
+def sources(src_dir: str = _build._CSRC, files: Tuple[str, ...] = FILES
+            ) -> Dict[str, str]:
     """The files as they are in `src_dir` (a design before conv_fwd.cuh
     has none)."""
     out = {}
-    for name in FILES:
+    for name in files:
         path = os.path.join(src_dir, name)
         if os.path.exists(path):
             with open(path) as f:
@@ -137,18 +138,19 @@ def sources(src_dir: str = _build._CSRC) -> Dict[str, str]:
     return out
 
 
-def _build_variants(files: Dict[str, Dict[str, str]]
+def _build_variants(files: Dict[str, Dict[str, str]], stem: str = "conv_fwd",
+                    srcs: Tuple[str, ...] = FILES[:2]
                     ) -> Dict[str, Dict[str, ctypes.CDLL]]:
-    """Both entries of every variant, one nvcc each, all at once, into
-    build/tpukaldi_torch/variants/conv_fwd_v<i>/."""
+    """The entries `srcs` of every variant, one nvcc each, all at once,
+    into build/tpukaldi_torch/variants/<stem>_v<i>/."""
     procs = {}
     for i, (name, texts) in enumerate(files.items()):
-        d = os.path.join(_build.BUILD_DIR, "variants", f"conv_fwd_v{i}")
+        d = os.path.join(_build.BUILD_DIR, "variants", f"{stem}_v{i}")
         os.makedirs(d, exist_ok=True)
         for fname, text in texts.items():
             with open(os.path.join(d, fname), "w") as f:
                 f.write(text)
-        for src in FILES[:2]:
+        for src in srcs:
             lib = os.path.join(d, f"lib{src[:-3]}.so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o", lib,
                    os.path.join(d, src)]
