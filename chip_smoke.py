@@ -94,7 +94,9 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    batch and no backward launch, finite 1944-wide posterior matrices
    agreeing with the plain path and, for two utterances, with the CPU path,
    and the peak device memory.  The plain path serves at the same forward
-   batch, the port's default of 8 utterances.
+   batch, the port's default of 8 utterances.  The liGRU's forward stage
+   runs once more at TPUKALDI_FORWARD_PIPELINE_DEPTH=1: its arks
+   byte-equal to those of the default depth 6.
 4. Training phase, per recipe, the slice's main path: the cfg over the same
    tree (train 64 utterances of 150-778 frames, dev 16; raw: 32 and 8),
    with 2 epochs of 2 train chunks and no sequence-length curriculum,
@@ -106,10 +108,20 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    (the runtime's own counters), the arks, and two utterances against the
    CPU path.  The first train chunk runs once more through the plain path
    for its frames/s, and one full-width train step at drop 0 holds the
-   kernel path's gradients, and the plain path's, to a float64 run.
+   kernel path's gradients, and the plain path's, to a float64 run.  Each
+   train chunk's asynchronous checkpoint hand-off (ckpt_block) and split
+   drain (drain_compute, drain_fetch) and each epoch's `phases ep=` line
+   (host_load, host_load_producer) are printed.  For the liGRU, a
+   ChunkRuntime trains chunk 1, its state is copied to the host, and chunk
+   2 starts at once, beside chunk 1's checkpoint writer: after `wait()`,
+   chunk 1's checkpoints are byte-equal to the synchronous writer's from
+   the host copy, and the writer's seconds are printed beside chunk 2's
+   wall time.
 5. Profile phase, per recipe: the serving path's forward stage and one warm
    train chunk again under torch.profiler: device busy time, idle share,
-   top device ops and, for the train chunk, device time by layer.
+   top device ops and, for the train chunk, device time by layer.  The
+   warm chunk runs beside the previous chunk's checkpoint writer, as every
+   chunk of a run does.
 
 The plain path of a TIMIT recurrent recipe is `*_impl = scan`, the plain
 loop through autograd.  The QLSTM's is its bf16-U kernels' plain versions,
@@ -175,6 +187,8 @@ LEAN_BWD_SHAPES = ((778, 32, 1024), (1000, 32, 1024))
 LEAN_BWD_EDGE_SHAPES = ((37, 5, 36), (50, 96, 1024), (50, 136, 1024))
 # kernel vs plain version on the card: both float32, the recurrent products
 # summed in another order per step, compounding over up to 1000 steps
+# the train .info phases of the asynchronous hand-off and the split drain
+PIPELINE_PHASES = ("ckpt_block", "drain_compute", "drain_fetch")
 KERNEL_ATOL = 1e-4
 # the backward kernels' dff and dmask as the forward's h; the weight
 # gradients sum T*B = 16,000 rows in their own blocked order (the plain
@@ -1739,7 +1753,52 @@ def serving_phase(modules, trees, recipe) -> dict:
     print(f"serving {recipe} agreement: kernel vs plain path max_abs_err="
           f"{worst_plain:.3e} (atol {POSTERIOR_ATOL:g}), CUDA vs CPU path (2 "
           f"utterances) {cpu}", flush=True)
+    if recipe == "liGRU":
+        pipeline_depth_check(cfg, info)
     return {"cfg": cfg, "stack_launches": stack_launches}
+
+
+def _drop_forward_ledger(out) -> None:
+    """Remove the forward tasks' ledger and arks, so the stage runs again."""
+    ef = os.path.join(out, "exp_files")
+    for f in os.listdir(ef):
+        if f.startswith("forward_"):
+            os.remove(os.path.join(ef, f))
+
+
+def _forward_arks(out):
+    ef = os.path.join(out, "exp_files")
+    arks = {}
+    for f in sorted(os.listdir(ef)):
+        if f.startswith("forward_") and f.endswith(".ark"):
+            with open(os.path.join(ef, f), "rb") as fh:
+                arks[f] = fh.read()
+    return arks
+
+
+def pipeline_depth_check(cfg, info) -> None:
+    """The forward stage again at TPUKALDI_FORWARD_PIPELINE_DEPTH=1 (each
+    batch's posteriors on the host before the next batch's): its arks
+    byte-equal to the default depth 6's (a read of a copy not yet done, or
+    of a pinned buffer reused too early, would change bytes)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+
+    out = os.path.dirname(cfg)
+    deep = _forward_arks(out)
+    check(bool(deep), f"no forward arks under {out}")
+    _drop_forward_ledger(out)
+    with _env(TPUKALDI_FORWARD_PIPELINE_DEPTH="1"):
+        run_experiment(cfg, device="cuda")
+    _, info_1 = ft.forward_outputs(out)
+    shallow = _forward_arks(out)
+    check(shallow == deep, "arks at forward pipeline depth 1 differ from "
+          "depth 6's: " + ", ".join(f for f in deep
+                                     if shallow.get(f) != deep[f]))
+    print(f"serving liGRU forward pipeline: depth 1 and depth 6 arks "
+          f"byte-equal ({len(deep)} arks, {sum(map(len, deep.values()))} "
+          f"bytes); forward stage {info_1['elapsed_time_chunk']:.3f} s at "
+          f"depth 1, {info['elapsed_time_chunk']:.3f} s at depth 6", flush=True)
 
 
 def _train_infos(out):
@@ -1787,6 +1846,8 @@ def train_phase(modules, trees, recipe) -> dict:
     for f, v in values.items():
         check(math.isfinite(v["loss"]) and math.isfinite(v["err"])
               and v["frames"] > 0, f"{f}: {v}")
+        check(all(f"phase_{k}" in v for k in PIPELINE_PHASES),
+              f"{f}: no {PIPELINE_PHASES} among {sorted(v)}")
     _, plan = ft.train_plan(cfg)
     for ep_plan in plan.epochs:
         for task in ep_plan.tasks:
@@ -1798,6 +1859,10 @@ def train_phase(modules, trees, recipe) -> dict:
         res = f.read().splitlines()
     ep_lines = [line for line in res if line.startswith("ep=")]
     check(len(ep_lines) == 2, f"res.res ep= lines: {ep_lines}")
+    phase_lines = [line for line in res if line.startswith("phases ep=")]
+    check(len(phase_lines) == 2 and all(
+        " host_load=" in line and " host_load_producer=" in line
+        for line in phase_lines), f"res.res phases lines: {phase_lines}")
     tr_loss = [float(line.split(" loss=")[1].split()[0]) for line in ep_lines]
     check(tr_loss[1] < tr_loss[0], f"{recipe} train loss did not fall: {tr_loss}")
 
@@ -1835,6 +1900,9 @@ def train_phase(modules, trees, recipe) -> dict:
               f"err={v['err']:.4f} frames={int(v['frames'])} "
               f"{v['frames_per_sec']:.1f} frames/s, phases {_phases(v)}",
               flush=True)
+    for f, v in values.items():
+        print(f"training {recipe} .info {f} hand-off: " + " ".join(
+            f"{k}={v[f'phase_{k}']:.3f}" for k in PIPELINE_PHASES), flush=True)
     print(f"training {recipe} arks: {n_test} finite, {N_PDFS} wide; CUDA vs "
           f"CPU path (2 utterances) {cpu}", flush=True)
 
@@ -1848,6 +1916,7 @@ def train_phase(modules, trees, recipe) -> dict:
         plain = rt.run_task(
             task, epoch_lr={a: s.lr[0] for a, s in exp_plain.archs.items()},
             batch_size=exp_plain.batches.batch_size_train[0])
+        rt.checkpointer.wait()
     check(not any(_counts(modules).values()),
           f"{recipe} plain path launched a kernel: {_counts(modules)}")
     first = values[os.path.basename(task.info_file)]
@@ -1862,8 +1931,88 @@ def train_phase(modules, trees, recipe) -> dict:
               f"{k}={v:.3f}" for k, v in plain.phases.items()), flush=True)
 
     step_check(modules, trees, recipe)
+    if recipe == "liGRU":
+        async_checkpoint_check(trees, recipe)
     return {"launches": launches, "bwd_launches": bwd, "cfg": cfg,
             "stack_launches": stack_launches}
+
+
+def _host_twin(exp, chunk):
+    """A CPU graph of the cfg and its optimizers, to hold a copy of a
+    runtime's state (built ahead, so that taking the copy is quick)."""
+    from tpukaldi_torch.graph.compiler import build_graph
+    from tpukaldi_torch.train.optimizers import make_all_optimizers
+
+    graph = build_graph(exp, chunk.fea_layout, chunk.lab_layout, "cpu")
+    return graph.modules, make_all_optimizers(graph.archs, graph.modules)
+
+
+def _copy_to_host(rt, modules, opts) -> None:
+    """The runtime's weights, statistics, optimizer moments, count and lr
+    into its CPU twin, stream-ordered after the steps enqueued so far."""
+    with torch.no_grad():
+        for name, module in modules.items():
+            src = rt.graph.modules[name].state_dict()
+            for k, t in module.state_dict().items():
+                t.copy_(src[k])
+    for name, opt in opts.items():
+        src = rt.optimizers[name]
+        opt.count, opt.lr = src.count, src.lr
+        for p, q in zip(opt.params, src.params):
+            opt.opt.state[p] = {k: v.to("cpu", copy=True)
+                                for k, v in src.opt.state.get(q, {}).items()}
+
+
+def async_checkpoint_check(trees, recipe) -> None:
+    """Train chunk 1 through a ChunkRuntime, copy its state to the host
+    just after `run_task` returns, and start chunk 2 at once, so that its
+    steps run while chunk 1's snapshot is written.  After `wait()`, chunk
+    1's checkpoints are byte-equal to what the synchronous writer makes
+    from the host copy."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import checkpoint as ckpt
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    r = RECIPES[recipe]
+    out = os.path.join(WORK, f"async_ckpt_{recipe}")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(trees[r["corpus"]], out,
+                             os.path.join(out, "run.cfg"), _cuts(recipe),
+                             recipe=ft.recipe_cfg(recipe))
+    exp, plan = ft.train_plan(cfg)
+    first, second = [t for t in plan.epochs[0].tasks if t.phase == "train"][:2]
+    rt = ChunkRuntime(exp, "cuda")
+    kw = dict(epoch_lr={a: s.lr[0] for a, s in exp.archs.items()},
+              batch_size=exp.batches.batch_size_train[0])
+    chunk1, chunk2 = rt.load_task_chunk(first), rt.load_task_chunk(second)
+    host_modules, host_opts = _host_twin(exp, chunk1)
+    res1 = rt.run_task(first, chunk=chunk1, **kw)
+    t0 = time.perf_counter()
+    _copy_to_host(rt, host_modules, host_opts)
+    t_copy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res2 = rt.run_task(second, chunk=chunk2, **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rt.checkpointer.wait()
+    w0, w1 = rt.checkpointer.write_spans[0]
+    ref = {a: os.path.join(out, f"sync_{a}.ckpt") for a in first.ckpt_files}
+    ckpt.save_all(ref, host_modules, host_opts)
+    sizes = []
+    for arch, path in first.ckpt_files.items():
+        with open(path, "rb") as f, open(ref[arch], "rb") as g:
+            got, want = f.read(), g.read()
+        check(got == want, f"{recipe} chunk 1's asynchronous checkpoint of "
+              f"{arch} ({len(got)} bytes) differs from the synchronous "
+              f"writer's on a host copy ({len(want)} bytes)")
+        sizes.append(len(got))
+    print(f"async checkpoint {recipe}: chunk 1's {len(sizes)} checkpoints "
+          f"({sum(sizes)} bytes) byte-equal to the synchronous writer's from "
+          f"a host copy ({t_copy:.3f} s); ckpt_block "
+          f"{res1.phases['ckpt_block']:.3f} s; writer "
+          f"{w1 - w0:.3f} s beside chunk 2's wall {t1 - t0:.3f} s (.info "
+          f"{res2.elapsed:.3f} s), overlapping {max(0.0, min(w1, t1) - max(w0, t0)):.3f} s;"
+          f" chunk 2 dispatch {res2.phases['dispatch']:.3f} s", flush=True)
 
 
 def step_check(modules, trees, recipe) -> None:
@@ -2030,10 +2179,7 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
     from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
 
     out = os.path.dirname(serve_cfg)
-    ef = os.path.join(out, "exp_files")
-    for f in os.listdir(ef):  # drop the forward ledger so the task runs again
-        if f.startswith("forward_"):
-            os.remove(os.path.join(ef, f))
+    _drop_forward_ledger(out)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2060,11 +2206,18 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
     rt.run_task(ep1[0], **kw)
     chunk = rt.load_task_chunk(ep1[1])
     torch.cuda.synchronize()
+    # epoch 1's first chunk's checkpoint is still being written: the
+    # profiled chunk runs beside the writer, as every chunk of a run does
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         res = rt.run_task(ep1[1], chunk=chunk, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    rt.checkpointer.wait()
+    spans = rt.checkpointer.write_spans
+    print(f"profile {recipe} train chunk: checkpoint writer "
+          f"{spans[0][1] - spans[0][0]:.3f} s for the chunk before, "
+          f"{spans[1][1] - spans[1][0]:.3f} s for this one", flush=True)
     busy_us, per_op = _device_events(prof)
     label = f"{recipe} train chunk"
     _print_profile(f"{label} (warm)", wall, busy_us, per_op, n_top=5)

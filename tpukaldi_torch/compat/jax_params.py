@@ -262,12 +262,14 @@ def to_jax_params(state_dict: Dict[str, Any], class_name: str
     return params, stats
 
 
-def moments_to_jax(module: torch.nn.Module,
-                   moments: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """{parameter name: tensor shaped like it} -> a numpy tree in tpukaldi's
-    parameter naming (per-gate batchnorm halves joined, Linear weights
-    transposed)."""
-    sd = dict(module.state_dict())  # buffers, which the map needs too
+def moments_to_jax(module: torch.nn.Module, moments: Dict[str, Any],
+                   state_dict: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
+    """{parameter name: tensor or array shaped like it} -> a numpy tree in
+    tpukaldi's parameter naming (per-gate batchnorm halves joined, Linear
+    weights transposed).  The map needs the module's buffers too: from
+    `state_dict` where given (a copy taken earlier), else from the module."""
+    sd = dict(module.state_dict() if state_dict is None else state_dict)
     sd.update(moments)
     params, _ = to_jax_params(sd, type(module).__name__)
     return params

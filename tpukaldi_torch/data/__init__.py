@@ -16,3 +16,4 @@ from .batching import (  # noqa: F401
     n_seq_batches,
 )
 from .labels import dump_label_stream, read_label_stream  # noqa: F401
+from .prefetch import ChunkPrefetcher  # noqa: F401

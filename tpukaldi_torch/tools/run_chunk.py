@@ -122,13 +122,15 @@ def run_chunk(chunk_cfg_path: str, device="cuda") -> str:
     task = _task_from_info(exp, to_do, out_info, seed)
     b = exp.batches
     phase = "train" if to_do == "train" else "valid"
-    ChunkRuntime(exp, device).run_task(
+    runtime = ChunkRuntime(exp, device)
+    runtime.run_task(
         task,
         epoch_lr={name: arch.lr[0] for name, arch in exp.archs.items()},
         max_seq_length=b.msl_for_phase(phase, 0),
         batch_size=(b.batch_size_train[0] if to_do == "train"
                     else b.batch_size_valid),
     )
+    runtime.checkpointer.wait()  # the checkpoints are on disk on return
     return task.info_file
 
 

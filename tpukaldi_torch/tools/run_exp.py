@@ -25,6 +25,7 @@ import numpy as np
 
 from ..config import ConfigError, load_config
 from ..config.cfg import ExperimentConfig
+from ..data.prefetch import ChunkPrefetcher
 from ..decode.bridge import harvest_wer, run_decode
 from ..forward.counts import resolve_count_files
 from ..plan import ChunkTask, build_plan, repair_resume_point
@@ -36,9 +37,10 @@ from ..train.chunk_runtime import (
     resolve_device,
 )
 
-# per-chunk phases summed into the `phases ep=` line of res.res
-_PHASES = ("host_batch", "h2d", "dispatch", "drain", "ckpt_write",
-           "restore_wait")
+# per-chunk phases summed into the `phases ep=` line of res.res, in
+# tpukaldi's order (tools/run_exp.py:313-335)
+_PHASES = ("h2d", "dispatch", "drain", "drain_compute", "drain_fetch",
+           "ckpt_block", "restore_wait", "host_batch")
 
 
 def _log(out_folder: str, msg: str) -> None:
@@ -96,8 +98,55 @@ def dump_epoch_results(
     print(line)
 
 
+class ChunkFeeder:
+    """The chunk prefetch feeder (tpukaldi/tools/run_exp.py:176-225): loads
+    the next task's chunk on a host thread while the device runs this one,
+    across the whole schedule, every epoch's tasks then the forward tasks.
+    `host_load` is the epoch loop's un-overlapped wait for chunks (reset per
+    epoch by the caller); the prefetcher's `producer_seconds` is the
+    loader thread's own time."""
+
+    def __init__(self, exp: ExperimentConfig, plan, runtime: ChunkRuntime):
+        self.exp, self.runtime = exp, runtime
+        self.schedule = [t for ep_plan in plan.epochs for t in ep_plan.tasks]
+        self.schedule += plan.forward_tasks
+        self.schedule_index = {id(t): i for i, t in enumerate(self.schedule)}
+        self.prefetcher = ChunkPrefetcher()
+        self.for_task: Optional[ChunkTask] = None
+        self.host_load = 0.0
+
+    def _task_msl(self, task: ChunkTask):
+        return self.exp.batches.msl_for_phase(task.phase, task.epoch)
+
+    def _start_prefetch(self, after_index: int) -> None:
+        """Start loading the first task after `after_index` not yet done."""
+        for nxt in self.schedule[after_index + 1 :]:
+            if not nxt.done:
+                self.prefetcher.start(
+                    lambda t=nxt: self.runtime.load_task_chunk(
+                        t, self._task_msl(t)))
+                self.for_task = nxt
+                return
+        self.for_task = None
+
+    def get_chunk(self, task: ChunkTask):
+        """`task`'s chunk: the prefetched one when it was loaded for this
+        task, else loaded now; then the next task's load starts."""
+        t0 = time.perf_counter()
+        chunk = None
+        if self.prefetcher.in_flight:
+            prefetched = self.prefetcher.take()
+            if self.for_task is task:
+                chunk = prefetched
+        if chunk is None:
+            chunk = self.runtime.load_task_chunk(task, self._task_msl(task))
+        self._start_prefetch(self.schedule_index[id(task)])
+        self.host_load += time.perf_counter() - t0
+        return chunk
+
+
 def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
-           res_file: str) -> None:
+           feeder: ChunkFeeder, res_file: str) -> None:
     """The epoch loop (tpukaldi/tools/run_exp.py:167-337): train chunks in
     order, each validation point aggregating the valid tasks after it,
     new-bob halving of every auto-annealed arch's lr, and per epoch an
@@ -112,7 +161,8 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
     for ep_plan in plan.epochs:
         ep = ep_plan.epoch
         t_ep = time.time()
-        host_load = 0.0
+        feeder.host_load = 0.0
+        producer_base = feeder.prefetcher.producer_seconds
         tr_results: List[ChunkResult] = []
         ep_valid_results: List[ChunkResult] = []
         valid_perf: Dict[str, ChunkResult] = {}
@@ -156,12 +206,9 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
                 task.write_lst_files()
                 write_chunk_cfg(exp, task, lr=epoch_lr, batch_size=bs,
                                 max_seq_length=msl)
-                t0 = time.perf_counter()
-                chunk = runtime.load_task_chunk(task, msl)
-                host_load += time.perf_counter() - t0
                 res = runtime.run_task(task, epoch_lr=epoch_lr,
                                        max_seq_length=msl, batch_size=bs,
-                                       chunk=chunk)
+                                       chunk=feeder.get_chunk(task))
             if task.phase == "train":
                 flush_valid_point()
                 tr_results.append(res)
@@ -175,15 +222,20 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
         epoch_wall = time.time() - t_ep
         dump_epoch_results(res_file, ep, exp.n_epochs, exp.train_with,
                            tr_loss, tr_err, valid_perf, lr, epoch_wall)
-        # where the epoch's wall time went (skipped by "ep="-prefixed parsers)
+        # where the epoch's wall time went (skipped by "ep="-prefixed
+        # parsers).  host_load_producer: the loader thread's own seconds,
+        # overlapped with device work and NOT additive with the rest;
+        # host_load is the remainder the epoch loop waited on
         valid_wall = sum(r.elapsed for r in ep_valid_results)
         phases = "".join(
             f" {k}={sum((r.phases or {}).get(k, 0.0) for r in tr_results + ep_valid_results):.2f}"
             for k in _PHASES)
-        other = max(epoch_wall - tr_time - valid_wall - host_load, 0.0)
+        producer = feeder.prefetcher.producer_seconds - producer_base
+        other = max(epoch_wall - tr_time - valid_wall - feeder.host_load, 0.0)
         with open(res_file, "a") as rf:
-            rf.write(f"phases ep={ep} host_load={host_load:.2f} "
-                     f"train_wall={tr_time:.2f} valid_wall={valid_wall:.2f}"
+            rf.write(f"phases ep={ep} host_load={feeder.host_load:.2f} "
+                     f"train_wall={tr_time:.2f} valid_wall={valid_wall:.2f} "
+                     f"host_load_producer={producer:.2f}"
                      f"{phases} driver_other={other:.2f} "
                      f"epoch_wall={epoch_wall:.2f}\n")
 
@@ -259,9 +311,12 @@ def _run_experiment(cfg_file: str, overrides: Optional[List[str]],
     res_file = os.path.join(out_folder, "res.res")
     if not os.path.exists(res_file):
         open(res_file, "w").close()
-    _train(exp, plan, runtime, res_file)
+    feeder = ChunkFeeder(exp, plan, runtime)
+    _train(exp, plan, runtime, feeder, res_file)
 
-    # final checkpoints (reference run_exp.py:412-414)
+    # final checkpoints (reference run_exp.py:412-414): the asynchronous
+    # writer finishes before the files are copied
+    runtime.checkpointer.wait()
     if plan.epochs:
         last_train = [t for t in plan.epochs[-1].tasks if t.phase == "train"][-1]
         for arch, final in plan.final_ckpts.items():
@@ -286,7 +341,7 @@ def _run_experiment(cfg_file: str, overrides: Optional[List[str]],
         if not task.done:
             task.write_lst_files()
             write_chunk_cfg(exp, task)
-            runtime.run_task(task)
+            runtime.run_task(task, chunk=feeder.get_chunk(task))
         for i, out in enumerate(exp.forward.outs):
             suffix = "_to_decode.ark" if exp.forward.require_decoding[i] else ".ark"
             ark = task.info_file.replace(".info", f"_{out}{suffix}")

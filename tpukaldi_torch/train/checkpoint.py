@@ -12,11 +12,16 @@ port loads into tpukaldi, bit for bit.
 
 from __future__ import annotations
 
+import math
 import os
+import queue
 import struct
-from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
+import threading
+import time
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 from torch import nn
 
 from ..compat.jax_params import from_jax_params, to_jax_params
@@ -149,18 +154,19 @@ def _pack_int(out: bytearray, v: int) -> None:
         raise OverflowError(v)
 
 
-def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
-    n = len(payload)
+def _pack_ext_header(out: bytearray, code: int, n: int) -> None:
     fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
     if n in fixext:
         out += struct.pack(">Bb", fixext[n], code)
     else:
         _pack_len(out, n, None, 0, (0xC7, 0xC8, 0xC9))
         out += struct.pack(">b", code)
-    out += payload
 
 
-def _pack(out: bytearray, v: Any) -> None:
+def _pack(out: bytearray, v: Any, views: List[Tuple[int, memoryview]]) -> None:
+    """Append `v` to `out`, except an array's data: that goes into `views`
+    as (offset in `out`, a view of the array's own buffer), so a large
+    checkpoint is never copied into one buffer (`_parts`)."""
     if v is None:
         out.append(0xC0)
     elif isinstance(v, bool):
@@ -180,26 +186,46 @@ def _pack(out: bytearray, v: Any) -> None:
         arr = np.asarray(v)
         if arr.dtype.hasobject or arr.dtype.fields is not None:
             raise ValueError(f"cannot serialize dtype {arr.dtype}")
-        payload = packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
-        _pack_ext(out, _EXT_NPSCALAR if isinstance(v, np.generic)
-                  else _EXT_NDARRAY, payload)
+        # the ext's payload is the triple (shape, dtype name, C-order
+        # bytes); only a non-contiguous array (a transposed kernel) is
+        # copied, into C order
+        data = memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+        head = bytearray([0x93])
+        _pack(head, list(arr.shape), views)
+        _pack(head, arr.dtype.name, views)
+        _pack_len(head, len(data), None, 0, (0xC4, 0xC5, 0xC6))
+        _pack_ext_header(out, _EXT_NPSCALAR if isinstance(v, np.generic)
+                         else _EXT_NDARRAY, len(head) + len(data))
+        out += head
+        views.append((len(out), data))
     elif isinstance(v, (list, tuple)):
         _pack_len(out, len(v), 0x90, 15, (None, 0xDC, 0xDD))
         for x in v:
-            _pack(out, x)
+            _pack(out, x, views)
     elif isinstance(v, dict):
         _pack_len(out, len(v), 0x80, 15, (None, 0xDE, 0xDF))
         for k, x in v.items():
-            _pack(out, k)
-            _pack(out, x)
+            _pack(out, k, views)
+            _pack(out, x, views)
     else:
         raise TypeError(f"cannot serialize {type(v).__name__}")
 
 
-def packb(value: Any) -> bytes:
+def _parts(value: Any) -> List[memoryview]:
+    """The msgpack encoding of `value` as consecutive pieces: headers, and
+    each array's data in place."""
     out = bytearray()
-    _pack(out, value)
-    return bytes(out)
+    views: List[Tuple[int, memoryview]] = []
+    _pack(out, value, views)
+    whole, parts, pos = memoryview(out), [], 0
+    for at, data in views:
+        parts += [whole[pos:at], data]
+        pos = at
+    return parts + [whole[pos:]]
+
+
+def packb(value: Any) -> bytes:
+    return b"".join(_parts(value))
 
 
 # ------------------------------------------------------------- checkpoints
@@ -219,7 +245,7 @@ def write_checkpoint(path: str, params: Dict, opt_state: Dict = None,
     }
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        f.write(packb(payload))
+        f.writelines(_parts(payload))
     os.replace(tmp, path)  # atomic: the ledger never sees a torn checkpoint
 
 
@@ -234,6 +260,179 @@ def save_all(paths: Dict[str, str], modules: Dict[str, nn.Module],
         params, stats = to_jax_params(module.state_dict(), type(module).__name__)
         opt = (optimizers or {}).get(arch)
         write_checkpoint(path, params, opt.state_tree() if opt else None, stats)
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes that overlap training (tpukaldi's
+    `train/checkpoint.py::AsyncCheckpointer`): `save_all_async` takes the
+    state on the device and returns; one writer thread packs and writes
+    while the next chunks train.  Saves queue (depth 2) instead of joining
+    the previous one; a third save blocks until the oldest write is done,
+    which bounds the snapshots in flight.  `wait()` drains the queue (call
+    it before reading the files, and at the end of a run).  A writer error
+    re-raises at the next `save_all_async` or `wait()`.
+
+    On a CUDA device a save (1) copies every tensor it writes into one
+    flat device buffer per dtype on the compute stream, in stream order
+    with the steps around it (the next chunk's foreach optimizer updates
+    the live tensors in place), and reads the step count and lr of the
+    same moment; (2) copies those buffers with `non_blocking` into pinned
+    host buffers on a side stream that waits for the compute stream, and
+    records an event there; the pinned buffers are reused from save to
+    save.  The writer thread waits on that event and then runs host code
+    only: `to_jax_params`, the optimizer's tree, `packb` and
+    `write_checkpoint`.  The files are byte-equal to `save_all`'s."""
+
+    DEPTH = 2  # saves queued or being written at once
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._queue: "queue.Queue" = queue.Queue()
+        # taken by a save before its snapshot, given back when it is written
+        self._depth = threading.Semaphore(self.DEPTH)
+        self._error: Optional[BaseException] = None
+        # pinned host buffers ({(device, dtype): flat tensor}) no write holds
+        self._free: List[Dict] = []
+        self._lock = threading.Lock()
+        self._stream = None  # the side stream of the device-to-host copies
+        # (start, end) `time.perf_counter` of each write, in save order
+        self.write_spans: List[Tuple[float, float]] = []
+
+    def _raise_error(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _ensure_worker(self) -> None:
+        if self._thread is not None:
+            return
+
+        def work():
+            while True:
+                item = self._queue.get()
+                try:
+                    self._write(item)
+                except BaseException as e:  # re-raised on the caller
+                    self._error = e
+                finally:
+                    self._queue.task_done()
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name="tpukaldi-ckpt-writer")
+        self._thread.start()
+
+    def _pinned(self, sizes: Dict) -> Dict:
+        """A set of pinned host buffers of at least `sizes` elements."""
+        with self._lock:
+            slot = self._free.pop() if self._free else {}
+        for (device, dtype), n in sizes.items():
+            if device.type == "cuda" and (
+                    (device, dtype) not in slot
+                    or slot[(device, dtype)].numel() < n):
+                slot[(device, dtype)] = torch.empty(n, dtype=dtype,
+                                                    pin_memory=True)
+        return slot
+
+    def save_all_async(self, paths: Dict[str, str],
+                       modules: Dict[str, nn.Module],
+                       optimizers: Optional[Dict[str, "ArchOptimizer"]] = None
+                       ) -> None:
+        self._raise_error()
+        self._ensure_worker()
+        self._depth.acquire()  # a third save waits for the oldest write
+        try:
+            item = self._snapshot(paths, modules, optimizers)
+        except BaseException:
+            self._depth.release()
+            raise
+        self._queue.put(item)
+
+    def _snapshot(self, paths, modules, optimizers) -> Dict:
+        """Steps (1) and (2): the work item of one save."""
+        # (1) every tensor the files hold, by (arch, state key or "sd",
+        # name), and the host values of the same moment
+        tensors: Dict[Tuple[str, str, str], torch.Tensor] = {}
+        archs = {}
+        for arch in paths:
+            module = modules[arch]
+            for name, t in module.state_dict().items():
+                tensors[(arch, "sd", name)] = t
+            opt = (optimizers or {}).get(arch)
+            count = lr = None
+            if opt is not None:
+                count, lr, moments = opt.capture()
+                for key, by_name in moments.items():
+                    for name, t in by_name.items():
+                        tensors[(arch, key, name)] = t
+            archs[arch] = (type(module).__name__, opt, count, lr)
+        groups: Dict[Tuple[torch.device, torch.dtype], list] = {}
+        for k, t in tensors.items():
+            groups.setdefault((t.device, t.dtype), []).append(k)
+        with torch.no_grad():
+            flat = {g: torch.cat([tensors[k].reshape(-1) for k in keys])
+                    for g, keys in groups.items()}
+        layout = {g: [(k, tuple(tensors[k].shape)) for k in keys]
+                  for g, keys in groups.items()}
+        # (2) the device buffers to pinned host memory, on the side stream
+        slot = self._pinned({g: f.numel() for g, f in flat.items()})
+        host = {g: f for g, f in flat.items() if not f.is_cuda}  # copies
+        done = None
+        on_card = [g for g, f in flat.items() if f.is_cuda]
+        if on_card:
+            device = flat[on_card[0]].device
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(device)
+            self._stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(self._stream):
+                for g in on_card:
+                    host[g] = slot[g][: flat[g].numel()]
+                    host[g].copy_(flat[g], non_blocking=True)
+                    # the device buffer stays allocated until its copy ends
+                    flat[g].record_stream(self._stream)
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        return {"paths": dict(paths), "archs": archs, "layout": layout,
+                "host": host, "done": done, "slot": slot}
+
+    def _write(self, item: Dict) -> None:
+        """The writer thread's part: host code only, once the copy is
+        done."""
+        try:
+            if item["done"] is not None:
+                item["done"].synchronize()
+            t0 = time.perf_counter()
+            arrays = {}
+            for g, entries in item["layout"].items():
+                buf, pos = item["host"][g].numpy(), 0
+                for k, shape in entries:
+                    n = math.prod(shape)
+                    arrays[k] = buf[pos : pos + n].reshape(shape)
+                    pos += n
+            for arch, path in item["paths"].items():
+                class_name, opt, count, lr = item["archs"][arch]
+                sd = {name: a for (ar, part, name), a in arrays.items()
+                      if ar == arch and part == "sd"}
+                params, stats = to_jax_params(sd, class_name)
+                opt_tree = None
+                if opt is not None:
+                    moments: Dict[str, Dict[str, np.ndarray]] = {}
+                    for (ar, part, name), a in arrays.items():
+                        if ar == arch and part != "sd":
+                            moments.setdefault(part, {})[name] = a
+                    opt_tree = opt.state_tree((count, lr, moments), sd)
+                write_checkpoint(path, params, opt_tree, stats)
+            self.write_spans.append((t0, time.perf_counter()))
+        finally:
+            with self._lock:
+                self._free.append(item["slot"])
+            self._depth.release()
+
+    def wait(self) -> None:
+        """Block until every queued write is on disk; re-raise a writer
+        error."""
+        if self._thread is not None:
+            self._queue.join()
+        self._raise_error()
 
 
 def load_all(paths: Dict[str, str], modules: Dict[str, nn.Module],

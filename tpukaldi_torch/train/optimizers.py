@@ -25,7 +25,7 @@ are trees in tpukaldi's parameter naming.
 from __future__ import annotations
 
 import sys
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -136,16 +136,29 @@ class ArchOptimizer:
             out[name] = (torch.zeros_like(p) if v is None else v).detach()
         return out
 
-    def state_tree(self) -> Dict:
-        """The optimizer state in tpukaldi's checkpoint layout (numpy)."""
+    def capture(self) -> Tuple[int, float, Dict[str, Dict[str, torch.Tensor]]]:
+        """The state a checkpoint writes, as it stands now: the step count,
+        the lr and, by torch state key, the moments by parameter name (the
+        live tensors, which the next step updates in place)."""
+        keys = {key for part in self.layout for key in part.values()
+                if key != "step"}
+        return self.count, self.lr, {key: self._moments(key) for key in keys}
+
+    def state_tree(self, captured=None, state_dict=None) -> Dict:
+        """The optimizer state in tpukaldi's checkpoint layout (numpy): the
+        live state, or `captured` (what `capture()` returned, its moments
+        as tensors or arrays) with the module's `state_dict` of the same
+        moment."""
+        count, lr, moments = self.capture() if captured is None else captured
         inner = {}
         for i, part in enumerate(self.layout):
             inner[str(i)] = {
-                field: (np.asarray(self.count, np.int32) if key == "step"
-                        else moments_to_jax(self.module, self._moments(key)))
+                field: (np.asarray(count, np.int32) if key == "step"
+                        else moments_to_jax(self.module, moments[key],
+                                            state_dict))
                 for field, key in part.items()}
-        return {"count": np.asarray(self.count, np.int32),
-                "hyperparams": {"lr": np.asarray(self.lr, np.float32)},
+        return {"count": np.asarray(count, np.int32),
+                "hyperparams": {"lr": np.asarray(lr, np.float32)},
                 "hyperparams_states": {},
                 "inner_state": inner}
 
