@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Six recipes run at full width.  Three TIMIT fMLLR recipes, 5x550
+Six recipes run at full width, and the rest of the zoo in a phase of its
+own (6 below).  Three TIMIT fMLLR recipes, 5x550
 bidirectional with batchnorm, recurrent dropout 0.2, two softmax heads (cd
 head 1944 pdfs) and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg,
 relu), the LSTM (LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
@@ -122,6 +123,25 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    top device ops and, for the train chunk, device time by layer.  The
    warm chunk runs beside the previous chunk's checkpoint writer, as every
    chunk of a run does.
+6. Zoo phase, the classes that have no TPU kernel, each at its shipped
+   cfg's full widths: RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
+   tanh, batchnorm), minimalGRU (minimalGRU_fbank.cfg, 5x550), LSTM_cudnn
+   (LSTM_fmllr_cudnn.cfg, 4x550 bidirectional; torch's LSTM, cuDNN in
+   float32) and GRU_cudnn and RNN_cudnn at the same shape, SRU
+   (SRU_fbank.cfg, 4x550 bidirectional) and fusionRNN
+   (cfg/DIRHA/fusionRNN_mfcc_6ch.cfg, 4x512 with the 3072-wide fusion layer
+   over 6 mics, on a DIRHA tree whose mfcc_6ch stream is 240 wide).  Each
+   builds its graph from the cfg's seed on the card and a CPU twin, and on
+   the first train batch (8 utterances of 150-778 frames) holds one forward
+   with lengths (the valid frames) and one train step at drop 0 (the loss
+   and every gradient) to the twin, with its ms a step and forward
+   frames/s.  fusionRNN's recurrence is the liGRU's and runs K1 on the
+   card: its K1f outputs are held to `ligru_recurrence_ref` on the same
+   inputs, and it trains (one train chunk, then the forward stage) and
+   serves through `run_experiment(device="cuda")`, with K1f and K1b
+   counted and two utterances' posteriors held to the CPU path.  The
+   phase prints its seconds; K1's rows of the kernels line carry their
+   launches on this fusion path as `fusion_launches`.
 
 The plain path of a TIMIT recurrent recipe is `*_impl = scan`, the plain
 loop through autograd.  The QLSTM's is its bf16-U kernels' plain versions,
@@ -223,6 +243,49 @@ POSTERIOR_ATOL = 1e-3
 # (for the QLSTM, the plain bf16 path: its products are bf16 by design)
 STEP_LOSS_ATOL = 1e-4
 STEP_GRAD_FACTOR = 2.0
+# The zoo phase: the classes with no TPU kernel, each at its shipped cfg's
+# full widths (cfg/TIMIT/RNN_fmllr.cfg 5x550 bidirectional tanh with
+# batchnorm; minimalGRU_fbank.cfg 5x550; LSTM_fmllr_cudnn.cfg 4x550
+# bidirectional, and the same shape with GRU_cudnn and RNN_cudnn swapped in;
+# SRU_fbank.cfg 4x550 bidirectional; cfg/DIRHA/fusionRNN_mfcc_6ch.cfg 4x512
+# with the 3072-wide fusion layer over 6 mics): class -> (tree, recipe,
+# cfg replacements that make it).  Each is held on the card to a CPU twin
+# from the cfg's seed: the loss of one train step at drop 0 to
+# STEP_LOSS_ATOL, each gradient to ZOO_GRAD_RTOL of the largest gradient of
+# its architecture (float32 on both sides, sums over recurrences of up to
+# 778 steps in other orders; rounding scales with the terms summed, and a
+# batchnorm's bias gradient sums T * B' terms that mostly cancel, so its
+# own max is no scale for it), and a forward with lengths on the valid
+# frames to POSTERIOR_ATOL.  fusionRNN's gradients, which pass through K1b,
+# are held as `step_check` holds the liGRU recipe's: to a float64 run of the
+# CPU twin, at most STEP_GRAD_FACTOR times as far from it as the CPU twin.
+ZOO = {
+    "RNN": ("TIMIT", "RNN", {}),
+    "minimalGRU": ("TIMIT", "minimalGRU", {}),
+    "LSTM_cudnn": ("TIMIT", "LSTM_cudnn", {}),
+    "GRU_cudnn": ("TIMIT", "LSTM_cudnn",
+                  {"arch_class = LSTM_cudnn": "arch_class = GRU_cudnn"}),
+    "RNN_cudnn": ("TIMIT", "LSTM_cudnn",
+                  {"arch_class = LSTM_cudnn": "arch_class = RNN_cudnn"}),
+    "SRU": ("TIMIT", "SRU", {}),
+    "fusionRNN": ("DIRHA6", "fusionRNN", {}),
+}
+ZOO_GRAD_RTOL = 1e-4
+# fusionRNN's Linear biases sit right before a batchnorm, whose mean cancels
+# them: their gradient is zero but for rounding (CPU and card alike), so
+# they are held to be tiny against the largest gradient, not to a relative
+# error
+ZOO_INERT = re.compile(r"fusionRNN_layers\.w\.\d+\.bias")
+ZOO_INERT_RTOL = 1e-5
+# fusionRNN's tree: a 6-mic mfcc_6ch stream 240 wide (6 x 40)
+ZOO_TREE = dict(dim=240, splits={"train": (16, 150, 778), "dev": (4, 150, 778),
+                                 "test": (16, 150, 778)})
+# 8 utterances a train batch, as the TIMIT recipes have it; fusionRNN's
+# run through run_exp trains one chunk of one epoch
+ZOO_CUTS = {"batch_size_train = 16": "batch_size_train = 8"}
+FUSION_RUN_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
+                   "n_chunks = 5": "n_chunks = 1", **ZOO_CUTS}
+FUSION_LAYERS = 4
 # recipe -> its kernel module's cell, forward and backward kernel, layers,
 # tree and cuts (2 epochs of 2 train chunks, no sequence-length curriculum;
 # the DIRHA cfg has none already)
@@ -371,8 +434,11 @@ def _raw(recipe):
 
 
 def _cuts(recipe):
-    return {**TRAIN_CUTS, **(TIMIT_CUTS if RECIPES[recipe]["corpus"] == "TIMIT"
-                             else {})}
+    return _cuts_for(RECIPES[recipe]["corpus"])
+
+
+def _cuts_for(corpus):
+    return {**TRAIN_CUTS, **(TIMIT_CUTS if corpus == "TIMIT" else {})}
 
 
 @contextlib.contextmanager
@@ -2089,6 +2155,309 @@ def step_check(modules, trees, recipe) -> None:
           f"{recipe} kernel path gradients {err_k} from float64, plain path {err_s}")
 
 
+def _zoo_no_drop(src):
+    """cfg replacements setting every dropout rate of the recipe to 0."""
+    with open(src) as f:
+        text = f.read()
+    return {m.group(0): f"{m.group(1)} = " + ",".join(
+        "0.0" for _ in m.group(2).split(","))
+        for m in re.finditer(r"^(\w*drop\w*) = (.+)$", text, re.M)}
+
+
+def _zoo_cfg(tree, cls, out, name, replace):
+    """A zoo class's training cfg over `tree`, with the corpus's cuts, a
+    batch of 8 utterances, the class swapped in and `replace`."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    corpus, recipe, swap = ZOO[cls]
+    src = ft.recipe_cfg(recipe)
+    with open(src) as f:
+        text = f.read()
+    cuts = {k: v for k, v in {**_cuts_for(corpus), **ZOO_CUTS}.items()
+            if k in text}
+    os.makedirs(out, exist_ok=True)
+    return ft.write_train_cfg(tree, out, os.path.join(out, name),
+                              {**cuts, **swap, **replace}, recipe=src)
+
+
+def _warm_ms(fn) -> float:
+    """One call of fn after a warm one, between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+class _K1Calls:
+    """Records K1f's calls (inputs and output) while in place: the wrapper
+    the fusion layers reach through `LiGRURecurrence`."""
+
+    def __init__(self, ligru):
+        self.ligru, self.calls = ligru, []
+
+    def __enter__(self):
+        self.saved = self.ligru.ligru_recurrence
+
+        def record(ff, u, mask):
+            h = self.saved(ff, u, mask)
+            self.calls.append((ff.detach(), u.detach(), mask.detach(),
+                               h.detach()))
+            return h
+
+        self.ligru.ligru_recurrence = record
+        return self
+
+    def __exit__(self, *exc):
+        self.ligru.ligru_recurrence = self.saved
+
+
+def zoo_step_check(modules, cfg, cls, card="cuda") -> dict:
+    """One class at full width: the card's train step and forward with
+    lengths against a CPU twin from the cfg's seed, and their times."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+    from tpukaldi_torch.train.step import forward_step, train_step
+
+    t_start = time.perf_counter()
+    exp, plan = ft.train_plan(cfg)
+    task = plan.epochs[0].tasks[0]
+    # the card's runtime and its CPU twin, each seeded from the cfg
+    twins = {"card": chunk_runtime.ChunkRuntime(exp, card),
+             "cpu": chunk_runtime.ChunkRuntime(exp, "cpu")}
+    chunk = twins["cpu"].load_task_chunk(task)
+    for rt in twins.values():
+        rt.ensure_initialized(chunk, with_optimizers=True)
+    bs = twins["cpu"]._effective_bs(chunk, exp.batches.batch_size_train[0])
+    batch = next(twins["cpu"]._batches(chunk, bs, True, task.seed))
+    frames = int(batch.lengths.sum())
+    inputs = {d: tuple(torch.from_numpy(np.asarray(a)).to(rt.device) for a in
+                       (batch.feats, batch.labs, batch.lengths))
+              for d, rt in twins.items()}
+    out_name = exp.forward.outs[0]
+
+    # the forward with lengths (eval mode, the seeded weights)
+    def fwd(d):
+        feats, _, lengths = inputs[d]
+        return forward_step(twins[d].graph, feats, lengths)[out_name]
+
+    k1 = None
+    with _K1Calls(modules["ligru"]) as rec:
+        post = fwd("card")
+    if cls == "fusionRNN":
+        check(len(rec.calls) == FUSION_LAYERS,
+              f"fusionRNN forward: {len(rec.calls)} K1f calls, expected "
+              f"{FUSION_LAYERS}")
+        k1 = max(float((h - modules["ligru"].ligru_recurrence_ref(
+            ff, u, mask)).abs().max()) for ff, u, mask, h in rec.calls)
+        check(k1 <= KERNEL_ATOL, f"fusionRNN: K1f vs its plain version {k1}")
+    else:
+        check(not rec.calls, f"{cls} forward called K1f")
+    post_cpu = fwd("cpu")
+    T, B = batch.feats.shape[:2]
+    valid = (torch.arange(T)[:, None] < torch.from_numpy(
+        np.asarray(batch.lengths))[None, :]).reshape(-1)
+    fwd_err = float((post.cpu()[valid] - post_cpu[valid]).abs().max())
+    check(bool(torch.isfinite(post).all()), f"{cls}: non-finite forward")
+    check(fwd_err <= POSTERIOR_ATOL,
+          f"{cls}: card vs CPU forward (valid frames) {fwd_err}")
+    fwd_ms = _warm_ms(lambda: fwd("card"))
+
+    # one train step at drop 0
+    def step(d):
+        feats, labs, _ = inputs[d]
+        return train_step(twins[d].graph, twins[d].optimizers, feats, labs,
+                          batch.n_valid_t, twins[d].generator)
+
+    t_cpu = time.perf_counter()
+    losses = {"cpu": step("cpu")[0].item()}
+    t_cpu = time.perf_counter() - t_cpu
+    losses["card"] = step("card")[0].item()
+    if k1 is not None:
+        # the K1 path's reference: the CPU twin in float64 (the heads'
+        # log-softmax and the costs stay float32, as in tpukaldi)
+        twins["cpu64"] = chunk_runtime.ChunkRuntime(exp, "cpu")
+        twins["cpu64"].ensure_initialized(chunk, with_optimizers=True)
+        for module in twins["cpu64"].graph.modules.values():
+            module.to(torch.float64)
+        feats, labs, lengths = inputs["cpu"]
+        inputs["cpu64"] = (feats.double(), labs, lengths)
+        losses["cpu64"] = step("cpu64")[0].item()
+    grads = {d: {f"{a}.{n}": p.grad.detach().cpu().clone()
+                 for a, m in twins[d].graph.modules.items()
+                 for n, p in m.named_parameters()} for d in twins}
+    top = max(float(g.abs().max()) for g in grads["cpu"].values())
+    inert = sorted(n for n in grads["cpu"] if ZOO_INERT.fullmatch(n))
+    for n in inert:
+        for d in twins:
+            check(float(grads[d][n].abs().max()) <= ZOO_INERT_RTOL * top,
+                  f"{cls}: {n} should be ~0 on {d}, is "
+                  f"{float(grads[d][n].abs().max())}")
+    scale = {}
+    for n, g in grads["cpu"].items():
+        arch = n.split(".")[0]
+        scale[arch] = max(scale.get(arch, 0.0), float(g.abs().max()))
+
+    def errors(got, ref, by_arch):
+        """{tensor: max|got - ref| over the largest |ref| of its
+        architecture (by_arch) or of its own}"""
+        return {n: float((g.double() - ref[n].double()).abs().max())
+                / max(scale[n.split(".")[0]] if by_arch
+                      else float(ref[n].abs().max()), 1e-30)
+                for n, g in got.items() if n not in inert}
+
+    rel = errors(grads["card"], grads["cpu"], True)
+    own = errors(grads["card"], grads["cpu"], False)
+    worst, worst_own = max(rel, key=rel.get), max(own, key=own.get)
+    loss_err = abs(losses["card"] - losses["cpu"])
+    check(all(math.isfinite(r) for r in rel.values()), f"{cls}: non-finite grad")
+    check(loss_err <= STEP_LOSS_ATOL, f"{cls}: train loss differs by {loss_err}")
+    if k1 is None:
+        check(rel[worst] <= ZOO_GRAD_RTOL,
+              f"{cls}: gradient {worst} differs by {rel[worst]} of its "
+              f"architecture's largest")
+        against = ""
+    else:
+        # K1b rematerialises the gates in its own sum order, so a relu
+        # argument within rounding of 0 may flip against the forward's and
+        # reroute one element's gradient: the card is held, as
+        # `step_check` holds the liGRU recipe, to the float64 run, at most
+        # STEP_GRAD_FACTOR times as far from it as the CPU twin
+        e_card = errors(grads["card"], grads["cpu64"], False)
+        e_cpu = errors(grads["cpu"], grads["cpu64"], False)
+        n_card, n_cpu = max(e_card, key=e_card.get), max(e_cpu, key=e_cpu.get)
+        check(e_card[n_card] <= STEP_GRAD_FACTOR * e_cpu[n_cpu],
+              f"{cls}: card gradients {e_card[n_card]} from float64, the CPU "
+              f"twin's {e_cpu[n_cpu]}")
+        against = (f"; vs float64 (loss {losses['cpu64']:.7f}): card "
+                   f"{e_card[n_card]:.3e} ({n_card}), CPU {e_cpu[n_cpu]:.3e} "
+                   f"({n_cpu}) (factor {STEP_GRAD_FACTOR:g})")
+    step_ms = _warm_ms(lambda: step("card"))
+    print(f"zoo {cls} ({os.path.basename(ft.recipe_cfg(ZOO[cls][1]))}"
+          f"{', ' + cls + ' swapped in' if ZOO[cls][2] else ''}): batch "
+          f"{tuple(batch.feats.shape)}, {frames} frames; train step at drop 0 "
+          f"loss card {losses['card']:.7f} CPU {losses['cpu']:.7f} |diff|="
+          f"{loss_err:.3e} (atol {STEP_LOSS_ATOL:g}), worst gradient "
+          f"{rel[worst]:.3e} of its architecture's largest ({worst}"
+          + (f"; rtol {ZOO_GRAD_RTOL:g}" if k1 is None else "")
+          + f"), {own[worst_own]:.3e} of its own max "
+          f"({worst_own}) over {len(rel)} tensors{against}"
+          + (f" (and {len(inert)} biases before a batchnorm ~0: within "
+             f"{ZOO_INERT_RTOL:g} of the largest gradient)" if inert else "")
+          + f"; forward with lengths max_abs_err={fwd_err:.3e} "
+          f"on the valid frames (atol {POSTERIOR_ATOL:g})"
+          + (f"; K1f on the fusion layers vs ligru_recurrence_ref "
+             f"max_abs_err={k1:.3e} (atol {KERNEL_ATOL:g})" if k1 is not None
+             else ""), flush=True)
+    print(f"zoo {cls} speed: train step {step_ms:.2f} ms "
+          f"({frames / step_ms * 1e3:.1f} frames/s), forward {fwd_ms:.2f} ms "
+          f"({frames / fwd_ms * 1e3:.1f} frames/s); the CPU twin's train step "
+          f"{t_cpu:.1f} s; the check {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return {"step_ms": step_ms, "fwd_ms": fwd_ms, "frames": frames,
+            "k1_err": k1}
+
+
+def fusion_run_phase(modules, tree) -> dict:
+    """fusionRNN through run_exp on the card: one train chunk and the
+    forward stage, then production serving from seeded finals; K1f and K1b
+    counted, arks held to the CPU path."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+
+    n_test = ZOO_TREE["splits"]["test"][0]
+    src = ft.recipe_cfg("fusionRNN")
+    out = os.path.join(WORK, "zoo_fusion_train")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                             FUSION_RUN_CUTS, recipe=src)
+    _reset_counts(modules, chunk_runtime)
+    t0 = time.perf_counter()
+    exp = run_experiment(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts(modules)
+    # fusionRNN's recurrence runs the liGRU's kernels, and no other
+    _check_only(counts, "liGRU", "fusionRNN training")
+    n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
+                               chunk_runtime.valid_batches,
+                               chunk_runtime.forward_batches)
+    fwd, bwd = counts["ligru_fwd"], counts["ligru_bwd"]
+    check(n_train > 0 and fwd == FUSION_LAYERS * (n_train + n_valid + n_fwd),
+          f"fusionRNN training: K1f {fwd}, expected {FUSION_LAYERS} x "
+          f"({n_train} + {n_valid} + {n_fwd})")
+    check(bwd == FUSION_LAYERS * n_train,
+          f"fusionRNN training: K1b {bwd}, expected {FUSION_LAYERS} x {n_train}")
+    with open(os.path.join(out, "res.res")) as f:
+        ep = [line for line in f.read().splitlines() if line.startswith("ep=")]
+    check(len(ep) == 1 and math.isfinite(float(ep[0].split(" loss=")[1]
+                                                .split()[0])),
+          f"fusionRNN res.res: {ep}")
+    names, lengths = _check_arks(list(ft.forward_outputs(out)[0]), n_test)
+    cpu = _check_cpu_path(ft, exp, out, names, lengths, "fusionRNN")
+    print(f"zoo fusionRNN training (run_exp, 1 train chunk of "
+          f"{ZOO_TREE['splits']['train'][0]} utterances, then the forward "
+          f"stage): {n_train} train + {n_valid} valid + {n_fwd} forward "
+          f"batches, K1f launches {fwd} (= {FUSION_LAYERS} x "
+          f"{n_train + n_valid + n_fwd}), K1b launches {bwd} (= "
+          f"{FUSION_LAYERS} x {n_train}); wall {wall:.3f} s; {ep[0]}; arks "
+          f"{n_test} finite; CUDA vs CPU path (2 utterances) {cpu}", flush=True)
+
+    out_s = os.path.join(WORK, "zoo_fusion_serve")
+    os.makedirs(out_s)
+    cfg_s = ft.write_prod_cfg(tree, out_s, os.path.join(out_s, "run.cfg"),
+                              recipe=src)
+    ft.save_seeded_finals(cfg_s, dim=ZOO_TREE["dim"])
+    _reset_counts(modules, chunk_runtime)
+    t0 = time.perf_counter()
+    exp_s = run_experiment(cfg_s, device="cuda")
+    wall_s = time.perf_counter() - t0
+    counts_s = _counts(modules)
+    _check_only(counts_s, "liGRU", "fusionRNN serving")
+    n_fwd_s = chunk_runtime.forward_batches
+    check(counts_s["ligru_fwd"] == FUSION_LAYERS * n_fwd_s
+          and counts_s["ligru_bwd"] == 0,
+          f"fusionRNN serving: K1f {counts_s['ligru_fwd']}, K1b "
+          f"{counts_s['ligru_bwd']}, expected {FUSION_LAYERS} x {n_fwd_s}, 0")
+    posts, info = ft.forward_outputs(out_s)
+    names, lengths = _check_arks(list(posts), n_test)
+    cpu_s = _check_cpu_path(ft, exp_s, out_s, names, lengths, "fusionRNN")
+    print(f"zoo fusionRNN serving (run_exp): {n_test} utterances, "
+          f"{int(info['frames'])} frames, {n_fwd_s} forward batches, K1f "
+          f"launches {counts_s['ligru_fwd']}, K1b 0; forward stage "
+          f"{info['elapsed_time_chunk']:.3f} s, {info['frames_per_sec']:.1f} "
+          f"frames/s (.info), wall {wall_s:.3f} s; CUDA vs CPU path (2 "
+          f"utterances) {cpu_s}", flush=True)
+    return {"ligru_fwd": fwd + counts_s["ligru_fwd"], "ligru_bwd": bwd}
+
+
+def zoo_phase(modules, trees) -> dict:
+    """The rest of the shipped zoo on the card: each class's step check,
+    then fusionRNN through run_exp.  Returns K1's launches on the fusion
+    path."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    # the port's own setting (`resolve_device` pins it): the *_cudnn
+    # classes' cuDNN RNNs run in float32, not TF32
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "cuDNN's RNNs and the GEMMs must not run in TF32 in the zoo phase")
+    t0 = time.perf_counter()
+    trees = {**trees, "DIRHA6": ft.write_kaldi_tree(
+        os.path.join(WORK, "dirha6"), dim=ZOO_TREE["dim"], n_phones=N_PHONES,
+        n_pdfs=N_PDFS, splits=ZOO_TREE["splits"], corpus="DIRHA")}
+    for cls, (corpus, recipe, _) in ZOO.items():
+        out = os.path.join(WORK, f"zoo_{cls}")
+        cfg = _zoo_cfg(trees[corpus], cls, out, "step.cfg",
+                       _zoo_no_drop(ft.recipe_cfg(recipe)))
+        zoo_step_check(modules, cfg, cls)
+    launches = fusion_run_phase(modules, trees["DIRHA6"])
+    print(f"zoo phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _device_events(prof):
     from torch.autograd import DeviceType
 
@@ -2344,6 +2713,7 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
+    fusion = _timed("zoo", zoo_phase, modules, trees)
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2379,7 +2749,10 @@ def main() -> int:
                 rec = dict(err=k["errs"][name], ms=ms, plain_ms=plain_ms,
                            bound_ms=bound, bound_by=bound_by,
                            library_ms=None if lib is None else lib[0])
-            kernels.append(entry(name, rec, trained[recipe][key]))
+            # K1's launches on the fusion path beside the flagship's
+            extra = ({"fusion_launches": fusion[name]} if name in fusion
+                     else {})
+            kernels.append(entry(name, rec, trained[recipe][key], **extra))
     # the stack's kernels: launches on its own path, and on the recipe paths
     kernels += [entry(name, stack[name], stack[name]["launches"],
                       recipe_launches=recipe_stack[name])

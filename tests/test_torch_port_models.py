@@ -16,7 +16,18 @@ import torch
 from tpukaldi.compat.torch_import import import_model_par
 from tpukaldi.models.mlp import MLP as JaxMLP
 from tpukaldi.models.recurrent import liGRU as JaxLiGRU
-from tpukaldi_torch.models import MLP, liGRU, resolve
+from tpukaldi_torch.models import (
+    GRU_cudnn,
+    LSTM_cudnn,
+    MLP,
+    RNN,
+    RNN_cudnn,
+    SRU,
+    fusionRNN,
+    liGRU,
+    minimalGRU,
+    resolve,
+)
 from torch_port_helpers import assert_trees_equal, jax_init, port_module
 
 ATOL = 1e-5
@@ -109,11 +120,16 @@ def test_converter_round_trip(cls_name, name):
 
 
 def test_registry_resolves_cfg_libraries():
+    zoo = {"RNN": RNN, "minimalGRU": minimalGRU, "LSTM_cudnn": LSTM_cudnn,
+           "GRU_cudnn": GRU_cudnn, "RNN_cudnn": RNN_cudnn, "SRU": SRU,
+           "fusionRNN": fusionRNN, "fusionRNN_jit": fusionRNN}
     for lib in ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks"):
         assert resolve("liGRU", lib) is liGRU
         assert resolve("MLP", lib) is MLP
-    with pytest.raises(NotImplementedError, match="RNN.*still to be ported"):
-        resolve("RNN")
+        for name, cls in zoo.items():
+            assert resolve(name, lib) is cls
+    with pytest.raises(NotImplementedError, match="PASE.*still to be ported"):
+        resolve("PASE")
     with pytest.raises(KeyError):
         resolve("liGRU", "my_library")
 

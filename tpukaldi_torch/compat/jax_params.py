@@ -7,7 +7,13 @@
 reference-layout state_dict.  `to_jax_params(state_dict, class_name)` is
 the inverse, the port's copy of the MLP, CNN/SincNet, QLSTM and gate-table
 branches of tpukaldi's tested converter
-`compat/torch_import.py::import_model_par`, in numpy only.
+`compat/torch_import.py::import_model_par`, in numpy only, with branches of
+its own for the classes that converter does not take: the `*_cudnn`
+family (tpukaldi's per-layer `w_ih{l}`/`w_hh{l}` (K, in, G*H) and
+`b_ih{l}`/`b_hh{l}` (K, G*H) against torch's per-direction
+`weight_ih_l{l}[_reverse]` (G*H, in) ...), SRU (the same names) and
+fusionRNN (`fuse_wz0`/`fuse_wh0` w/b, `w{i}`/`b{i}`, `bn_wz{i}`,
+`bn_wh{i}`, `u{i}`).
 
 `moments_to_jax` / `moments_from_jax` carry a per-parameter tensor set
 (an optimizer moment such as rmsprop's `square_avg`) through the same two
@@ -29,7 +35,9 @@ import torch
 # LSTM's.
 _GATES = {
     "liGRU": (("h", "wh", "uh"), ("z", "wz", "uz")),
+    "minimalGRU": (("h", "wh", "uh"), ("z", "wz", "uz")),
     "GRU": (("h", "wh", "uh"), ("z", "wz", "uz"), ("r", "wr", "ur")),
+    "RNN": (("h", "wh", "uh"),),
     "LSTM": (("f", "wfx", "ufh"), ("i", "wix", "uih"), ("o", "wox", "uoh"),
              ("c", "wcx", "uch")),
 }
@@ -37,6 +45,12 @@ _GATES = {
 _QUAT = ("r", "i", "j", "k")
 # the raw-waveform conv stacks
 _CONV = ("CNN", "SincNet")
+# the torch RNN wrappers: class -> the ModuleList holding the torch module
+_CUDNN = {"LSTM_cudnn": "lstm", "GRU_cudnn": "gru", "RNN_cudnn": "rnn"}
+_DIRECTIONS = ("", "_reverse")
+_SRU = ("w", "vf", "vr", "bf", "br")
+_FUSION = ("fusionRNN", "fusionRNN_jit")
+_PORTED = ("MLP", "QLSTM", "SRU", *_CONV, *_GATES, *_CUDNN, *_FUSION)
 
 
 def _t(x) -> torch.Tensor:
@@ -138,10 +152,48 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
         if "ln_inp" in params:
             sd["ln0.gamma"] = _t(params["ln_inp"]["gamma"])
             sd["ln0.beta"] = _t(params["ln_inp"]["beta"])
+    elif class_name in _CUDNN:
+        rnn = f"{_CUDNN[class_name]}.0"
+        i = 0
+        while f"w_ih{i}" in params:
+            for k, suffix in enumerate(_DIRECTIONS[:len(params[f"w_ih{i}"])]):
+                for kind in ("ih", "hh"):
+                    sd[f"{rnn}.weight_{kind}_l{i}{suffix}"] = _t(
+                        np.asarray(params[f"w_{kind}{i}"])[k].T)
+                    if f"b_{kind}{i}" in params:
+                        sd[f"{rnn}.bias_{kind}_l{i}{suffix}"] = _t(
+                            np.asarray(params[f"b_{kind}{i}"])[k])
+            i += 1
+    elif class_name == "SRU":
+        i = 0
+        while f"w{i}" in params:
+            for v in _SRU:
+                sd[f"{v}{i}"] = _t(params[f"{v}{i}"])
+            if f"ln{i}" in params:
+                sd[f"ln{i}.gamma"] = _t(params[f"ln{i}"]["gamma"])
+                sd[f"ln{i}.beta"] = _t(params[f"ln{i}"]["beta"])
+            i += 1
+    elif class_name in _FUSION:
+        for g in ("wz", "wh"):
+            if f"fuse_{g}0" in params:
+                sd[f"fuse_{g}.weight"] = _t(
+                    np.asarray(params[f"fuse_{g}0"]["w"]).T)
+                sd[f"fuse_{g}.bias"] = _t(params[f"fuse_{g}0"]["b"])
+        i = 0
+        while f"u{i}" in params:
+            if f"w{i}" in params:
+                sd[f"w.{i}.weight"] = _t(np.asarray(params[f"w{i}"]).T)
+                sd[f"w.{i}.bias"] = _t(params[f"b{i}"])
+            for g in ("wz", "wh"):
+                key = f"bn_{g}{i}"
+                _bn(sd, f"bn_{g}.{i}", params[key]["scale"],
+                    params[key]["bias"], stats[key]["mean"], stats[key]["var"])
+            sd[f"u.{i}"] = _t(params[f"u{i}"])
+            i += 1
     else:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
-            f"(ported: MLP, QLSTM, {', '.join((*_CONV, *_GATES))})")
+            f"(ported: {', '.join(_PORTED)})")
     if "bn_inp" in params:
         _bn(sd, "bn0", params["bn_inp"]["scale"], params["bn_inp"]["bias"],
             stats["bn_inp"]["mean"], stats["bn_inp"]["var"])
@@ -233,10 +285,53 @@ def to_jax_params(state_dict: Dict[str, Any], class_name: str
             i += 1
         return params, stats
 
+    if class_name in _CUDNN:
+        rnn = f"{_CUDNN[class_name]}.0"
+        i = 0
+        while f"{rnn}.weight_ih_l{i}" in sd:
+            dirs = [d for d in _DIRECTIONS
+                    if f"{rnn}.weight_ih_l{i}{d}" in sd]
+            for kind in ("ih", "hh"):
+                params[f"w_{kind}{i}"] = np.stack(
+                    [_np(sd[f"{rnn}.weight_{kind}_l{i}{d}"]).T for d in dirs])
+                if f"{rnn}.bias_{kind}_l{i}" in sd:
+                    params[f"b_{kind}{i}"] = np.stack(
+                        [_np(sd[f"{rnn}.bias_{kind}_l{i}{d}"]) for d in dirs])
+            i += 1
+        return params, stats
+
+    if class_name == "SRU":
+        i = 0
+        while f"w{i}" in sd:
+            for v in _SRU:
+                params[f"{v}{i}"] = _np(sd[f"{v}{i}"])
+            if f"ln{i}.gamma" in sd:
+                params[f"ln{i}"] = {"gamma": _np(sd[f"ln{i}.gamma"]),
+                                    "beta": _np(sd[f"ln{i}.beta"])}
+            i += 1
+        return params, stats
+
+    if class_name in _FUSION:
+        for g in ("wz", "wh"):
+            if f"fuse_{g}.weight" in sd:
+                params[f"fuse_{g}0"] = {"w": _np(sd[f"fuse_{g}.weight"]).T,
+                                        "b": _np(sd[f"fuse_{g}.bias"])}
+        i = 0
+        while f"u.{i}" in sd:
+            if f"w.{i}.weight" in sd:
+                params[f"w{i}"] = _np(sd[f"w.{i}.weight"]).T
+                params[f"b{i}"] = _np(sd[f"w.{i}.bias"])
+            for g in ("wz", "wh"):
+                _put_bn(params, stats, f"bn_{g}{i}",
+                        _bn_tree(sd, f"bn_{g}.{i}"))
+            params[f"u{i}"] = _np(sd[f"u.{i}"])
+            i += 1
+        return params, stats
+
     if class_name not in _GATES:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
-            f"(ported: MLP, QLSTM, {', '.join((*_CONV, *_GATES))})")
+            f"(ported: {', '.join(_PORTED)})")
     gates = _GATES[class_name]
     for i in range(_n_layers(sd, gates[0][1])):
         bn_parts = []

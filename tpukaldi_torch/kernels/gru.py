@@ -79,6 +79,39 @@ def gru_recurrence_ref(
     return torch.stack(out)
 
 
+def minimalgru_recurrence_ref(
+    ff: torch.Tensor,
+    uz: torch.Tensor,
+    uh: torch.Tensor,
+    mask: torch.Tensor,
+    act: Callable[[torch.Tensor], torch.Tensor] = torch.tanh,
+    ln: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The minimal GRU's recurrence (tpukaldi `models/recurrent.py::
+    minimalGRU.step`, reference neural_networks.py:1291-1297): the GRU's
+    with the update gate standing in for the reset gate, r := z.
+
+        z   = sigmoid(ff_z + h @ Uz)
+        a   = ff_h + (z * h) @ Uh
+        h_t = z * h + (1 - z) * act(a) * mask,   h_0 = 0
+
+    ff (T, B, 2H) in tpukaldi's gate order [h | z], uz and uh (H, H), mask
+    (B, H) or broadcastable -> h (T, B, H); `ln` is a layer norm applied to
+    each h_t, which the next step then reads.  No kernel runs it: it is a
+    plain Python loop, differentiated by autograd."""
+    H = ff.shape[-1] // 2
+    h = ff.new_zeros((ff.shape[1], H))
+    out = []
+    for ff_t in ff:
+        z = torch.sigmoid(ff_t[:, H:] + h @ uz)
+        a = ff_t[:, :H] + (z * h) @ uh
+        h = z * h + (1.0 - z) * (act(a) * mask)
+        if ln is not None:
+            h = ln(h)
+        out.append(h)
+    return torch.stack(out)
+
+
 def gru_recurrence_bwd_ref(
     ff: torch.Tensor, h: torch.Tensor, g: torch.Tensor, uzr: torch.Tensor,
     uh: torch.Tensor, mask: torch.Tensor, act_name: str = "relu",

@@ -1,9 +1,14 @@
 from .cnn import CNN, SincNet
 from .common import RefLayerNorm, act_fun  # noqa: F401
+from .cudnn_like import GRU_cudnn, LSTM_cudnn, RNN_cudnn
+from .fusion import FusionLinear, fusionRNN, fusionRNN_jit
 from .mlp import MLP
 from .quaternion import QLSTM, QuaternionDense
-from .recurrent import GRU, LSTM, liGRU
+from .recurrent import GRU, LSTM, RNN, liGRU, minimalGRU
 from .registry import resolve  # noqa: F401
+from .sru import SRU
 
-__all__ = ["CNN", "GRU", "LSTM", "MLP", "QLSTM", "QuaternionDense",
-           "SincNet", "liGRU", "RefLayerNorm", "act_fun", "resolve"]
+__all__ = ["CNN", "GRU", "GRU_cudnn", "FusionLinear", "LSTM", "LSTM_cudnn",
+           "MLP", "QLSTM", "QuaternionDense", "RNN", "RNN_cudnn", "SRU",
+           "SincNet", "fusionRNN", "fusionRNN_jit", "liGRU", "minimalGRU",
+           "RefLayerNorm", "act_fun", "resolve"]

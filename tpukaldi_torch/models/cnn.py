@@ -53,6 +53,7 @@ from .common import (
     bool_list,
     float_list,
     int_list,
+    inverted_dropout,
     ref_laynorm,
     torch_linear_uniform,
 )
@@ -284,11 +285,7 @@ class _ConvStack(nn.Module):
                 and self.acts[0] in ("relu", "linear"))
 
     def _dropout(self, x, i, generator):
-        if not (self.training and self.drop[i] > 0.0):
-            return x
-        keep = 1.0 - self.drop[i]
-        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-        return x * mask / keep
+        return inverted_dropout(x, self.drop[i], self.training, generator)
 
     def _layer0(self, x, generator):
         """Layer 0 through the kernels: (N, L) -> (N, filt, time), and

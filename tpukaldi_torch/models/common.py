@@ -11,6 +11,8 @@
 - `recurrent_drop_mask`: one Bernoulli(1-p) mask shared across time at
   train, drawn on the device from the generator it is given; the scalar
   (1-p) at eval.  Not inverted dropout.
+- `inverted_dropout`: torch nn.Dropout's semantics (a Bernoulli(1-p) mask
+  scaled by 1/(1-p), identity at eval), drawn the same way.
 - init functions drawing from an explicit CPU `torch.Generator`, so a seed
   gives the same weights whatever device the module lives on.
 """
@@ -122,6 +124,17 @@ def recurrent_drop_mask(train: bool, shape, p: float, device,
             1.0 - p, generator=generator)
     # torch.full, not torch.tensor: a fill kernel, no blocking host copy
     return torch.full((), 1.0 - p, dtype=torch.float32, device=device)
+
+
+def inverted_dropout(x: torch.Tensor, p: float, train: bool,
+                     generator: Optional[torch.Generator] = None):
+    """x times a Bernoulli(1-p) mask over 1-p at train (tpukaldi's
+    `FastDropout`, torch's nn.Dropout), x itself at eval or p = 0; the mask
+    is drawn on x's device from `generator`."""
+    if not train or p == 0.0:
+        return x
+    keep = 1.0 - p
+    return x * torch.empty_like(x).bernoulli_(keep, generator=generator) / keep
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:

@@ -22,6 +22,7 @@ from .common import (
     float_list,
     glorot_small_uniform,
     int_list,
+    inverted_dropout,
 )
 
 
@@ -88,10 +89,7 @@ class MLP(nn.Module):
             x = self.ln[i](x)
             x = self.bn[i](x)
             x = act_fun(self.acts[i])(x)
-            if self.training and self.drop[i] > 0.0:
-                # torch nn.Dropout semantics (inverted), identity at eval
-                # (tpukaldi/models/mlp.py:70-71); drawn on x's device
-                keep = 1.0 - self.drop[i]
-                mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
-                x = x * mask / keep
+            # torch nn.Dropout semantics (inverted), identity at eval
+            # (tpukaldi/models/mlp.py:70-71); drawn on x's device
+            x = inverted_dropout(x, self.drop[i], self.training, generator)
         return x

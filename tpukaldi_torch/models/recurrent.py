@@ -1,5 +1,6 @@
 """Recurrent models (counterpart of `tpukaldi/models/recurrent.py`): the
-shared `_RecurrentBase` scaffold, the flagship `liGRU`, `LSTM` and `GRU`.
+shared `_RecurrentBase` scaffold, the flagship `liGRU`, `LSTM`, `GRU`,
+`minimalGRU` and `RNN`.
 
 Per layer, as in tpukaldi:
 - the feed-forward gate projections run as ONE (T*B', D) @ (D, G*H) matmul;
@@ -14,14 +15,17 @@ Per layer, as in tpukaldi:
   hand-written kernels (`kernels/{ligru,lstm,gru}.py`: an autograd Function
   with the forward kernel, and the backward kernel as its gradient), else
   that kernel's plain Python loop, through which autograd differentiates.
+  `minimalGRU` and `RNN` have no kernel (tpukaldi scans them too): they
+  always run their plain loops.
 
 Training calls pass no `lengths`, as tpukaldi's train and eval steps pass
 none: the reversal is then a plain flip over the bucket-padded batch.
 
 The state_dict keeps the reference layout (neural_networks.py:300-655,
 :997-1155): per-gate feed-forward Linear (out, in) (`wh.{i}`/`wz.{i}`;
-LSTM `wfx/wix/wox/wcx`; GRU `wh/wz/wr`), per-gate recurrent Linear without
-bias (`uh/uz`; `ufh/uih/uoh/uch`; `uh/uz/ur`), per-gate `bn_<ff gate>.{i}`,
+LSTM `wfx/wix/wox/wcx`; GRU `wh/wz/wr`; minimalGRU `wh/wz`; RNN `wh`),
+per-gate recurrent Linear without bias (`uh/uz`; `ufh/uih/uoh/uch`;
+`uh/uz/ur`; `uh/uz`; `uh`), per-gate `bn_<ff gate>.{i}`,
 `ln.{i}` and the input `ln0`/`bn0`.
 
 Tensor contract: x is (T, B, D) -> (T, B, out_dim).
@@ -35,9 +39,14 @@ import torch
 from torch import nn
 
 from ..config.schema import to_bool
-from ..kernels.gru import GRURecurrence, gru_recurrence_ref
+from ..kernels.gru import (
+    GRURecurrence,
+    gru_recurrence_ref,
+    minimalgru_recurrence_ref,
+)
 from ..kernels.ligru import LiGRURecurrence, ligru_recurrence_ref
 from ..kernels.lstm import LSTMRecurrence, lstm_recurrence_ref
+from ..kernels.rnn import rnn_recurrence_ref
 from .common import (
     RefLayerNorm,
     act_fun,
@@ -280,3 +289,37 @@ class GRU(_RecurrentBase):
         if impl == "scan":
             return gru_recurrence_ref(ff, uzr, uh, mask, self.acts[i])
         return GRURecurrence.apply(ff, uzr, uh, mask, self.acts[i])
+
+
+class minimalGRU(_RecurrentBase):
+    """Minimal GRU (reference neural_networks.py:1158-1317): the update
+    gate also gates the state inside the candidate, so, as in the GRU,
+    `uh` acts on z*h and stays out of the fused per-step product (`uz`
+    alone).  Any activation, optional laynorm on h: the plain loop
+    (`kernels/gru.py::minimalgru_recurrence_ref`) on every device."""
+
+    PREFIX = "minimalgru"
+    FF_GATES = ("wh", "wz")
+    REC_GATES = ("uh", "uz")
+    FUSED_REC = ("uz",)
+
+    def recurrence(self, i, ff, uz, drop_mask):
+        return minimalgru_recurrence_ref(
+            ff, uz, self.uh[i].weight.t(), drop_mask, act_fun(self.acts[i]),
+            self.ln[i] if self.use_ln[i] else None)
+
+
+class RNN(_RecurrentBase):
+    """Vanilla recurrence (reference neural_networks.py:1319-1461):
+    h = act(ff + h Uh) * mask, the shared recurrent dropout mask on h
+    itself.  The plain loop (`kernels/rnn.py::rnn_recurrence_ref`) on every
+    device."""
+
+    PREFIX = "rnn"
+    FF_GATES = ("wh",)
+    REC_GATES = ("uh",)
+
+    def recurrence(self, i, ff, uh, drop_mask):
+        return rnn_recurrence_ref(
+            ff, uh, drop_mask, act_fun(self.acts[i]),
+            self.ln[i] if self.use_ln[i] else None)

@@ -12,21 +12,24 @@ from typing import Dict, Type
 from torch import nn
 
 from .cnn import CNN, SincNet
+from .cudnn_like import GRU_cudnn, LSTM_cudnn, RNN_cudnn
+from .fusion import fusionRNN, fusionRNN_jit
 from .mlp import MLP
 from .quaternion import QLSTM
-from .recurrent import GRU, LSTM, liGRU
+from .recurrent import GRU, LSTM, RNN, liGRU, minimalGRU
+from .sru import SRU
 
 LIBRARIES = ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks")
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
     "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU, "QLSTM": QLSTM,
-    "CNN": CNN, "SincNet": SincNet}
+    "CNN": CNN, "SincNet": SincNet, "RNN": RNN, "minimalGRU": minimalGRU,
+    "LSTM_cudnn": LSTM_cudnn, "GRU_cudnn": GRU_cudnn, "RNN_cudnn": RNN_cudnn,
+    "SRU": SRU, "fusionRNN": fusionRNN, "fusionRNN_jit": fusionRNN_jit}
 
-# tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1)
-NOT_PORTED = (
-    "RNN", "minimalGRU", "logMelFb", "channel_averaging", "LSTM_cudnn", "GRU_cudnn", "RNN_cudnn",
-    "fusionRNN", "fusionRNN_jit", "SRU", "PASE",
-)
+# tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1); no
+# shipped cfg names them
+NOT_PORTED = ("logMelFb", "channel_averaging", "PASE")
 
 
 def resolve(class_name: str, library: str = "tpukaldi.models") -> Type[nn.Module]:

@@ -12,7 +12,7 @@ checkpoints, the forward outputs, and a second forward of chosen
 utterances.
 
 A tree carries what those cfgs read: per split a `feats.ark/.scp` (aliased
-as the mfcc/fbank/fmllr streams), `utt2spk`, per-speaker CMVN stats per
+as the mfcc/fbank/fmllr/mfcc_6ch streams), `utt2spk`, per-speaker CMVN stats per
 stream, and alignments, gzipped transition-id archives beside a binary
 `final.mdl`, so `N_out_lab_cd`/`N_out_lab_mono` and the prior counts
 resolve natively (hmm-info, ali-to-pdf, analyze-counts).  TIMIT keeps one
@@ -82,6 +82,12 @@ RECIPES = {
     "QLSTM": ("DIRHA", "QLSTM_mfcc.cfg"),
     "CNN": ("TIMIT", "CNN_raw.cfg"),
     "SincNet": ("TIMIT", "SincNet_raw.cfg"),
+    # the rest of the shipped zoo, one recipe a class
+    "RNN": ("TIMIT", "RNN_fmllr.cfg"),
+    "minimalGRU": ("TIMIT", "minimalGRU_fbank.cfg"),
+    "LSTM_cudnn": ("TIMIT", "LSTM_fmllr_cudnn.cfg"),
+    "SRU": ("TIMIT", "SRU_fbank.cfg"),
+    "fusionRNN": ("DIRHA", "fusionRNN_mfcc_6ch.cfg"),
 }
 
 # the label frames of the raw stream: 25 ms windows every 10 ms at 16 kHz
@@ -91,7 +97,9 @@ FS, LAB_WLEN, LAB_WSHIFT = 16000, 400, 160
 def recipe_cfg(arch_class: str) -> str:
     """The recipe cfg of a front-end class: the TIMIT fMLLR recipes of the
     liGRU, LSTM and GRU, the TIMIT raw-waveform recipes of the CNN and
-    SincNet, the DIRHA mfcc recipe of the QLSTM."""
+    SincNet, the DIRHA mfcc recipe of the QLSTM; and one recipe of each
+    class of the rest of the zoo (the DIRHA fusionRNN's 6-mic stream needs
+    a tree whose width divides by 6, e.g. 240)."""
     return os.path.join(_REPO, "cfg", *RECIPES[arch_class])
 
 
@@ -184,8 +192,9 @@ def write_kaldi_tree(
                 cmvn[spk] = cmvn.get(spk, 0) + compute_cmvn_stats(fea)
         with gzip.open(os.path.join(alidir, f"ali.{n_split}.gz"), "wb") as f:
             f.write(ali_buf.getvalue())
-        # the cfg lists three corpus streams; alias the same ark for each
-        for stream in ("mfcc", "fbank", "fmllr"):
+        # the cfgs list these corpus streams (DIRHA's fusionRNN cfg the
+        # 6-mic mfcc_6ch); alias the same ark for each
+        for stream in ("mfcc", "fbank", "fmllr", "mfcc_6ch"):
             shutil.copyfile(os.path.join(d, "feats.scp"),
                             os.path.join(d, f"feats_{stream}.scp"))
             os.makedirs(os.path.join(root, stream), exist_ok=True)
