@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Six recipes run at full width, and the rest of the zoo in a phase of its
-own (6 below).  Three TIMIT fMLLR recipes, 5x550
+own (7 below).  Three TIMIT fMLLR recipes, 5x550
 bidirectional with batchnorm, recurrent dropout 0.2, two softmax heads (cd
 head 1944 pdfs) and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg,
 relu), the LSTM (LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
@@ -123,8 +123,36 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    top device ops and, for the train chunk, device time by layer.  The
    warm chunk runs beside the previous chunk's checkpoint writer, as every
    chunk of a run does.
-6. Zoo phase, the classes that have no TPU kernel, each at its shipped
-   cfg's full widths: RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
+6. Multistep phase, TPUKALDI_MULTISTEP (K): K1f captured alone into a
+   CUDA graph and replayed, bitwise its eager call; then, per recipe, one
+   train chunk and one valid chunk from one init at recipe dropout, on a
+   fresh runtime at K = 1, at K = 1 again and at K = 8, where a chunk's
+   groups of 8 same-shape batches run on captured step graphs.  The
+   sequence recipes run over trees of their own whose train chunk (128
+   utterances, one chunk) and dev chunk fall in one length bucket (310-400
+   frames), so that they form groups as the length-sorted chunks of a full
+   TIMIT epoch do; the raw recipes over the RAW tree.  K = 8 must give the
+   K = 1 `.info` loss and err and checkpoints bitwise where the two K = 1
+   runs agree bitwise, else final weights no further from the first K = 1
+   run than MS_NOISE_FACTOR times the second is; the same launches of
+   every kernel; its train steps as replays.  Printed: the `.info` loss,
+   err and phases, captures, replays and eager steps, the graphs' pool
+   bytes, and the same train chunk once more on the warm runtimes of the
+   second K = 1 run and the K = 8 run under the profiler: frames/s,
+   phase_dispatch, wall, device busy and idle share, and each hand
+   kernel's launches in the trace, which must equal its launch counters
+   but for MS_TRACE_LOST records the profiler may lose (on a replay the
+   counters add what the capture counted).  The raw
+   recipes' two K = 1 runs differ (cuDNN's weight gradients in layers
+   1-3), so each runs the three again under deterministic cuDNN, where
+   the two K = 1 runs must agree bitwise and K = 8 must give their `.info`
+   loss and err and checkpoints bitwise.
+   The training and profile phases above run at the card's default K = 8
+   (their TIMIT and DIRHA chunks of 4 batches form no group; the raw
+   chunks' do).
+7. Zoo phase, the classes that have no TPU kernel, each at its shipped
+   cfg's widths (at ZOO_DEPTH = 2 of their layers, but fusionRNN at all
+   4): RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
    tanh, batchnorm), minimalGRU (minimalGRU_fbank.cfg, 5x550), LSTM_cudnn
    (LSTM_fmllr_cudnn.cfg, 4x550 bidirectional; torch's LSTM, cuDNN in
    float32) and GRU_cudnn and RNN_cudnn at the same shape, SRU
@@ -135,8 +163,12 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    the first train batch (8 utterances of 150-778 frames) holds one forward
    with lengths (the valid frames) and one train step at drop 0 (the loss
    and every gradient) to the twin, with its ms a step and forward
-   frames/s.  fusionRNN's recurrence is the liGRU's and runs K1 on the
-   card: its K1f outputs are held to `ligru_recurrence_ref` on the same
+   frames/s, and that train step captured into a step graph
+   (`make_train_multistep`) and replayed against an eager step from the
+   same state under deterministic cuDNN: the same loss and, after the two,
+   bitwise the same parameters, buffers and optimizer state; each one's
+   ms.  fusionRNN's recurrence is
+   the liGRU's and runs K1 on the card: its K1f outputs are held to `ligru_recurrence_ref` on the same
    inputs, and it trains (one train chunk, then the forward stage) and
    serves through `run_experiment(device="cuda")`, with K1f and K1b
    counted and two utterances' posteriors held to the CPU path.  The
@@ -270,6 +302,9 @@ ZOO = {
     "SRU": ("TIMIT", "SRU", {}),
     "fusionRNN": ("DIRHA6", "fusionRNN", {}),
 }
+# the step checks of the classes without a kernel run the cfg's widths at
+# this many of their 4-5 layers
+ZOO_DEPTH = 2
 ZOO_GRAD_RTOL = 1e-4
 # fusionRNN's Linear biases sit right before a batchnorm, whose mean cancels
 # them: their gradient is zero but for rounding (CPU and card alike), so
@@ -277,6 +312,8 @@ ZOO_GRAD_RTOL = 1e-4
 # error
 ZOO_INERT = re.compile(r"fusionRNN_layers\.w\.\d+\.bias")
 ZOO_INERT_RTOL = 1e-5
+# the generator seed of the zoo's eager and graphed step (drop 0: no mask)
+ZOO_GRAPH_SEED = 11
 # fusionRNN's tree: a 6-mic mfcc_6ch stream 240 wide (6 x 40)
 ZOO_TREE = dict(dim=240, splits={"train": (16, 150, 778), "dev": (4, 150, 778),
                                  "test": (16, 150, 778)})
@@ -356,6 +393,26 @@ KERNELS = {
                        "tpukaldi/kernels/conv_stack.py:268"),
 }
 STACK_KERNELS = ("conv_stack_fwd", "conv_stack_bwd")
+# device kernel (its name in a profiler trace) -> the KERNELS whose
+# wrappers launch it, once a call: a trace's count of it equals the sum of
+# their launch counters.  K5b's and K6b's wrappers both launch the dW
+# partials of `csrc/conv_pool_bwd.cuh`, so it counts the two
+KERNEL_EVENTS = {
+    "ligru_fwd_kernel": ("ligru_fwd",),
+    "ligru_bwd_seq_kernel": ("ligru_bwd",),
+    "lstm_fwd_kernel": ("lstm_fwd",),
+    "lstm_bwd_seq_kernel": ("lstm_bwd",),
+    "gru_fwd_kernel": ("gru_fwd",),
+    "gru_bwd_seq_kernel": ("gru_bwd",),
+    "lstm_lean_fwd_kernel": ("lstm_lean_fwd",),
+    "lstm_lean_bwd_seq_kernel": ("lstm_lean_bwd",),
+    "conv_pool_fwd_kernel": ("conv_pool_fwd",),
+    "conv_pool_dw_part_kernel": ("conv_pool_bwd", "conv_ln_bwd"),
+    "conv_ln_fwd_kernel": ("conv_ln_fwd",),
+    "conv_ln_bwd_kernel": ("conv_ln_bwd",),
+    "stack_ln_fwd_kernel": ("conv_stack_fwd",),
+    "stack_ln_bwd_kernel": ("conv_stack_bwd",),
+}
 # the conv kernels at the raw recipes' shapes: the training batch (128
 # windows of 3200 samples, K = 129, pool 3; O = 80 for SincNet's K5, 128
 # for CNN's K6), a serving batch (32 utterances padded to the 1000-frame
@@ -1635,6 +1692,7 @@ def _reset_counts(modules, chunk_runtime) -> None:
         setattr(modules[mod], counter, 0)
     chunk_runtime.train_batches = chunk_runtime.valid_batches = 0
     chunk_runtime.forward_batches = 0
+    _reset_graph_counts(chunk_runtime)
 
 
 def _counts(modules):
@@ -1904,6 +1962,7 @@ def train_phase(modules, trees, recipe) -> dict:
     n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
                                chunk_runtime.valid_batches,
                                chunk_runtime.forward_batches)
+    steps = _graph_counts(chunk_runtime)
 
     # the ledger: 2 epochs x (2 train chunks + 1 valid chunk)
     infos = _train_infos(out)
@@ -1957,8 +2016,10 @@ def train_phase(modules, trees, recipe) -> dict:
     print(f"training {recipe}: 2 epochs, {n_train} train + {n_valid} valid + "
           f"{n_fwd} forward batches; {r['fwd']} launches {launches} (= "
           f"{layers} x {n_train + n_valid + n_fwd}), {r['bwd']} launches "
-          f"{bwd} (= {layers} x {n_train}); run_experiment wall {wall:.3f} s",
-          flush=True)
+          f"{bwd} (= {layers} x {n_train}); train and valid steps at the "
+          f"default TPUKALDI_MULTISTEP: captures {steps['graph_captures']}, "
+          f"replays {steps['graph_replays']}, eager {steps['eager_steps']}; "
+          f"run_experiment wall {wall:.3f} s", flush=True)
     for line in res:
         print(f"training {recipe} res.res: {line}", flush=True)
     for f, v in values.items():
@@ -2001,6 +2062,391 @@ def train_phase(modules, trees, recipe) -> dict:
         async_checkpoint_check(trees, recipe)
     return {"launches": launches, "bwd_launches": bwd, "cfg": cfg,
             "stack_launches": stack_launches}
+
+
+# the multistep phase's trees for the sequence recipes: a train chunk of 128
+# utterances and a dev chunk whose lengths fall in one bucket (310-400
+# frames: bucket 400), so that a chunk's batches form groups of 8, as the
+# length-sorted chunks of a full TIMIT epoch (~740 utterances a chunk) do;
+# the raw recipes keep the RAW tree (58-64 frame batches a chunk)
+MS_TREES = {
+    "TIMIT": dict(dim=40, splits={"train": (128, 310, 400),
+                                  "dev": (64, 310, 400), "test": (8, 310, 400)}),
+    "DIRHA": dict(dim=40, splits={"train": (128, 310, 400),
+                                  "dev": (128, 310, 400), "test": (8, 310, 400)}),
+}
+# K of the multistep phase's graphed runs (the card's default)
+MS_K = 8
+# where two K=1 runs differ (a nondeterministic reduction), the K=8 run's
+# final weights may be this many times as far from the first K=1 run's
+MS_NOISE_FACTOR = 2.0
+# the device records a profiler trace may lose of one kernel: on an H100 a
+# warm chunk's trace once held 63 of 64 eager K6f launches (about one
+# kernel count in twenty).  A trace never holds more launches than were
+# made, and a replay that counts wrong is off by a launch a step or more
+# (16-80 in a warm chunk)
+MS_TRACE_LOST = 1
+# K1f captured alone, at the flagship's training shape (B' = 16)
+MS_K1F_SHAPE = (400, 16, 550)
+
+
+def _graph_counts(chunk_runtime):
+    return {k: getattr(chunk_runtime, k)
+            for k in ("graph_captures", "graph_replays", "eager_steps")}
+
+
+def _reset_graph_counts(chunk_runtime):
+    for k in ("graph_captures", "graph_replays", "eager_steps"):
+        setattr(chunk_runtime, k, 0)
+
+
+def k1f_capture_check(ligru) -> None:
+    """K1f alone captured into a CUDA graph (its cooperative launch and the
+    scratch zeroing before it) and replayed, held bitwise to the eager
+    call."""
+    T, B, H = MS_K1F_SHAPE
+    ff, ws, mask, _ = _recurrence_inputs("ligru", T, B, H, 7)
+    eager = ligru.ligru_recurrence(ff, *ws, mask)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    n0 = ligru.launches
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        out = ligru.ligru_recurrence(ff, *ws, mask)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    ligru.launches = n0
+    out.fill_(float("nan"))
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out, eager), "K1f: the graph's replay differs from the "
+          f"eager call by {float((out - eager).abs().max())}")
+    print(f"multistep K1f alone at {MS_K1F_SHAPE}: captured (cooperative "
+          "launch, scratch zeroed in the graph), two replays bitwise equal "
+          "to the eager call", flush=True)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms, benchmarking off, while in place."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def _launch_events(counts, per_op):
+    """{device kernel: (its launches in a trace's `per_op`, the sum of the
+    launch counters that count it)} for each kernel of KERNEL_EVENTS."""
+    out = {}
+    for kernel, names in KERNEL_EVENTS.items():
+        pattern = re.compile(rf"(?<![a-z_]){kernel}(?![a-z_])")
+        out[kernel] = (sum(n for op, (n, _) in per_op.items()
+                           if pattern.search(op)),
+                       sum(counts[name] for name in names))
+    return out
+
+
+def _ms_ledger(run):
+    return tuple((run[p].loss, run[p].err) for p in ("train", "valid"))
+
+
+def _ms_weights(rt):
+    return {f"{a}.{k}": v.detach().clone()
+            for a, m in rt.graph.modules.items()
+            for k, v in m.state_dict().items()}
+
+
+def _ms_run(modules, cfg, k, warm):
+    """One train chunk and one valid chunk of the cfg's first epoch on a
+    fresh runtime at TPUKALDI_MULTISTEP=k: the two ChunkResults and the
+    train chunk's wall, the checkpoints' bytes, the final weights, the
+    kernels' launches, the runtime's step counts and the graphs' pool
+    bytes; with `warm`, the same train chunk once more on the same runtime
+    (its graphs captured) under torch.profiler (device activity only): its
+    ChunkResult, wall, device busy seconds, step counts and each hand
+    kernel's launches in the trace beside its counters (`_launch_events`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+
+    exp, plan = ft.train_plan(cfg)
+    tasks = plan.epochs[0].tasks
+    train = [t for t in tasks if t.phase == "train"][0]
+    valid = [t for t in tasks if t.phase == "valid"][0]
+    with _env(TPUKALDI_MULTISTEP=str(k)):
+        rt = chunk_runtime.ChunkRuntime(exp, "cuda")
+    check(rt.multistep_k == k, f"TPUKALDI_MULTISTEP={k} read as "
+          f"{rt.multistep_k}")
+    chunks = {t.phase: rt.load_task_chunk(t) for t in (train, valid)}
+    _reset_counts(modules, chunk_runtime)
+    _reset_graph_counts(chunk_runtime)
+    kw = dict(epoch_lr={a: s.lr[0] for a, s in exp.archs.items()},
+              chunk=chunks["train"], batch_size=exp.batches.batch_size_train[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_train = rt.run_task(train, **kw)
+    torch.cuda.synchronize()
+    out = dict(wall=time.perf_counter() - t0,
+               train_steps=_graph_counts(chunk_runtime))
+    res_valid = rt.run_task(valid, chunk=chunks["valid"],
+                            batch_size=exp.batches.batch_size_valid)
+    rt.checkpointer.wait()
+    ckpts = {}
+    for path in train.ckpt_files.values():
+        with open(path, "rb") as f:
+            ckpts[os.path.basename(path)] = f.read()
+    out.update(train=res_train, valid=res_valid, ckpts=ckpts,
+               weights=_ms_weights(rt), counts=_counts(modules),
+               steps=_graph_counts(chunk_runtime), pool=rt.graph_pool_bytes())
+    if warm:
+        _reset_counts(modules, chunk_runtime)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # one launch ahead of the chunk, so that the trace is live
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = rt.run_task(train, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rt.checkpointer.wait()
+        busy_us, per_op = _device_events(prof)
+        out["warm"] = dict(train=res, wall=wall, busy=busy_us / 1e6,
+                           steps=_graph_counts(chunk_runtime),
+                           launches=_launch_events(_counts(modules), per_op))
+    return out
+
+
+def multistep_phase(modules, trees, recipe) -> None:
+    """TPUKALDI_MULTISTEP on the card: one recipe's train and valid chunk
+    from one init at recipe dropout, twice at K = 1 and once at K = 8
+    (groups on CUDA graphs).  K = 8 gives the K = 1 ledger and checkpoints
+    bitwise where the two K = 1 runs agree bitwise, else final weights no
+    further from the first K = 1 run than MS_NOISE_FACTOR times the second
+    K = 1 run is; the same launches of every kernel; its train steps run as
+    replays.  The second K = 1 run and the K = 8 run then train the same
+    chunk once more, warm (the K = 8 runtime's graphs captured), under the
+    profiler for the idle share; each hand kernel's launches in that trace
+    must equal its counters (short by MS_TRACE_LOST at most), so that the
+    counts a replay adds are measured.
+    A raw recipe's K = 1 runs differ (cuDNN's weight gradients of layers
+    1-3), so `multistep_deterministic` holds it bitwise once more."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    r = RECIPES[recipe]
+    src = ft.recipe_cfg(recipe)
+    tree = trees["RAW"] if _raw(recipe) else trees[f"MS_{r['corpus']}"]
+    cuts = (_cuts(recipe) if _raw(recipe) else
+            {**_cuts(recipe), "n_chunks = 5": "n_chunks = 1"})
+    runs = {}
+    for name, k, warm in (("K1a", 1, False), ("K1b", 1, True),
+                          (f"K{MS_K}", MS_K, True)):
+        out = os.path.join(WORK, f"multistep_{recipe}_{name}")
+        os.makedirs(out)
+        cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                                 cuts, recipe=src)
+        runs[name] = _ms_run(modules, cfg, k, warm)
+    a, b, g = runs["K1a"], runs["K1b"], runs[f"K{MS_K}"]
+
+    def wdiff(x, y):
+        return max(float((x["weights"][n].double()
+                          - y["weights"][n].double()).abs().max())
+                   for n in x["weights"])
+
+    def phases(res):
+        return " ".join(f"{k}={v:.3f}" for k, v in res.phases.items())
+
+    yard, diff = wdiff(b, a), wdiff(g, a)
+    repeat_bitwise = b["ckpts"] == a["ckpts"]
+    bitwise = g["ckpts"] == a["ckpts"]
+    for name, run in runs.items():
+        res = run["train"]
+        print(f"multistep {recipe} {name}: train loss={res.loss} "
+              f"err={res.err}, valid loss={run['valid'].loss} "
+              f"err={run['valid'].err} (.info); steps {res.n_batches} train "
+              f"+ {run['valid'].n_batches} valid: captures "
+              f"{run['steps']['graph_captures']}, replays "
+              f"{run['steps']['graph_replays']}, eager "
+              f"{run['steps']['eager_steps']}; graph pool {run['pool']} "
+              f"bytes; first train chunk {res.frames_per_sec:.1f} frames/s "
+              f"(.info), wall {run['wall']:.3f} s, phases {phases(res)}",
+              flush=True)
+    for name in ("K1b", f"K{MS_K}"):
+        w = runs[name]["warm"]
+        res = w["train"]
+        launched = {k: v for k, v in w["launches"].items() if v != (0, 0)}
+        print(f"multistep {recipe} {name} warm train chunk: launches in the "
+              "trace / counted: " + ", ".join(
+                  f"{k} {e}/{c}" for k, (e, c) in launched.items()),
+              flush=True)
+        check(all(c - MS_TRACE_LOST <= e <= c
+                  for e, c in w["launches"].values()),
+              f"{recipe} {name}: the trace's launches differ from the "
+              f"counters by more than {MS_TRACE_LOST} lost records: "
+              f"{launched}")
+        check(all(any(r[kind] in KERNEL_EVENTS[k] for k in launched)
+                  for kind in ("fwd", "bwd")),
+              f"{recipe} {name}: {r['fwd']} or {r['bwd']} not in the trace: "
+              f"{launched}")
+        print(f"multistep {recipe} {name} warm train chunk: {res.n_batches} "
+              f"steps (captures {w['steps']['graph_captures']}, replays "
+              f"{w['steps']['graph_replays']}, eager "
+              f"{w['steps']['eager_steps']}), {res.frames} frames, "
+              f"{res.frames_per_sec:.1f} frames/s (.info), wall "
+              f"{w['wall']:.3f} s, device busy {w['busy']:.3f} s, idle share "
+              f"{1 - w['busy'] / w['wall']:.3f}, phases {phases(res)}",
+              flush=True)
+    print(f"multistep {recipe}: checkpoints K{MS_K} vs K1a bitwise "
+          f"{bitwise}, K1b vs K1a bitwise {repeat_bitwise}; final weights "
+          f"max|K{MS_K} - K1a| {diff:.3e}, max|K1b - K1a| {yard:.3e}; "
+          f"launches {g['counts'][r['fwd']]} {r['fwd']}, "
+          f"{g['counts'][r['bwd']]} {r['bwd']} at K{MS_K}, "
+          f"{a['counts'][r['fwd']]}, {a['counts'][r['bwd']]} at K1", flush=True)
+    check(g["counts"] == a["counts"] == b["counts"],
+          f"{recipe}: launches at K{MS_K} {g['counts']}, at K1 {a['counts']}")
+    check(a["steps"]["graph_captures"] == 0 == b["steps"]["graph_captures"],
+          f"{recipe}: K1 captured a step graph")
+    for what, steps, n in (
+            ("first", g["train_steps"], g["train"].n_batches),
+            ("warm", g["warm"]["steps"], g["warm"]["train"].n_batches)):
+        check(steps["graph_replays"] >= n // 2,
+              f"{recipe}: K{MS_K}'s {what} train chunk ran {steps} of {n} "
+              "steps")
+    check(g["train_steps"]["graph_captures"] >= 1
+          and g["warm"]["steps"]["graph_captures"] == 0,
+          f"{recipe}: captures {g['train_steps']}, then {g['warm']['steps']}")
+    if repeat_bitwise:
+        check(bitwise and _ms_ledger(g) == _ms_ledger(a),
+              f"{recipe}: K{MS_K} differs from K1 where two K1 runs agree "
+              f"bitwise (weights {diff:.3e})")
+    else:
+        check(diff <= MS_NOISE_FACTOR * yard,
+              f"{recipe}: K{MS_K} {diff:.3e} from K1a, two K1 runs {yard:.3e}")
+    if _raw(recipe):
+        multistep_deterministic(modules, tree, cuts, src, recipe)
+
+
+def multistep_deterministic(modules, tree, cuts, src, recipe) -> None:
+    """A raw recipe's train and valid chunk under deterministic cuDNN, from
+    one init at recipe dropout: two K = 1 runs, which must agree bitwise,
+    and a K = 8 run, whose train steps replay CUDA graphs (K5 or K6, the
+    dropout masks and K6's seed drawn from the registered generator), which
+    must give their `.info` loss and err and checkpoints bitwise."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    runs = {}
+    with _deterministic_cudnn():
+        for name, k in (("K1a", 1), ("K1b", 1), (f"K{MS_K}", MS_K)):
+            out = os.path.join(WORK, f"multistep_{recipe}_det_{name}")
+            os.makedirs(out)
+            cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                                     cuts, recipe=src)
+            runs[name] = _ms_run(modules, cfg, k, False)
+    a, b, g = runs["K1a"], runs["K1b"], runs[f"K{MS_K}"]
+    for name, run in runs.items():
+        print(f"multistep {recipe} deterministic cuDNN {name}: train loss="
+              f"{run['train'].loss} err={run['train'].err}, valid loss="
+              f"{run['valid'].loss} err={run['valid'].err} (.info); train "
+              f"steps: captures {run['train_steps']['graph_captures']}, "
+              f"replays {run['train_steps']['graph_replays']}, eager "
+              f"{run['train_steps']['eager_steps']}", flush=True)
+    repeat = b["ckpts"] == a["ckpts"] and _ms_ledger(b) == _ms_ledger(a)
+    same = g["ckpts"] == a["ckpts"] and _ms_ledger(g) == _ms_ledger(a)
+    print(f"multistep {recipe} deterministic cuDNN: K1b vs K1a bitwise "
+          f"{repeat}, K{MS_K} vs K1a bitwise {same} (.info and checkpoints)",
+          flush=True)
+    check(repeat, f"{recipe}: two K1 runs differ under deterministic cuDNN")
+    check(same, f"{recipe}: K{MS_K} differs from K1 under deterministic cuDNN")
+    check(g["counts"] == a["counts"], f"{recipe}: launches at K{MS_K} "
+          f"{g['counts']}, at K1 {a['counts']}")
+    n = g["train"].n_batches
+    check(g["train_steps"]["graph_replays"] >= n // 2,
+          f"{recipe}: K{MS_K} ran {g['train_steps']} of {n} train steps")
+
+
+def multistep_all(modules, trees) -> None:
+    """K1f captured alone, then each recipe's multistep check."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    k1f_capture_check(modules["ligru"])
+    trees = {**trees, **{f"MS_{corpus}": ft.write_kaldi_tree(
+        os.path.join(WORK, f"ms_{corpus.lower()}"), dim=t["dim"],
+        n_phones=N_PHONES, n_pdfs=N_PDFS, splits=t["splits"], corpus=corpus)
+        for corpus, t in MS_TREES.items()}}
+    for recipe in RECIPES:
+        _timed(f"{recipe} multistep", multistep_phase, modules, trees, recipe)
+
+
+def zoo_graph_check(rt, batch, feats, labs, cls) -> None:
+    """One train step of a zoo class captured (`make_train_multistep`) and
+    replayed against an eager step from the same state and generator seed,
+    under deterministic cuDNN: the same loss, and bitwise the same
+    parameters, buffers and optimizer state after the two (the update
+    too, not only the forward); each one's time between two CUDA events."""
+    from tpukaldi_torch.train.step import make_train_multistep, train_step
+
+    state = {f"{a}.{n}": t for a, m in rt.graph.modules.items()
+             for n, t in [*m.named_parameters(), *m.named_buffers()]}
+    state.update({f"{a}.opt.{i}.{k}": v for a, o in rt.optimizers.items()
+                  if o.opt is not None
+                  for i, st in enumerate(o.opt.state.values())
+                  for k, v in st.items() if isinstance(v, torch.Tensor)})
+
+    def snapshot():
+        return {n: t.detach().clone() for n, t in state.items()}
+
+    saved = snapshot()
+
+    def restore():
+        with torch.no_grad():
+            for n, t in state.items():
+                t.copy_(saved[n])
+
+    def timed(fn):
+        rt.generator.manual_seed(ZOO_GRAPH_SEED)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return loss.item(), start.elapsed_time(end)
+
+    with _deterministic_cudnn():
+        loss_e, eager_ms = timed(lambda: train_step(
+            rt.graph, rt.optimizers, feats, labs, batch.n_valid_t,
+            rt.generator)[0])
+        after_e = snapshot()
+        restore()
+        sg = make_train_multistep(rt.graph, rt.optimizers, feats, labs, True,
+                                  rt.device, rt.generator,
+                                  torch.cuda.graph_pool_handle())
+        sg.load(feats, labs, batch.n_valid_t)
+        t0 = time.perf_counter()
+        sg.capture(torch.cuda.Stream())
+        capture_s = time.perf_counter() - t0
+        loss_g, graph_ms = timed(lambda: sg.replay()[0])
+        after_g = snapshot()
+    check(loss_g == loss_e, f"{cls}: the graphed step's loss {loss_g} "
+          f"differs from the eager step's {loss_e}")
+    moved = sum(not torch.equal(after_e[n], saved[n]) for n in state)
+    differ = {n: float((after_g[n].double() - after_e[n].double()).abs().max())
+              for n in state if not torch.equal(after_g[n], after_e[n])}
+    check(moved > 0, f"{cls}: the eager step changed no state")
+    check(not differ, f"{cls}: the graphed step's state differs from the "
+          f"eager step's: {differ}")
+    print(f"zoo {cls} graphed step: replay {graph_ms:.2f} ms against the eager "
+          f"step's {eager_ms:.2f} ms ({eager_ms / graph_ms:.1f}x), loss "
+          f"{loss_g:.7f} both, {len(state)} parameters, buffers and "
+          f"optimizer tensors bitwise equal after the two ({moved} moved by "
+          f"the step); capture {capture_s:.2f} s", flush=True)
 
 
 def _host_twin(exp, chunk):
@@ -2162,6 +2608,29 @@ def _zoo_no_drop(src):
     return {m.group(0): f"{m.group(1)} = " + ",".join(
         "0.0" for _ in m.group(2).split(","))
         for m in re.finditer(r"^(\w*drop\w*) = (.+)$", text, re.M)}
+
+
+def _zoo_depth(src, replace, depth):
+    """`replace` (cfg line -> line) with the recurrent architecture cut to
+    its first `depth` layers: a `*num_layers` count becomes `depth`, and
+    every per-layer list of [architecture1] (as long as its `*_lay` list)
+    keeps its first `depth` entries, after the replacement already given."""
+    with open(src) as f:
+        text = f.read()
+    section = text.split("[architecture1]", 1)[1].split("\n[", 1)[0]
+    lines = re.findall(r"^(\w+) = (.+)$", section, re.M)
+    lay = [v for k, v in lines if k.endswith("_lay")]
+    n = len(lay[0].split(",")) if lay else 0
+    out = dict(replace)
+    for key, value in lines:
+        line = f"{key} = {value}"
+        cur = out.get(line, line)
+        val = cur.split(" = ", 1)[1]
+        if key.endswith("num_layers"):
+            out[line] = f"{key} = {depth}"
+        elif n > depth and len(val.split(",")) == n:
+            out[line] = f"{key} = " + ",".join(val.split(",")[:depth])
+    return out
 
 
 def _zoo_cfg(tree, cls, out, name, replace):
@@ -2335,6 +2804,7 @@ def zoo_step_check(modules, cfg, cls, card="cuda") -> dict:
                    f"{e_card[n_card]:.3e} ({n_card}), CPU {e_cpu[n_cpu]:.3e} "
                    f"({n_cpu}) (factor {STEP_GRAD_FACTOR:g})")
     step_ms = _warm_ms(lambda: step("card"))
+    zoo_graph_check(twins["card"], batch, *inputs["card"][:2], cls)
     print(f"zoo {cls} ({os.path.basename(ft.recipe_cfg(ZOO[cls][1]))}"
           f"{', ' + cls + ' swapped in' if ZOO[cls][2] else ''}): batch "
           f"{tuple(batch.feats.shape)}, {frames} frames; train step at drop 0 "
@@ -2450,8 +2920,12 @@ def zoo_phase(modules, trees) -> dict:
         n_pdfs=N_PDFS, splits=ZOO_TREE["splits"], corpus="DIRHA")}
     for cls, (corpus, recipe, _) in ZOO.items():
         out = os.path.join(WORK, f"zoo_{cls}")
-        cfg = _zoo_cfg(trees[corpus], cls, out, "step.cfg",
-                       _zoo_no_drop(ft.recipe_cfg(recipe)))
+        src = ft.recipe_cfg(recipe)
+        replace = _zoo_no_drop(src)
+        if cls != "fusionRNN":
+            # the classes without a kernel at ZOO_DEPTH of their layers
+            replace = _zoo_depth(src, replace, ZOO_DEPTH)
+        cfg = _zoo_cfg(trees[corpus], cls, out, "step.cfg", replace)
         zoo_step_check(modules, cfg, cls)
     launches = fusion_run_phase(modules, trees["DIRHA6"])
     print(f"zoo phase: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2545,6 +3019,7 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
 
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
     from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
 
     out = os.path.dirname(serve_cfg)
@@ -2574,6 +3049,7 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
               batch_size=train_exp.batches.batch_size_train[1])
     rt.run_task(ep1[0], **kw)
     chunk = rt.load_task_chunk(ep1[1])
+    _reset_graph_counts(chunk_runtime)
     torch.cuda.synchronize()
     # epoch 1's first chunk's checkpoint is still being written: the
     # profiled chunk runs beside the writer, as every chunk of a run does
@@ -2590,7 +3066,11 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
     busy_us, per_op = _device_events(prof)
     label = f"{recipe} train chunk"
     _print_profile(f"{label} (warm)", wall, busy_us, per_op, n_top=5)
-    print(f"profile {label}: {res.n_batches} steps, {res.frames} frames, "
+    steps = _graph_counts(chunk_runtime)
+    print(f"profile {label}: {res.n_batches} steps (at the default "
+          f"TPUKALDI_MULTISTEP: captures {steps['graph_captures']}, replays "
+          f"{steps['graph_replays']}, eager {steps['eager_steps']}), "
+          f"{res.frames} frames, "
           f"{res.frames_per_sec:.1f} frames/s (.info), phases " + " ".join(
               f"{k}={v:.3f}" for k, v in res.phases.items()), flush=True)
     for layer, us in sorted(_by_layer(per_op).items(), key=lambda kv: -kv[1]):
@@ -2713,6 +3193,7 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
+    _timed("multistep", multistep_all, modules, trees)
     fusion = _timed("zoo", zoo_phase, modules, trees)
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

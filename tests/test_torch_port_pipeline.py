@@ -306,7 +306,8 @@ class _Recorder:
 def test_restore_from_waits_only_before_a_read(case, tmp_path, monkeypatch):
     """The pointer last saved: no wait, no read.  Another pointer: the wait
     comes first, then the existence filter, then the read, so a file that
-    the pending write is still making is read complete."""
+    the pending write is still making is read complete; a read drops the
+    captured step graphs after it."""
     events = []
     path = str(tmp_path / "ep0_ck0_arch.ckpt")
     if case == "reload":
@@ -315,14 +316,15 @@ def test_restore_from_waits_only_before_a_read(case, tmp_path, monkeypatch):
         _loaded_from={"arch": path if case == "rolling" else "old.ckpt"},
         checkpointer=_Recorder(events, path if case == "written_by_wait"
                                else None),
-        graph=SimpleNamespace(modules={}), optimizers=None)
+        graph=SimpleNamespace(modules={}), optimizers=None,
+        drop_step_graphs=lambda: events.append("drop"))
     monkeypatch.setattr(chunk_runtime.ckpt, "load_all",
                         lambda paths, *a: events.append(("load", paths)))
     ChunkRuntime.restore_from(rt, {"arch": path})
     if case == "rolling":
         assert events == []
     else:
-        assert events == ["wait", ("load", {"arch": path})]
+        assert events == ["wait", ("load", {"arch": path}), "drop"]
         assert rt._loaded_from == {"arch": path}
 
 

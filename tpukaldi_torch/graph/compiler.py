@@ -117,7 +117,9 @@ def _harmonize(a: torch.Tensor, b: torch.Tensor):
 
 
 def _row_mask(tb3: torch.Tensor, n_valid_t) -> torch.Tensor:
-    """Flattened (T*B,) mask of rows with t < n_valid_t."""
+    """Flattened (T*B,) mask of rows with t < n_valid_t: an int, or a 0-d
+    int tensor on tb3's device, as a captured step takes it (tpukaldi's
+    traced `n_valid_t`), for the same mask."""
     T, B = tb3.shape[0], tb3.shape[1]
     t = torch.arange(T, device=tb3.device)[:, None]
     return (t < n_valid_t).float().expand(T, B).reshape(-1)
@@ -147,8 +149,9 @@ def apply_graph(
 
     `to_do='forward'` stops once every forward output exists and skips the
     costs (reference core.py:616-629 / utils.py:2341-2342).  `n_valid_t` is
-    the unbucketed batch-max length; cost rows at t >= n_valid_t are
-    bucket padding and are left out of the cost means.
+    the unbucketed batch-max length (an int, or a 0-d int tensor in a step
+    graph's static input); cost rows at t >= n_valid_t are bucket padding
+    and are left out of the cost means.
     """
     outs = _feature_slices(graph, feats)
     # forward mode stops once every requested output exists (tracked as a

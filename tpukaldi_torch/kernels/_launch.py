@@ -8,18 +8,51 @@ shapes need more shared memory than a block may use (the conv stack's
 entries, `csrc/stack_tile.cuh::kErrSmem`).  A recurrence kernel's takes
 (pointers..., T, B, H, ints...) and comes with `tpk_<name>_max_hidden()`,
 the largest H it takes.
+
+Each wrapper counts its launches in a module counter (`COUNTERS`).  A step
+captured into a CUDA graph runs its wrappers once, at capture, and never
+on a replay: the graph keeps what the capture counted (`read_counters`)
+and adds it again at each replay (`add_counters`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+import importlib
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
 from . import _build
 
 SMEM_REFUSED = -1
+
+# every wrapper module's launch counters (one per kernel)
+COUNTERS = {
+    "ligru": ("launches", "bwd_launches"),
+    "lstm": ("launches", "bwd_launches", "lean_launches", "lean_bwd_launches"),
+    "gru": ("launches", "bwd_launches"),
+    "conv1d": ("launches", "bwd_launches", "ln_launches", "ln_bwd_launches"),
+    "conv_stack": ("launches", "bwd_launches"),
+}
+
+
+def _module(name: str):
+    return importlib.import_module(f"{__package__}.{name}")
+
+
+def read_counters() -> Dict[Tuple[str, str], int]:
+    """Every launch counter, by (module, counter)."""
+    return {(mod, c): getattr(_module(mod), c)
+            for mod, names in COUNTERS.items() for c in names}
+
+
+def add_counters(delta: Dict[Tuple[str, str], int]) -> None:
+    """Add `delta` (what `read_counters` gives) to the counters."""
+    for (mod, c), n in delta.items():
+        if n:
+            m = _module(mod)
+            setattr(m, c, getattr(m, c) + n)
 
 
 def entry(source: str, name: str, argtypes: Sequence) -> Callable[..., int]:

@@ -16,6 +16,15 @@ memory and batch i-1 is ark-written on a writer thread
 (`TPUKALDI_FORWARD_PIPELINE_DEPTH` batches in flight).  Graph, weights and
 optimizer state stay on the device across tasks; checkpoints are read only
 when a task's pretrain pointer differs from what was last loaded or saved.
+
+`TPUKALDI_MULTISTEP` (K; 8 on a card, 1 on the CPU, as tpukaldi's 8 on the
+accelerator) groups K consecutive same-shape train or valid batches as
+tpukaldi does (`assembly_plan`); a batch outside a group runs eager.  On a
+card a group runs on a CUDA graph of one step (`step.StepGraph`), keyed by
+phase and the batch's shapes and dtypes: the first grouped batch of a key
+runs eager, the next is captured and replayed, every later one replayed.
+On the CPU a group runs its K steps eager.  A restore that loads, a
+changed lr or dropout rate drops the graphs.
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +58,13 @@ from ..plan.planner import ChunkTask
 from . import checkpoint as ckpt
 from .checkpoint import AsyncCheckpointer
 from .optimizers import make_all_optimizers
-from .step import eval_step, forward_step, train_step
+from .step import (
+    eval_step,
+    forward_step,
+    make_eval_multistep,
+    make_train_multistep,
+    train_step,
+)
 
 # batches run since the last reset, by task phase; chip_smoke.py holds the
 # recurrence kernels' launch counts to them (liGRU, LSTM, GRU and QLSTM:
@@ -58,6 +73,53 @@ from .step import eval_step, forward_step, train_step
 train_batches = 0
 valid_batches = 0
 forward_batches = 0
+# train and valid steps since the last reset, by route: step graphs
+# captured, replays of them, and steps run eager (singles, a key's first
+# grouped batch, every step at K <= 1 or on the CPU)
+graph_captures = 0
+graph_replays = 0
+eager_steps = 0
+
+
+def multistep_k(device) -> int:
+    """`TPUKALDI_MULTISTEP`, read as tpukaldi reads it
+    (`train/chunk_runtime.py::_make_steps`): 8 on a card, 1 elsewhere; a
+    value that is not an integer raises."""
+    default = "8" if torch.device(device).type == "cuda" else "1"
+    return int(os.environ.get("TPUKALDI_MULTISTEP", default))
+
+
+# a key's state before its capture: its first grouped batch ran eager
+_WARM = "warm"
+
+
+def _stackable(group) -> bool:
+    b0 = group[0]
+    return all(b.feats.shape == b0.feats.shape
+               and b.labs.shape == b0.labs.shape for b in group)
+
+
+def group_batches(batches: Iterator, K: int) -> Iterator[Tuple[str, list]]:
+    """tpukaldi's grouping (`train/chunk_runtime.py::assembly_plan` with
+    `_stackable`): a window of K batches is ("group", the K batches) when
+    all K have the same feats and labs shapes, else its first batch is
+    ("single", [batch]) and the window moves on by one.  K <= 1 gives
+    singles only."""
+    window: list = []
+    while True:
+        while len(window) < max(K, 1):
+            b = next(batches, None)
+            if b is None:
+                break
+            window.append(b)
+        if not window:
+            return
+        if K > 1 and len(window) >= K and _stackable(window[:K]):
+            group = window[:K]
+            del window[:K]
+            yield "group", group
+        else:
+            yield "single", [window.pop(0)]
 
 
 def _prefetch_iter(it, depth: int = 2):
@@ -227,6 +289,26 @@ class ChunkRuntime:
         self.generator = torch.Generator(device=self.device)
         self.checkpointer = AsyncCheckpointer()
         self._loaded_from: Dict[str, str] = {}
+        self.multistep_k = multistep_k(self.device)
+        # (train, feats shape, labs shape, their dtypes) -> _WARM or the
+        # StepGraph; the graphs share one memory pool and capture stream
+        self._step_graphs: Dict[tuple, object] = {}
+        self._graph_pool = None
+        self._capture_stream = None
+
+    def drop_step_graphs(self) -> None:
+        """Forget every captured step: what a capture keeps (the lr, the
+        dropout rates, the optimizer state's tensors) has changed."""
+        self._step_graphs.clear()
+
+    def graph_pool_bytes(self) -> int:
+        """Bytes the caching allocator holds in the step graphs' memory
+        pool (0 without one)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     # ---------------- data ----------------
     def load_task_chunk(self, task: ChunkTask,
@@ -281,8 +363,12 @@ class ChunkRuntime:
             arch.options[arch.drop_field] = ",".join(
                 str(s[ep]) for s in arch.drop_schedules)
             if self.graph is not None and name in self.graph.modules:
-                self.graph.modules[name].drop = float_list(
-                    arch.options[arch.drop_field])
+                module = self.graph.modules[name]
+                drop = float_list(arch.options[arch.drop_field])
+                if getattr(module, "drop", None) != drop:
+                    # a captured step keeps the rates it was captured at
+                    self.drop_step_graphs()
+                module.drop = drop
 
     def restore_from(self, pretrain_files: Dict[str, str]) -> None:
         """Load the per-arch checkpoints that exist and differ from what is
@@ -302,6 +388,8 @@ class ChunkRuntime:
         if to_load:
             ckpt.load_all(to_load, self.graph.modules, self.optimizers)
             self._loaded_from.update(to_load)
+            # a load replaces optimizer state that a captured step holds
+            self.drop_step_graphs()
 
     def mark_saved(self, ckpt_files: Dict[str, str]) -> None:
         self._loaded_from.update(ckpt_files)
@@ -314,6 +402,77 @@ class ChunkRuntime:
         if not x.is_pinned():
             x = x.pin_memory()
         return x.to(self.device, non_blocking=True)
+
+    # ---------------- steps ----------------
+    def _eager_step(self, train: bool, seed: int, index: int,
+                    feats_h: torch.Tensor, labs_h: torch.Tensor,
+                    n_valid: Optional[int]):
+        """Batch `index` of the chunk as one eager step: (loss, err, h2d
+        seconds, dispatch seconds)."""
+        global eager_steps
+        tick = time.perf_counter
+        t0 = tick()
+        feats = self._to_device(feats_h)
+        labs = self._to_device(labs_h)
+        t1 = tick()
+        if train:
+            self.generator.manual_seed(batch_seed(seed, index))
+            loss, err = train_step(self.graph, self.optimizers, feats, labs,
+                                   n_valid, self.generator)
+        else:
+            loss, err = eval_step(self.graph, feats, labs, n_valid)
+        eager_steps += 1
+        return loss, err, t1 - t0, tick() - t1
+
+    def _graphed_step(self, train: bool, seed: int, index: int,
+                      feats_h: torch.Tensor, labs_h: torch.Tensor,
+                      n_valid: Optional[int]):
+        """Batch `index` of a group on its key's step graph: the key's
+        first grouped batch eager (on the capture stream, so that the
+        stream's handles and workspaces exist before its capture), the
+        next captured and replayed, every later one replayed.  Returns
+        (loss, err, h2d seconds, dispatch seconds); the capture counts in
+        dispatch."""
+        global graph_captures, graph_replays
+        tick = time.perf_counter
+        key = (train, tuple(feats_h.shape), tuple(labs_h.shape),
+               feats_h.dtype, labs_h.dtype)
+        sg = self._step_graphs.get(key)
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        if sg is None:
+            stream = self._capture_stream
+            current = torch.cuda.current_stream(self.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                out = self._eager_step(train, seed, index, feats_h, labs_h,
+                                       n_valid)
+            current.wait_stream(stream)
+            self._step_graphs[key] = _WARM
+            return out
+        t0 = tick()
+        fresh = sg is _WARM
+        if fresh:
+            sg = (make_train_multistep(
+                      self.graph, self.optimizers, feats_h, labs_h,
+                      self.seq_model, self.device, self.generator,
+                      self._graph_pool)
+                  if train else
+                  make_eval_multistep(self.graph, feats_h, labs_h,
+                                      self.seq_model, self.device,
+                                      self._graph_pool))
+        sg.load(feats_h, labs_h, n_valid)
+        t1 = tick()
+        if fresh:
+            sg.capture(self._capture_stream)
+            self._step_graphs[key] = sg
+            graph_captures += 1
+        if train:
+            self.generator.manual_seed(batch_seed(seed, index))
+        loss, err = sg.replay()
+        graph_replays += 1
+        return loss, err, t1 - t0, tick() - t1
 
     # ---------------- phases ----------------
     def run_task(self, task: ChunkTask, epoch_lr: Optional[Dict[str, float]] = None,
@@ -370,63 +529,76 @@ class ChunkRuntime:
         t_restore = tick() - t0
         train = task.phase == "train"
         if train and epoch_lr:
-            # the cfg's (new-bob) lr overrides the checkpoint's
+            # the cfg's (new-bob) lr overrides the checkpoint's; a captured
+            # step keeps the lr it was captured at
             for name, lr in epoch_lr.items():
-                if name in self.optimizers:
-                    self.optimizers[name].set_lr(lr)
+                if name in self.optimizers and self.optimizers[name].set_lr(lr):
+                    self.drop_step_graphs()
 
         losses, errs = [], []
         n = frames = 0
         t_h2d = t_disp = 0.0
         pin = self.device.type == "cuda"
+        K = self.multistep_k
+        graphed = K > 1 and pin
         # host batch assembly (padding, copies, pinning): on the prefetch
         # thread when prefetch is on, so NOT additive with the other phases
         t_hbatch = [0.0]
 
-        def assembly_plan():
-            """Host-ready batches in dispatch order, (batch, feats, labs),
-            the tensors pinned for a card.  Pure host work, safe on a
-            background thread: prefetching it is bit-transparent."""
-            gen = self._batches(chunk, batch_size, train, task.seed)
+        def host_ready(batch):
+            feats = torch.from_numpy(batch.feats)
+            labs = torch.from_numpy(batch.labs)
+            if pin:
+                feats, labs = feats.pin_memory(), labs.pin_memory()
+            return batch, feats, labs
+
+        def timed(gen):
             while True:
                 t0 = tick()
                 batch = next(gen, None)
-                if batch is None:
-                    t_hbatch[0] += tick() - t0
-                    return
-                feats = torch.from_numpy(batch.feats)
-                labs = torch.from_numpy(batch.labs)
-                if pin:
-                    feats, labs = feats.pin_memory(), labs.pin_memory()
                 t_hbatch[0] += tick() - t0
-                yield batch, feats, labs
+                if batch is None:
+                    return
+                yield batch
+
+        def assembly_plan():
+            """Host-ready work in dispatch order, (kind, items) as
+            `group_batches` groups it, each item (batch, feats, labs) with
+            the tensors pinned for a card.  Pure host work, safe on a
+            background thread: prefetching it is bit-transparent."""
+            gen = self._batches(chunk, batch_size, train, task.seed)
+            for kind, group in group_batches(timed(gen), K):
+                t0 = tick()
+                ready = [host_ready(b) for b in group]
+                t_hbatch[0] += tick() - t0
+                yield kind, ready
 
         items = assembly_plan()
         if os.environ.get("TPUKALDI_HOST_PREFETCH", "1") != "0":
             items = _prefetch_iter(items, depth=2)
         with contextlib.closing(items):
-            for batch, feats_h, labs_h in items:
-                t0 = tick()
-                feats = self._to_device(feats_h)
-                labs = self._to_device(labs_h)
-                n_valid = getattr(batch, "n_valid_t", None)
-                t_h2d += tick() - t0
-                t0 = tick()
-                if train:
-                    self.generator.manual_seed(batch_seed(task.seed, n))
-                    loss, err = train_step(self.graph, self.optimizers, feats,
-                                           labs, n_valid, self.generator)
-                    train_batches += 1
-                else:
-                    loss, err = eval_step(self.graph, feats, labs, n_valid)
-                    valid_batches += 1
-                t_disp += tick() - t0
-                losses.append(loss)
-                errs.append(err)
-                n += 1
-                # padded frames the device processed, as tpukaldi counts them
-                frames += batch.feats.shape[0] * (
-                    batch.feats.shape[1] if batch.feats.ndim == 3 else 1)
+            for kind, ready in items:
+                for batch, feats_h, labs_h in ready:
+                    n_valid = getattr(batch, "n_valid_t", None)
+                    if kind == "group" and graphed:
+                        loss, err, dt_h2d, dt_disp = self._graphed_step(
+                            train, task.seed, n, feats_h, labs_h, n_valid)
+                    else:
+                        loss, err, dt_h2d, dt_disp = self._eager_step(
+                            train, task.seed, n, feats_h, labs_h, n_valid)
+                    t_h2d += dt_h2d
+                    t_disp += dt_disp
+                    if train:
+                        train_batches += 1
+                    else:
+                        valid_batches += 1
+                    losses.append(loss)
+                    errs.append(err)
+                    n += 1
+                    # padded frames the device processed, as tpukaldi
+                    # counts them
+                    frames += batch.feats.shape[0] * (
+                        batch.feats.shape[1] if batch.feats.ndim == 3 else 1)
         # one device-to-host fetch per chunk, split as tpukaldi splits it:
         # the wait for the queued steps, then the stats' transfer
         t0 = tick()

@@ -20,6 +20,13 @@ tpukaldi's checkpoint layout (flax's `to_state_dict` of the optax state):
 `{"count", "hyperparams": {"lr"}, "hyperparams_states", "inner_state":
 {"0": ..., "1": ...}}`, one entry per transform of the chain, whose moments
 are trees in tpukaldi's parameter naming.
+
+On a CUDA device adam and rmsprop are built `capturable`, their step
+counters on the device, so that a step captured into a CUDA graph
+(`step.py::StepGraph`) advances them on every replay; the eager steps use
+the same arithmetic.  A replay runs no Python: the graph adds the steps it
+ran to `count` itself.  The lr is a Python float that a capture keeps, so
+the runtime drops its graphs when `set_lr` changes it.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ class ArchOptimizer:
         self.kind = arch.optimizer.kind
         self.params: List[nn.Parameter] = list(module.parameters())
         self.lr = float(arch.lr[0])
+        # step counters on the device where a graph may capture the step
+        self.capturable = any(p.is_cuda for p in self.params)
         self.count = 0  # updates taken (optax's inject_hyperparams count)
         o = arch.optimizer.options
         wd = float(o.get("opt_weight_decay", 0.0))
@@ -75,7 +84,8 @@ class ArchOptimizer:
             self.opt = torch.optim.Adam(
                 self.params, lr=self.lr,
                 betas=(float(betas[0]), float(betas[1])),
-                eps=float(o.get("opt_eps", 1e-8)), weight_decay=wd)
+                eps=float(o.get("opt_eps", 1e-8)), weight_decay=wd,
+                capturable=self.capturable)
             layout.append({"count": "step", "mu": "exp_avg",
                            "nu": "exp_avg_sq"})
         elif self.kind == "rmsprop":
@@ -84,7 +94,8 @@ class ArchOptimizer:
             self.opt = torch.optim.RMSprop(
                 self.params, lr=self.lr, alpha=float(o.get("opt_alpha", 0.99)),
                 eps=float(o.get("opt_eps", 1e-8)), weight_decay=wd,
-                momentum=momentum, centered=centered)
+                momentum=momentum, centered=centered,
+                capturable=self.capturable)
             layout.append({"mu": "grad_avg", "nu": "square_avg"} if centered
                           else {"nu": "square_avg"})
             if momentum > 0.0:
@@ -98,12 +109,15 @@ class ArchOptimizer:
             raise ValueError(f"unknown optimizer {self.kind!r}")
         self.layout = layout + [{}]  # the final scale(-lr) has no state
 
-    def set_lr(self, lr: float) -> None:
-        """New-bob's per-epoch lr; the optimizer state is untouched."""
+    def set_lr(self, lr: float) -> bool:
+        """New-bob's per-epoch lr; the optimizer state is untouched.
+        Returns whether the lr changed (a captured step keeps the old one)."""
+        changed = float(lr) != self.lr
         self.lr = float(lr)
         if self.opt is not None:
             for group in self.opt.param_groups:
                 group["lr"] = self.lr
+        return changed
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -198,7 +212,9 @@ class ArchOptimizer:
                     self.opt.state[p] = st
             return
         for p, st in state.items():
-            st["step"] = torch.tensor(float(self.count), dtype=torch.float32)
+            st["step"] = torch.tensor(
+                float(self.count), dtype=torch.float32,
+                device=p.device if self.capturable else None)
             self.opt.state[p] = st
 
 

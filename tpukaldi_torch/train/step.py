@@ -5,15 +5,22 @@ tpukaldi's `train/step.py`: `make_train_step`, `make_eval_step`,
 Loss and err come back as device tensors: nothing here calls `.item()`, so
 a step does not wait for the device (tpukaldi fetches the stats once per
 chunk, `chunk_runtime.py:615-650`, and so does the port's runtime).
+
+`make_train_multistep` and `make_eval_multistep` are the counterparts of
+tpukaldi's K-step fused dispatch: where tpukaldi scans K same-shape steps
+in one jitted call, the port captures one step of a batch shape into a CUDA
+graph (`StepGraph`) and replays it for each batch of the group, one host
+call a step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from ..graph.compiler import GraphSpec, apply_graph
+from ..kernels import _launch
 from .optimizers import ArchOptimizer
 
 
@@ -22,7 +29,7 @@ def train_step(
     optimizers: Dict[str, ArchOptimizer],
     feats: torch.Tensor,
     labs: torch.Tensor,
-    n_valid_t: Optional[int] = None,
+    n_valid_t: Union[int, torch.Tensor, None] = None,
     generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on `loss_final`: forward in train mode (frozen
@@ -47,13 +54,134 @@ def eval_step(
     graph: GraphSpec,
     feats: torch.Tensor,
     labs: torch.Tensor,
-    n_valid_t: Optional[int] = None,
+    n_valid_t: Union[int, torch.Tensor, None] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, err) of a validation batch, every architecture in eval mode."""
     with torch.inference_mode():
         outs = apply_graph(graph, feats, labs, train=False, to_do="valid",
                            n_valid_t=n_valid_t)
         return outs["loss_final"], outs["err_final"]
+
+
+class StepGraph:
+    """One train or eval step captured into a CUDA graph for one batch shape.
+
+    The batch reaches the graph through static device buffers (`feats`,
+    `labs` and, for a sequence model, `n_valid_t` as a 0-d int32 tensor,
+    as tpukaldi passes `n_valid_k`): `load` copies a pinned host batch into
+    them without blocking, `replay` runs the step and returns copies of its
+    loss and err, which the next replay overwrites.  A train graph draws
+    its dropout masks from `generator`, registered with the graph, so a
+    replay after `generator.manual_seed(s)` draws what an eager step after
+    the same call draws.
+
+    Capture runs no step on the device but runs the step's Python: the
+    kernels' launch counters and the optimizers' step counts move once.
+    `capture` keeps those moves as the graph's deltas, takes them back, and
+    each replay adds them.  A capture or replay that fails raises."""
+
+    def __init__(self, graph: GraphSpec, train: bool, feats: torch.Tensor,
+                 labs: torch.Tensor, seq: bool, device,
+                 optimizers: Optional[Dict[str, ArchOptimizer]] = None,
+                 generator: Optional[torch.Generator] = None, pool=None):
+        self.device = torch.device(device)
+        self.graph, self.train = graph, train
+        self.optimizers = optimizers if train else {}
+        self.generator = generator if train else None
+        self.feats = torch.empty(feats.shape, dtype=feats.dtype,
+                                 device=self.device)
+        self.labs = torch.empty(labs.shape, dtype=labs.dtype,
+                                device=self.device)
+        self.n_valid_t = (torch.zeros((), dtype=torch.int32,
+                                      device=self.device) if seq else None)
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+        self.loss = self.err = None
+        self.deltas: Dict = {}
+        self.count_deltas: Dict[str, int] = {}
+
+    def load(self, feats: torch.Tensor, labs: torch.Tensor,
+             n_valid_t: Optional[int]) -> None:
+        """The batch into the static buffers, in stream order (`feats` and
+        `labs` pinned host tensors: the copies do not block the host)."""
+        self.feats.copy_(feats, non_blocking=True)
+        self.labs.copy_(labs, non_blocking=True)
+        if self.n_valid_t is not None:
+            self.n_valid_t.fill_(n_valid_t if n_valid_t is not None
+                                 else feats.shape[0])
+
+    def _step(self):
+        if self.train:
+            return train_step(self.graph, self.optimizers, self.feats,
+                              self.labs, self.n_valid_t, self.generator)
+        return eval_step(self.graph, self.feats, self.labs, self.n_valid_t)
+
+    def capture(self, stream: torch.cuda.Stream) -> None:
+        """Capture the step on `stream` (not the current one: a capture
+        needs a stream of its own), in `thread_local` mode, so that the
+        prefetch thread's pinning and the checkpoint writer's copies on
+        other threads go on during it.  Waits for the device first."""
+        counters = _launch.read_counters()
+        counts = {n: o.count for n, o in self.optimizers.items()}
+        if self.generator is not None:
+            self.cuda_graph.register_generator_state(self.generator)
+        current = torch.cuda.current_stream(self.device)
+        # a capture can neither free cached blocks (cudaFree) nor take
+        # the other pools' free ones: free them first, as
+        # `torch.cuda.graph` does
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.cuda_graph.capture_begin(pool=self.pool,
+                                          capture_error_mode="thread_local")
+            try:
+                self.loss, self.err = self._step()
+            except BaseException:
+                # leave capture mode; the step's error says why it failed
+                try:
+                    self.cuda_graph.capture_end()
+                except BaseException:
+                    pass
+                raise
+            self.cuda_graph.capture_end()
+        current.wait_stream(stream)
+        after = _launch.read_counters()
+        self.deltas = {k: after[k] - counters[k] for k in after}
+        _launch.add_counters({k: -d for k, d in self.deltas.items()})
+        self.count_deltas = {n: o.count - counts[n]
+                             for n, o in self.optimizers.items()}
+        for n, o in self.optimizers.items():
+            o.count = counts[n]
+
+    def replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run the captured step on the current stream; (loss, err) copied
+        on the device before the next replay overwrites them."""
+        self.cuda_graph.replay()
+        _launch.add_counters(self.deltas)
+        for n, d in self.count_deltas.items():
+            self.optimizers[n].count += d
+        return self.loss.clone(), self.err.clone()
+
+
+def make_train_multistep(graph: GraphSpec,
+                         optimizers: Dict[str, ArchOptimizer],
+                         feats: torch.Tensor, labs: torch.Tensor, seq: bool,
+                         device, generator: torch.Generator,
+                         pool=None) -> StepGraph:
+    """A train step on `device` for batches shaped as `feats` and `labs`,
+    to capture (tpukaldi's `make_train_multistep`: K steps in one
+    dispatch)."""
+    return StepGraph(graph, True, feats, labs, seq, device, optimizers,
+                     generator, pool)
+
+
+def make_eval_multistep(graph: GraphSpec, feats: torch.Tensor,
+                        labs: torch.Tensor, seq: bool, device,
+                        pool=None) -> StepGraph:
+    """An eval step on `device` for batches shaped as `feats` and `labs`,
+    to capture (tpukaldi's `make_eval_multistep`)."""
+    return StepGraph(graph, False, feats, labs, seq, device, pool=pool)
 
 
 def forward_step(
