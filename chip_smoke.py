@@ -150,7 +150,24 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    The training and profile phases above run at the card's default K = 8
    (their TIMIT and DIRHA chunks of 4 batches form no group; the raw
    chunks' do).
-7. Zoo phase, the classes that have no TPU kernel, each at its shipped
+7. bf16 phase, the bf16 compute mode (`[exp] compute_dtype = bfloat16`,
+   TPUKALDI_COMPUTE_DTYPE): each kernel's bf16 entry at the recipe shapes
+   against its float32 entry, bitwise (K1-K3's Functions, K5's and K6's
+   entries widen bf16 at their boundary: outputs and gradients the float32
+   entry's on the widened inputs, rounded; K4f's bf16-ff entry the float32
+   entry's on ff.float(), K4b's bf16 dff its dff rounded, its dU held to a
+   float64 h_prev^T float(dff)), with the casts' device ms and K4's bf16
+   entries timed beside their float32 entries with their bounds; then
+   cfg/TIMIT/liGRU_fmllr_bf16.cfg and the QLSTM (under the env knob),
+   each for one train chunk, its valid chunk and the forward stage through
+   `run_experiment`: the kernels counted (K4 through its bf16 entries),
+   float32 masters in the final checkpoints, and the train and forward
+   frames/s beside float32 runs of the same cfg; the flagship's bf16
+   serving posteriors from seeded finals within 0.05 of float32's; one
+   bf16 train step, kernel path and scan, held to a float64 step (factor
+   2); the bf16 chunk at K = 8 bitwise the K = 1 chunk, and its warm
+   chunk profiled beside a float32 one.
+8. Zoo phase, the classes that have no TPU kernel, each at its shipped
    cfg's widths (at ZOO_DEPTH = 2 of their layers, but fusionRNN at all
    4): RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
    tanh, batchnorm), minimalGRU (minimalGRU_fbank.cfg, 5x550), LSTM_cudnn
@@ -696,12 +713,13 @@ WORDS = {
 }
 
 
-def bound_ms(name, T, B, H):
+def bound_ms(name, T, B, H, words=None):
     """(least ms the card could take for one call at (T, B, H), "bytes" or
     "operations"): each input read once and each output written once at the
     memory's peak, against the recurrent products at the peak of their
-    precision (the gate arithmetic adds under 1% at these H)."""
-    tbh, hh, bh = WORDS[name]
+    precision (the gate arithmetic adds under 1% at these H).  `words`
+    replaces WORDS[name] (K4's bf16 entries: BF16_WORDS)."""
+    tbh, hh, bh = words or WORDS[name]
     bytes_ms = 4 * (tbh * T * B * H + hh * H * H + bh * B * H) / PEAK_BYTES * 1e3
     ops_ms = sum(n * T * B * H * H / PEAK_FLOPS[p]
                  for p, n in FLOPS[name].items()) * 1e3
@@ -2220,7 +2238,8 @@ def _ms_run(modules, cfg, k, warm):
         busy_us, per_op = _device_events(prof)
         out["warm"] = dict(train=res, wall=wall, busy=busy_us / 1e6,
                            steps=_graph_counts(chunk_runtime),
-                           launches=_launch_events(_counts(modules), per_op))
+                           launches=_launch_events(_counts(modules), per_op),
+                           per_op=per_op)
     return out
 
 
@@ -2372,7 +2391,8 @@ def multistep_deterministic(modules, tree, cuts, src, recipe) -> None:
 
 
 def multistep_all(modules, trees) -> None:
-    """K1f captured alone, then each recipe's multistep check."""
+    """K1f captured alone, then each recipe's multistep check; returns the
+    trees with the multistep phase's own (MS_TREES) beside them."""
     from tpukaldi_torch.tools import flagship_tree as ft
 
     k1f_capture_check(modules["ligru"])
@@ -2382,6 +2402,423 @@ def multistep_all(modules, trees) -> None:
         for corpus, t in MS_TREES.items()}}
     for recipe in RECIPES:
         _timed(f"{recipe} multistep", multistep_phase, modules, trees, recipe)
+    return trees
+
+
+# the bf16 phase: the bf16 compute mode (`[exp] compute_dtype = bfloat16`,
+# TPUKALDI_COMPUTE_DTYPE), on the flagship's own bf16 recipe and on the QLSTM
+BF16_RECIPE = os.path.join(REPO, "cfg", "TIMIT", "liGRU_fmllr_bf16.cfg")
+# one train chunk, its valid chunk and the forward stage
+BF16_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1", "n_chunks = 5": "n_chunks = 1"}
+# utterances of the bf16 and float32 forwards held to each other, and their
+# bound in probability space (tpukaldi's tests/test_bf16.py)
+BF16_FWD_UTTS = 8
+BF16_POSTERIOR_ATOL = 0.05
+# the launch counters of K4's bf16 entries
+BF16_COUNTERS = {"lstm_lean_fwd": "lean_bf16_launches",
+                 "lstm_lean_bwd": "lean_bf16_bwd_launches"}
+# float32 words each call of K4's bf16 entries reads and writes once, as
+# WORDS counts them: ff (and K4b's dff) in bf16 count half
+BF16_WORDS = {"lstm_lean_fwd": (4, 4, 1), "lstm_lean_bwd": (7, 8, 2)}
+
+
+def _f32_run():
+    """TPUKALDI_COMPUTE_DTYPE=float32 for the runs inside (over a cfg's
+    `compute_dtype`)."""
+    return _env(TPUKALDI_COMPUTE_DTYPE="float32")
+
+
+def _bf16_fn_check(name, cell, fns, ins, grad) -> dict:
+    """A boundary-cast Function (K1-K3) on bf16 inputs against the float32
+    entry on the widened inputs: h bitwise, each gradient bitwise the
+    float32 one rounded to bf16.  Returns the casts' device ms."""
+    b16 = [t.to(torch.bfloat16) for t in ins]
+
+    def run(dtype):
+        leaves = [t.to(dtype).detach().requires_grad_() for t in b16]
+        h = fns["fn"](*leaves)
+        h.backward(grad)
+        return h.detach(), [t.grad for t in leaves]
+
+    h16, g16 = run(torch.bfloat16)
+    h32, g32 = run(torch.float32)
+    check(h16.dtype == torch.float32 and torch.equal(h16, h32),
+          f"{name}: bf16 inputs give h {h16.dtype} differing from the "
+          f"float32 entry by {float((h16 - h32).abs().max())}")
+    for what, a, b in zip(fns["grads"], g16, g32):
+        check(a.dtype == torch.bfloat16 and torch.equal(a, b.to(a.dtype)),
+              f"{name}: bf16 {what} is not the float32 entry's rounded")
+    fwd = queued_ms(lambda: [t.float() for t in b16])
+    bwd = queued_ms(lambda: ([t.float() for t in b16],
+                             [g.to(torch.bfloat16) for g in g32]))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def bf16_kernel_checks(modules) -> dict:
+    """Each kernel's bf16 entry at the recipe shapes: K1-K3's Functions and
+    K5's and K6's entries widen at their boundary, bitwise the float32
+    entry on the widened inputs (outputs and gradients rounded to the
+    primal dtype); K4f's bf16-ff entry bitwise the float32 entry on
+    ff.float(), K4b's bf16 dff bitwise the float32 dff rounded, its dmask
+    bitwise, its dU within DU_RTOL of max|dU| from a float64 h_prev^T
+    float(dff).  Returns {kernel: its casts' device ms}, and K4's bf16
+    entries' ms beside the float32 entries' with their bounds."""
+    conv1d, lstm = modules["conv1d"], modules["lstm"]
+    out = {}
+    T, B, H = BWD_SHAPES[0]
+    for cell in ("ligru", "lstm", "gru"):
+        ff, ws, mask, grad = _recurrence_inputs(cell, T, B, H, 21)
+        fns = _cell_fns(cell, modules[cell])
+        ms = _bf16_fn_check(cell, cell, fns, (ff, *ws, mask), grad)
+        out[f"{cell}_fwd"], out[f"{cell}_bwd"] = ms["fwd"], ms["bwd"]
+        print(f"bf16 {cell} Function at {(T, B, H)}: h and gradients bitwise "
+              f"the float32 entry's on the widened inputs; boundary casts "
+              f"{ms['fwd']:.3f} ms forward, {ms['bwd']:.3f} ms backward "
+              "(device)", flush=True)
+    # K4 at the QLSTM's training shape
+    T, B, H = LEAN_BWD_SHAPES[0]
+    ff, (u,), mask, grad = _recurrence_inputs("lstm_lean", T, B, H, 22)
+    ff16 = ff.to(torch.bfloat16)
+    ffw = ff16.float()
+    del ff
+    h, c = lstm.lstm_recurrence_lean(ff16, u, mask)
+    h32, c32 = lstm.lstm_recurrence_lean(ffw, u, mask)
+    check(torch.equal(h, h32) and torch.equal(c, c32),
+          "K4f: the bf16-ff entry differs from the float32 entry on ff.float()")
+    dff, du, dmask = lstm.lstm_recurrence_lean_bwd(ff16, h, c, grad, u, mask)
+    dff32, _, dmask32 = lstm.lstm_recurrence_lean_bwd(ffw, h, c, grad, u, mask)
+    check(dff.dtype == torch.bfloat16 and torch.equal(dff, dff32.to(dff.dtype))
+          and torch.equal(dmask, dmask32),
+          "K4b: the bf16 entry's dff is not the float32 dff rounded, or its "
+          "dmask differs")
+    ref = (h[:-1].reshape(-1, H).double().t()
+           @ dff[1:].reshape(-1, 4 * H).double())
+    du_err = float((du.double() - ref).abs().max() / ref.abs().max())
+    check(du_err <= DU_RTOL, f"K4b: bf16 dU {du_err:.3e} of max|dU| from "
+          "h_prev^T float(dff)")
+    del dff32, ref
+    timing = {}
+    for name, fn16, fn32 in (
+            ("lstm_lean_fwd", lambda: lstm.lstm_recurrence_lean(ff16, u, mask),
+             lambda: lstm.lstm_recurrence_lean(ffw, u, mask)),
+            ("lstm_lean_bwd",
+             lambda: lstm.lstm_recurrence_lean_bwd(ff16, h, c, grad, u, mask),
+             lambda: lstm.lstm_recurrence_lean_bwd(ffw, h, c, grad, u, mask))):
+        ms16, ms32 = median_ms(fn16, 3), median_ms(fn32, 3)
+        bound = bound_ms(name, T, B, H, BF16_WORDS[name])
+        timing[name] = dict(ms=ms16, f32_ms=ms32, bound_ms=bound[0],
+                            bound_by=bound[1])
+        print(f"bf16 {name} at {(T, B, H)}: bf16-ff entry {ms16:.3f} ms, "
+              f"float32 entry {ms32:.3f} ms, bound {bound[0]:.4f} ms "
+              f"({bound[1]})", flush=True)
+    print(f"bf16 K4 at {(T, B, H)}: h and c bitwise the float32 entry's on "
+          f"ff.float(), dff bitwise its dff rounded, dmask bitwise, dU "
+          f"{du_err:.3e} of max|dU| from float64 h_prev^T float(dff)",
+          flush=True)
+    del ff16, ffw, h, c, h32, c32, dff, du, grad
+    # K5 and K6 at the raw recipes' training batch (K6 with its dropout)
+    N, L, K, pool = CONV_TRAIN
+    for name, O in (("conv_pool", 80), ("conv_ln", 128)):
+        x, w, bias, gt, bt, _ = _conv_inputs(N, L, K, O, pool, 23)
+        b16 = [t.to(torch.bfloat16)
+               for t in ((x, w) if name == "conv_pool" else (x, w, bias, gt, bt))]
+
+        def run(dtype, name=name, b16=b16):
+            leaves = [t.to(dtype).detach().requires_grad_() for t in b16]
+            if name == "conv_pool":
+                y = conv1d.conv_pool(*leaves, pool)
+            else:
+                y = conv1d.conv_pool_ln_act(*leaves, 7, pool, 1e-6, True,
+                                            CONV_DROP)
+            # the same (bf16) incoming gradient for both entries
+            gy = torch.linspace(-1, 1, y.numel(), device=y.device)
+            y.backward(gy.reshape(y.shape).to(torch.bfloat16).to(y.dtype))
+            return y.detach(), [t.grad for t in leaves]
+
+        y16, g16 = run(torch.bfloat16)
+        y32, g32 = run(torch.float32)
+        check(y16.dtype == torch.bfloat16 and torch.equal(
+            y16, y32.to(torch.bfloat16)) and all(
+            a.dtype == torch.bfloat16 and torch.equal(a, b.to(a.dtype))
+            for a, b in zip(g16, g32)),
+            f"{name}: the bf16 entry is not the float32 entry's rounded")
+        out[f"{name}_fwd"] = queued_ms(lambda: ([t.float() for t in b16],
+                                                y32.to(torch.bfloat16)))
+        out[f"{name}_bwd"] = queued_ms(lambda: (
+            y16.float(), [g.to(torch.bfloat16) for g in g32]))
+        print(f"bf16 {name} at {(N, L, K, O, pool)}: output and gradients "
+              f"bitwise the float32 entry's rounded; boundary casts "
+              f"{out[f'{name}_fwd']:.3f} ms forward, {out[f'{name}_bwd']:.3f} "
+              "ms backward (device)", flush=True)
+    return {"casts": out, "lean": timing}
+
+
+def _final_dtypes(cfg) -> set:
+    """The dtypes of every floating leaf of a run's final checkpoints."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.checkpoint import read_checkpoint
+
+    _, plan = ft.train_plan(cfg)
+    found = set()
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif getattr(v, "dtype", None) is not None and v.dtype.kind == "f":
+                found.add(str(v.dtype))
+
+    for path in plan.final_ckpts.values():
+        for tree in read_checkpoint(path):
+            walk(tree)
+    return found
+
+
+def _bf16_run(modules, tree, src, out, recipe, replace=None):
+    """One train chunk, its valid chunk and the forward stage of `src`
+    through `run_experiment` on the card, counted: (cfg, the kernels'
+    launches, K4's bf16 launches, the runtime's batch counters, the train
+    and forward .info)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                             {**_cuts(recipe), **BF16_CUTS, **(replace or {})},
+                             recipe=src)
+    _reset_counts(modules, chunk_runtime)
+    for counter in BF16_COUNTERS.values():
+        setattr(modules["lstm"], counter, 0)
+    run_experiment(cfg, device="cuda")
+    batches = (chunk_runtime.train_batches, chunk_runtime.valid_batches,
+               chunk_runtime.forward_batches)
+    infos = _train_infos(out)
+    train = chunk_runtime.read_info(next(p for f, p in infos.items()
+                                         if f.startswith("train_")))
+    _, fwd = ft.forward_outputs(out)
+    bf16 = {k: getattr(modules["lstm"], c) for k, c in BF16_COUNTERS.items()}
+    return cfg, _counts(modules), bf16, batches, train, fwd
+
+
+def bf16_recipe_phase(modules, trees, recipe) -> dict:
+    """A recipe's bf16 compute mode through `run_experiment`: one train
+    chunk, its valid chunk and the forward stage in bf16 and, for the
+    frames/s beside it, in float32.  The recipe's kernels launch once per
+    layer per batch (K4's through its bf16 entries); the final checkpoints
+    hold float32 masters; the posteriors are finite.  The flagship runs its
+    own bf16 recipe, the QLSTM its recipe under
+    TPUKALDI_COMPUTE_DTYPE=bfloat16."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    r = RECIPES[recipe]
+    tree = trees[r["corpus"]]
+    src = BF16_RECIPE if recipe == "liGRU" else ft.recipe_cfg(recipe)
+    def env():
+        return (contextlib.nullcontext() if recipe == "liGRU"
+                else _env(TPUKALDI_COMPUTE_DTYPE="bfloat16"))
+
+    with env():
+        cfg, counts, bf16, (n_tr, n_va, n_fw), tr, fw = _bf16_run(
+            modules, tree, src, os.path.join(WORK, f"bf16_{recipe}"), recipe)
+    # for the frames/s: float32, then bf16 again, both on kernels this
+    # process has run before (the first bf16 run loads its own)
+    with _f32_run():
+        *_, tr32, fw32 = _bf16_run(
+            modules, tree, src, os.path.join(WORK, f"bf16_{recipe}_f32"),
+            recipe)
+    with env():
+        *_, tr2, fw2 = _bf16_run(
+            modules, tree, src, os.path.join(WORK, f"bf16_{recipe}_again"),
+            recipe)
+    layers = r["layers"]
+    fwd, bwd = counts[r["fwd"]], counts[r["bwd"]]
+    check(fwd == layers * (n_tr + n_va + n_fw) and bwd == layers * n_tr > 0,
+          f"bf16 {recipe}: {r['fwd']} {fwd}, {r['bwd']} {bwd} launches for "
+          f"{n_tr} train + {n_va} valid + {n_fw} forward batches")
+    _check_only(counts, recipe, f"bf16 {recipe}")
+    if recipe == "QLSTM":
+        check(bf16 == {r["fwd"]: fwd, r["bwd"]: bwd},
+              f"bf16 QLSTM: K4's bf16 entries launched {bf16} of "
+              f"{fwd}, {bwd}")
+    dtypes = _final_dtypes(cfg)
+    check(dtypes == {"float32"}, f"bf16 {recipe}: final checkpoints hold "
+          f"{dtypes}")
+    posts, _ = ft.forward_outputs(os.path.join(WORK, f"bf16_{recipe}"))
+    n_test = TREES[r["corpus"]]["splits"]["test"][0]
+    _check_arks(list(posts), n_test)
+    print(f"bf16 {recipe}: one train chunk ({n_tr} batches), {n_va} valid, "
+          f"{n_fw} forward batches; {r['fwd']} {fwd}, {r['bwd']} {bwd} "
+          f"launches" + (f" (K4's bf16 entries {bf16[r['fwd']]}, "
+                         f"{bf16[r['bwd']]})" if recipe == "QLSTM" else "")
+          + f"; final checkpoints {sorted(dtypes)}; train loss "
+          f"{tr['loss']:.4f} (float32 {tr32['loss']:.4f})", flush=True)
+    print(f"bf16 {recipe} frames/s (.info; {_card()}): train bf16 "
+          f"{tr2['frames_per_sec']:.1f} (first bf16 run "
+          f"{tr['frames_per_sec']:.1f}), float32 "
+          f"{tr32['frames_per_sec']:.1f}; forward bf16 "
+          f"{fw2['frames_per_sec']:.1f} (first {fw['frames_per_sec']:.1f}), "
+          f"float32 {fw32['frames_per_sec']:.1f}", flush=True)
+    return {"cfg": cfg, "launches": (fwd, bwd), "bf16_launches": bf16}
+
+
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def bf16_posterior_check(trees) -> None:
+    """The flagship's bf16 recipe in production from seeded final weights:
+    its bf16 posteriors of BF16_FWD_UTTS utterances within
+    BF16_POSTERIOR_ATOL (probability space) of the float32 ones."""
+    from tpukaldi_torch.forward.counts import resolve_count_files
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    out = os.path.join(WORK, "bf16_serve")
+    os.makedirs(out)
+    cfg = ft.write_prod_cfg(trees["TIMIT"], out, os.path.join(out, "run.cfg"),
+                            recipe=BF16_RECIPE)
+    ft.save_seeded_finals(cfg, dim=TREES["TIMIT"]["dim"])
+    test = os.path.join(trees["TIMIT"], "data", "test", "feats.scp")
+    with open(test) as f:
+        names = [line.split()[0] for line in f][:BF16_FWD_UTTS]
+    posts = {}
+    for dtype, ctx in (("bf16", contextlib.nullcontext()),
+                       ("float32", _f32_run())):
+        with ctx:
+            exp, _ = ft.train_plan(cfg)
+            resolve_count_files(exp, os.path.join(out, "exp_files"))
+            posts[dtype] = ft.forward_utterances(exp, names, "cuda")
+    b16, f32 = posts["bf16"], posts["float32"]
+    gap = max(float(np.abs(np.exp(b16[n]) - np.exp(f32[n])).max())
+              for n in names)
+    check(all(np.isfinite(b16[n]).all() for n in names),
+          "bf16 posteriors not finite")
+    print(f"bf16 liGRU serving from seeded finals: {len(names)} utterances, "
+          f"bf16 vs float32 posteriors max |p| gap {gap:.3e} (bound "
+          f"{BF16_POSTERIOR_ATOL})", flush=True)
+    check(gap <= BF16_POSTERIOR_ATOL, f"bf16 posteriors {gap} from float32's")
+
+
+def bf16_step_check(modules, trees) -> None:
+    """One full-width train step of the flagship's bf16 recipe at drop 0:
+    the kernel path's master gradients and the scan's (bf16 plain loop),
+    both held to a float64 step (float32 compute dtype); the kernel path's
+    worst error at most STEP_GRAD_FACTOR times the scan's."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    out = os.path.join(WORK, "bf16_step")
+    os.makedirs(out)
+    cuts = {**_cuts("liGRU"), **_no_drop("liGRU")}
+    cfg_k = ft.write_train_cfg(trees["TIMIT"], out, os.path.join(out, "k.cfg"),
+                               cuts, recipe=BF16_RECIPE)
+    cfg_s = ft.write_train_cfg(trees["TIMIT"], out, os.path.join(out, "s.cfg"),
+                               {**cuts, **_scan("liGRU")}, recipe=BF16_RECIPE)
+    loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
+    loss_s, grads_s, _ = ft.train_step_gradients(cfg_s, "cuda")
+    with _f32_run():
+        loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda",
+                                                     torch.float64)
+    check(all(g.dtype == torch.float32 for g in grads_k.values()),
+          "bf16 step: master gradients not float32")
+
+    def worst(grads):
+        rel = {n: float((g.double() - grads_r[n]).abs().max()
+                        / grads_r[n].abs().max().clamp_min(1e-30))
+               for n, g in grads.items()}
+        name = max(rel, key=rel.get)
+        return rel[name], name
+
+    err_k, name_k = worst(grads_k)
+    err_s, name_s = worst(grads_s)
+    print(f"bf16 liGRU step at drop 0 (batch {shape}): loss kernel path "
+          f"{loss_k:.7f}, scan {loss_s:.7f}, float64 {loss_r:.7f}; worst "
+          f"gradient error vs float64: kernel path {err_k:.3e} ({name_k}), "
+          f"scan {err_s:.3e} ({name_s}) (factor {STEP_GRAD_FACTOR:g})",
+          flush=True)
+    check(err_k <= STEP_GRAD_FACTOR * err_s,
+          f"bf16 kernel path gradients {err_k} from float64, scan {err_s}")
+
+
+def bf16_multistep_check(modules, trees) -> None:
+    """The flagship's bf16 recipe's train and valid chunk at
+    TPUKALDI_MULTISTEP=8 (groups on CUDA graphs of the bf16 step) bitwise
+    the K = 1 run's: ledger and checkpoints, and the same launches.  The
+    K = 8 run, and one in float32 beside it, train the chunk once more,
+    warm, under the profiler: frames/s, idle share, device time by
+    layer."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    cuts = {**_cuts("liGRU"), "n_chunks = 5": "n_chunks = 1"}
+    runs = {}
+    for name, k, ctx in (("K1", 1, contextlib.nullcontext()),
+                         (f"K{MS_K}", MS_K, contextlib.nullcontext()),
+                         (f"K{MS_K} float32", MS_K, _f32_run())):
+        out = os.path.join(WORK, f"bf16_multistep_{name.replace(' ', '_')}")
+        os.makedirs(out)
+        cfg = ft.write_train_cfg(trees["MS_TIMIT"], out,
+                                 os.path.join(out, "run.cfg"), cuts,
+                                 recipe=BF16_RECIPE)
+        with ctx:
+            runs[name] = _ms_run(modules, cfg, k, k == MS_K)
+    a, g = runs["K1"], runs[f"K{MS_K}"]
+    for name in (f"K{MS_K}", f"K{MS_K} float32"):
+        w = runs[name]["warm"]
+        label = f"bf16 liGRU warm train chunk {name}"
+        busy_us = w["busy"] * 1e6
+        _print_profile(label, w["wall"], busy_us, w["per_op"], n_top=4)
+        print(f"profile {label}: {w['train'].n_batches} steps (replays "
+              f"{w['steps']['graph_replays']}, eager "
+              f"{w['steps']['eager_steps']}), "
+              f"{w['train'].frames_per_sec:.1f} frames/s (.info), phases "
+              + " ".join(f"{k}={v:.3f}" for k, v in
+                         w["train"].phases.items()), flush=True)
+        for layer, us in sorted(_by_layer(w["per_op"]).items(),
+                                key=lambda kv: -kv[1]):
+            print(f"profile {label} layer: {layer}: {us / 1e3:.1f} ms "
+                  f"({us / busy_us:.1%} of busy)", flush=True)
+    print(f"bf16 liGRU multistep: K1 train loss {a['train'].loss} err "
+          f"{a['train'].err}, K{MS_K} {g['train'].loss} {g['train'].err}; "
+          f"K{MS_K} steps: captures {g['steps']['graph_captures']}, replays "
+          f"{g['steps']['graph_replays']}, eager {g['steps']['eager_steps']}",
+          flush=True)
+    check(g["ckpts"] == a["ckpts"] and _ms_ledger(g) == _ms_ledger(a)
+          and g["counts"] == a["counts"],
+          f"bf16 liGRU: K{MS_K} differs from K1")
+    check(g["train_steps"]["graph_replays"] >= g["train"].n_batches // 2,
+          f"bf16 liGRU: K{MS_K} ran {g['train_steps']} of "
+          f"{g['train'].n_batches} steps as replays")
+
+
+def _bf16_extra(name, bf16) -> dict:
+    """A kernel's bf16 record on the kernels line: its launches in the bf16
+    phase's counted runs (K1 in the flagship's bf16 recipe, K4's bf16
+    entries in the QLSTM's bf16 chunk), K4's bf16 entry's ms and bound at
+    the recipe shape, and the boundary casts' device ms of the others."""
+    runs = bf16["runs"]
+    out = {}
+    if name in ("ligru_fwd", "ligru_bwd"):
+        out["bf16_launches"] = runs["liGRU"]["launches"][name == "ligru_bwd"]
+    if name in BF16_COUNTERS:
+        lean = bf16["lean"][name]
+        out.update(bf16_launches=runs["QLSTM"]["bf16_launches"][name],
+                   bf16_ms=lean["ms"], bf16_bound_ms=lean["bound_ms"],
+                   bf16_bound_by=lean["bound_by"])
+    elif name in bf16["casts"]:
+        out["bf16_cast_ms"] = bf16["casts"][name]
+    return out
+
+
+def bf16_phase(modules, trees) -> dict:
+    """The bf16 compute mode on the card (after the multistep phase)."""
+    kern = _timed("bf16 kernel entries", bf16_kernel_checks, modules)
+    runs = {recipe: _timed(f"bf16 {recipe}", bf16_recipe_phase, modules,
+                           trees, recipe) for recipe in ("liGRU", "QLSTM")}
+    _timed("bf16 serving", bf16_posterior_check, trees)
+    _timed("bf16 step", bf16_step_check, modules, trees)
+    _timed("bf16 multistep", bf16_multistep_check, modules, trees)
+    return {**kern, "runs": runs}
 
 
 def zoo_graph_check(rt, batch, feats, labs, cls) -> None:
@@ -3147,9 +3584,7 @@ def main() -> int:
     print(f"precision (the port's setting): cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    card = _card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t_start = time.perf_counter()
@@ -3193,7 +3628,8 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
-    _timed("multistep", multistep_all, modules, trees)
+    trees = _timed("multistep", multistep_all, modules, trees)
+    bf16 = _timed("bf16", bf16_phase, modules, trees)
     fusion = _timed("zoo", zoo_phase, modules, trees)
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -3233,6 +3669,7 @@ def main() -> int:
             # K1's launches on the fusion path beside the flagship's
             extra = ({"fusion_launches": fusion[name]} if name in fusion
                      else {})
+            extra.update(_bf16_extra(name, bf16))
             kernels.append(entry(name, rec, trained[recipe][key], **extra))
     # the stack's kernels: launches on its own path, and on the recipe paths
     kernels += [entry(name, stack[name], stack[name]["launches"],

@@ -25,7 +25,13 @@ windows of 400 samples), tpukaldi's init reaches the port through
 
 Tolerance: 1e-5 absolute, as tests/torch_port_helpers.py's
 `check_train_and_eval_step` holds the recipes.  `liGRU_fmllr_bf16.cfg`
-asserts the `NotImplementedError` of the port's missing bf16 mode instead.
+runs in the bf16 compute mode on both sides (`compute_dtype = bfloat16`),
+tpukaldi's liGRU at `ligru_impl = pallas` (its kernel in interpret mode,
+the semantics of the port's `auto`), and is held by the bounds of
+tests/test_torch_port_bf16.py: its bf16 loss within max(2 |tpk bf16 - tpk
+f32|, 1e-3) of tpukaldi's bf16 loss, each master gradient no further (L2)
+from tpukaldi's float32 one than 2x tpukaldi's bf16 gradient is, and the
+bf16 forward's posteriors within 0.05 in probability space of tpukaldi's.
 """
 
 import glob
@@ -46,7 +52,7 @@ from tpukaldi_torch.compat.jax_params import from_jax_params
 from tpukaldi_torch.config import load_config
 from tpukaldi_torch.graph import compiler
 from tpukaldi_torch.models.registry import resolve
-from tpukaldi_torch.train.chunk_runtime import check_compute_dtype
+from tpukaldi_torch.train.chunk_runtime import compute_dtype
 from tpukaldi_torch.train.optimizers import make_all_optimizers
 from tpukaldi_torch.train.step import eval_step, forward_step, train_step
 from torch_port_helpers import assert_trees_close, port_tree
@@ -203,6 +209,75 @@ def _valid_rows(lengths):
     return (np.arange(T)[:, None] < lengths[None, :]).reshape(-1)
 
 
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, np.asarray(tree, np.float64)
+
+
+def _check_bf16(exp_j, exp, cfg_rel):
+    """The bf16 recipe: one bf16 train step and one bf16 forward of the
+    port against tpukaldi's, by the bounds of the module docstring."""
+    assert compute_dtype(exp) == torch.bfloat16
+    for arch in exp_j.archs.values():
+        if "ligru_impl" in arch.options:
+            arch.options["ligru_impl"] = "pallas"
+    _no_dropout(exp_j)
+    _no_dropout(exp)
+    fea, lab, n_out = _layouts(exp, cfg_rel)
+    width = max(end for _, end in fea.values())
+    jg = jax_compiler.build_graph(exp_j, fea, lab)
+    pg = compiler.build_graph(exp, fea, lab, "cpu")
+    rng = np.random.default_rng(11)
+    feats, labs = _batch(True, width, n_out, rng)
+    params, stats = jax_compiler.init_graph(jg, jax.random.key(3),
+                                            jnp.asarray(feats))
+    for name, module in pg.modules.items():
+        module.load_state_dict(from_jax_params(
+            type(module).__name__, jax.tree_util.tree_map(np.asarray,
+                                                          params[name]),
+            jax.tree_util.tree_map(np.asarray, stats.get(name, {}))))
+    tpk = {}
+    for mode, cdt in (("f32", None), ("bf16", jnp.bfloat16)):
+        (loss, _), grads = jax.jit(
+            lambda p, s, f, lb, n: jax.value_and_grad(_loss_fn, has_aux=True)(
+                p, jg, s, f, lb, None, n, cdt))(
+            params, stats, jnp.asarray(feats), jnp.asarray(labs),
+            jnp.asarray(N_VALID))
+        tpk[mode] = (float(loss), grads)
+    lengths = np.array([T, 7, 4], np.int64)
+    want = make_forward_step(jg, compute_dtype=jnp.bfloat16)(
+        params, stats, jnp.asarray(feats), jnp.asarray(lengths, jnp.int32))
+    got = forward_step(pg, torch.from_numpy(feats), torch.from_numpy(lengths),
+                       compute_dtype=torch.bfloat16)
+    rows = _valid_rows(lengths)
+    for name in want:
+        np.testing.assert_allclose(np.exp(got[name].numpy()[rows]),
+                                   np.exp(np.asarray(want[name])[rows]),
+                                   rtol=0, atol=0.05, err_msg=name)
+    loss, _ = train_step(pg, make_all_optimizers(pg.archs, pg.modules),
+                         torch.from_numpy(feats), torch.from_numpy(labs),
+                         N_VALID, None, torch.bfloat16)
+    own = abs(tpk["bf16"][0] - tpk["f32"][0])
+    assert abs(loss.item() - tpk["bf16"][0]) <= max(2 * own, 1e-3), (
+        loss.item(), tpk)
+    worst = 0.0
+    for name, module in pg.modules.items():
+        got_grads, _ = port_tree(module, grads=True)
+        want32 = dict(_leaves(tpk["f32"][1][name]))
+        want16 = dict(_leaves(tpk["bf16"][1][name]))
+        for path, g in _leaves(got_grads):
+            d_port = np.linalg.norm(g - want32[path])
+            d_tpk = np.linalg.norm(want16[path] - want32[path])
+            assert d_port <= 2 * d_tpk, (name, path, d_port, d_tpk)
+            worst = max(worst, d_port / max(d_tpk, 1e-30))
+    print(f"{cfg_rel}: loss gap {abs(loss.item() - tpk['bf16'][0]):.3e} "
+          f"(tpukaldi's bf16-f32 {own:.3e}), gradient distance ratio <= "
+          f"{worst:.3f}")
+
+
 @pytest.mark.parametrize("cfg_rel", CFGS)
 def test_cfg_matches_tpukaldi(cfg_rel, tmp_path):
     path = _prepare(cfg_rel, tmp_path)
@@ -212,10 +287,9 @@ def test_cfg_matches_tpukaldi(cfg_rel, tmp_path):
     for arch in exp.archs.values():
         resolve(arch.class_name, arch.library)
     if cfg_rel == BF16:
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            check_compute_dtype(exp)
+        _check_bf16(exp_j, exp, cfg_rel)
         return
-    check_compute_dtype(exp)
+    assert compute_dtype(exp) is None
     _no_dropout(exp_j)
     _no_dropout(exp)
     fea, lab, n_out = _layouts(exp, cfg_rel)

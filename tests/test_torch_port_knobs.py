@@ -5,13 +5,14 @@ implement yet, which raise instead of running something else.
    `TPUKALDI_COMPUTE_DTYPE`), read where the port builds its `ChunkRuntime`,
    as tpukaldi's `ChunkRuntime._compute_dtype` reads it
    (`tests/test_bf16.py::test_bad_compute_dtype_rejected`): float32 names
-   run, any name but float32 and bfloat16 raises `ValueError`, and bfloat16
-   raises `NotImplementedError` until the port has a bf16 mode, through
+   run in float32, bfloat16 names in the bf16 compute mode, through
    `run_experiment` (the shipped `cfg/TIMIT/liGRU_fmllr_bf16.cfg`) and
-   through `run_chunk`.
-2. `[exp] multi_gpu`, `TPUKALDI_NUM_HOSTS` and `TPUKALDI_MATMUL_PRECISION`
-   raise `NotImplementedError` in `run_experiment` before any output folder
-   is written.
+   through `run_chunk`, and any other name raises `ValueError`.
+2. `[exp] multi_gpu` and `TPUKALDI_NUM_HOSTS` raise `NotImplementedError`
+   in `run_experiment` before any output folder is written;
+   `TPUKALDI_MATMUL_PRECISION` runs with torch's matching precision for the
+   run and the previous one restored after it, and a name it does not know
+   raises `ValueError` before any output.
 3. `TPUKALDI_PROFILE_DIR` gets a profiler trace of the whole run, as
    tpukaldi's `run_experiment` writes one, also when the run raises; and
    `TPUKALDI_FORWARD_BATCH` defaults to 8, tpukaldi's default off a TPU.
@@ -21,6 +22,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from tpukaldi_torch.plan.chunk_cfg import write_chunk_cfg
 from tpukaldi_torch.tools.flagship_tree import (
@@ -32,6 +34,7 @@ from tpukaldi_torch.tools.flagship_tree import (
     write_train_cfg,
 )
 from tpukaldi_torch.tools.run_chunk import run_chunk
+from tpukaldi_torch.tools import run_exp as run_exp_module
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
 from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
@@ -77,10 +80,11 @@ def _bf16_cfg(tree, tmp_path, dtype="bfloat16"):
 @pytest.mark.parametrize("dtype", ["float32", " F32 ", ""])
 def test_float32_names_build_the_runtime(tree, tmp_path, dtype):
     """float32, f32 and the empty name, in any case and with spaces, are
-    float32, which the port computes in."""
+    float32: the runtime's compute dtype is None."""
     cfg, _ = _bf16_cfg(tree, tmp_path, dtype)
     exp, _ = train_plan(cfg)
-    assert ChunkRuntime(exp, "cpu").device.type == "cpu"
+    rt = ChunkRuntime(exp, "cpu")
+    assert rt.device.type == "cpu" and rt.compute_dtype is None
 
 
 @pytest.mark.parametrize("dtype", ["float16", "fp8"])
@@ -96,37 +100,43 @@ def test_bad_compute_dtype_rejected(tree, tmp_path, dtype):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "BF16"])
 def test_bf16_cfg_raises_instead_of_running_float32(tree, tmp_path, dtype):
-    """The shipped bf16 recipe (its own `compute_dtype` line) raises
-    NotImplementedError in `run_experiment`, before any output is
-    written, rather than train in float32."""
+    """The shipped bf16 recipe (its own `compute_dtype` line), shrunk, runs
+    through `run_experiment` in the bf16 compute mode, not in float32: its
+    runtime computes in torch.bfloat16, and the run trains, validates and
+    writes its ledger."""
     cfg, out = _bf16_cfg(tree, tmp_path, dtype)
-    with pytest.raises(NotImplementedError, match="bf16 mode"):
-        run_experiment(cfg, device="cpu")
-    assert not os.path.exists(out)
+    exp, _ = train_plan(cfg)
+    assert ChunkRuntime(exp, "cpu").compute_dtype == torch.bfloat16
+    run_experiment(cfg, device="cpu")
+    with open(os.path.join(out, "res.res")) as f:
+        assert f.read().startswith("ep=0 ")
 
 
 @pytest.mark.parametrize("env, raises", [
-    ("bfloat16", NotImplementedError), (" bf16", NotImplementedError),
-    ("float16", ValueError), ("float32", None)])
+    ("bfloat16", None), (" bf16", None), ("float16", ValueError),
+    ("float32", None)])
 def test_compute_dtype_env_overrides_the_cfg(tree, tmp_path, monkeypatch, env,
                                              raises):
     """TPUKALDI_COMPUTE_DTYPE overrides the cfg field, both ways: over the
-    float32 recipe it raises for bf16, over the bf16 recipe float32 runs."""
+    float32 recipe bf16 names give the bf16 compute mode (another name
+    raises), over the bf16 recipe float32 gives float32."""
     monkeypatch.setenv("TPUKALDI_COMPUTE_DTYPE", env)
-    recipe = BF16_CFG if raises is None else recipe_cfg("liGRU")
+    recipe = BF16_CFG if env == "float32" else recipe_cfg("liGRU")
     cfg = write_train_cfg(tree, str(tmp_path / "out"), str(tmp_path / "r.cfg"),
                           SHRINK, recipe=recipe)
     exp, _ = train_plan(cfg)
-    if raises is None:
-        ChunkRuntime(exp, "cpu")
+    if raises is not None:
+        with pytest.raises(raises, match="compute_dtype"):
+            ChunkRuntime(exp, "cpu")
         return
-    with pytest.raises(raises, match="compute_dtype"):
-        ChunkRuntime(exp, "cpu")
+    want = None if env == "float32" else torch.bfloat16
+    assert ChunkRuntime(exp, "cpu").compute_dtype == want
 
 
 def test_run_chunk_reads_compute_dtype(tree, tmp_path):
     """A chunk cfg carries `compute_dtype` (`plan/chunk_cfg.py`), and the
-    standalone chunk runner raises on bfloat16 too."""
+    standalone chunk runner runs the chunk in bf16: its ledger and
+    checkpoints are the in-process runtime's, bit for bit."""
     cfg, _ = _bf16_cfg(tree, tmp_path)
     exp, plan = train_plan(cfg)
     task = plan.epochs[0].tasks[0]
@@ -134,8 +144,21 @@ def test_run_chunk_reads_compute_dtype(tree, tmp_path):
     chunk_cfg = write_chunk_cfg(exp, task)
     with open(chunk_cfg) as f:
         assert "compute_dtype = bfloat16" in f.read()
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        run_chunk(chunk_cfg, "cpu")
+    info = run_chunk(chunk_cfg, "cpu")
+    got = chunk_runtime.read_info(info)
+    ckpts = {a: open(p, "rb").read() for a, p in task.ckpt_files.items()}
+    for p in (info, *task.ckpt_files.values()):
+        os.remove(p)
+    rt = ChunkRuntime(exp, "cpu")
+    rt.run_task(task, epoch_lr={n: a.lr[0] for n, a in exp.archs.items()},
+                max_seq_length=exp.batches.msl_for_phase("train", 0),
+                batch_size=exp.batches.batch_size_train[0])
+    rt.checkpointer.wait()
+    want = chunk_runtime.read_info(task.info_file)
+    assert (got["loss"], got["err"]) == (want["loss"], want["err"])
+    for arch, path in task.ckpt_files.items():
+        with open(path, "rb") as f:
+            assert f.read() == ckpts[arch], arch
 
 
 @pytest.mark.parametrize("knob", [
@@ -143,9 +166,12 @@ def test_run_chunk_reads_compute_dtype(tree, tmp_path):
     "TPUKALDI_MATMUL_PRECISION=tensorfloat32"])
 def test_unported_run_knobs_raise_before_any_output(tree, tmp_path,
                                                     monkeypatch, knob):
-    """Each knob that would make tpukaldi run otherwise (a data-parallel
-    mesh, forward tasks sharded across hosts, another matmul precision)
-    raises NotImplementedError naming it, and leaves no output folder."""
+    """Each knob that would make tpukaldi run otherwise and that the port
+    does not implement yet (a data-parallel mesh, forward tasks sharded
+    across hosts) raises NotImplementedError naming it, and leaves no output
+    folder.  TPUKALDI_MATMUL_PRECISION is ported: bfloat16 runs at torch's
+    "medium" float32 matmul precision, tensorfloat32 at "high", both with
+    cuDNN's TF32 on, and the previous setting comes back after the run."""
     out = str(tmp_path / "out")
     shrink = dict(SHRINK)
     if knob == "multi_gpu":
@@ -156,7 +182,40 @@ def test_unported_run_knobs_raise_before_any_output(tree, tmp_path,
         if name == "TPUKALDI_NUM_HOSTS":
             monkeypatch.setenv("TPUKALDI_HOST_ID", "1")
     cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), shrink)
-    with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
+    if not knob.startswith("TPUKALDI_MATMUL_PRECISION"):
+        with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
+            run_experiment(cfg, device="cpu")
+        assert not os.path.exists(out)
+        return
+    before = (torch.get_float32_matmul_precision(),
+              torch.backends.cudnn.allow_tf32)
+    seen = []
+    run = run_exp_module._run
+
+    def spy(*args):
+        seen.append((torch.get_float32_matmul_precision(),
+                     torch.backends.cudnn.allow_tf32))
+        return run(*args)
+
+    monkeypatch.setattr(run_exp_module, "_run", spy)
+    run_experiment(cfg, device="cpu")
+    want = {"bfloat16": "medium", "tensorfloat32": "high"}[knob.split("=")[1]]
+    assert seen == [(want, True)]
+    assert (torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32) == before
+    with open(os.path.join(out, "res.res")) as f:
+        assert f.read().startswith("ep=0 ")
+
+
+@pytest.mark.parametrize("value", ["float16", "fastest"])
+def test_unknown_matmul_precision_raises_before_any_output(
+        tree, tmp_path, monkeypatch, value):
+    """A TPUKALDI_MATMUL_PRECISION the port does not know raises ValueError
+    naming the knob, before any output folder is written."""
+    monkeypatch.setenv("TPUKALDI_MATMUL_PRECISION", value)
+    out = str(tmp_path / "out")
+    cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), SHRINK)
+    with pytest.raises(ValueError, match="TPUKALDI_MATMUL_PRECISION"):
         run_experiment(cfg, device="cpu")
     assert not os.path.exists(out)
 

@@ -18,6 +18,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..config.cfg import ArchSpec, ExperimentConfig
 from ..config.model_dsl import ModelStatement
@@ -144,8 +145,15 @@ def apply_graph(
     lengths: Optional[torch.Tensor] = None,
     n_valid_t=None,
     generator: Optional[torch.Generator] = None,
+    params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Execute the program; returns every computed output by name.
+
+    `params` (arch -> {parameter name: tensor}, `train/step.py::
+    _cast_compute`'s bf16 casts) runs each module on those tensors in place
+    of its own parameters (`torch.func.functional_call`; its buffers, the
+    batchnorm statistics, stay its own), as tpukaldi applies each module to
+    the cast parameter tree.
 
     `to_do='forward'` stops once every forward output exists and skips the
     costs (reference core.py:616-629 / utils.py:2341-2342).  `n_valid_t` is
@@ -191,10 +199,14 @@ def apply_graph(
             arch = graph.archs[s.arg1]
             module.train(train and not arch.freeze)
             inp = _adapt_for_arch(outs[s.arg2], arch.seq_model, feats)
+            kwargs = {"generator": generator}
             if arch.seq_model and lengths is not None:
-                outs[s.out] = module(inp, lengths=lengths, generator=generator)
+                kwargs["lengths"] = lengths
+            if params is None:
+                outs[s.out] = module(inp, **kwargs)
             else:
-                outs[s.out] = module(inp, generator=generator)
+                outs[s.out] = functional_call(module, params[s.arg1], (inp,),
+                                              kwargs)
         elif s.op in ("cost_nll", "cost_err"):
             if to_do == "forward":
                 if _drained(s.out):

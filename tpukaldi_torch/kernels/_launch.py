@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import importlib
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,7 +30,8 @@ SMEM_REFUSED = -1
 # every wrapper module's launch counters (one per kernel)
 COUNTERS = {
     "ligru": ("launches", "bwd_launches"),
-    "lstm": ("launches", "bwd_launches", "lean_launches", "lean_bwd_launches"),
+    "lstm": ("launches", "bwd_launches", "lean_launches", "lean_bwd_launches",
+             "lean_bf16_launches", "lean_bf16_bwd_launches"),
     "gru": ("launches", "bwd_launches"),
     "conv1d": ("launches", "bwd_launches", "ln_launches", "ln_bwd_launches"),
     "conv_stack": ("launches", "bwd_launches"),
@@ -123,11 +124,42 @@ def check_tensors(fn: str, **tensors: Tuple[torch.Tensor, Tuple[int, ...],
             raise ValueError(f"{fn}: {name} is not contiguous")
 
 
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor widened to float32 (exact), any other as it is: the
+    boundary cast in front of a kernel that takes float32 (tpukaldi's
+    Pallas wrappers cast their bf16 inputs the same way)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def carry(dtype: torch.dtype) -> Callable[[torch.Tensor], torch.Tensor]:
+    """How a plain recurrence loop keeps its state for inputs of `dtype`.
+    In the bf16 compute mode tpukaldi's scan carries its state in bf16 while
+    XLA computes each step's chain of elementwise ops in float32 (excess
+    precision): so a loop given bf16 inputs widens them, computes each step
+    in float32 and rounds the state it carries (and outputs) to bf16, which
+    this returns; for any other dtype, the identity."""
+    if dtype != torch.bfloat16:
+        return lambda x: x
+    return lambda x: x.to(torch.bfloat16).float()
+
+
+def refuse_bf16(fn: str, *tensors: torch.Tensor) -> None:
+    """Raise if a bf16 tensor reaches an entry without a bf16 path, on any
+    device: the caller casts at the boundary (`widen`), nothing falls back
+    to a plain version in bf16."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise TypeError(f"{fn} takes float32: widen bf16 inputs at the "
+                        "boundary (kernels/_launch.py::widen)")
+
+
 def check_inputs(fn: str, H: int, max_hidden: int,
+                 dtypes: Optional[Dict[str, torch.dtype]] = None,
                  **tensors: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
-    """Each (tensor, expected shape) float32, contiguous, on one CUDA
-    device, with its shape; H within the kernel's limit."""
-    check_tensors(fn, **{name: (t, shape, torch.float32)
+    """Each (tensor, expected shape) contiguous, on one CUDA device, with
+    its shape and dtype: float32, or what `dtypes` names for it (K4's bf16
+    ff); H within the kernel's limit."""
+    dtypes = dtypes or {}
+    check_tensors(fn, **{name: (t, shape, dtypes.get(name, torch.float32))
                          for name, (t, shape) in tensors.items()})
     if H > max_hidden:
         raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "

@@ -269,6 +269,7 @@ def conv1d_pool(x: torch.Tensor, w: torch.Tensor, pool: int,
     is the differentiable entry."""
     global launches
     N, L, K, O, M = _geometry("conv1d_pool", x, w, pool)
+    _launch.refuse_bf16("conv1d_pool", x, w)
     if x.device.type == "cpu":
         return conv1d_pool_ref(x, w, pool)
     _kernel_pool("conv1d_pool", pool)
@@ -292,6 +293,7 @@ def conv1d_pool_bwd(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
     and its pass skipped, without `need_dx`."""
     global bwd_launches
     N, L, K, O, M = _geometry("conv1d_pool_bwd", x, w, pool)
+    _launch.refuse_bf16("conv1d_pool_bwd", x, dy, w)
     if x.device.type == "cpu":
         return conv1d_pool_bwd_ref(x, dy, idx, w, pool, need_dx)
     _kernel_pool("conv1d_pool_bwd", pool)
@@ -369,6 +371,7 @@ def conv1d_pool_ln_act(
     entry."""
     global ln_launches
     N, L, K, O, M = _geometry("conv1d_pool_ln_act", x, w, pool)
+    _launch.refuse_bf16("conv1d_pool_ln_act", x, w, bias, gt, bt)
     if x.device.type == "cpu":
         seed = int(seed) if drop > 0.0 else 0
         return (*conv1d_pool_ln_act_ref(x, w, bias, gt, bt, seed, pool, eps,
@@ -411,6 +414,7 @@ def conv1d_pool_ln_act_bwd(
     None, and its pass skipped, without `need_dx`."""
     global ln_bwd_launches
     N, L, K, O, M = _geometry("conv1d_pool_ln_act_bwd", x, w, pool)
+    _launch.refuse_bf16("conv1d_pool_ln_act_bwd", x, w, bias, gt, bt, dz)
     if x.device.type == "cpu":
         seed = int(seed) if drop > 0.0 else 0
         return conv1d_pool_ln_act_bwd_ref(x, w, bias, gt, bt, seed, idx,
@@ -497,19 +501,28 @@ class ConvPoolLnAct(torch.autograd.Function):
 
 def conv_pool(x: torch.Tensor, w: torch.Tensor, pool: int) -> torch.Tensor:
     """The differentiable K5 where a gradient is wanted, else the forward
-    alone, which then writes no argmax."""
+    alone, which then writes no argmax.  bf16 inputs (the bf16 compute
+    mode) are widened to float32 at this boundary and y comes back in x's
+    dtype, as tpukaldi's model casts around its kernel (the gradients, by
+    autograd through the casts, in the primal dtypes)."""
+    dtype = x.dtype
+    x, w = _launch.widen(x), _launch.widen(w)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return ConvPool.apply(x, w, pool)
-    return conv1d_pool(x, w, pool, need_idx=False)[0]
+        return ConvPool.apply(x, w, pool).to(dtype)
+    return conv1d_pool(x, w, pool, need_idx=False)[0].to(dtype)
 
 
 def conv_pool_ln_act(x, w, bias, gt, bt, seed: Seed, pool: int, eps: float,
                      relu: bool, drop: float = 0.0) -> torch.Tensor:
     """The differentiable K6 where a gradient is wanted, else the forward
-    alone, which then writes neither idx nor stats."""
+    alone, which then writes neither idx nor stats.  bf16 inputs are
+    widened at this boundary and the output comes back in x's dtype, as
+    `conv_pool` does."""
+    dtype = x.dtype
+    x, w, bias, gt, bt = (_launch.widen(t) for t in (x, w, bias, gt, bt))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w, bias, gt, bt)):
         return ConvPoolLnAct.apply(x, w, bias, gt, bt, seed, pool, eps, relu,
-                                   drop)
+                                   drop).to(dtype)
     return conv1d_pool_ln_act(x, w, bias, gt, bt, seed, pool, eps, relu, drop,
-                              residuals=False)[0]
+                              residuals=False)[0].to(dtype)

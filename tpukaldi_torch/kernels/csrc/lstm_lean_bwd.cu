@@ -27,7 +27,14 @@
 // kernel's bf16 dots with float32 accumulation.  dU = h_prev^T dff is not
 // formed here: like tpukaldi's _lean_bwd, the wrapper contracts it as one
 // float32 GEMM over the T * B rows afterwards.  ff, c, g, mask, dff and
-// dmask are float32.  The wrapper passes three bf16 operands, made once per
+// dmask are float32 through tpk_lstm_lean_bwd.  tpk_lstm_lean_bwd_bf16 is
+// the bf16 compute mode's entry (tpukaldi's kernel reads ff in its native
+// dtype and writes dff in it): ff and dff are bf16 there, the remat widens
+// ff as it loads it and writes the gates to a float32 buffer the caller
+// gives (the gates then the float32 dA, as dff is in the float32 entry),
+// and the chain writes dff = dA rounded to nearest even, the value its own
+// product takes as bf16 operand; so dff is the float32 entry's on the
+// widened ff, rounded, bit for bit.  The wrapper passes three bf16 operands, made once per
 // call: hp (T B, hk), hp[r] = h_prev of row r = t B + b, hk = H padded to
 // 32 with zeros; u16 (hk, 4H padded to 8), U with zero padding; and upk
 // (H, H, 4), upk[k, j, g] = U[k, gH + j], K4f's own packing
@@ -139,14 +146,23 @@ constexpr int kRmBLd = kRmCols + kSkew;
 
 __host__ __device__ constexpr int round_to(int x, int m) { return (x + m - 1) / m * m; }
 
+// two consecutive elements of ff, widened to float32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // out[r, n] = gate_n(ff[r, n] + sum_k hp[r, k] u16[k, n]) for r < R,
 // n < 4H: gate_n the sigmoid for n < 3H, tanh after.  hp is (R, hk) and
 // u16 (hk, ldu) bf16, zero-padded (hk = H padded to kRmDepth, ldu = 4H
-// padded to 8); ff and out (R, 4H) float32.
+// padded to 8); ff (R, 4H) float32 or bf16 (FF), out (R, 4H) float32.
+template <typename FF>
 __global__ void __launch_bounds__(kRmThreads)
 lstm_lean_remat_kernel(const __nv_bfloat16* __restrict__ hp,
                        const __nv_bfloat16* __restrict__ u16,
-                       const float* __restrict__ ff, float* __restrict__ out,
+                       const FF* __restrict__ ff, float* __restrict__ out,
                        int R, int H) {
   __shared__ __align__(16) __nv_bfloat16 a_tile[2][kRmRows * kRmALd];   // [r][k]
   __shared__ __align__(16) __nv_bfloat16 b_tile[2][kRmDepth * kRmBLd];  // [k][n]
@@ -233,7 +249,7 @@ lstm_lean_remat_kernel(const __nv_bfloat16* __restrict__ hp,
         const int r = r0 + wr + mi * 16 + lane / 4 + 8 * half;
         if (r >= R) continue;
         const size_t at = static_cast<size_t>(r) * N + col;
-        const float2 x = *reinterpret_cast<const float2*>(ff + at);
+        const float2 x = load2(ff + at);
         const float a0 = x.x + acc[mi][nt][2 * half];
         const float a1 = x.y + acc[mi][nt][2 * half + 1];
         *reinterpret_cast<float2*>(out + at) = make_float2(
@@ -244,11 +260,12 @@ lstm_lean_remat_kernel(const __nv_bfloat16* __restrict__ hp,
   }
 }
 
-inline cudaError_t launch_remat(const __nv_bfloat16* hp, const __nv_bfloat16* u16,
-                                const float* ff, float* out, int R, int H,
-                                cudaStream_t stream) {
+template <typename FF>
+cudaError_t launch_remat(const __nv_bfloat16* hp, const __nv_bfloat16* u16,
+                         const FF* ff, float* out, int R, int H,
+                         cudaStream_t stream) {
   const dim3 grid((4 * H + kRmCols - 1) / kRmCols, (R + kRmRows - 1) / kRmRows);
-  lstm_lean_remat_kernel<<<grid, kRmThreads, 0, stream>>>(hp, u16, ff, out, R, H);
+  lstm_lean_remat_kernel<FF><<<grid, kRmThreads, 0, stream>>>(hp, u16, ff, out, R, H);
   return cudaGetLastError();
 }
 
@@ -267,7 +284,9 @@ struct Params {
   const float* g;
   const __nv_bfloat16* upk;
   const float* mask;
-  float* dff;     // in: the gates; out: dA
+  float* dff;     // in: the gates; out: dA (float32 entry)
+  __nv_bfloat16* dff16;  // bf16 entry: dA rounded (dff then holds the
+                         // gates and is not written); null otherwise
   float* dmask;
   float* pbuf;    // [2][Q R][S][mmax][u]: the partial dh sums, a block from
                   // every group for every u of a CTA's kl rows k (Q = kl / u
@@ -478,17 +497,28 @@ lstm_lean_bwd_seq_kernel(const Params p) {
           const float da_i = dc[i] * cand * m[i] * ig * (1.0f - ig);
           const float da_c = dc[i] * ig * m[i] * (1.0f - cand * cand);
           const size_t row = static_cast<size_t>(t) * p.B + b0 + b;
-          float* d = p.dff + row * four_h + unit0 + jj;
-          d[0] = da_f;
-          d[H] = da_i;
-          d[2 * H] = da_o;
-          d[3 * H] = da_c;
+          const size_t at = row * four_h + unit0 + jj;
+          const __nv_bfloat16 q[4] = {__float2bfloat16_rn(da_f), __float2bfloat16_rn(da_i),
+                                      __float2bfloat16_rn(da_o), __float2bfloat16_rn(da_c)};
+          if (p.dff16 != nullptr) {
+            __nv_bfloat16* d = p.dff16 + at;
+            d[0] = q[0];
+            d[H] = q[1];
+            d[2 * H] = q[2];
+            d[3 * H] = q[3];
+          } else {
+            float* d = p.dff + at;
+            d[0] = da_f;
+            d[H] = da_i;
+            d[2 * H] = da_o;
+            d[3 * H] = da_c;
+          }
           __nv_bfloat16* o4 = p.dabuf + (static_cast<size_t>(grp) * p.mmax + b) * nc
                               + 4 * (rk * u + jj);
-          o4[0] = __float2bfloat16_rn(da_f);
-          o4[1] = __float2bfloat16_rn(da_i);
-          o4[2] = __float2bfloat16_rn(da_o);
-          o4[3] = __float2bfloat16_rn(da_c);
+          o4[0] = q[0];
+          o4[1] = q[1];
+          o4[2] = q[2];
+          o4[3] = q[3];
           dm[i] = fmaf(dc[i] * ig, cand, dm[i]);
           dc[i] *= f;
         }
@@ -654,9 +684,35 @@ int launch_chain(const Params& prm, const Plan& pl, cudaStream_t stream) {
   return static_cast<int>(launched != cudaSuccess ? launched : last);
 }
 
+// Both entries: the remat of ff into dff (the gates, float32), then the
+// chain, which rewrites dff with dA or, given dff16, writes dA rounded there.
+template <typename FF>
+int run(const FF* ff, const float* c, const float* g, const void* hp,
+        const void* u16, const void* upk, const float* mask, float* dff,
+        __nv_bfloat16* dff16, float* dmask, float* pbuf, void* dabuf, void* bar,
+        int T, int B, int H, cudaStream_t stream) {
+  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  int err = make_plan(B, H, &pl);
+  if (err != 0) {
+    cudaGetLastError();
+    return err;
+  }
+  err = static_cast<int>(launch_remat(static_cast<const __nv_bfloat16*>(hp),
+                                      static_cast<const __nv_bfloat16*>(u16), ff,
+                                      dff, T * B, H, stream));
+  if (err != 0) return err;
+  const Params prm{c, g, static_cast<const __nv_bfloat16*>(upk), mask, dff, dff16,
+                   dmask, pbuf, static_cast<__nv_bfloat16*>(dabuf),
+                   static_cast<unsigned*>(bar), T, B, H, pl.u, pl.R, pl.S, pl.kl,
+                   pl.nc, pl.rows, pl.mmax, pl.pc};
+  return launch_chain(prm, pl, stream);
+}
+
 }  // namespace
 
 extern "C" int tpk_lstm_lean_bwd_max_hidden() { return kMaxHidden; }
+extern "C" int tpk_lstm_lean_bwd_bf16_max_hidden() { return kMaxHidden; }
 
 // out[0..7] = (CTAs, units a CTA, shared-memory bytes a CTA, groups'
 // partial sums staged at a time, floats of the pbuf scratch, groups, CTAs
@@ -692,20 +748,19 @@ extern "C" int tpk_lstm_lean_bwd(const float* ff, const float* c, const float* g
                                  const float* mask, float* dff, float* dmask,
                                  float* pbuf, void* dabuf, void* bar, int T,
                                  int B, int H, cudaStream_t stream) {
-  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl;
-  int err = make_plan(B, H, &pl);
-  if (err != 0) {
-    cudaGetLastError();
-    return err;
-  }
-  err = static_cast<int>(launch_remat(static_cast<const __nv_bfloat16*>(hp),
-                                      static_cast<const __nv_bfloat16*>(u16), ff,
-                                      dff, T * B, H, stream));
-  if (err != 0) return err;
-  const Params prm{c, g, static_cast<const __nv_bfloat16*>(upk), mask, dff, dmask,
-                   pbuf, static_cast<__nv_bfloat16*>(dabuf),
-                   static_cast<unsigned*>(bar), T, B, H, pl.u, pl.R, pl.S, pl.kl,
-                   pl.nc, pl.rows, pl.mmax, pl.pc};
-  return launch_chain(prm, pl, stream);
+  return run(ff, c, g, hp, u16, upk, mask, dff, nullptr, dmask, pbuf, dabuf, bar, T,
+             B, H, stream);
+}
+
+// The bf16 entry: ff and dff (T, B, 4H) bf16, and gates, a float32 (T, B,
+// 4H) buffer of any contents for the remat's gates; the rest as above.
+extern "C" int tpk_lstm_lean_bwd_bf16(const void* ff, const float* c, const float* g,
+                                      const void* hp, const void* u16,
+                                      const void* upk, const float* mask,
+                                      float* gates, void* dff, float* dmask,
+                                      float* pbuf, void* dabuf, void* bar, int T,
+                                      int B, int H, cudaStream_t stream) {
+  return run(static_cast<const __nv_bfloat16*>(ff), c, g, hp, u16, upk, mask, gates,
+             static_cast<__nv_bfloat16*>(dff), dmask, pbuf, dabuf, bar, T, B, H,
+             stream);
 }

@@ -11,7 +11,11 @@
 //
 // with exact products and float32 sums, and writes h and c for every step
 // in float32: h stays float32 and is rounded to bf16 only as the product's
-// operand.  ff (T, B, 4H), mask (B, H), h and c (T, B, H) are float32; U
+// operand.  ff (T, B, 4H) is float32, or bf16 through the bf16 entry (the
+// bf16 compute mode: tpukaldi's kernel reads ff in its native dtype and
+// widens it as it loads it, load_ff here, so h and c are the float32
+// entry's on the widened ff bit for bit); mask (B, H), h and c (T, B, H)
+// are float32; U
 // arrives packed as upk (H, H, 4) bf16, upk[k, j, g] = U[k, gH + j], made
 // once per call by the wrapper.  Every step of T runs (the Pallas kernel
 // pads T to its time block; the padding sits at the end of time, so the
@@ -91,8 +95,10 @@ constexpr int kErrNotResident = static_cast<int>(cudaErrorCooperativeLaunchTooLa
 
 __host__ __device__ constexpr int round16(int x) { return (x + 15) / 16 * 16; }
 
+// FF the element type of ff: float, or __nv_bfloat16 for the bf16 entry
+template <typename FF>
 struct Params {
-  const float* ff;
+  const FF* ff;
   const __nv_bfloat16* upk;
   const float* mask;
   float* h_out;
@@ -120,15 +126,20 @@ inline size_t smem_bytes(int kp, int np, int mmax, int kc) {
   return u_bytes + h_bytes + static_cast<size_t>(kPartialFloats) * 4;
 }
 
-__device__ __forceinline__ void load_ff(const Params& p, int t, int row,
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename FF>
+__device__ __forceinline__ void load_ff(const Params<FF>& p, int t, int row,
                                         int j, float* v) {
-  const float* f = p.ff + (static_cast<size_t>(t) * p.B + row) * 4 * p.H + j;
+  const FF* f = p.ff + (static_cast<size_t>(t) * p.B + row) * 4 * p.H + j;
 #pragma unroll
-  for (int g = 0; g < 4; ++g) v[g] = f[static_cast<size_t>(g) * p.H];
+  for (int g = 0; g < 4; ++g) v[g] = widen(f[static_cast<size_t>(g) * p.H]);
 }
 
+template <typename FF>
 __global__ void __launch_bounds__(kThreads, 1)
-lstm_lean_fwd_kernel(const Params p) {
+lstm_lean_fwd_kernel(const Params<FF> p) {
   const int H = p.H, kp = p.kp, np = p.np, kc = p.kc;
   const int unit0 = blockIdx.x * p.u;
   const int up = min(p.u, H - unit0);  // units this CTA owns
@@ -340,6 +351,9 @@ lstm_lean_fwd_kernel(const Params p) {
 
 // The launch's shape for (B, H) on the current device, and whether the
 // card can hold its grid at once; returns a CUDA error code (0: fits).
+// The two entries' kernels take the same shared memory and registers (the
+// load widens in a register), so one plan serves both.
+template <typename FF>
 int make_plan(int B, int H, Plan* pl) {
   if (B <= 0 || H <= 0 || H > kMaxHidden) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -373,28 +387,50 @@ int make_plan(int B, int H, Plan* pl) {
   }
   pl->smem = smem_bytes(pl->kp, pl->np, pl->mmax, pl->kc);
   if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
-  err = cudaFuncSetAttribute(lstm_lean_fwd_kernel,
+  err = cudaFuncSetAttribute(lstm_lean_fwd_kernel<FF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(pl->smem));
   int per_sm = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lstm_lean_fwd_kernel, kThreads, pl->smem);
+        &per_sm, lstm_lean_fwd_kernel<FF>, kThreads, pl->smem);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm * sms < pl->ctas) return kErrNotResident;
   return 0;
 }
 
+template <typename FF>
+int launch(const FF* ff, const void* upk, const float* mask, float* h_out,
+           float* c_out, void* hbuf, void* bar, int T, int B, int H,
+           cudaStream_t stream) {
+  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int err = make_plan<FF>(B, H, &pl);
+  if (err != 0) {
+    cudaGetLastError();
+    return err;
+  }
+  Params<FF> prm{ff, static_cast<const __nv_bfloat16*>(upk), mask, h_out, c_out,
+                 static_cast<__nv_bfloat16*>(hbuf), static_cast<unsigned*>(bar),
+                 T, B, H, pl.u, pl.kp, pl.np, pl.bp, pl.mmax, pl.kc};
+  void* args[] = {&prm};
+  const cudaError_t launched = cudaLaunchCooperativeKernel(
+      lstm_lean_fwd_kernel<FF>, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
 }  // namespace
 
 extern "C" int tpk_lstm_lean_fwd_max_hidden() { return kMaxHidden; }
+extern "C" int tpk_lstm_lean_fwd_bf16_max_hidden() { return kMaxHidden; }
 
 // out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
 // staged at a time) of the launch for (B, H); returns make_plan's code.
 extern "C" int tpk_lstm_lean_fwd_plan(int B, int H, int* out) {
   Plan pl;
-  const int err = make_plan(B, H, &pl);
+  const int err = make_plan<float>(B, H, &pl);
   if (err == 0) {
     out[0] = pl.ctas;
     out[1] = pl.u;
@@ -414,19 +450,14 @@ extern "C" int tpk_lstm_lean_fwd(const float* ff, const void* upk,
                                  const float* mask, float* h_out, float* c_out,
                                  void* hbuf, void* bar, int T, int B, int H,
                                  cudaStream_t stream) {
-  if (T <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl;
-  const int err = make_plan(B, H, &pl);
-  if (err != 0) {
-    cudaGetLastError();
-    return err;
-  }
-  Params prm{ff, static_cast<const __nv_bfloat16*>(upk), mask, h_out, c_out,
-             static_cast<__nv_bfloat16*>(hbuf), static_cast<unsigned*>(bar),
-             T, B, H, pl.u, pl.kp, pl.np, pl.bp, pl.mmax, pl.kc};
-  void* args[] = {&prm};
-  const cudaError_t launched = cudaLaunchCooperativeKernel(
-      lstm_lean_fwd_kernel, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(launched != cudaSuccess ? launched : last);
+  return launch(ff, upk, mask, h_out, c_out, hbuf, bar, T, B, H, stream);
+}
+
+// The same with ff (T, B, 4H) bf16.
+extern "C" int tpk_lstm_lean_fwd_bf16(const void* ff, const void* upk,
+                                      const float* mask, float* h_out,
+                                      float* c_out, void* hbuf, void* bar, int T,
+                                      int B, int H, cudaStream_t stream) {
+  return launch(static_cast<const __nv_bfloat16*>(ff), upk, mask, h_out, c_out,
+                hbuf, bar, T, B, H, stream);
 }

@@ -62,8 +62,12 @@ def gru_recurrence_ref(
 
     With `act` relu or tanh and no `ln` it is the kernel's computation; a
     callable `act` and `ln` (a layer norm applied to each h_t, which the next
-    step then reads) cover the GRU layers the kernel does not take."""
+    step then reads) cover the GRU layers the kernel does not take.  bf16
+    inputs carry a bf16 state (`_launch.carry`) and give bf16 h."""
     act_fn = _act(act) if isinstance(act, str) else act
+    dtype = ff.dtype
+    keep = _launch.carry(dtype)
+    ff, uzr, uh, mask = (_launch.widen(t) for t in (ff, uzr, uh, mask))
     H = ff.shape[-1] // 3
     h = ff.new_zeros((ff.shape[1], H))
     out = []
@@ -72,11 +76,11 @@ def gru_recurrence_ref(
         z = torch.sigmoid(ff_t[:, H:2 * H] + rzr[:, :H])
         r = torch.sigmoid(ff_t[:, 2 * H:] + rzr[:, H:])
         a = ff_t[:, :H] + (r * h) @ uh
-        h = z * h + (1.0 - z) * (act_fn(a) * mask)
+        h = keep(z * h + (1.0 - z) * (act_fn(a) * mask))
         if ln is not None:
-            h = ln(h)
+            h = keep(ln(h))
         out.append(h)
-    return torch.stack(out)
+    return torch.stack(out).to(dtype)
 
 
 def minimalgru_recurrence_ref(
@@ -98,18 +102,22 @@ def minimalgru_recurrence_ref(
     ff (T, B, 2H) in tpukaldi's gate order [h | z], uz and uh (H, H), mask
     (B, H) or broadcastable -> h (T, B, H); `ln` is a layer norm applied to
     each h_t, which the next step then reads.  No kernel runs it: it is a
-    plain Python loop, differentiated by autograd."""
+    plain Python loop, differentiated by autograd.  bf16 inputs carry a
+    bf16 state (`_launch.carry`) and give bf16 h."""
+    dtype = ff.dtype
+    keep = _launch.carry(dtype)
+    ff, uz, uh, mask = (_launch.widen(t) for t in (ff, uz, uh, mask))
     H = ff.shape[-1] // 2
     h = ff.new_zeros((ff.shape[1], H))
     out = []
     for ff_t in ff:
         z = torch.sigmoid(ff_t[:, H:] + h @ uz)
         a = ff_t[:, :H] + (z * h) @ uh
-        h = z * h + (1.0 - z) * (act(a) * mask)
+        h = keep(z * h + (1.0 - z) * (act(a) * mask))
         if ln is not None:
-            h = ln(h)
+            h = keep(ln(h))
         out.append(h)
-    return torch.stack(out)
+    return torch.stack(out).to(dtype)
 
 
 def gru_recurrence_bwd_ref(
@@ -157,6 +165,7 @@ def gru_recurrence(ff: torch.Tensor, uzr: torch.Tensor, uh: torch.Tensor,
     CPU.  Builds no autograd graph of its own: `GRURecurrence` is the
     differentiable entry."""
     global launches
+    _launch.refuse_bf16("gru_recurrence", ff, uzr, uh, mask)
     if ff.device.type == "cpu":
         return gru_recurrence_ref(ff, uzr, uh, mask, act_name)
     _act(act_name)
@@ -187,6 +196,7 @@ def gru_recurrence_bwd(
     """Backward: (dff, duzr, duh, dmask) from the CUDA kernels on CUDA
     tensors; the plain version on CPU."""
     global bwd_launches
+    _launch.refuse_bf16("gru_recurrence_bwd", ff, h, g, uzr, uh, mask)
     if ff.device.type == "cpu":
         return gru_recurrence_bwd_ref(ff, h, g, uzr, uh, mask, act_name)
     _act(act_name)
@@ -235,11 +245,15 @@ def bwd_plan(B: int, H: int) -> dict:
 
 class GRURecurrence(torch.autograd.Function):
     """h = recurrence(ff, uzr, uh, mask) with the backward kernel as its
-    gradient; mask is (B, H), act_name relu or tanh (not differentiated)."""
+    gradient; mask is (B, H), act_name relu or tanh (not differentiated).
+    bf16 inputs are widened to float32 at the boundary (`LiGRURecurrence`
+    says how); h is float32, the gradients come back in the primal
+    dtypes."""
 
     @staticmethod
     def forward(ctx, ff, uzr, uh, mask, act_name):
-        h = gru_recurrence(ff, uzr, uh, mask, act_name)
+        w = _launch.widen
+        h = gru_recurrence(w(ff), w(uzr), w(uh), w(mask), act_name)
         ctx.save_for_backward(ff, uzr, uh, mask, h)
         ctx.act_name = act_name
         return h
@@ -247,5 +261,8 @@ class GRURecurrence(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ff, uzr, uh, mask, h = ctx.saved_tensors
-        return (*gru_recurrence_bwd(ff, h, g.contiguous(), uzr, uh, mask,
-                                    ctx.act_name), None)
+        w = _launch.widen
+        grads = gru_recurrence_bwd(w(ff), h, g.contiguous(), w(uzr), w(uh),
+                                   w(mask), ctx.act_name)
+        return (*(d.to(p.dtype) for d, p in zip(grads, (ff, uzr, uh, mask))),
+                None)

@@ -55,7 +55,12 @@ def ligru_recurrence_ref(
 
     With the defaults it is the kernel's computation.  `act` and `ln` (a
     layer norm applied to each h_t, reference neural_networks.py:1130-1141)
-    cover the liGRU layers the kernel does not take."""
+    cover the liGRU layers the kernel does not take.  bf16 inputs (the bf16
+    compute mode's scan) carry a bf16 state (`_launch.carry`) and give bf16
+    h."""
+    dtype = ff.dtype
+    keep = _launch.carry(dtype)
+    ff, u, mask = (_launch.widen(t) for t in (ff, u, mask))
     H = ff.shape[-1] // 2
     h = ff.new_zeros((ff.shape[1], H))
     out = []
@@ -63,11 +68,11 @@ def ligru_recurrence_ref(
         r = h @ u
         zt = torch.sigmoid(ff_t[:, H:] + r[:, H:])
         hc = act(ff_t[:, :H] + r[:, :H]) * mask
-        h = zt * h + (1 - zt) * hc
+        h = keep(zt * h + (1 - zt) * hc)
         if ln is not None:
-            h = ln(h)
+            h = keep(ln(h))
         out.append(h)
-    return torch.stack(out)
+    return torch.stack(out).to(dtype)
 
 
 def ligru_recurrence_bwd_ref(
@@ -109,6 +114,7 @@ def ligru_recurrence(ff: torch.Tensor, u: torch.Tensor,
     per call); the plain version on CPU.  Builds no autograd graph of its
     own: `LiGRURecurrence` is the differentiable entry."""
     global launches
+    _launch.refuse_bf16("ligru_recurrence", ff, u, mask)
     if ff.device.type == "cpu":
         return ligru_recurrence_ref(ff, u, mask)
     entry, max_hidden = _launch.bind(SOURCE, "ligru_fwd", 6, 4)
@@ -176,6 +182,7 @@ def ligru_recurrence_bwd(
     """Backward: (dff, du, dmask) from the CUDA kernels on CUDA tensors (u
     is packed once per call); the plain version on CPU."""
     global bwd_launches
+    _launch.refuse_bf16("ligru_recurrence_bwd", ff, h, g, u, mask)
     if ff.device.type == "cpu":
         return ligru_recurrence_bwd_ref(ff, h, g, u, mask)
     entry, max_hidden = _launch.bind(BWD_SOURCE, "ligru_bwd", 11, 4)
@@ -215,15 +222,21 @@ def bwd_plan(B: int, H: int) -> dict:
 
 class LiGRURecurrence(torch.autograd.Function):
     """h = recurrence(ff, u, mask) with the backward kernel as its
-    gradient; mask is (B, H)."""
+    gradient; mask is (B, H).  bf16 inputs (the bf16 compute mode) are
+    widened to float32 at the boundary, as tpukaldi's wrapper casts them:
+    the kernels compute and return h in float32 and the gradients come
+    back in the primal dtypes.  The primal tensors are what is saved."""
 
     @staticmethod
     def forward(ctx, ff, u, mask):
-        h = ligru_recurrence(ff, u, mask)
+        w = _launch.widen
+        h = ligru_recurrence(w(ff), w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h)
         return h
 
     @staticmethod
     def backward(ctx, g):
         ff, u, mask, h = ctx.saved_tensors
-        return ligru_recurrence_bwd(ff, h, g.contiguous(), u, mask)
+        w = _launch.widen
+        grads = ligru_recurrence_bwd(w(ff), h, g.contiguous(), w(u), w(mask))
+        return tuple(d.to(p.dtype) for d, p in zip(grads, (ff, u, mask)))

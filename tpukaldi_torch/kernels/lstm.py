@@ -47,6 +47,13 @@ groups); then dU = h_prev^T dff as one float32 GEMM, as tpukaldi's
 `lstm_recurrence_lean_bwd_ref`.  The port's LSTM runs the float32 kernels
 at every H, which is what tpukaldi computes off a TPU; the QLSTM picks by
 `qlstm_impl` (`models/quaternion.py`).
+
+In the bf16 compute mode the K2 Function widens its bf16 inputs at the
+boundary (as the other recurrences' do), while K4 takes a bf16 ff itself,
+as tpukaldi's lean kernel reads ff in its native dtype: K4f's and K4b's
+bf16 entries widen ff as they load it, and K4b writes dff in bf16; h and c
+stay float32 (`lean_bf16_launches` and `lean_bf16_bwd_launches` count
+those entries' launches within `lean_launches` and `lean_bwd_launches`).
 """
 
 from __future__ import annotations
@@ -72,6 +79,10 @@ launches = 0
 bwd_launches = 0
 lean_launches = 0
 lean_bwd_launches = 0
+# of those, the launches of K4's bf16 entries (a bf16 ff: the bf16 compute
+# mode)
+lean_bf16_launches = 0
+lean_bf16_bwd_launches = 0
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -107,11 +118,18 @@ def lstm_recurrence_lean_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4f's computation: `lstm_recurrence_ref` with h and u rounded to bf16
     as the operands of each step's product, which is exact and summed in
-    float32 (tpukaldi's `_lstm_lean_kernel`); h and c stay float32."""
-    return _lstm_loop(ff, _bf16(u), mask, torch.tanh, None, _bf16)
+    float32 (tpukaldi's `_lstm_lean_kernel`); h and c stay float32.  A bf16
+    ff is read widened, as the kernel reads it (tpukaldi's `ff_ref[k]
+    .astype(float32)`)."""
+    return _lstm_loop(_launch.widen(ff), _bf16(u), mask, torch.tanh, None,
+                      _bf16)
 
 
 def _lstm_loop(ff, u, mask, act, ln, operand):
+    # bf16 inputs (the bf16 compute mode's scan) carry bf16 h and c
+    dtype = ff.dtype
+    keep = _launch.carry(dtype)
+    ff, u, mask = (_launch.widen(t) for t in (ff, u, mask))
     H = ff.shape[-1] // 4
     h = ff.new_zeros((ff.shape[1], H))
     c = ff.new_zeros((ff.shape[1], H))
@@ -121,13 +139,13 @@ def _lstm_loop(ff, u, mask, act, ln, operand):
         f = torch.sigmoid(a[:, :H])
         i = torch.sigmoid(a[:, H:2 * H])
         o = torch.sigmoid(a[:, 2 * H:3 * H])
-        c = i * act(a[:, 3 * H:]) * mask + f * c
-        h = o * act(c)
+        c = keep(i * act(a[:, 3 * H:]) * mask + f * c)
+        h = keep(o * act(c))
         if ln is not None:
-            h = ln(h)
+            h = keep(ln(h))
         hs.append(h)
         cs.append(c)
-    return torch.stack(hs), torch.stack(cs)
+    return torch.stack(hs).to(dtype), torch.stack(cs).to(dtype)
 
 
 def lstm_recurrence_bwd_ref(
@@ -147,8 +165,17 @@ def lstm_recurrence_lean_bwd_ref(
     """K4b's computation and the dU contraction after it (tpukaldi's
     `_lstm_lean_bwd_kernel` and `_lean_bwd`): the gates recomputed with the
     forward's bf16 products, the dh chain as bf16(dA) @ bf16(u)^T summed in
-    float32, and du = h_prev^T dff in float32."""
-    return _lstm_bwd_loop(ff, h, c, g, u, mask, _bf16)
+    float32, and du = h_prev^T dff in float32.  A bf16 ff is read widened
+    and gives dff in bf16, dA rounded to nearest even, and du from that
+    rounded dff (tpukaldi writes dff in ff's dtype and contracts dU over
+    it)."""
+    if ff.dtype != torch.bfloat16:
+        return _lstm_bwd_loop(ff, h, c, g, u, mask, _bf16)
+    dff, _, dmask = _lstm_bwd_loop(ff.float(), h, c, g, u, mask, _bf16)
+    dff = dff.to(torch.bfloat16)
+    H = h.shape[2]
+    du = h[:-1].reshape(-1, H).t() @ dff[1:].reshape(-1, 4 * H).float()
+    return dff, du, dmask
 
 
 def _lstm_bwd_loop(ff, h, c, g, u, mask, operand):
@@ -189,6 +216,7 @@ def lstm_recurrence(ff: torch.Tensor, u: torch.Tensor,
     call); the plain version on CPU.  Builds no autograd graph of its own:
     `LSTMRecurrence` is the differentiable entry."""
     global launches
+    _launch.refuse_bf16("lstm_recurrence", ff, u, mask)
     if ff.device.type == "cpu":
         return lstm_recurrence_ref(ff, u, mask)
     entry, max_hidden = _launch.bind(SOURCE, "lstm_fwd", 7, 3)
@@ -227,6 +255,7 @@ def lstm_recurrence_bwd(
     """Backward: (dff, du, dmask) from K2b on CUDA tensors (u is packed
     once per call, as for K2f); the plain version on CPU."""
     global bwd_launches
+    _launch.refuse_bf16("lstm_recurrence_bwd", ff, h, c, g, u, mask)
     if ff.device.type == "cpu":
         return lstm_recurrence_bwd_ref(ff, h, c, g, u, mask)
     entry, max_hidden = _launch.bind(BWD_SOURCE, "lstm_bwd", 12, 3)
@@ -264,18 +293,24 @@ def bwd_plan(B: int, H: int) -> dict:
 class LSTMRecurrence(torch.autograd.Function):
     """h = recurrence(ff, u, mask) with the backward kernel as its
     gradient; mask is (B, H).  The c sequence is saved for the backward, as
-    tpukaldi's `_fwd` saves it."""
+    tpukaldi's `_fwd` saves it.  bf16 inputs are widened to float32 at the
+    boundary (`kernels/ligru.py::LiGRURecurrence` says how); h is float32,
+    the gradients come back in the primal dtypes."""
 
     @staticmethod
     def forward(ctx, ff, u, mask):
-        h, c = lstm_recurrence(ff, u, mask)
+        w = _launch.widen
+        h, c = lstm_recurrence(w(ff), w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h, c)
         return h
 
     @staticmethod
     def backward(ctx, g):
         ff, u, mask, h, c = ctx.saved_tensors
-        return lstm_recurrence_bwd(ff, h, c, g.contiguous(), u, mask)
+        w = _launch.widen
+        grads = lstm_recurrence_bwd(w(ff), h, c, g.contiguous(), w(u),
+                                    w(mask))
+        return tuple(d.to(p.dtype) for d, p in zip(grads, (ff, u, mask)))
 
 
 def _pack(u: torch.Tensor, H: int,
@@ -290,14 +325,20 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
                          mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward (h, c) with bf16 recurrent products: launch K4f on a CUDA
     tensor (u, float32, is rounded and packed once per call); the plain
-    version on CPU.  Builds no autograd graph of its own:
-    `LSTMLeanRecurrence` is the differentiable entry."""
-    global lean_launches
+    version on CPU.  ff is float32 or bf16 (the bf16 compute mode): a bf16
+    ff goes to K4f's bf16 entry, which widens it as it loads it, so h and c
+    are the float32 entry's on ff.float().  Builds no autograd graph of its
+    own: `LSTMLeanRecurrence` is the differentiable entry."""
+    global lean_launches, lean_bf16_launches
+    _launch.refuse_bf16("lstm_recurrence_lean", u, mask)
     if ff.device.type == "cpu":
         return lstm_recurrence_lean_ref(ff, u, mask)
-    entry, max_hidden = _launch.bind(LEAN_SOURCE, "lstm_lean_fwd", 7, 3)
+    half = ff.dtype == torch.bfloat16
+    entry, max_hidden = _launch.bind(
+        LEAN_SOURCE, "lstm_lean_fwd_bf16" if half else "lstm_lean_fwd", 7, 3)
     T, B, H = _launch.dims("lstm_recurrence_lean", ff, 4)
     _launch.check_inputs("lstm_recurrence_lean", H, max_hidden,
+                         {"ff": ff.dtype if half else torch.float32},
                          ff=(ff, (T, B, 4 * H)), u=(u, (H, 4 * H)),
                          mask=(mask, (B, H)))
     h = torch.empty((T, B, H), device=ff.device, dtype=torch.float32)
@@ -312,6 +353,7 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
     _launch.launch("lstm_lean_fwd", entry,
                    (ff, _pack(u, H), mask, h, c, hbuf, bar), T, B, H)
     lean_launches += 1
+    lean_bf16_launches += half
     return h, c
 
 
@@ -332,13 +374,22 @@ def lstm_recurrence_lean_bwd(
     """Backward (dff, du, dmask) with bf16 recurrent products: K4b on CUDA
     tensors for dff and dmask (its bf16 operands made once per call), then
     du = h_prev^T dff as one float32 GEMM over the T * B rows (h_prev[0] =
-    0 adds nothing); the plain version on CPU."""
-    global lean_bwd_launches
+    0 adds nothing); the plain version on CPU.  A bf16 ff goes to K4b's
+    bf16 entry: its remat widens ff as it loads it into a float32 buffer
+    of the gates, and its chain writes dff in bf16, dA rounded to nearest
+    even, from which du is contracted (widened), as tpukaldi's `_lean_bwd`
+    contracts it over its native-dtype dff."""
+    global lean_bwd_launches, lean_bf16_bwd_launches
+    _launch.refuse_bf16("lstm_recurrence_lean_bwd", h, c, g, u, mask)
     if ff.device.type == "cpu":
         return lstm_recurrence_lean_bwd_ref(ff, h, c, g, u, mask)
-    entry, max_hidden = _launch.bind(LEAN_BWD_SOURCE, "lstm_lean_bwd", 12, 3)
+    half = ff.dtype == torch.bfloat16
+    entry, max_hidden = _launch.bind(
+        LEAN_BWD_SOURCE, "lstm_lean_bwd_bf16" if half else "lstm_lean_bwd",
+        13 if half else 12, 3)
     T, B, H = _launch.dims("lstm_recurrence_lean_bwd", ff, 4)
     _launch.check_inputs("lstm_recurrence_lean_bwd", H, max_hidden,
+                         {"ff": ff.dtype if half else torch.float32},
                          ff=(ff, (T, B, 4 * H)), h=(h, (T, B, H)),
                          c=(c, (T, B, H)), g=(g, (T, B, H)),
                          u=(u, (H, 4 * H)), mask=(mask, (B, H)))
@@ -346,6 +397,10 @@ def lstm_recurrence_lean_bwd(
     if T == 0:
         return dff, torch.zeros_like(u), torch.zeros_like(mask)
     dmask = torch.empty_like(mask)
+    # the bf16 entry's float32 gates and dA (the float32 entry keeps them in
+    # dff itself)
+    gates = ((torch.empty(ff.shape, device=ff.device, dtype=torch.float32),)
+             if half else ())
     # the chain's scratch: the ping-pong buffer of partial dh sums (every
     # word read is written first), the groups' bf16 dA (its padding columns
     # read as zeros) and the barriers' counters, the grid's and each group's
@@ -356,10 +411,11 @@ def lstm_recurrence_lean_bwd(
                         dtype=torch.bfloat16)
     bar = torch.zeros(1 + plan["groups"], device=ff.device, dtype=torch.int32)
     _launch.launch("lstm_lean_bwd", entry,
-                   (ff, c, g, *lean_bwd_operands(h, u), mask, dff, dmask,
-                    pbuf, dabuf, bar), T, B, H)
+                   (ff, c, g, *lean_bwd_operands(h, u), mask, *gates, dff,
+                    dmask, pbuf, dabuf, bar), T, B, H)
     lean_bwd_launches += 1
-    du = h[:-1].reshape(-1, H).t() @ dff[1:].reshape(-1, 4 * H)
+    lean_bf16_bwd_launches += half
+    du = h[:-1].reshape(-1, H).t() @ dff[1:].reshape(-1, 4 * H).float()
     return dff, du, dmask
 
 
@@ -386,15 +442,23 @@ def lean_bwd_plan(B: int, H: int) -> dict:
 
 class LSTMLeanRecurrence(torch.autograd.Function):
     """h = lean recurrence(ff, u, mask) with K4b as its gradient; mask is
-    (B, H).  Saves (ff, u, mask, h, c), as tpukaldi's `_lean_fwd` does."""
+    (B, H).  Saves (ff, u, mask, h, c), as tpukaldi's `_lean_fwd` does.
+    ff goes to the kernels in its own dtype (bf16 in the bf16 compute mode,
+    as tpukaldi's lean kernel reads its native-dtype ff), u and mask
+    widened at the boundary; dff comes back in ff's dtype, du and dmask in
+    u's and mask's."""
 
     @staticmethod
     def forward(ctx, ff, u, mask):
-        h, c = lstm_recurrence_lean(ff, u, mask)
+        w = _launch.widen
+        h, c = lstm_recurrence_lean(ff, w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h, c)
         return h
 
     @staticmethod
     def backward(ctx, g):
         ff, u, mask, h, c = ctx.saved_tensors
-        return lstm_recurrence_lean_bwd(ff, h, c, g.contiguous(), u, mask)
+        w = _launch.widen
+        dff, du, dmask = lstm_recurrence_lean_bwd(ff, h, c, g.contiguous(),
+                                                  w(u), w(mask))
+        return dff, du.to(u.dtype), dmask.to(mask.dtype)

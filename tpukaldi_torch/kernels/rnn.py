@@ -16,6 +16,8 @@ from typing import Callable, Optional
 
 import torch
 
+from . import _launch
+
 
 def rnn_recurrence_ref(
     ff: torch.Tensor,
@@ -26,12 +28,17 @@ def rnn_recurrence_ref(
 ) -> torch.Tensor:
     """ff (T, B, H), uh (H, H), mask (B, H) or broadcastable -> h (T, B, H).
     The recurrent dropout mask multiplies h itself, which the next step
-    reads; `ln` is a layer norm applied to each h_t after it."""
+    reads; `ln` is a layer norm applied to each h_t after it.  bf16 inputs
+    (the bf16 compute mode) carry a bf16 state (`kernels/_launch.py::carry`)
+    and give bf16 h."""
+    dtype = ff.dtype
+    keep = _launch.carry(dtype)
+    ff, uh, mask = (_launch.widen(t) for t in (ff, uh, mask))
     h = ff.new_zeros((ff.shape[1], ff.shape[2]))
     out = []
     for ff_t in ff:
-        h = act(ff_t + h @ uh) * mask
+        h = keep(act(ff_t + h @ uh) * mask)
         if ln is not None:
-            h = ln(h)
+            h = keep(ln(h))
         out.append(h)
-    return torch.stack(out)
+    return torch.stack(out).to(dtype)

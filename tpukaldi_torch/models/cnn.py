@@ -291,7 +291,10 @@ class _ConvStack(nn.Module):
         """Layer 0 through the kernels: (N, L) -> (N, filt, time), and
         whether the layer norm, activation and dropout are done."""
         w, bias = self.conv[0].kernel()
-        w2d = w[:, 0, :].t().contiguous()  # (K, O)
+        # (K, O) in x's dtype: SincConv's float32 filters are cast down as
+        # tpukaldi casts them; the kernels' entries widen a bf16 x, w and
+        # affine maps at their boundary and return x's dtype
+        w2d = w[:, 0, :].t().to(x.dtype).contiguous()
         pool = self.pool[0]
         if not self._fused0():
             y = conv_pool(x, w2d, pool).transpose(1, 2)
@@ -322,7 +325,8 @@ class _ConvStack(nn.Module):
             else:
                 w, bias = (self.conv[0].kernel() if i == 0 else
                            (self.conv[i].weight, self.conv[i].bias))
-                x = F.conv1d(x[:, None, :] if i == 0 else x, w, bias)
+                x = F.conv1d(x[:, None, :] if i == 0 else x, w.to(x.dtype),
+                             bias)
                 if self.pool[i] > 1:
                     x = F.max_pool1d(x, self.pool[i])
             if done:

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import to_bool
+from ..kernels._launch import widen
 
 
 def act_fun(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -93,19 +94,26 @@ class BatchNorm(nn.BatchNorm1d):
     0.05).  Train mode normalises by the batch's biased variance, as torch
     does, but also folds the *biased* variance into `running_var`, as flax
     does; `nn.BatchNorm1d` folds the unbiased one, n/(n-1) times larger.
+    A bf16 input (the bf16 compute mode) is normalised in float32, its
+    moments and the running statistics too, with the (bf16) scale and shift
+    widened, and the output returns in bf16: tpukaldi's `_F32BatchNorm`.
     The state_dict keys are BatchNorm1d's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = widen(x)
+        weight = None if self.weight is None else widen(self.weight)
+        bias = None if self.bias is None else widen(self.bias)
         if not self.training:
-            return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                         self.eps)
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                weight, bias, False, 0.0,
+                                self.eps).to(x.dtype)
+        y = F.batch_norm(xf, None, None, weight, bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.detach(), dim=0, correction=0)
+            var, mean = torch.var_mean(xf.detach(), dim=0, correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1
-        return y
+        return y.to(x.dtype)
 
 
 def batchnorm(features: int, device=None) -> BatchNorm:

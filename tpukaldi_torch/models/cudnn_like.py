@@ -23,6 +23,9 @@ card, with TF32 off: `train/chunk_runtime.py::pin_float32`).
   tpukaldi's and the padding frames come out as zeros.
 - cuDNN's inter-layer dropout draws from the device's default generator,
   not from the generator the graph passes.
+- In the bf16 compute mode tpukaldi's scan starts from a float32 state, so
+  these layers compute and return float32 on the bf16-rounded weights; so
+  does the port (torch's module in float32 on the widened weights).
 
 The state_dict is torch's own RNN keys under one `ModuleList` entry, as the
 reference's wrapper holds it: `lstm.0.` (`gru.0.`, `rnn.0.`) +
@@ -41,6 +44,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from ..config.schema import to_bool
@@ -110,10 +114,22 @@ class _CudnnBase(nn.Module):
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         rnn = self.torch_rnn()
+        if x.dtype == torch.bfloat16:
+            # the bf16 compute mode: tpukaldi's scan starts these cells from a
+            # float32 state, which promotes every step and the layer's output
+            # to float32, its bf16 weights widened; so torch's module runs in
+            # float32 on the widened (bf16-rounded) weights
+            weights = {n: p.float() for n, p in rnn.named_parameters()}
+            x = x.float()
+
+            def run(inp):
+                return functional_call(rnn, weights, (inp,))
+        else:
+            run = rnn
         if lengths is None or not self.bidir:
-            return rnn(x)[0]
+            return run(x)[0]
         packed = pack_padded_sequence(x, lengths.cpu(), enforce_sorted=False)
-        return pad_packed_sequence(rnn(packed)[0],
+        return pad_packed_sequence(run(packed)[0],
                                    total_length=x.shape[0])[0]
 
 

@@ -187,11 +187,16 @@ class fusionRNN(nn.Module):
                     1.0 - p, generator=generator) / (1.0 - p)
             else:
                 mask = torch.ones((), device=x.device)
+            # the mask in the layer's dtype, as tpukaldi casts it (bf16 in
+            # the bf16 compute mode, where its scan carries bf16 and K1
+            # widens its inputs and returns float32 h)
+            mask = mask.to(x.dtype)
             if x.device.type == "cpu":
                 h = ligru_recurrence_ref(ff, u, mask)
             else:
-                h = LiGRURecurrence.apply(ff, u.contiguous(),
-                                          mask.expand(Bp, H).contiguous())
+                h = LiGRURecurrence.apply(
+                    ff, u.contiguous(),
+                    mask.expand(Bp, H).contiguous()).to(x.dtype)
             x = torch.cat([h[:, :B], _reverse_time(h[:, B:], lengths)], dim=2)
         return x
 

@@ -24,6 +24,10 @@ A layer with another activation runs the plain float32 loop, as tpukaldi's
 scan does.  K4 takes H <= 1024 (one thread per hidden unit) and raises
 above; tpukaldi's TPU memory gate (`lean_fits_vmem`) is not ported.
 
+In the bf16 compute mode the QLSTM's K4 path passes its bf16 ff to K4's
+bf16 entry (the mask widened, h cast back to bf16), as tpukaldi's kernel
+branch does; its other paths carry a bf16 state, as tpukaldi's scan does.
+
 Bidirectional layers double the batch with the length-aware time-reversed
 copy (`models/recurrent.py::_reverse_time`).  The state_dict keeps the
 reference layout: per layer i, `{wfx,wix,wox,wcx}.{i}.{r,i,j,k}_weight`
@@ -223,7 +227,13 @@ class QLSTM(nn.Module):
         mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
         impl = self.options.get("qlstm_impl", "auto")
         if impl == "pallas" or (impl == "auto" and ff.device.type == "cuda"):
-            return LSTMLeanRecurrence.apply(ff, u, mask)
+            # ff goes to K4 in its own dtype (K4's bf16 entry in the bf16
+            # compute mode), h comes back float32 and the layer goes on in
+            # ff's dtype, as tpukaldi's kernel branch does
+            return LSTMLeanRecurrence.apply(ff, u, mask).to(ff.dtype)
+        if ff.dtype == torch.bfloat16:
+            # tpukaldi's scan carries its state in the layer's dtype
+            return lstm_recurrence_ref(ff, u, mask)[0]
         return LSTMRecurrence.apply(ff, u, mask)
 
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
@@ -238,7 +248,7 @@ class QLSTM(nn.Module):
                            for g in self.REC_GATES], dim=1)
             drop_mask = recurrent_drop_mask(
                 self.training, (x.shape[1], hidden), self.drop[i], x.device,
-                generator)
+                generator).to(x.dtype)
             h = self.recurrence(i, ff, u, drop_mask)
             if self.bidir:
                 h = torch.cat([h[:, :B], _reverse_time(h[:, B:], lengths)],

@@ -21,6 +21,13 @@ Per layer, as in tpukaldi:
 Training calls pass no `lengths`, as tpukaldi's train and eval steps pass
 none: the reversal is then a plain flip over the bucket-padded batch.
 
+In the bf16 compute mode (`train/step.py`) a layer runs in bf16 as
+tpukaldi's does: the projections in bf16, the batchnorm in float32 on a
+widened input (`common.py::BatchNorm`), the dropout mask cast to bf16; a
+kernel layer widens its bf16 inputs at the kernel's boundary, and the
+float32 h the kernel returns is cast back to bf16; the plain loops carry
+their state in bf16 as tpukaldi's scan does (`kernels/_launch.py::carry`).
+
 The state_dict keeps the reference layout (neural_networks.py:300-655,
 :997-1155): per-gate feed-forward Linear (out, in) (`wh.{i}`/`wz.{i}`;
 LSTM `wfx/wix/wox/wcx`; GRU `wh/wz/wr`; minimalGRU `wh/wz`; RNN `wh`),
@@ -205,8 +212,12 @@ class _RecurrentBase(nn.Module):
             u = torch.cat([getattr(self, g)[i].weight.t()
                            for g in self.FUSED_REC or self.REC_GATES],
                           dim=1).contiguous()
+            # the mask in the layer's dtype (bf16 in the bf16 compute mode),
+            # as tpukaldi casts it: the plain loops then carry their state
+            # in that dtype, and the kernels widen it at their boundary
             drop_mask = recurrent_drop_mask(
-                self.training, (Bp, hidden), self.drop[i], ff.device, generator)
+                self.training, (Bp, hidden), self.drop[i], ff.device,
+                generator).to(ff.dtype)
             h = self.recurrence(i, ff, u, drop_mask)
             if self.bidir:
                 h = torch.cat([h[:, :B], _reverse_time(h[:, B:], lengths)], dim=2)
@@ -237,7 +248,9 @@ class liGRU(_RecurrentBase):
         mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
         if impl == "scan":
             return ligru_recurrence_ref(ff, u, mask)
-        return LiGRURecurrence.apply(ff, u, mask)
+        # the kernels compute and return h in float32; the layer goes on in
+        # its own dtype (tpukaldi's `h.astype(ff.dtype)`)
+        return LiGRURecurrence.apply(ff, u, mask).to(ff.dtype)
 
 
 class LSTM(_RecurrentBase):
@@ -262,7 +275,7 @@ class LSTM(_RecurrentBase):
         mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
         if impl == "scan":
             return lstm_recurrence_ref(ff, u, mask)[0]
-        return LSTMRecurrence.apply(ff, u, mask)
+        return LSTMRecurrence.apply(ff, u, mask).to(ff.dtype)
 
 
 class GRU(_RecurrentBase):
@@ -288,7 +301,8 @@ class GRU(_RecurrentBase):
         mask = drop_mask.expand(ff.shape[1], uzr.shape[0]).contiguous()
         if impl == "scan":
             return gru_recurrence_ref(ff, uzr, uh, mask, self.acts[i])
-        return GRURecurrence.apply(ff, uzr, uh, mask, self.acts[i])
+        return GRURecurrence.apply(ff, uzr, uh, mask,
+                                   self.acts[i]).to(ff.dtype)
 
 
 class minimalGRU(_RecurrentBase):

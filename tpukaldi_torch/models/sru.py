@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import to_bool
-from .common import RefLayerNorm, inverted_dropout, torch_linear_uniform
+from ..kernels import _launch
+from .common import RefLayerNorm, inverted_dropout, torch_linear_uniform, widen
 from .recurrent import _reverse_time
 
 
@@ -49,18 +50,25 @@ def sru_recurrence_ref(
     g: Callable[[torch.Tensor], torch.Tensor], alpha: float,
 ) -> torch.Tensor:
     """u, wf, wr (T, B, H) (and x_skip, or None without the skip term) ->
-    h (T, B, H), c_0 = 0: tpukaldi's scan step, a plain loop."""
+    h (T, B, H), c_0 = 0: tpukaldi's scan step, a plain loop.  bf16 inputs
+    (the bf16 compute mode) carry a bf16 c (`kernels/_launch.py::carry`)
+    and give bf16 h."""
+    dtype = u.dtype
+    keep = _launch.carry(dtype)
+    u, wf, wr, vf, vr, bf, br = (widen(t) for t in (u, wf, wr, vf, vr, bf,
+                                                      br))
+    x_skip = None if x_skip is None else widen(x_skip)
     c = u.new_zeros(u.shape[1:])
     out = []
     for t in range(u.shape[0]):
         f = torch.sigmoid(wf[t] + vf * c + bf)
-        c = f * c + (1.0 - f) * u[t]
+        c = keep(f * c + (1.0 - f) * u[t])
         r = torch.sigmoid(wr[t] + vr * c + br)
         h = r * g(c)
         if x_skip is not None:
             h = h + (1.0 - r) * x_skip[t] * alpha
-        out.append(h)
-    return torch.stack(out)
+        out.append(keep(h))
+    return torch.stack(out).to(dtype)
 
 
 class SRU(nn.Module):

@@ -342,7 +342,10 @@ def train_step_gradients(
     (`ligru_impl`, `lstm_impl`, `gru_impl`) give two paths to the same
     numbers.  `dtype=torch.float64` (with `*_impl = scan`: the kernels take
     float32 only) gives a reference for both, float64 except the heads'
-    log-softmax and the cost means, which stay float32 as in tpukaldi."""
+    log-softmax and the cost means, which stay float32 as in tpukaldi.  The
+    step computes in the cfg's compute dtype (`TPUKALDI_COMPUTE_DTYPE`
+    overrides it): in bf16 the masters, and so the gradients, stay
+    `dtype`."""
     exp, plan = train_plan(cfg_path)
     task = plan.epochs[0].tasks[0]
     rt = ChunkRuntime(exp, device)
@@ -356,7 +359,8 @@ def train_step_gradients(
     loss, _ = train_step(rt.graph, rt.optimizers,
                          torch.from_numpy(batch.feats).to(rt.device, dtype),
                          torch.from_numpy(batch.labs).to(rt.device),
-                         getattr(batch, "n_valid_t", None), rt.generator)
+                         getattr(batch, "n_valid_t", None), rt.generator,
+                         rt.compute_dtype)
     grads = {f"{a}.{n}": p.grad.detach().clone()
              for a, m in rt.graph.modules.items()
              for n, p in m.named_parameters()}
@@ -406,6 +410,6 @@ def forward_utterances(
             chunk.feats[int(starts[i]):int(chunk.end_index[i])]).to(rt.device)
         lengths = torch.tensor([feats.shape[0]], device=rt.device)
         outs = forward_step(rt.graph, feats[:, None, :], lengths,
-                            {out_name: prior})
+                            {out_name: prior}, compute_dtype=rt.compute_dtype)
         posts[name] = outs[out_name].cpu().numpy()
     return posts

@@ -15,13 +15,15 @@ device is an error; there is no fallback to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import shutil
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..config import ConfigError, load_config
 from ..config.cfg import ExperimentConfig
@@ -240,10 +242,57 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
                      f"epoch_wall={epoch_wall:.2f}\n")
 
 
+# TPUKALDI_MATMUL_PRECISION (tpukaldi/tools/run_exp.py:95-107 sets XLA's
+# default matmul precision for the run with it) -> torch's float32 matmul
+# precision and cuDNN's TF32 switch for the run: XLA's precision covers
+# convolutions too, and TF32 is the least that cuDNN offers float32 convs.
+# The hand kernels keep their own arithmetic under it.
+MATMUL_PRECISIONS = {
+    "float32": ("highest", False),
+    "highest": ("highest", False),
+    "tensorfloat32": ("high", True),
+    "bfloat16": ("medium", True),
+}
+
+
+def matmul_precision_knob() -> Optional[Tuple[str, bool]]:
+    """TPUKALDI_MATMUL_PRECISION as (torch's precision, cuDNN's TF32), or
+    None where it is unset or empty (the port's float32: TF32 off); another
+    name raises ValueError."""
+    value = os.environ.get("TPUKALDI_MATMUL_PRECISION", "").strip().lower()
+    if not value:
+        return None
+    if value not in MATMUL_PRECISIONS:
+        raise ValueError(f"TPUKALDI_MATMUL_PRECISION must be one of "
+                         f"{', '.join(MATMUL_PRECISIONS)}, got {value!r}")
+    return MATMUL_PRECISIONS[value]
+
+
+@contextlib.contextmanager
+def matmul_precision():
+    """TPUKALDI_MATMUL_PRECISION's setting for the run inside, and the
+    previous one restored after it, as tpukaldi's `with
+    jax.default_matmul_precision(...)` scopes it."""
+    knob = matmul_precision_knob()
+    if knob is None:
+        yield
+        return
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision(knob[0])
+    torch.backends.cudnn.allow_tf32 = knob[1]
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
 def check_run_knobs(exp: ExperimentConfig) -> None:
     """The run-level knobs tpukaldi reads (tools/run_exp.py:95-120,
     :187-190) that the port does not implement yet raise, naming the knob:
-    it runs one process on one device in float32, with TF32 off."""
+    it runs one process on one device.  A TPUKALDI_MATMUL_PRECISION it does
+    not know raises ValueError here, before any output."""
     if exp.multi_gpu:
         raise NotImplementedError(
             "[exp] multi_gpu = True: data-parallel training is not ported yet "
@@ -252,11 +301,7 @@ def check_run_knobs(exp: ExperimentConfig) -> None:
         raise NotImplementedError(
             "TPUKALDI_NUM_HOSTS > 1: sharding the forward stage across hosts "
             "is not ported yet (ROADMAP.md queue 1, 'DDP and export')")
-    precision = os.environ.get("TPUKALDI_MATMUL_PRECISION", "").strip().lower()
-    if precision not in ("", "float32", "highest"):
-        raise NotImplementedError(
-            f"TPUKALDI_MATMUL_PRECISION={precision!r}: the port multiplies in "
-            "float32 only (float32 or highest; ROADMAP.md queue 1, 'bf16 mode')")
+    matmul_precision_knob()
 
 
 def run_experiment(
@@ -292,6 +337,12 @@ def _run_experiment(cfg_file: str, overrides: Optional[List[str]],
     # what the port cannot run raises before any output is written
     check_run_knobs(exp)
     runtime = ChunkRuntime(exp, device)
+    # after the runtime, whose device resolution pins float32
+    with matmul_precision():
+        return _run(exp, runtime)
+
+
+def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
     out_folder = exp.out_folder
     os.makedirs(os.path.join(out_folder, "exp_files"), exist_ok=True)
     # snapshot the resolved config (reference run_exp.py:122-124)

@@ -244,24 +244,22 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def check_compute_dtype(exp: ExperimentConfig) -> None:
+def compute_dtype(exp: ExperimentConfig) -> Optional[torch.dtype]:
     """The mixed-precision knob, read as tpukaldi reads it
     (`train/chunk_runtime.py::_compute_dtype`): `TPUKALDI_COMPUTE_DTYPE`
-    overrides `[exp] compute_dtype`, stripped and lower-cased.  The port
-    computes in float32; bfloat16 raises until the port has a bf16 mode
-    (ROADMAP.md queue 1, "bf16 mode"), and any other name raises as in
-    tpukaldi."""
+    overrides `[exp] compute_dtype`, stripped and lower-cased; float32, f32
+    or empty give None (float32 throughout), bfloat16 or bf16
+    `torch.bfloat16` (the bf16 compute mode, `train/step.py`), and any
+    other name raises ValueError."""
     name = os.environ.get(
         "TPUKALDI_COMPUTE_DTYPE",
         exp.raw["exp"].get("compute_dtype", "float32")
         if "exp" in exp.raw else "float32",
     ).strip().lower()
     if name in ("", "float32", "f32"):
-        return
+        return None
     if name in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            f"compute_dtype {name!r}: the port computes in float32 only; its "
-            "bf16 mode is still to port (ROADMAP.md queue 1, 'bf16 mode')")
+        return torch.bfloat16
     raise ValueError(f"compute_dtype must be float32 or bfloat16, got {name!r}")
 
 
@@ -277,7 +275,8 @@ class ChunkRuntime:
     for one run."""
 
     def __init__(self, exp: ExperimentConfig, device):
-        check_compute_dtype(exp)
+        # every step this runtime builds computes in it (None: float32)
+        self.compute_dtype = compute_dtype(exp)
         self.exp = exp
         self.device = resolve_device(device)
         # sequential iff any computed architecture is (reference
@@ -290,8 +289,9 @@ class ChunkRuntime:
         self.checkpointer = AsyncCheckpointer()
         self._loaded_from: Dict[str, str] = {}
         self.multistep_k = multistep_k(self.device)
-        # (train, feats shape, labs shape, their dtypes) -> _WARM or the
-        # StepGraph; the graphs share one memory pool and capture stream
+        # (train, feats shape, labs shape, their dtypes, the compute dtype)
+        # -> _WARM or the StepGraph; the graphs share one memory pool and
+        # capture stream
         self._step_graphs: Dict[tuple, object] = {}
         self._graph_pool = None
         self._capture_stream = None
@@ -418,9 +418,11 @@ class ChunkRuntime:
         if train:
             self.generator.manual_seed(batch_seed(seed, index))
             loss, err = train_step(self.graph, self.optimizers, feats, labs,
-                                   n_valid, self.generator)
+                                   n_valid, self.generator,
+                                   self.compute_dtype)
         else:
-            loss, err = eval_step(self.graph, feats, labs, n_valid)
+            loss, err = eval_step(self.graph, feats, labs, n_valid,
+                                  self.compute_dtype)
         eager_steps += 1
         return loss, err, t1 - t0, tick() - t1
 
@@ -436,7 +438,7 @@ class ChunkRuntime:
         global graph_captures, graph_replays
         tick = time.perf_counter
         key = (train, tuple(feats_h.shape), tuple(labs_h.shape),
-               feats_h.dtype, labs_h.dtype)
+               feats_h.dtype, labs_h.dtype, self.compute_dtype)
         sg = self._step_graphs.get(key)
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
@@ -457,11 +459,11 @@ class ChunkRuntime:
             sg = (make_train_multistep(
                       self.graph, self.optimizers, feats_h, labs_h,
                       self.seq_model, self.device, self.generator,
-                      self._graph_pool)
+                      self._graph_pool, self.compute_dtype)
                   if train else
                   make_eval_multistep(self.graph, feats_h, labs_h,
                                       self.seq_model, self.device,
-                                      self._graph_pool))
+                                      self._graph_pool, self.compute_dtype))
         sg.load(feats_h, labs_h, n_valid)
         t1 = tick()
         if fresh:
@@ -725,7 +727,8 @@ class ChunkRuntime:
                     t_h2d += tick() - t0
                     t0 = tick()
                     outs = forward_step(self.graph, feats, lengths,
-                                        log_priors, pack_idx)
+                                        log_priors, pack_idx,
+                                        self.compute_dtype)
                     done = None
                     if cuda:
                         # into pinned host memory (PyTorch's caching host

@@ -6,6 +6,19 @@ Loss and err come back as device tensors: nothing here calls `.item()`, so
 a step does not wait for the device (tpukaldi fetches the stats once per
 chunk, `chunk_runtime.py:615-650`, and so does the port's runtime).
 
+`compute_dtype` (None or `torch.bfloat16`: tpukaldi's mixed-precision
+mode, `[exp] compute_dtype` / `TPUKALDI_COMPUTE_DTYPE`) follows tpukaldi's
+rule, not `torch.autocast`'s op lists: inside the differentiated forward
+every floating parameter but SincNet's cut-offs (`_CAST_EXEMPT`) is cast to
+bf16, and the features too (`_cast_compute`); the modules run on the cast
+tensors (`graph/compiler.py::apply_graph`'s `params`), so autograd
+accumulates the bf16 gradients into the float32 masters, which the
+optimizers step.  The master weights, the optimizer state, the batchnorm
+statistics and the loss stay float32: the models pin softmax, layer- and
+batch-norm moments to float32 and the costs average in float32; the
+recurrence kernels widen bf16 at their boundary (K4 reads a bf16 ff
+itself).  Forward outputs come back float32.
+
 `make_train_multistep` and `make_eval_multistep` are the counterparts of
 tpukaldi's K-step fused dispatch: where tpukaldi scans K same-shape steps
 in one jitted call, the port captures one step of a batch shape into a CUDA
@@ -23,6 +36,31 @@ from ..graph.compiler import GraphSpec, apply_graph
 from ..kernels import _launch
 from .optimizers import ArchOptimizer
 
+# parameter names (substrings) kept float32 in the bf16 compute mode, as
+# tpukaldi keeps them (`train/step.py::_CAST_EXEMPT`): SincNet's cut-offs,
+# whose range (up to the Nyquist frequency) bf16's ~3 digits would
+# quantize, and whose consumer synthesises the filters in float32 anyway
+_CAST_EXEMPT = ("low_hz", "band_hz")
+
+
+def _cast_compute(graph: GraphSpec, feats: torch.Tensor, compute_dtype
+                  ) -> Tuple[Optional[Dict[str, Dict[str, torch.Tensor]]],
+                             torch.Tensor]:
+    """tpukaldi's `_cast_compute`: (arch -> {parameter name: its cast}, the
+    cast features).  Each floating parameter is cast to `compute_dtype`
+    unless its name holds one of `_CAST_EXEMPT`; None (or float32) casts
+    nothing and gives (None, feats).  Called inside the differentiated
+    forward, so the casts' backward hands float32 gradients to the
+    masters."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return None, feats
+    params = {
+        arch: {name: (p.to(compute_dtype) if p.is_floating_point() and not any(
+                   sub in name for sub in _CAST_EXEMPT) else p)
+               for name, p in module.named_parameters()}
+        for arch, module in graph.modules.items()}
+    return params, feats.to(compute_dtype)
+
 
 def train_step(
     graph: GraphSpec,
@@ -31,6 +69,7 @@ def train_step(
     labs: torch.Tensor,
     n_valid_t: Union[int, torch.Tensor, None] = None,
     generator: Optional[torch.Generator] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on `loss_final`: forward in train mode (frozen
     architectures in eval mode), backward, then a step of every unfrozen
@@ -40,8 +79,10 @@ def train_step(
     Returns (loss, err) as detached device scalars."""
     for opt in optimizers.values():
         opt.zero_grad()
+    params, feats = _cast_compute(graph, feats, compute_dtype)
     outs = apply_graph(graph, feats, labs, train=True, to_do="train",
-                       n_valid_t=n_valid_t, generator=generator)
+                       n_valid_t=n_valid_t, generator=generator,
+                       params=params)
     loss = outs["loss_final"]
     loss.backward()
     for name, opt in optimizers.items():
@@ -55,11 +96,13 @@ def eval_step(
     feats: torch.Tensor,
     labs: torch.Tensor,
     n_valid_t: Union[int, torch.Tensor, None] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, err) of a validation batch, every architecture in eval mode."""
     with torch.inference_mode():
+        params, feats = _cast_compute(graph, feats, compute_dtype)
         outs = apply_graph(graph, feats, labs, train=False, to_do="valid",
-                           n_valid_t=n_valid_t)
+                           n_valid_t=n_valid_t, params=params)
         return outs["loss_final"], outs["err_final"]
 
 
@@ -83,9 +126,11 @@ class StepGraph:
     def __init__(self, graph: GraphSpec, train: bool, feats: torch.Tensor,
                  labs: torch.Tensor, seq: bool, device,
                  optimizers: Optional[Dict[str, ArchOptimizer]] = None,
-                 generator: Optional[torch.Generator] = None, pool=None):
+                 generator: Optional[torch.Generator] = None, pool=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.device = torch.device(device)
         self.graph, self.train = graph, train
+        self.compute_dtype = compute_dtype
         self.optimizers = optimizers if train else {}
         self.generator = generator if train else None
         self.feats = torch.empty(feats.shape, dtype=feats.dtype,
@@ -113,8 +158,10 @@ class StepGraph:
     def _step(self):
         if self.train:
             return train_step(self.graph, self.optimizers, self.feats,
-                              self.labs, self.n_valid_t, self.generator)
-        return eval_step(self.graph, self.feats, self.labs, self.n_valid_t)
+                              self.labs, self.n_valid_t, self.generator,
+                              self.compute_dtype)
+        return eval_step(self.graph, self.feats, self.labs, self.n_valid_t,
+                         self.compute_dtype)
 
     def capture(self, stream: torch.cuda.Stream) -> None:
         """Capture the step on `stream` (not the current one: a capture
@@ -168,20 +215,21 @@ def make_train_multistep(graph: GraphSpec,
                          optimizers: Dict[str, ArchOptimizer],
                          feats: torch.Tensor, labs: torch.Tensor, seq: bool,
                          device, generator: torch.Generator,
-                         pool=None) -> StepGraph:
+                         pool=None, compute_dtype=None) -> StepGraph:
     """A train step on `device` for batches shaped as `feats` and `labs`,
     to capture (tpukaldi's `make_train_multistep`: K steps in one
     dispatch)."""
     return StepGraph(graph, True, feats, labs, seq, device, optimizers,
-                     generator, pool)
+                     generator, pool, compute_dtype)
 
 
 def make_eval_multistep(graph: GraphSpec, feats: torch.Tensor,
                         labs: torch.Tensor, seq: bool, device,
-                        pool=None) -> StepGraph:
+                        pool=None, compute_dtype=None) -> StepGraph:
     """An eval step on `device` for batches shaped as `feats` and `labs`,
     to capture (tpukaldi's `make_eval_multistep`)."""
-    return StepGraph(graph, False, feats, labs, seq, device, pool=pool)
+    return StepGraph(graph, False, feats, labs, seq, device, pool=pool,
+                     compute_dtype=compute_dtype)
 
 
 def forward_step(
@@ -190,6 +238,7 @@ def forward_step(
     lengths: Optional[torch.Tensor] = None,
     log_priors: Optional[Dict[str, Optional[torch.Tensor]]] = None,
     pack_idx: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, torch.Tensor]:
     """Posteriors for one utterance batch, each flattened to (T*B, C).
 
@@ -200,10 +249,12 @@ def forward_step(
     the caller copies the result to the host, so padding never crosses.
     """
     with torch.inference_mode():
+        params, feats = _cast_compute(graph, feats, compute_dtype)
         outs = apply_graph(graph, feats, None, train=False, to_do="forward",
-                           lengths=lengths)
+                           lengths=lengths, params=params)
         result = {}
         for name in graph.forward_outs:
+            # posteriors are float32 in every compute dtype
             o = outs[name].float()
             prior = (log_priors or {}).get(name)
             if prior is not None:
