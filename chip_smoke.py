@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Six recipes run at full width, and the rest of the zoo in a phase of its
-own (7 below).  Three TIMIT fMLLR recipes, 5x550
+own (9 below).  Three TIMIT fMLLR recipes, 5x550
 bidirectional with batchnorm, recurrent dropout 0.2, two softmax heads (cd
 head 1944 pdfs) and rmsprop: the flagship liGRU (cfg/TIMIT/liGRU_fmllr.cfg,
 relu), the LSTM (LSTM_fmllr.cfg, tanh) and the GRU (GRU_fmllr.cfg, tanh).
@@ -101,15 +101,19 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
 4. Training phase, per recipe, the slice's main path: the cfg over the same
    tree (train 64 utterances of 150-778 frames, dev 16; raw: 32 and 8),
    with 2 epochs of 2 train chunks and no sequence-length curriculum,
-   through `run_experiment(device="cuda")`: train and valid chunks,
+   through `run_experiment(device="cuda")`: train and valid chunks
+   (gathered on the card from the device-resident corpus, the default),
    new-bob, res.res, final checkpoints, then the forward stage.  It checks
    the ledger, the checkpoints and the two `ep=` lines, that the train loss
    fell, that the forward kernel ran once per layer per (train + valid +
    forward) batch and the backward kernel once per layer per train batch
    (the runtime's own counters), the arks, and two utterances against the
    CPU path.  The first train chunk runs once more through the plain path
-   for its frames/s, and one full-width train step at drop 0 holds the
-   kernel path's gradients, and the plain path's, to a float64 run.  Each
+   for its frames/s, and one full-width train step at drop 0, on the
+   cache's batch, holds the kernel path's gradients, and the plain
+   path's, to a float64 run (for the liGRU, a float64 run that takes the
+   path's own relu decisions where they differ from float64's at a near
+   tie, each such element printed).  Each
    train chunk's asynchronous checkpoint hand-off (ckpt_block) and split
    drain (drain_compute, drain_fetch) and each epoch's `phases ep=` line
    (host_load, host_load_producer) are printed.  For the liGRU, a
@@ -123,7 +127,24 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    top device ops and, for the train chunk, device time by layer.  The
    warm chunk runs beside the previous chunk's checkpoint writer, as every
    chunk of a run does.
-6. Multistep phase, TPUKALDI_MULTISTEP (K): K1f captured alone into a
+6. Device cache phase, the card's default train and valid data path
+   (TPUKALDI_DEVICE_CACHE=auto, which every `run_experiment` training run
+   above takes): on the flagship's tree, (a) one train chunk (the seeded
+   random left offsets) and one valid chunk through the cache and through
+   the host path, every batch gathered on the card equal to the host batch
+   within CACHE_TOL and its labels, names, lengths and n_valid_t exactly;
+   (b) the run at drop 0 with the cache forced on and off: the first
+   train chunk's loss and err within CACHE_RUN_TOL (relative and
+   absolute, as tpukaldi's test), the whole res.res within
+   RES_SPREAD_FACTOR times the host path's own spread under a one-ulp
+   change of its features (RES_SPREAD_SEEDS random ones); (c) the
+   resident bytes, the first chunk load with its upload, each epoch's
+   host_load_producer, and a warm train chunk's frames/s and idle share
+   with the cache and with the host path, beside the card's name and
+   power limit; (d) for each recipe of the
+   training phases, the data path its train and valid chunks took (the
+   cache, or the host path and the reason the cache gave).
+7. Multistep phase, TPUKALDI_MULTISTEP (K): K1f captured alone into a
    CUDA graph and replayed, bitwise its eager call; then, per recipe, one
    train chunk and one valid chunk from one init at recipe dropout, on a
    fresh runtime at K = 1, at K = 1 again and at K = 8, where a chunk's
@@ -150,7 +171,7 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    The training and profile phases above run at the card's default K = 8
    (their TIMIT and DIRHA chunks of 4 batches form no group; the raw
    chunks' do).
-7. bf16 phase, the bf16 compute mode (`[exp] compute_dtype = bfloat16`,
+8. bf16 phase, the bf16 compute mode (`[exp] compute_dtype = bfloat16`,
    TPUKALDI_COMPUTE_DTYPE): each kernel's bf16 entry at the recipe shapes
    against its float32 entry, bitwise (K1-K3's Functions, K5's and K6's
    entries widen bf16 at their boundary: outputs and gradients the float32
@@ -167,7 +188,7 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    bf16 train step, kernel path and scan, held to a float64 step (factor
    2); the bf16 chunk at K = 8 bitwise the K = 1 chunk, and its warm
    chunk profiled beside a float32 one.
-8. Zoo phase, the classes that have no TPU kernel, each at its shipped
+9. Zoo phase, the classes that have no TPU kernel, each at its shipped
    cfg's widths (at ZOO_DEPTH = 2 of their layers, but fusionRNN at all
    4): RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
    tanh, batchnorm), minimalGRU (minimalGRU_fbank.cfg, 5x550), LSTM_cudnn
@@ -1710,6 +1731,8 @@ def _reset_counts(modules, chunk_runtime) -> None:
         setattr(modules[mod], counter, 0)
     chunk_runtime.train_batches = chunk_runtime.valid_batches = 0
     chunk_runtime.forward_batches = 0
+    chunk_runtime.cache_chunks = chunk_runtime.host_chunks = 0
+    chunk_runtime.host_reason = ""
     _reset_graph_counts(chunk_runtime)
 
 
@@ -1974,6 +1997,10 @@ def train_phase(modules, trees, recipe) -> dict:
     t0 = time.perf_counter()
     exp = run_experiment(cfg, device="cuda")
     wall = time.perf_counter() - t0
+    # the data path of its train and valid chunks (the device cache's
+    # default for the card, or the host path and why)
+    chunk_paths = (chunk_runtime.cache_chunks, chunk_runtime.host_chunks,
+                   chunk_runtime.host_reason)
     counts = _counts(modules)
     launches, bwd = counts[r["fwd"]], counts[r["bwd"]]
     stack_launches = _check_only(counts, recipe, f"{recipe} training")
@@ -2079,7 +2106,7 @@ def train_phase(modules, trees, recipe) -> dict:
     if recipe == "liGRU":
         async_checkpoint_check(trees, recipe)
     return {"launches": launches, "bwd_launches": bwd, "cfg": cfg,
-            "stack_launches": stack_launches}
+            "stack_launches": stack_launches, "chunk_paths": chunk_paths}
 
 
 # the multistep phase's trees for the sequence recipes: a train chunk of 128
@@ -2964,11 +2991,114 @@ def async_checkpoint_check(trees, recipe) -> None:
           f" chunk 2 dispatch {res2.phases['dispatch']:.3f} s", flush=True)
 
 
+@contextlib.contextmanager
+def _scan_relu(record=None, grads=None, decide=None):
+    """The liGRU layers' relu on the plain path (`ligru_impl = scan`: one
+    call of `ligru_recurrence_ref` with its default relu a layer), layer by
+    layer in forward order: `record` gets each layer's candidate
+    pre-activations a_h (T, B', H), `grads` each layer's gradient reaching
+    relu(a_h) once the backward has run, and `decide`, a (where, relu')
+    pair of (T, B', H) bool tensors a layer, sets relu'(a_h), and so
+    relu(a_h) = a_h relu'(a_h), at the elements `where` selects."""
+    from tpukaldi_torch.models import recurrent
+
+    scan = recurrent.ligru_recurrence_ref
+    layers = []
+
+    def patched(ff, u, mask, act=torch.relu, ln=None):
+        if act is not torch.relu or ln is not None:
+            return scan(ff, u, mask, act, ln)
+        i, a_seq, g_seq = len(layers), [], {}
+        layers.append((a_seq, g_seq))
+
+        def relu(a):
+            t = len(a_seq)
+            a_seq.append(a.detach())
+            if decide is None:
+                out = torch.relu(a)
+            else:
+                where, pos = decide[i]
+                out = torch.where(torch.where(where[t], pos[t], a > 0), a,
+                                  torch.zeros_like(a))
+            if grads is not None:
+                out.register_hook(lambda g: g_seq.__setitem__(t, g.detach()))
+            return out
+
+        return scan(ff, u, mask, relu)
+
+    recurrent.ligru_recurrence_ref = patched
+    try:
+        yield
+    finally:
+        recurrent.ligru_recurrence_ref = scan
+    for a_seq, g_seq in layers:
+        if record is not None:
+            record.append(torch.stack(a_seq))
+        if grads is not None:
+            zero = torch.zeros_like(a_seq[0])
+            grads.append(torch.stack([g_seq.get(t, zero)
+                                      for t in range(len(a_seq))]))
+
+
+@contextlib.contextmanager
+def _k1b_relu(record):
+    """K1b's relu decisions, a (T, B', H) bool tensor a liGRU layer in
+    forward order: relu'(a_h) as the kernel took it, read where the
+    gradient it passes on to a_h (dff[..., :H]) is not zero."""
+    from tpukaldi_torch.kernels import ligru
+
+    kernel = ligru.ligru_recurrence_bwd
+    calls = []
+
+    def bwd(ff, h, g, u, mask):
+        out = kernel(ff, h, g, u, mask)
+        calls.append(out[0][..., :ff.shape[-1] // 2] != 0)
+        return out
+
+    ligru.ligru_recurrence_bwd = bwd
+    try:
+        yield
+    finally:
+        ligru.ligru_recurrence_bwd = kernel
+    record.extend(reversed(calls))
+
+
+def _relu_ties(recipe, path, pos, a_r, g_r, a_s):
+    """Where a path's liGRU relu decisions `pos` differ from the float64
+    run's (pre-activations `a_r`), on the elements whose relu output the
+    loss depends on (`g_r` not zero): a (where, pos) pair a layer, and each
+    such element as (layer, t, b', unit, a_h in float64).  Each must be a
+    near tie: |a_h| within the plain float32 path's own error of a_h in
+    that layer (`a_s` against `a_r`), else the check fails."""
+    check(len(pos) == len(a_r) == len(g_r) == len(a_s),
+          f"{recipe}: relu decisions of {len(pos)} {path} path layers, "
+          f"{len(a_r)} float64 layers")
+    decide, ties = [], []
+    for i, (p, a, g, a32) in enumerate(zip(pos, a_r, g_r, a_s)):
+        where = (p != (a > 0)) & (g != 0)
+        err = (a32.double() - a).abs().max().item()
+        worst = a[where].abs().max().item() if where.any() else 0.0
+        check(worst <= err,
+              f"{recipe}: the {path} path's relu decision in layer {i} "
+              f"differs from float64's at |a_h| = {worst}, beyond the plain "
+              f"float32 path's own error of a_h in that layer, {err}")
+        decide.append((where, p))
+        ties += [(i, *idx, a[tuple(idx)].item())
+                 for idx in where.nonzero().tolist()]
+    return decide, ties
+
+
 def step_check(modules, trees, recipe) -> None:
-    """One full-width train step of the recipe at drop 0: the kernel path's
-    loss and gradients, and the plain path's, held to a float64 run of the
-    plain float32 arithmetic (for the QLSTM, `qlstm_impl = scan` through
-    the plain versions)."""
+    """One full-width train step of the recipe at drop 0, on the first batch
+    of the main path's first train chunk (the device cache's on the card):
+    the kernel path's loss and gradients, and the plain path's, held to a
+    float64 run of the plain float32 arithmetic (for the QLSTM,
+    `qlstm_impl = scan` through the plain versions).  A liGRU layer's relu
+    decision where a_h lies within float32's error of 0 is a coin toss
+    that moves a gradient by ~1e-2 (the padding rows hold ~2,000 such
+    a_h in layer 0): each path is held to a float64 run that takes the
+    path's own decision at each element where it differs from float64's,
+    and each such element must be a near tie (`_relu_ties`)."""
     from tpukaldi_torch.tools import flagship_tree as ft
 
     # the port's own setting (`resolve_device` pins it); this script sets
@@ -2987,16 +3117,27 @@ def step_check(modules, trees, recipe) -> None:
                                cuts, recipe=src)
     cfg_s = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "s.cfg"),
                                {**cuts, **_plain_replace(recipe)}, recipe=src)
-    loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
+    relu_k, a_s, a_r, g_r = [], [], [], []
+    with _k1b_relu(relu_k):
+        loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
     # the QLSTM's plain path is its kernel path's cfg through the plain
     # versions; a TIMIT recipe's is `*_impl = scan`
     plain_ctx, plain_label = _plain_path(recipe, modules)
-    with plain_ctx:
+    with plain_ctx, _scan_relu(record=a_s):
         loss_s, grads_s, _ = ft.train_step_gradients(
             cfg_k if recipe == "QLSTM" else cfg_s, "cuda")
-    with _plain_path(recipe, modules)[0]:
+    with _plain_path(recipe, modules)[0], _scan_relu(record=a_r, grads=g_r):
         loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda",
                                                      torch.float64)
+    # each path's float64 run with its own relu decisions at near ties
+    refs, ties = {}, {}
+    for path, pos in (("kernel", relu_k), ("plain", [a > 0 for a in a_s])):
+        decide, ties[path] = _relu_ties(recipe, path, pos, a_r, g_r, a_s)
+        refs[path] = grads_r
+        if ties[path]:
+            with _plain_path(recipe, modules)[0], _scan_relu(decide=decide):
+                _, refs[path], _ = ft.train_step_gradients(
+                    cfg_s, "cuda", torch.float64)
 
     # the raw recipes' conv biases sit before a layer norm, whose mean
     # cancels them: their gradient is exactly zero (float64 gives 1e-16 of
@@ -3020,18 +3161,32 @@ def step_check(modules, trees, recipe) -> None:
               "non-finite gradient error")
         return rel[name], name
 
-    err_k, name_k = worst(grads_k, grads_r)
-    err_s, name_s = worst(grads_s, grads_r)
+    err_k, name_k = worst(grads_k, refs["kernel"])
+    err_s, name_s = worst(grads_s, refs["plain"])
     err_ks, name_ks = worst(grads_k, grads_s)
     loss_err = abs(loss_k - loss_s)
+    against, tie_note = "float64", ""
+    if relu_k:
+        against += " with each path's own relu decisions at its ties"
+        raw_k, raw_s = worst(grads_k, grads_r), worst(grads_s, grads_r)
+        listed = {path: ", ".join(f"({i}, {t}, {b}, {j}, {a:.3e})"
+                                  for i, t, b, j, a in found[:8])
+                  for path, found in ties.items()}
+        tie_note = (
+            "; relu decisions unlike float64's (layer, t, b', unit, a_h): "
+            + "; ".join(f"{path} path {len(ties[path])} {listed[path]}"
+                        for path in ties)
+            + f"; against the float64 run's own decisions: kernel path "
+            f"{raw_k[0]:.3e} ({raw_k[1]}), plain path {raw_s[0]:.3e} "
+            f"({raw_s[1]})")
     print(f"training {recipe} step at drop 0 (batch {tuple(shape)}, "
           f"{len(grads_k)} gradients): loss kernel {loss_k:.7f} plain "
           f"{loss_s:.7f} float64 {loss_r:.7f}, kernel vs plain |diff|="
           f"{loss_err:.3e} (atol {STEP_LOSS_ATOL:g}); worst gradient error vs "
-          f"float64: kernel path {err_k:.3e} ({name_k}), plain path "
+          f"{against}: kernel path {err_k:.3e} ({name_k}), plain path "
           f"({plain_label}) {err_s:.3e} ({name_s}) (factor "
-          f"{STEP_GRAD_FACTOR:g}); kernel vs plain {err_ks:.3e} ({name_ks})",
-          flush=True)
+          f"{STEP_GRAD_FACTOR:g}); kernel vs plain {err_ks:.3e} ({name_ks})"
+          + tie_note, flush=True)
     check(loss_err <= STEP_LOSS_ATOL,
           f"{recipe} train step loss differs by {loss_err}")
     check(err_k <= STEP_GRAD_FACTOR * err_s,
@@ -3433,6 +3588,8 @@ LAYERS = (
     ("batchnorm", ("batch_norm", "batchnorm", "welford", "bn_")),
     ("optimizer (rmsprop, foreach)", ("multi_tensor_apply", "foreach")),
     ("dropout draws", ("bernoulli", "philox", "distribution")),
+    ("device cache gather", ("indexSelect", "index_select",
+                             "vectorized_gather")),
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),
 )
@@ -3521,6 +3678,256 @@ def profile_phase(recipe, serve_cfg: str, train_cfg: str) -> None:
     with open(os.path.join(WORK, f"profile_{recipe}_train.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=-1))
+
+
+# the device cache's batches against the host path's: CMVN statistics
+# accumulate in another order (tpukaldi's own bound,
+# tests/test_device_cache.py); labels, names, lengths exact
+CACHE_TOL = 2e-6
+# loss and err of a run with the cache on and off, as rtol and atol
+# (tests/test_device_cache.py: |on - off| <= 5e-3 + 5e-3 |off|), held on the
+# first train chunk's .info: its steps start from the same weights.  Later
+# values feed the batches' float32 rounding difference (<= 4.8e-7) back
+# through rmsprop and relu near-ties, and the flagship's res.res moves by
+# ~2e-2 under a one-ulp change of the host path's own features: the whole
+# res.res with the cache is held within RES_SPREAD_FACTOR times the largest
+# difference between two host-path runs whose features differ by such a
+# change (the unchanged run and RES_SPREAD_SEEDS runs with every feature
+# moved one ulp down, kept or moved one ulp up at random, a seed each)
+CACHE_RUN_TOL = 5e-3
+RES_SPREAD_SEEDS = 3
+RES_SPREAD_FACTOR = 2.0
+
+
+def _res_numbers(out):
+    """The loss and err values of a run's `ep=` lines, and each epoch's
+    host_load_producer."""
+    with open(os.path.join(out, "res.res")) as f:
+        lines = f.read().splitlines()
+    vals = [float(v) for line in lines if line.startswith("ep=")
+            for v in re.findall(r"(?:loss|err)=([\d.]+)", line)]
+    producer = [float(re.search(r" host_load_producer=([\d.]+)", line)[1])
+                for line in lines if line.startswith("phases ep=")]
+    return vals, producer
+
+
+@contextlib.contextmanager
+def _host_features_nudged(seed):
+    """The host chunk loader's features each moved one ulp down, kept or
+    moved one ulp up at random (numpy's generator at `seed`) for the runs
+    inside: a float32 rounding change of the input of the size by which
+    the device cache's batches differ from the host path's."""
+    from tpukaldi_torch.train import chunk_runtime
+
+    load = chunk_runtime.load_chunk
+    rng = np.random.default_rng(seed)
+
+    def nudged(*args, **kwargs):
+        chunk = load(*args, **kwargs)
+        step = rng.integers(-1, 2, chunk.feats.shape)
+        toward = np.where(step > 0, np.float32(np.inf), np.float32(-np.inf))
+        chunk.feats = np.where(step == 0, chunk.feats,
+                               np.nextafter(chunk.feats, toward))
+        return chunk
+
+    chunk_runtime.load_chunk = nudged
+    try:
+        yield
+    finally:
+        chunk_runtime.load_chunk = load
+
+
+def _warm_cache_chunk(cfg, mode):
+    """Epoch 1's first train chunk of a finished run on a fresh runtime at
+    TPUKALDI_DEVICE_CACHE=mode (restoring epoch 0's checkpoints; a first
+    chunk of the cache uploads the corpus), then the second under
+    torch.profiler (device activity): (ChunkResult, wall, device busy s)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    exp, plan = ft.train_plan(cfg)
+    ep1 = [t for t in plan.epochs[1].tasks if t.phase == "train"]
+    kw = dict(epoch_lr={a: s.lr[1] for a, s in exp.archs.items()},
+              batch_size=exp.batches.batch_size_train[1])
+    with _env(TPUKALDI_DEVICE_CACHE=mode):
+        rt = ChunkRuntime(exp, "cuda")
+        rt.run_task(ep1[0], **kw)
+        chunk = rt.load_task_chunk(ep1[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # one launch ahead of the chunk, so that the trace is live
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.run_task(ep1[1], chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rt.checkpointer.wait()
+    busy_us, _ = _device_events(prof)
+    return res, wall, busy_us / 1e6
+
+
+def device_cache_phase(trees, trained, card) -> None:
+    """The device-resident corpus cache (TPUKALDI_DEVICE_CACHE, auto: on
+    for the card) on the flagship's tree: (a) one train chunk (seeded
+    random left offsets) and one valid chunk through the cache and through
+    the host path, every batch gathered on the card against the host
+    batch; (b) the run at drop 0 with the cache on and off; (c) resident
+    bytes, the first upload, the loader thread's seconds and a warm train
+    chunk's frames/s and idle share both ways; (d) the data path each
+    recipe's train and valid chunks took in its training phase."""
+    from tpukaldi_torch.data.chunk_loader import ChunkData
+    from tpukaldi_torch.data.device_cache import ChunkIndexData
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    recipe = "liGRU"
+    tree = trees[RECIPES[recipe]["corpus"]]
+    src = ft.recipe_cfg(recipe)
+    out = os.path.join(WORK, "device_cache")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                             _cuts(recipe), recipe=src)
+    exp, plan = ft.train_plan(cfg)
+    tasks = {p: [t for t in plan.epochs[0].tasks if t.phase == p][0]
+             for p in ("train", "valid")}
+
+    # (a) the same chunks both ways
+    with _env(TPUKALDI_DEVICE_CACHE="1"):
+        rt = ChunkRuntime(exp, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cached = {"train": rt.load_task_chunk(tasks["train"])}
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        cached["valid"] = rt.load_task_chunk(tasks["valid"])
+    with _env(TPUKALDI_DEVICE_CACHE="0"):
+        rt_host = ChunkRuntime(exp, "cuda")
+        host = {p: rt_host.load_task_chunk(t) for p, t in tasks.items()}
+    worst, n = 0.0, {}
+    for phase, task in tasks.items():
+        cm, chunk = cached[phase], host[phase]
+        check(isinstance(cm, ChunkIndexData) and isinstance(chunk, ChunkData),
+              f"{phase}: chunks {type(cm).__name__}, {type(chunk).__name__}")
+        check(cm.names == chunk.names
+              and np.array_equal(cm.end_index, chunk.end_index)
+              and cm.fea_layout == chunk.fea_layout,
+              f"{phase}: the index chunk's metadata differs from the host's")
+        train = phase == "train"
+        bs = rt._effective_bs(chunk, exp.batches.batch_size_train[0] if train
+                              else exp.batches.batch_size_valid)
+        pairs = list(zip(rt._batches(cm, bs, train, task.seed),
+                         rt_host._batches(chunk, bs, train, task.seed),
+                         strict=True))
+        check(len(pairs) > 0, f"{phase}: no batch")
+        for c, h in pairs:
+            feats, labs = rt.batch_tensors(cm, c)
+            f, lab = feats.cpu().numpy(), labs.cpu().numpy()
+            check(f.shape == h.feats.shape and np.allclose(
+                f, h.feats, rtol=CACHE_TOL, atol=CACHE_TOL),
+                f"{phase}: a gathered batch differs from the host batch "
+                f"(max |diff| {np.abs(f - h.feats).max()})")
+            check(np.array_equal(lab, h.labs) and c.names == h.names
+                  and np.array_equal(c.lengths, h.lengths)
+                  and c.n_valid_t == h.n_valid_t,
+                  f"{phase}: labels, names, lengths or n_valid_t differ")
+            worst = max(worst, float(np.abs(f - h.feats).max()))
+        n[phase] = len(pairs)
+    cache = rt.device_cache
+    print(f"device cache (a) {recipe}: {n['train']} train batches (seeded "
+          f"left offsets) and {n['valid']} valid batches gathered on the card "
+          f"equal the host path's within rtol/atol {CACHE_TOL:g} (max |diff| "
+          f"{worst:.3e}); labels, names, lengths and n_valid_t exact",
+          flush=True)
+    print(f"device cache (c) {recipe} on {card}: resident {cache.resident_bytes} "
+          f"bytes; first chunk load (the train stream and labels read, pinned "
+          f"and uploaded, then the chunk's index) {t_first:.3f} s; each "
+          f"store read, pinned and enqueued: " + ", ".join(
+              f"{'/'.join(map(str, key))} {nbytes} bytes {sec:.3f} s"
+              for key, nbytes, sec in cache.uploads), flush=True)
+    del rt, rt_host, cached, host
+
+    # (b) the run with the cache on and off at drop 0, and the host path
+    # again with its features moved by one ulp at random, a seed a run (the
+    # run's own spread under a rounding change of its input)
+    runs = {}
+    seeds = {f"host_ulp{i}": i for i in range(RES_SPREAD_SEEDS)}
+    for name, mode in (("cache", "1"), ("host", "0"),
+                       *((n, "0") for n in seeds)):
+        o = os.path.join(out, f"run_{name}")
+        os.makedirs(o)
+        c = ft.write_train_cfg(tree, o, os.path.join(o, "run.cfg"),
+                               {**_cuts(recipe), **_no_drop(recipe)},
+                               recipe=src)
+        chunk_runtime.cache_chunks = chunk_runtime.host_chunks = 0
+        nudge = (_host_features_nudged(seeds[name]) if name in seeds
+                 else contextlib.nullcontext())
+        with _env(TPUKALDI_DEVICE_CACHE=mode), nudge:
+            t0 = time.perf_counter()
+            run_experiment(c, device="cuda")
+            wall = time.perf_counter() - t0
+        took = (chunk_runtime.cache_chunks, chunk_runtime.host_chunks)
+        check(took[0] > 0 and took[1] == 0 if mode == "1"
+              else took[0] == 0 and took[1] > 0,
+              f"TPUKALDI_DEVICE_CACHE={mode}: {took[0]} chunks took the "
+              f"cache, {took[1]} the host path")
+        vals, producer = _res_numbers(o)
+        first = [t for t in ft.train_plan(c)[1].epochs[0].tasks
+                 if t.phase == "train"][0]
+        runs[name] = dict(cfg=c, res=np.asarray(vals), producer=producer,
+                          wall=wall,
+                          first=chunk_runtime.read_info(first.info_file))
+    on, off = runs["cache"]["res"], runs["host"]["res"]
+    check(all(r["res"].size == off.size > 0 for r in runs.values()),
+          f"res.res values {[r['res'].tolist() for r in runs.values()]}")
+    diff = float(np.abs(on - off).max())
+    host_runs = ["host", *seeds]
+    gaps = [float(np.abs(runs[a]["res"] - runs[b]["res"]).max())
+            for i, a in enumerate(host_runs) for b in host_runs[i + 1:]]
+    spread = max(gaps)
+    first = {k: (runs["cache"]["first"][k], runs["host"]["first"][k])
+             for k in ("loss", "err")}
+    print(f"device cache (b) {recipe}: run_experiment at drop 0, res.res "
+          f"loss and err with the cache {on.tolist()}, host path "
+          f"{off.tolist()}: max |diff| {diff:.3e} (bound {RES_SPREAD_FACTOR:g}"
+          f" x {spread:.3e}, the largest of the {len(gaps)} differences "
+          f"{', '.join(f'{g:.3e}' for g in gaps)} between the host path and "
+          f"its {len(seeds)} runs with the features moved one ulp at random: "
+          + "; ".join(f"{n} {runs[n]['res'].tolist()}" for n in seeds)
+          + f"); the first train chunk's .info loss and err {first} (rtol "
+          f"and atol {CACHE_RUN_TOL:g}); run wall "
+          f"{runs['cache']['wall']:.3f} s and {runs['host']['wall']:.3f} s; "
+          f"host_load_producer per epoch {runs['cache']['producer']} s and "
+          f"{runs['host']['producer']} s", flush=True)
+    for k, (got, want) in first.items():
+        check(math.isclose(got, want, rel_tol=CACHE_RUN_TOL,
+                           abs_tol=CACHE_RUN_TOL),
+              f"the first train chunk's {k} with the cache {got}, host "
+              f"path {want}")
+    check(diff <= RES_SPREAD_FACTOR * spread,
+          f"res.res with the cache {diff} from the host path's, beyond "
+          f"{RES_SPREAD_FACTOR:g} x the host path's own spread {spread}")
+
+    # (c) a warm train chunk both ways
+    for mode, label in (("1", "cache"), ("0", "host path")):
+        res, wall, busy = _warm_cache_chunk(
+            runs["cache" if mode == "1" else "host"]["cfg"], mode)
+        print(f"device cache (c) {recipe} warm train chunk, {label}, on "
+              f"{card}: {res.frames_per_sec:.1f} frames/s (.info), wall "
+              f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+              f"{1 - busy / wall:.3f}; phases " + " ".join(
+                  f"{k}={v:.3f}" for k, v in res.phases.items()), flush=True)
+
+    # (d) what each recipe's training phase took
+    for name, t in trained.items():
+        n_cache, n_host, why = t["chunk_paths"]
+        print(f"device cache (d) {name} training: {n_cache} train and valid "
+              f"chunks took the cache, {n_host} the host path"
+              + (f" ({why})" if n_host else ""), flush=True)
 
 
 def build_kernels(modules) -> None:
@@ -3628,6 +4035,7 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
+    _timed("device cache", device_cache_phase, trees, trained, card)
     trees = _timed("multistep", multistep_all, modules, trees)
     bf16 = _timed("bf16", bf16_phase, modules, trees)
     fusion = _timed("zoo", zoo_phase, modules, trees)

@@ -355,16 +355,16 @@ def train_step_gradients(
         module.to(dtype)
     batch_size = rt._effective_bs(chunk, exp.batches.batch_size_train[0])
     batch = next(rt._batches(chunk, batch_size, True, task.seed))
+    # a host batch, or on a card the device cache's gather
+    feats, labs = rt.batch_tensors(chunk, batch)
     rt.generator.manual_seed(batch_seed(task.seed, 0))
-    loss, _ = train_step(rt.graph, rt.optimizers,
-                         torch.from_numpy(batch.feats).to(rt.device, dtype),
-                         torch.from_numpy(batch.labs).to(rt.device),
+    loss, _ = train_step(rt.graph, rt.optimizers, feats.to(dtype), labs,
                          getattr(batch, "n_valid_t", None), rt.generator,
                          rt.compute_dtype)
     grads = {f"{a}.{n}": p.grad.detach().clone()
              for a, m in rt.graph.modules.items()
              for n, p in m.named_parameters()}
-    return loss.item(), grads, tuple(batch.feats.shape)
+    return loss.item(), grads, tuple(feats.shape)
 
 
 def forward_outputs(

@@ -2,13 +2,15 @@
 reference run_exp.py:1-621).
 
   python -m tpukaldi_torch.tools.run_exp cfg/exp.cfg [--device cuda] \\
-      [--section,field=value ...]
+      [--check-data] [--section,field=value ...]
 
 Drives: config load -> plan -> (train chunks with interleaved validation ->
 new-bob lr annealing) x epochs -> res.res -> final checkpoints -> forward
-posteriors -> Kaldi decode bridge, on the port's copies of tpukaldi's
-config, planner, ledger and decode code.  Crash recovery goes through the `.info` ledger as in
-tpukaldi: done tasks are skipped on restart.  `--device cuda` without a CUDA
+posteriors -> Kaldi decode bridge, with tpukaldi's side outputs (model.svg
+at start-up, the curves' txt exports and PNGs after the epochs), on the
+port's copies of tpukaldi's config, planner, ledger and decode code.  Crash
+recovery goes through the `.info` ledger as in tpukaldi: done tasks are
+skipped on restart.  `--device cuda` without a CUDA
 device is an error; there is no fallback to the CPU.
 """
 
@@ -349,6 +351,15 @@ def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
     with open(os.path.join(out_folder, "conf.cfg"), "w") as f:
         exp.raw.write(f)
 
+    # model diagram (reference renders model.svg at startup, utils.py:1703);
+    # as in tpukaldi, a failure is logged and never stops training
+    try:
+        from .diagram import create_block_diagram
+
+        create_block_diagram(exp, os.path.join(out_folder, "model.svg"))
+    except Exception as e:
+        _log(out_folder, f"[diagram] skipped: {e}")
+
     # the same plan tpukaldi builds (same knobs), so the two share ledgers
     # and checkpoints
     n_valid = int(exp.raw["exp"].get("nr_of_valid_per_epoch", "1"))
@@ -364,6 +375,17 @@ def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
         open(res_file, "w").close()
     feeder = ChunkFeeder(exp, plan, runtime)
     _train(exp, plan, runtime, feeder, res_file)
+
+    # training curves (reference utils.py:2495-2614): the txt exports, and
+    # the PNGs where matplotlib is installed; a failure is logged only
+    if plan.epochs:
+        try:
+            from .metrics import create_curves, export_txt
+
+            export_txt(res_file, out_folder)
+            create_curves(res_file, out_folder)
+        except Exception as e:
+            _log(out_folder, f"[curves] skipped: {e}")
 
     # final checkpoints (reference run_exp.py:412-414): the asynchronous
     # writer finishes before the files are copied
@@ -447,8 +469,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("cfg")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")
+    parser.add_argument("--check-data", action="store_true",
+                        help="validate the data tree the cfg points at and "
+                        "exit without training (rc 1 on errors)")
     args, overrides = parser.parse_known_args(argv)
     try:
+        if args.check_data:
+            from .check_data import run_check
+
+            return run_check(args.cfg, overrides)
         run_experiment(args.cfg, overrides=overrides, device=args.device)
     except ConfigError as e:
         print(f"config error: {e}", file=sys.stderr)

@@ -2,12 +2,22 @@
 (counterpart of tpukaldi's `train/chunk_runtime.py`, reference core.py:438
 `run_nn`).
 
-Per task it loads the chunk on the host (`data.chunk_loader`) and runs
-the step batch by batch on the runtime's device.  Train and valid tasks
-take tpukaldi's batches (`iter_seq_batches` / `iter_frame_batches`,
-bucket-padded unless `TPUKALDI_PAD_TO_BUCKET=0`), assembled and pinned on
-a host thread (`_prefetch_iter`, unless `TPUKALDI_HOST_PREFETCH=0`) and
-copied to the device without blocking; they keep loss and err on the
+Per task it loads the chunk and runs the step batch by batch on the
+runtime's device.  A train or valid chunk takes the device-resident corpus
+cache (`data.device_cache`) under `TPUKALDI_DEVICE_CACHE` (auto: on a CUDA
+device, as tpukaldi's on its accelerator; 1 forces it, 0 turns it off): the
+chunk is index space over the resident corpus, and each batch is gathered
+on the device just before its step (timed as `h2d`).  Where the cache
+cannot serve a chunk (`CacheUnavailable`: wav streams, rate-differing
+chunks, keys it does not hold, a corpus over
+`TPUKALDI_DEVICE_CACHE_MAX_BYTES`), and for forward chunks, the host chunk
+loader (`data.chunk_loader`) makes it.  Train and valid tasks take
+tpukaldi's batches (`iter_seq_batches` / `iter_frame_batches` or their
+index twins, bucket-padded unless `TPUKALDI_PAD_TO_BUCKET=0`), made and
+pinned on a host thread (`_prefetch_iter`, unless
+`TPUKALDI_HOST_PREFETCH=0`), host batches copied to the device without
+blocking; tpukaldi's progress line goes to a tty unless
+`TPUKALDI_PROGRESS=0`.  They keep loss and err on the
 device until the chunk ends, and a train task hands its checkpoints to the
 asynchronous writer (`checkpoint.AsyncCheckpointer`) before the `.info`
 ledger entry.  Forward tasks run tpukaldi's three-stage pipeline: batch
@@ -34,6 +44,7 @@ import contextlib
 import logging
 import os
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -51,6 +62,14 @@ from ..data.batching import (
     iter_seq_batches,
 )
 from ..data.chunk_loader import ChunkData, load_chunk
+from ..data.device_cache import (
+    CacheUnavailable,
+    ChunkIndexData,
+    DeviceCorpusCache,
+    IdxBatch,
+    iter_frame_index_batches,
+    iter_seq_index_batches,
+)
 from ..forward.posteriors import PosteriorWriter
 from ..graph.compiler import build_graph, init_graph
 from ..models.common import float_list
@@ -79,6 +98,12 @@ forward_batches = 0
 graph_captures = 0
 graph_replays = 0
 eager_steps = 0
+# train and valid chunks loaded since the last reset, by data path: the
+# device cache's, or the host loader's, and why the last host chunk did
+# not take the cache
+cache_chunks = 0
+host_chunks = 0
+host_reason = ""
 
 
 def multistep_k(device) -> int:
@@ -93,10 +118,16 @@ def multistep_k(device) -> int:
 _WARM = "warm"
 
 
+def _shapes(b):
+    """The shapes a batch's feats and labs take on the device."""
+    if isinstance(b, IdxBatch):
+        return ({s: i.shape for s, i in b.fea_idx.items()}, b.lab_idx.shape)
+    return b.feats.shape, b.labs.shape
+
+
 def _stackable(group) -> bool:
-    b0 = group[0]
-    return all(b.feats.shape == b0.feats.shape
-               and b.labs.shape == b0.labs.shape for b in group)
+    s0 = _shapes(group[0])
+    return all(_shapes(b) == s0 for b in group)
 
 
 def group_batches(batches: Iterator, K: int) -> Iterator[Tuple[str, list]]:
@@ -295,6 +326,9 @@ class ChunkRuntime:
         self._step_graphs: Dict[tuple, object] = {}
         self._graph_pool = None
         self._capture_stream = None
+        # the device-resident corpus (data/device_cache.py), made at the
+        # first chunk that takes it
+        self.device_cache: Optional[DeviceCorpusCache] = None
 
     def drop_step_graphs(self) -> None:
         """Forget every captured step: what a capture keeps (the lr, the
@@ -311,11 +345,14 @@ class ChunkRuntime:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
     # ---------------- data ----------------
-    def load_task_chunk(self, task: ChunkTask,
-                        max_seq_length=None) -> ChunkData:
-        """Host path: the chunk loader, only the streams the [model]
-        program references.  `max_seq_length` defaults to the cfg's for the
+    def load_task_chunk(self, task: ChunkTask, max_seq_length=None):
+        """The task's chunk, only the streams the [model] program
+        references: index space on the device-resident corpus where
+        `_use_device_cache` says so and the cache can serve it (a
+        `ChunkIndexData`), else through the host chunk loader (a
+        `ChunkData`).  `max_seq_length` defaults to the cfg's for the
         task's phase and epoch."""
+        global cache_chunks, host_chunks, host_reason
         ds = self.exp.datasets[task.dataset]
         forward = task.phase == "forward"
         fea_names = used_names(
@@ -327,13 +364,47 @@ class ChunkRuntime:
             max_seq_length = self.exp.batches.msl_for_phase(task.phase,
                                                             task.epoch)
         task.write_lst_files()
+        shuffle = task.phase == "train" and not self.seq_model
+        reason = ("not taken at TPUKALDI_DEVICE_CACHE="
+                  + os.environ.get("TPUKALDI_DEVICE_CACHE", "auto"))
+        if self._use_device_cache(task):
+            try:
+                if self.device_cache is None:
+                    self.device_cache = DeviceCorpusCache(self.device)
+                chunk = self.device_cache.load_chunk_index(
+                    ds, fea_names, lab_names, max_seq_length,
+                    shuffle_frames=shuffle, seed=task.seed,
+                    lst_files=task.lst_files)
+                cache_chunks += 1
+                return chunk
+            except CacheUnavailable as e:
+                logging.info("device cache unavailable (%s); host path", e)
+                reason = str(e)
+        if task.phase in ("train", "valid"):
+            host_chunks += 1
+            host_reason = reason
         return load_chunk(
             ds, fea_names, lab_names, max_seq_length,
             fea_only=self.exp.production and forward,
-            shuffle_frames=task.phase == "train" and not self.seq_model,
+            shuffle_frames=shuffle,
             seed=task.seed,
             fea_lst_override=task.lst_files,
         )
+
+    def _use_device_cache(self, task: ChunkTask) -> bool:
+        """TPUKALDI_DEVICE_CACHE, read as tpukaldi reads it
+        (`train/chunk_runtime.py::_use_device_cache`): 0/off/false never;
+        only train and valid tasks, never a production run; 1/on/true/force
+        on any device; auto (the default) on a CUDA device, as tpukaldi's
+        on a single-device accelerator."""
+        mode = os.environ.get("TPUKALDI_DEVICE_CACHE", "auto").strip().lower()
+        if mode in ("0", "off", "false"):
+            return False
+        if task.phase not in ("train", "valid") or self.exp.production:
+            return False
+        if mode in ("1", "on", "true", "force"):
+            return True
+        return self.device.type == "cuda"
 
     # ---------------- state ----------------
     def ensure_initialized(self, chunk: ChunkData,
@@ -396,8 +467,10 @@ class ChunkRuntime:
 
     def _to_device(self, x: torch.Tensor) -> torch.Tensor:
         """A host tensor on the runtime's device: on a card through pinned
-        memory, without blocking the host (the copy is stream-ordered)."""
-        if self.device.type != "cuda":
+        memory, without blocking the host (the copy is stream-ordered).  A
+        tensor already there (a batch the device cache assembled) passes
+        through."""
+        if self.device.type != "cuda" or x.is_cuda:
             return x.to(self.device)
         if not x.is_pinned():
             x = x.pin_memory()
@@ -492,16 +565,30 @@ class ChunkRuntime:
         write_info(task.info_file, result)
         return result
 
-    def _batches(self, chunk: ChunkData, batch_size: int, train: bool,
-                 seed: int):
+    def _batches(self, chunk, batch_size: int, train: bool, seed: int):
+        """The chunk's batches: host batches of a `ChunkData`, index
+        batches (`IdxBatch`) of a `ChunkIndexData`, in the same order."""
+        index = isinstance(chunk, ChunkIndexData)
         if not self.seq_model:
-            return iter_frame_batches(chunk, batch_size)
+            return (iter_frame_index_batches if index
+                    else iter_frame_batches)(chunk, batch_size)
         # random left zero-padding at train (reference core.py:586-590);
         # TPUKALDI_PAD_TO_BUCKET=0 pads to the batch max instead of a bucket
         rng = np.random.default_rng(seed) if train else None
         pad_to_bucket = os.environ.get("TPUKALDI_PAD_TO_BUCKET", "1") != "0"
-        return iter_seq_batches(chunk, batch_size, rng=rng,
-                                pad_to_bucket=pad_to_bucket)
+        return (iter_seq_index_batches if index else iter_seq_batches)(
+            chunk, batch_size, rng=rng, pad_to_bucket=pad_to_bucket)
+
+    def batch_tensors(self, chunk, batch, ready=None):
+        """A batch's (feats, labs) on the runtime's device: a host batch
+        copied (`ready`: its tensors already pinned), an index batch
+        gathered from the device cache on the current stream."""
+        if isinstance(batch, IdxBatch):
+            fea_idx, lab_idx = ready or (batch.fea_idx, batch.lab_idx)
+            return self.device_cache.assemble(chunk, fea_idx, lab_idx)
+        feats, labs = ready or (torch.from_numpy(batch.feats),
+                                torch.from_numpy(batch.labs))
+        return self._to_device(feats), self._to_device(labs)
 
     def _effective_bs(self, chunk: ChunkData, batch_size: int) -> int:
         """Batching drops the tail that does not fill a batch (reference
@@ -547,12 +634,20 @@ class ChunkRuntime:
         # thread when prefetch is on, so NOT additive with the other phases
         t_hbatch = [0.0]
 
+        def pinned(x):
+            return x.pin_memory() if pin else x
+
         def host_ready(batch):
-            feats = torch.from_numpy(batch.feats)
-            labs = torch.from_numpy(batch.labs)
-            if pin:
-                feats, labs = feats.pin_memory(), labs.pin_memory()
-            return batch, feats, labs
+            """The batch and its host tensors, pinned for a card: a host
+            batch's feats and labs, an index batch's int32 indices (the
+            gather runs on the consumer's stream, just before its step)."""
+            if isinstance(batch, IdxBatch):
+                return batch, (
+                    {s: pinned(torch.from_numpy(i))
+                     for s, i in batch.fea_idx.items()},
+                    pinned(torch.from_numpy(batch.lab_idx)))
+            return batch, (pinned(torch.from_numpy(batch.feats)),
+                           pinned(torch.from_numpy(batch.labs)))
 
         def timed(gen):
             while True:
@@ -565,8 +660,8 @@ class ChunkRuntime:
 
         def assembly_plan():
             """Host-ready work in dispatch order, (kind, items) as
-            `group_batches` groups it, each item (batch, feats, labs) with
-            the tensors pinned for a card.  Pure host work, safe on a
+            `group_batches` groups it, each item (batch, its host tensors)
+            as `host_ready` makes it.  Pure host work, safe on a
             background thread: prefetching it is bit-transparent."""
             gen = self._batches(chunk, batch_size, train, task.seed)
             for kind, group in group_batches(timed(gen), K):
@@ -578,10 +673,23 @@ class ChunkRuntime:
         items = assembly_plan()
         if os.environ.get("TPUKALDI_HOST_PREFETCH", "1") != "0":
             items = _prefetch_iter(items, depth=2)
+        # tpukaldi's progress line on a tty (TPUKALDI_PROGRESS=0: none)
+        n_batches = max((chunk.n_sentences if self.seq_model
+                         else chunk.n_frames) // max(batch_size, 1), 1)
+        show_progress = sys.stdout.isatty() and os.environ.get(
+            "TPUKALDI_PROGRESS", "1") != "0"
+        label = "Training" if train else "Validating"
         with contextlib.closing(items):
             for kind, ready in items:
-                for batch, feats_h, labs_h in ready:
+                for batch, tensors in ready:
                     n_valid = getattr(batch, "n_valid_t", None)
+                    # an index batch is gathered here, timed as h2d (as
+                    # tpukaldi times its on-device assembly)
+                    t0 = tick()
+                    if isinstance(batch, IdxBatch):
+                        tensors = self.batch_tensors(chunk, batch, tensors)
+                    t_h2d += tick() - t0
+                    feats_h, labs_h = tensors
                     if kind == "group" and graphed:
                         loss, err, dt_h2d, dt_disp = self._graphed_step(
                             train, task.seed, n, feats_h, labs_h, n_valid)
@@ -599,8 +707,17 @@ class ChunkRuntime:
                     n += 1
                     # padded frames the device processed, as tpukaldi
                     # counts them
-                    frames += batch.feats.shape[0] * (
-                        batch.feats.shape[1] if batch.feats.ndim == 3 else 1)
+                    frames += feats_h.shape[0] * (
+                        feats_h.shape[1] if feats_h.ndim == 3 else 1)
+                if show_progress:
+                    # a single train step shows its loss, as tpukaldi's
+                    # does (a sync, accepted on interactive use)
+                    status = f"{label} | (Batch {n}/{n_batches})"
+                    if kind == "single" and train:
+                        status += f" | L:{float(loss):.3f}"
+                    print(f"\r{status}", end="", flush=True)
+        if show_progress and n:
+            print()
         # one device-to-host fetch per chunk, split as tpukaldi splits it:
         # the wait for the queued steps, then the stats' transfer
         t0 = tick()

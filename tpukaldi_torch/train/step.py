@@ -111,8 +111,8 @@ class StepGraph:
 
     The batch reaches the graph through static device buffers (`feats`,
     `labs` and, for a sequence model, `n_valid_t` as a 0-d int32 tensor,
-    as tpukaldi passes `n_valid_k`): `load` copies a pinned host batch into
-    them without blocking, `replay` runs the step and returns copies of its
+    as tpukaldi passes `n_valid_k`): `load` copies a pinned host batch, or
+    one the device cache assembled, into them without blocking, `replay` runs the step and returns copies of its
     loss and err, which the next replay overwrites.  A train graph draws
     its dropout masks from `generator`, registered with the graph, so a
     replay after `generator.manual_seed(s)` draws what an eager step after
@@ -147,8 +147,9 @@ class StepGraph:
 
     def load(self, feats: torch.Tensor, labs: torch.Tensor,
              n_valid_t: Optional[int]) -> None:
-        """The batch into the static buffers, in stream order (`feats` and
-        `labs` pinned host tensors: the copies do not block the host)."""
+        """The batch into the static buffers, in stream order: `feats` and
+        `labs` are pinned host tensors (the copies do not block the host)
+        or tensors on the device (the device cache's gather)."""
         self.feats.copy_(feats, non_blocking=True)
         self.labs.copy_(labs, non_blocking=True)
         if self.n_valid_t is not None:
