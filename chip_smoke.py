@@ -212,6 +212,32 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    counted and two utterances' posteriors held to the CPU path.  The
    phase prints its seconds; K1's rows of the kernels line carry their
    launches on this fusion path as `fusion_launches`.
+10. Rate-differing phase (`rate_phase`), the raw-wave front ends that read
+   16 kHz samples against 10 ms labels (a 6-int max_seq_length) into the
+   flagship's 5x550 liGRU and heads (`flagship_tree.write_rate_cfg`):
+   logMelFb_liGRU (40 mels, window 400, shift 160), PASE_liGRU (PASE at
+   its published defaults, emb 100, window = shift = 160) and
+   chavg_logMelFb_liGRU (channel_averaging over 6 channels, equal
+   weights, then logMelFb), over trees of the TIMIT tree's utterance
+   lengths as waveforms (`RATE_SPLITS`).  (a) Each front end on the card
+   against a float64 CPU run of the same module (logMelFb in log10 units
+   on bins within RATE_MEL_FLOOR of the utterance's largest energy, PASE
+   in train and eval mode, channel_averaging); (b) the first two trained
+   through `run_experiment` (2 epochs of 2 chunks, then the forward stage
+   at batch 1) and the third for one chunk and its forward: K1f once per
+   layer per batch and K1b once per layer per train batch, the plain scan
+   never on the card, every chunk on the host path (rate-differing), one
+   finite posterior row per label frame; each first train chunk at drop 0
+   against a CPU twin (RATE_TWIN_TOL); (c) a train step of each held to
+   float64 by `step_check`'s rule (`held_step`); (d) a chunk of long
+   utterances at K = 8, its steps replayed on CUDA graphs keyed by the
+   sample-rate T (cuFFT and cuDNN inside), bitwise the K = 1 chunk under
+   deterministic cuDNN; (e) that chunk again at the card's defaults, warm
+   (its steps replayed), under the profiler: samples/s, idle share,
+   phase_dispatch and the front end's device ms against the liGRU
+   recurrence's; (f) bf16 compute mode refused before any output.  K1's
+   rows of the kernels line carry these runs' launches as
+   `rate_launches`.
 
 The plain path of a TIMIT recurrent recipe is `*_impl = scan`, the plain
 loop through autograd.  The QLSTM's is its bf16-U kernels' plain versions,
@@ -3063,25 +3089,38 @@ def _k1b_relu(record):
     record.extend(reversed(calls))
 
 
+# a liGRU relu decision counts where the float64 gradient reaching relu(a_h)
+# exceeds this share of the layer's largest: below it a flipped decision
+# moves no gradient beyond float32's rounding, and K1b's dff, from which
+# its decisions are read, can round to 0 there whatever relu' is (a gate z
+# that rounds to 1 in the kernel makes 1 - z vanish: seen at g = 3e-13)
+RELU_G_FLOOR = 1e-6
+
+
 def _relu_ties(recipe, path, pos, a_r, g_r, a_s):
     """Where a path's liGRU relu decisions `pos` differ from the float64
     run's (pre-activations `a_r`), on the elements whose relu output the
-    loss depends on (`g_r` not zero): a (where, pos) pair a layer, and each
-    such element as (layer, t, b', unit, a_h in float64).  Each must be a
-    near tie: |a_h| within the plain float32 path's own error of a_h in
-    that layer (`a_s` against `a_r`), else the check fails."""
+    loss depends on (`g_r` above RELU_G_FLOOR of its layer's largest): a
+    (where, pos) pair a layer, and each such element as (layer, t, b',
+    unit, a_h in float64).  Each must be a near tie: |a_h| within the plain
+    float32 path's own error of a_h in that layer (`a_s` against `a_r`),
+    else the check fails."""
     check(len(pos) == len(a_r) == len(g_r) == len(a_s),
           f"{recipe}: relu decisions of {len(pos)} {path} path layers, "
           f"{len(a_r)} float64 layers")
     decide, ties = [], []
     for i, (p, a, g, a32) in enumerate(zip(pos, a_r, g_r, a_s)):
-        where = (p != (a > 0)) & (g != 0)
+        where = (p != (a > 0)) & (g.abs() > RELU_G_FLOOR * g.abs().max())
         err = (a32.double() - a).abs().max().item()
         worst = a[where].abs().max().item() if where.any() else 0.0
+        at = (a.abs() * where).flatten().argmax().item()
         check(worst <= err,
               f"{recipe}: the {path} path's relu decision in layer {i} "
               f"differs from float64's at |a_h| = {worst}, beyond the plain "
-              f"float32 path's own error of a_h in that layer, {err}")
+              f"float32 path's own error of a_h in that layer, {err} (the "
+              f"float64 gradient at relu(a_h) there: "
+              f"{g.flatten()[at].item():.3e}, the layer's largest "
+              f"{g.abs().max().item():.3e})")
         decide.append((where, p))
         ties += [(i, *idx, a[tuple(idx)].item())
                  for idx in where.nonzero().tolist()]
@@ -3117,6 +3156,23 @@ def step_check(modules, trees, recipe) -> None:
                                cuts, recipe=src)
     cfg_s = ft.write_train_cfg(tree, out_step, os.path.join(out_step, "s.cfg"),
                                {**cuts, **_plain_replace(recipe)}, recipe=src)
+    # the raw recipes' conv biases sit before a layer norm, whose mean
+    # cancels them
+    held_step(modules, recipe, recipe, cfg_k, cfg_s,
+              r"\w+\.conv\.\d+\.bias" if _raw(recipe) else None)
+
+
+def held_step(modules, recipe, label, cfg_k, cfg_s, inert_re=None) -> None:
+    """`step_check`'s rule on one pair of cfgs at drop 0 (the kernel path's
+    and the plain path's, which differ in the recipe's `*_impl`), printed
+    under `label`: their loss within STEP_LOSS_ATOL, the kernel path's
+    gradients within STEP_GRAD_FACTOR times the plain path's distance from
+    a float64 step (for the liGRU each path's own relu decisions at its
+    near ties).  `recipe` names the recurrence (its plain path).  The
+    parameters `inert_re` matches have no gradient (a bias that a
+    normalisation's mean cancels): they are held to be tiny instead."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
     relu_k, a_s, a_r, g_r = [], [], [], []
     with _k1b_relu(relu_k):
         loss_k, grads_k, shape = ft.train_step_gradients(cfg_k, "cuda")
@@ -3132,24 +3188,22 @@ def step_check(modules, trees, recipe) -> None:
     # each path's float64 run with its own relu decisions at near ties
     refs, ties = {}, {}
     for path, pos in (("kernel", relu_k), ("plain", [a > 0 for a in a_s])):
-        decide, ties[path] = _relu_ties(recipe, path, pos, a_r, g_r, a_s)
+        decide, ties[path] = _relu_ties(label, path, pos, a_r, g_r, a_s)
         refs[path] = grads_r
         if ties[path]:
             with _plain_path(recipe, modules)[0], _scan_relu(decide=decide):
                 _, refs[path], _ = ft.train_step_gradients(
                     cfg_s, "cuda", torch.float64)
 
-    # the raw recipes' conv biases sit before a layer norm, whose mean
-    # cancels them: their gradient is exactly zero (float64 gives 1e-16 of
-    # noise, float32 1e-7, K6 an exact zero), so they are held to be tiny,
-    # not to a relative error
-    inert = {n for n in grads_k
-             if _raw(recipe) and re.fullmatch(r"\w+\.conv\.\d+\.bias", n)}
+    # a bias before a normalisation has an exactly zero gradient (float64
+    # gives 1e-16 of noise, float32 1e-7, K6 an exact zero), so it is held
+    # to be tiny, not to a relative error
+    inert = {n for n in grads_k if inert_re and re.fullmatch(inert_re, n)}
     top = max(g.double().abs().max().item() for g in grads_r.values())
     for grads in (grads_k, grads_s):
         for n in inert:
             check(grads[n].abs().max().item() <= 1e-5 * top,
-                  f"{recipe}: {n} should be ~0, is {grads[n].abs().max()}")
+                  f"{label}: {n} should be ~0, is {grads[n].abs().max()}")
 
     def worst(grads, ref):
         """(max over tensors of max|g - ref| / max|ref|, that tensor)"""
@@ -3179,7 +3233,7 @@ def step_check(modules, trees, recipe) -> None:
             + f"; against the float64 run's own decisions: kernel path "
             f"{raw_k[0]:.3e} ({raw_k[1]}), plain path {raw_s[0]:.3e} "
             f"({raw_s[1]})")
-    print(f"training {recipe} step at drop 0 (batch {tuple(shape)}, "
+    print(f"training {label} step at drop 0 (batch {tuple(shape)}, "
           f"{len(grads_k)} gradients): loss kernel {loss_k:.7f} plain "
           f"{loss_s:.7f} float64 {loss_r:.7f}, kernel vs plain |diff|="
           f"{loss_err:.3e} (atol {STEP_LOSS_ATOL:g}); worst gradient error vs "
@@ -3188,9 +3242,9 @@ def step_check(modules, trees, recipe) -> None:
           f"{STEP_GRAD_FACTOR:g}); kernel vs plain {err_ks:.3e} ({name_ks})"
           + tie_note, flush=True)
     check(loss_err <= STEP_LOSS_ATOL,
-          f"{recipe} train step loss differs by {loss_err}")
+          f"{label} train step loss differs by {loss_err}")
     check(err_k <= STEP_GRAD_FACTOR * err_s,
-          f"{recipe} kernel path gradients {err_k} from float64, plain path {err_s}")
+          f"{label} kernel path gradients {err_k} from float64, plain path {err_s}")
 
 
 def _zoo_no_drop(src):
@@ -3583,6 +3637,7 @@ LAYERS = (
     ("cuDNN conv (layers 1-3, forward and backward)",
      ("fprop", "dgrad", "wgrad", "convolve", "conv2d", "cudnn")),
     ("max-pool (layers 1-3)", ("max_pool", "MaxPool")),
+    ("cuFFT (logMelFb)", ("fft",)),
     ("GEMM (FF, heads, K4b's dU, their backward)",
      ("gemm", "Gemm", "cutlass", "xmma", "sm90_", "splitKreduce")),
     ("batchnorm", ("batch_norm", "batchnorm", "welford", "bn_")),
@@ -3593,6 +3648,14 @@ LAYERS = (
     ("H2D copy", ("Memcpy HtoD",)),
     ("D2H copy", ("Memcpy DtoH",)),
 )
+
+
+# the rows of LAYERS that the rate configurations' front ends run (PASE's
+# convolutions are cuDNN's), and their liGRU's recurrence
+RATE_FRONT_ROWS = ("cuFFT (logMelFb)",
+                   "cuDNN conv (layers 1-3, forward and backward)")
+RATE_LIGRU_ROWS = ("K1f", "K1b remat", "K1b sequential",
+                   "dU passes (K1b, K2b, K3b)")
 
 
 def _by_layer(per_op):
@@ -3930,6 +3993,443 @@ def device_cache_phase(trees, trained, card) -> None:
               + (f" ({why})" if n_host else ""), flush=True)
 
 
+# the rate-differing phase (`rate_phase`): logMelFb, PASE and
+# channel_averaging feeding the flagship's 5x550 liGRU and heads
+# (`flagship_tree.write_rate_cfg`), over trees whose wave stream carries
+# the TIMIT tree's utterances (150-778 label frames) as 16 kHz samples,
+# 160 (n - 1) + 400 of them for logMelFb's window, 160 n for PASE's
+# decimation.  name -> the front end, its window and the stream's channels
+RATE_CONFIGS = {
+    "logMelFb_liGRU": dict(front="logMelFb", window=400, channels=1),
+    "PASE_liGRU": dict(front="PASE", window=160, channels=1),
+    "chavg_logMelFb_liGRU": dict(front="chavg_logMelFb", window=400,
+                                 channels=6),
+}
+# the two configurations trained through run_experiment; the chavg one
+# runs one step check and one forward (after a one-chunk run)
+RATE_TRAINED = ("logMelFb_liGRU", "PASE_liGRU")
+# the trees' splits: utterances of the TIMIT tree's lengths, cut from its
+# 64/16/192 to 12/4/24 (the forward runs one utterance a batch, and the
+# first train chunk's twin runs on the CPU: 6 utterances, one batch of
+# 199-frame pieces); the chavg tree smaller still.  The step graph trees
+# hold long utterances, whose 199-frame pieces fill one bucket, so that a
+# chunk forms groups of 8 (and the warm chunk's steps replay)
+RATE_SPLITS = {"train": (12, 150, 778), "dev": (4, 150, 778),
+               "test": (24, 150, 778)}
+RATE_CHAVG_SPLITS = {"train": (8, 150, 778), "dev": (2, 150, 778),
+                     "test": (4, 150, 778)}
+RATE_MS_SPLITS = {"train": (48, 700, 778), "dev": (8, 700, 778),
+                  "test": (2, 150, 200)}
+RATE_CHAVG_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
+                   "n_chunks = 5": "n_chunks = 1"}
+RATE_MS_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
+                "n_chunks = 5": "n_chunks = 1"}
+# (a) the front ends on the card against a float64 CPU run of the same
+# module: logMelFb in log10 units on the mel bins whose float64 energy is
+# at least RATE_MEL_FLOOR of its utterance's largest (below, the float32
+# power spectrum's rounding dominates); PASE and channel_averaging
+# relative to their largest output
+RATE_LOGMEL_ATOL = 1e-3
+RATE_MEL_FLOOR = 1e-8
+RATE_FRONT_RTOL = 1e-4
+# (b) the first train chunk's .info loss and err against a CPU twin at
+# drop 0, relative and absolute (the device cache phase's rule)
+RATE_TWIN_TOL = 5e-3
+
+
+def _rate_cfg(tree, name, out, file, cuts, pase_json):
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    os.makedirs(out, exist_ok=True)
+    return ft.write_rate_cfg(tree, out, os.path.join(out, file),
+                             RATE_CONFIGS[name]["front"], cuts,
+                             pase_cfg=pase_json)
+
+
+def _rate_trees(pase_json):
+    """name -> its tree (and `ms_<name>`: the step graph trees)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    with open(pase_json, "w") as f:
+        json.dump({"emb_dim": 100}, f)  # the published defaults otherwise
+    trees = {}
+    for name, c in RATE_CONFIGS.items():
+        kinds = [(name, RATE_CHAVG_SPLITS if c["channels"] > 1
+                  else RATE_SPLITS)]
+        if name in RATE_TRAINED:
+            kinds.append((f"ms_{name}", RATE_MS_SPLITS))
+        for key, splits in kinds:
+            trees[key] = ft.write_kaldi_tree(
+                os.path.join(WORK, f"rate_tree_{key}"), dim=40,
+                n_phones=N_PHONES, n_pdfs=N_PDFS, splits=splits,
+                wave_window=c["window"], wave_channels=c["channels"])
+    return trees
+
+
+def _first_batch(cfg):
+    """The first train batch of the cfg's first train chunk (host path)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    exp, plan = ft.train_plan(cfg)
+    task = plan.epochs[0].tasks[0]
+    rt = ChunkRuntime(exp, "cpu")
+    chunk = rt.load_task_chunk(task)
+    bs = rt._effective_bs(chunk, exp.batches.batch_size_train[0])
+    batch = next(rt._batches(chunk, bs, True, task.seed))
+    return exp, torch.from_numpy(batch.feats)
+
+
+def rate_front_check(cfgs) -> None:
+    """(a) logMelFb, PASE (train and eval mode) and channel_averaging on
+    the card at the main path's first batch against a float64 CPU run of
+    the same module with the same weights."""
+    from tpukaldi_torch.models import PASE, channel_averaging, logMelFb
+
+    exp, x = _first_batch(cfgs["logMelFb_liGRU"])
+    opts = exp.archs["logmel_front"].options
+    got = logMelFb(opts, 1).cuda()(x.cuda()).cpu().double()
+    want = logMelFb(opts, 1).double()(x.double())
+    # per utterance (column b): bins within RATE_MEL_FLOOR of its largest
+    # float64 energy
+    top = want.amax(dim=(0, 2), keepdim=True)
+    keep = want >= top + math.log10(RATE_MEL_FLOOR)
+    err = float((got - want).abs()[keep].max())
+    print(f"rate (a) logMelFb on the card, batch {tuple(x.shape)} -> "
+          f"{tuple(got.shape)}: max |log10 diff| {err:.3e} against float64 "
+          f"(bound {RATE_LOGMEL_ATOL:g}) on {int(keep.sum())} of "
+          f"{keep.numel()} mel bins (energy >= {RATE_MEL_FLOOR:g} of the "
+          "utterance's largest)", flush=True)
+    check(err <= RATE_LOGMEL_ATOL, f"logMelFb on the card {err} from float64")
+
+    def rel(a, b):
+        return float((a.cpu().double() - b).abs().max() / b.abs().max())
+
+    exp, x = _first_batch(cfgs["PASE_liGRU"])
+    opts = exp.archs["PASE_front"].options
+    card = PASE(opts, 1)
+    card.reset_parameters(torch.Generator().manual_seed(3))
+    ref = PASE(opts, 1).double()
+    ref.load_state_dict(card.state_dict())
+    card.cuda()
+    errs = {}
+    for mode in ("train", "eval"):
+        if mode == "eval":
+            # the reference's running statistics, after its train forward
+            card.load_state_dict(ref.state_dict())
+        card.train(mode == "train")
+        ref.train(mode == "train")
+        with torch.no_grad():
+            errs[mode] = rel(card(x.cuda()), ref(x.double()))
+    print(f"rate (a) PASE on the card (emb 100, published defaults), batch "
+          f"{tuple(x.shape)}: max |diff| / max |float64| train mode "
+          f"{errs['train']:.3e}, eval mode {errs['eval']:.3e} (bound "
+          f"{RATE_FRONT_RTOL:g})", flush=True)
+    check(max(errs.values()) <= RATE_FRONT_RTOL,
+          f"PASE on the card {errs} from float64")
+
+    exp, x = _first_batch(cfgs["chavg_logMelFb_liGRU"])
+    opts = exp.archs["chavg_front"].options
+    err = rel(channel_averaging(opts, 6).cuda()(x.cuda()),
+              channel_averaging(opts, 6)(x.double()))
+    print(f"rate (a) channel_averaging on the card, batch {tuple(x.shape)}: "
+          f"max |diff| / max |float64| {err:.3e} (bound {RATE_FRONT_RTOL:g})",
+          flush=True)
+    check(err <= RATE_FRONT_RTOL, f"channel_averaging {err} from float64")
+
+
+@contextlib.contextmanager
+def _cuda_scans(calls):
+    """Each call of the liGRU's plain scan on a CUDA tensor, by its ff's
+    shape, while in place (under `auto` there must be none: no fallback)."""
+    from tpukaldi_torch.kernels import ligru
+    from tpukaldi_torch.models import recurrent
+
+    saved = {m: m.ligru_recurrence_ref for m in (ligru, recurrent)}
+
+    def counted(scan):
+        def call(ff, *args, **kwargs):
+            if ff.is_cuda:
+                calls.append(tuple(ff.shape))
+            return scan(ff, *args, **kwargs)
+        return call
+
+    for m, scan in saved.items():
+        m.ligru_recurrence_ref = counted(scan)
+    try:
+        yield
+    finally:
+        for m, scan in saved.items():
+            m.ligru_recurrence_ref = scan
+
+
+def _label_frames(tree, split):
+    """Utterance -> its label frames (the 40-dim stream's rows)."""
+    from tpukaldi_torch.io import read_mat_scp
+
+    return {k: m.shape[0] for k, m in read_mat_scp(
+        os.path.join(tree, "data", split, "feats.scp"))}
+
+
+def rate_run(modules, name, tree, cfg) -> dict:
+    """(b) One rate configuration through `run_experiment(device="cuda")`,
+    counted: K1f once per layer per train, valid and forward batch, K1b
+    once per layer per train batch, no other kernel, no plain scan on the
+    card, every train and valid chunk on the host path (rate-differing);
+    the ark one finite row per label frame of each test utterance."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+
+    out = os.path.dirname(cfg)
+    scans = []
+    _reset_counts(modules, chunk_runtime)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _cuda_scans(scans):
+        run_experiment(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts(modules)
+    _check_only(counts, "liGRU", f"{name} run")
+    n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
+                               chunk_runtime.valid_batches,
+                               chunk_runtime.forward_batches)
+    fwd, bwd = counts["ligru_fwd"], counts["ligru_bwd"]
+    paths = (chunk_runtime.cache_chunks, chunk_runtime.host_chunks,
+             chunk_runtime.host_reason)
+    steps = _graph_counts(chunk_runtime)
+    infos = {f: chunk_runtime.read_info(p)
+             for f, p in _train_infos(out).items()}
+    check(fwd > 0 and bwd > 0 and fwd == 5 * (n_train + n_valid + n_fwd)
+          and bwd == 5 * n_train,
+          f"{name}: K1f {fwd}, K1b {bwd} launches for {n_train} train, "
+          f"{n_valid} valid, {n_fwd} forward batches of 5 layers")
+    check(not scans, f"{name}: the plain scan ran on the card: {scans[:4]}")
+    check(paths[0] == 0 and paths[1] == len(infos)
+          and "rate-differing" in paths[2],
+          f"{name}: {paths[0]} chunks took the cache, {paths[1]} the host "
+          f"path ({paths[2]!r}) of {len(infos)}")
+    for f, v in infos.items():
+        check(math.isfinite(v["loss"]) and math.isfinite(v["err"]),
+              f"{name} {f}: {v}")
+    posts, info = ft.forward_outputs(out)
+    posts = dict(posts)
+    want = _label_frames(tree, "test")
+    check(sorted(posts) == sorted(want) and n_fwd == len(want),
+          f"{name}: {len(posts)} posteriors, {n_fwd} forward batches for "
+          f"{len(want)} test utterances")
+    for key, post in posts.items():
+        check(post.shape == (want[key], N_PDFS)
+              and bool(np.isfinite(post).all()),
+              f"{name} {key}: posteriors {post.shape}, {want[key]} label "
+              "frames, finite " + str(bool(np.isfinite(post).all())))
+    with open(os.path.join(out, "res.res")) as f:
+        ep = [line.strip() for line in f if line.startswith("ep=")]
+    print(f"rate (b) {name}: run_experiment on the card {wall:.3f} s, "
+          f"{n_train} train + {n_valid} valid + {n_fwd} forward batches; "
+          f"K1f {fwd} (= 5 x {n_train + n_valid + n_fwd}), K1b {bwd} (= 5 x "
+          f"{n_train}), plain scan on the card 0; train and valid chunks: "
+          f"{paths[1]} host path ({paths[2]}), {paths[0]} cache; steps "
+          f"captures {steps['graph_captures']}, replays "
+          f"{steps['graph_replays']}, eager {steps['eager_steps']}; ark "
+          f"{len(posts)} utterances, one finite {N_PDFS}-wide row per label "
+          f"frame; forward stage at batch 1 {info['frames_per_sec']:.1f} "
+          f"frames/s (.info)", flush=True)
+    for line in ep:
+        print(f"rate (b) {name} res.res: {line}", flush=True)
+    for f, v in infos.items():
+        print(f"rate (b) {name} .info {f}: loss={v['loss']:.4f} "
+              f"err={v['err']:.4f} {v['frames_per_sec']:.1f} samples/s, "
+              f"phases {_phases(v)}", flush=True)
+    return {"ligru_fwd": fwd, "ligru_bwd": bwd}
+
+
+def rate_twin(name, cfgs) -> None:
+    """(b) The first train chunk at drop 0 on the card and on the CPU, each
+    from the cfg's seeded init: .info loss and err within RATE_TWIN_TOL."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    res = {}
+    for device, cfg in cfgs.items():
+        exp, plan = ft.train_plan(cfg)
+        task = plan.epochs[0].tasks[0]
+        rt = ChunkRuntime(exp, device)
+        t0 = time.perf_counter()
+        res[device] = rt.run_task(
+            task, epoch_lr={a: s.lr[0] for a, s in exp.archs.items()},
+            batch_size=exp.batches.batch_size_train[0])
+        rt.checkpointer.wait()
+        res[device].wall = time.perf_counter() - t0
+    card, cpu = res["cuda"], res["cpu"]
+    print(f"rate (b) {name} first train chunk at drop 0: card loss "
+          f"{card.loss:.6f} err {card.err:.6f}, CPU twin loss {cpu.loss:.6f} "
+          f"err {cpu.err:.6f} (rtol and atol {RATE_TWIN_TOL:g}); "
+          f"{card.n_batches} steps, card {card.wall:.3f} s, CPU "
+          f"{cpu.wall:.3f} s", flush=True)
+    for k in ("loss", "err"):
+        check(math.isclose(getattr(card, k), getattr(cpu, k),
+                           rel_tol=RATE_TWIN_TOL, abs_tol=RATE_TWIN_TOL),
+              f"{name}: the first train chunk's {k} on the card "
+              f"{getattr(card, k)}, on the CPU {getattr(cpu, k)}")
+
+
+def rate_multistep(modules, name, tree, pase_json) -> None:
+    """(d) One train chunk (and its valid chunk) of long utterances, whose
+    batches form groups, at TPUKALDI_MULTISTEP=1 and 8 under deterministic
+    cuDNN (PASE's weight gradients): the K = 8 run's steps replay CUDA
+    graphs keyed by the sample-rate T, and its .info and checkpoints must
+    be the K = 1 run's bitwise."""
+    runs = {}
+    with _deterministic_cudnn():
+        for k in (1, MS_K):
+            out = os.path.join(WORK, f"rate_ms_{name}_K{k}")
+            cfg = _rate_cfg(tree, name, out, "run.cfg", RATE_MS_CUTS,
+                            pase_json)
+            runs[k] = _ms_run(modules, cfg, k, False)
+    a, g = runs[1], runs[MS_K]
+    same = g["ckpts"] == a["ckpts"] and _ms_ledger(g) == _ms_ledger(a)
+    n = g["train"].n_batches
+    print(f"rate (d) {name} deterministic cuDNN: K1 train loss="
+          f"{a['train'].loss} err={a['train'].err}, K{MS_K} loss="
+          f"{g['train'].loss} err={g['train'].err}; K{MS_K}'s {n} train "
+          f"steps: captures {g['train_steps']['graph_captures']}, replays "
+          f"{g['train_steps']['graph_replays']}, eager "
+          f"{g['train_steps']['eager_steps']}; graph pool {g['pool']} bytes; "
+          f"K{MS_K} vs K1 bitwise {same} (.info and checkpoints)", flush=True)
+    check(same, f"{name}: K{MS_K} differs from K1 under deterministic cuDNN")
+    check(g["counts"] == a["counts"],
+          f"{name}: launches at K{MS_K} {g['counts']}, at K1 {a['counts']}")
+    check(g["train_steps"]["graph_captures"] >= 1
+          and g["train_steps"]["graph_replays"] >= n // 2,
+          f"{name}: K{MS_K} ran {g['train_steps']} of {n} train steps")
+
+
+def rate_warm(name, tree, pase_json) -> None:
+    """(e) The step graph tree's train chunk (24 batches, groups of 8) on a
+    fresh runtime at the card's defaults, once to capture its graphs, then
+    again warm under torch.profiler: samples/s (.info, tpukaldi's count:
+    the padded samples), idle share, phase_dispatch, and the front end's
+    device ms against the liGRU recurrence's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train.chunk_runtime import ChunkRuntime
+
+    cfg = _rate_cfg(tree, name, os.path.join(WORK, f"rate_warm_{name}"),
+                    "run.cfg", RATE_MS_CUTS, pase_json)
+    exp, plan = ft.train_plan(cfg)
+    task = [t for t in plan.epochs[0].tasks if t.phase == "train"][0]
+    kw = dict(epoch_lr={a: s.lr[0] for a, s in exp.archs.items()},
+              batch_size=exp.batches.batch_size_train[0])
+    rt = ChunkRuntime(exp, "cuda")
+    chunk = rt.load_task_chunk(task)
+    rt.run_task(task, chunk=chunk, **kw)
+    rt.checkpointer.wait()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = rt.run_task(task, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rt.checkpointer.wait()
+    busy_us, per_op = _device_events(prof)
+    layers = _by_layer(per_op)
+    front = {k: v for k, v in layers.items() if k in RATE_FRONT_ROWS}
+    rec = {k: v for k, v in layers.items() if k in RATE_LIGRU_ROWS}
+    print(f"rate (e) {name} warm train chunk: {res.n_batches} steps, "
+          f"{res.frames_per_sec:.1f} samples/s (.info), wall {wall:.3f} s, "
+          f"device busy {busy_us / 1e6:.3f} s, idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f}, phase_dispatch "
+          f"{res.phases['dispatch']:.3f} s; front end "
+          f"{sum(front.values()) / 1e3:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in front.items())
+          + f"), liGRU recurrence {sum(rec.values()) / 1e3:.3f} ms ("
+          + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in rec.items()) + ")",
+          flush=True)
+    for layer, us in sorted(layers.items(), key=lambda kv: -kv[1]):
+        print(f"rate (e) {name} warm train chunk layer: {layer}: "
+              f"{us / 1e3:.3f} ms ({us / busy_us:.1%} of busy)", flush=True)
+
+
+def rate_bf16_refusal(tree, name, pase_json) -> None:
+    """(f) In bf16 compute mode, logMelFb and PASE raise NotImplementedError
+    (the class and the dtype named) before any output is written: the out
+    folder is never made."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+
+    out = os.path.join(WORK, f"rate_bf16_{name}")
+    cfg = ft.write_rate_cfg(tree, out, out + ".cfg",
+                            RATE_CONFIGS[name]["front"], TRAIN_CUTS,
+                            pase_cfg=pase_json)
+    cls = "PASE" if name.startswith("PASE") else "logMelFb"
+    try:
+        with _env(TPUKALDI_COMPUTE_DTYPE="bfloat16"):
+            run_experiment(cfg, device="cuda")
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        msg = ""
+    check(cls in msg and "bfloat16" in msg and not os.path.exists(out),
+          f"{name} in bf16: {msg!r}, out folder made {os.path.exists(out)}")
+    print(f"rate (f) {name} at TPUKALDI_COMPUTE_DTYPE=bfloat16: "
+          f"NotImplementedError before any output ({msg})", flush=True)
+
+
+def rate_phase(modules, card) -> dict:
+    """The rate-differing raw-wave path on the card: (a) the front ends
+    against float64; (b) logMelFb_liGRU and PASE_liGRU trained (2 epochs
+    of 2 chunks) and served through run_experiment, counted, their first
+    train chunk against a CPU twin at drop 0, and chavg_logMelFb_liGRU for
+    one chunk and its forward; (c) a train step of each held to float64;
+    (d) a chunk at K = 8 bitwise K = 1; (e) a warm chunk's speed; (f) the
+    bf16 refusal.  Returns K1's launches on the three runs."""
+    pase_json = os.path.join(WORK, "pase.json")
+    os.makedirs(WORK, exist_ok=True)
+    t0 = time.perf_counter()
+    trees = _rate_trees(pase_json)
+    print(f"rate trees: {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    cfgs, twins, steps = {}, {}, {}
+    for name in RATE_CONFIGS:
+        cuts = RATE_CHAVG_CUTS if name not in RATE_TRAINED else TRAIN_CUTS
+        cfgs[name] = _rate_cfg(trees[name], name,
+                               os.path.join(WORK, f"rate_{name}"), "run.cfg",
+                               cuts, pase_json)
+        nd = {**TRAIN_CUTS, **_no_drop("liGRU")}
+        steps[name] = [_rate_cfg(trees[name], name,
+                                 os.path.join(WORK, f"rate_{name}_step"),
+                                 f"{p}.cfg", {**nd, **extra}, pase_json)
+                       for p, extra in (("k", {}), ("s", _scan("liGRU")))]
+        twins[name] = {dev: _rate_cfg(trees[name], name,
+                                      os.path.join(WORK, f"rate_{name}_{dev}"),
+                                      "run.cfg", nd, pase_json)
+                       for dev in ("cuda", "cpu")}
+    _timed("rate (a) front ends", rate_front_check, cfgs)
+    launches = {"ligru_fwd": 0, "ligru_bwd": 0}
+    for name in RATE_CONFIGS:
+        r = _timed(f"rate (b) {name}", rate_run, modules, name, trees[name],
+                   cfgs[name])
+        for k in launches:
+            launches[k] += r[k]
+        if name in RATE_TRAINED:
+            _timed(f"rate (b) {name} twin", rate_twin, name, twins[name])
+    for name in RATE_CONFIGS:
+        # PASE's conv biases sit before its batchnorms, and its last
+        # batchnorm's shift before the liGRU's
+        _timed(f"rate (c) {name} step", held_step, modules, "liGRU", name,
+               *steps[name], r"PASE_front\.(conv\.\d+|emb|emb_bn)\.bias")
+    for name in RATE_TRAINED:
+        _timed(f"rate (d) {name} step graphs", rate_multistep, modules, name,
+               trees[f"ms_{name}"], pase_json)
+        _timed(f"rate (e) {name} warm chunk", rate_warm, name,
+               trees[f"ms_{name}"], pase_json)
+        rate_bf16_refusal(trees[name], name, pase_json)
+    return launches
+
+
 def build_kernels(modules) -> None:
     """Every kernel source, one nvcc each, all at once."""
     from tpukaldi_torch.kernels import _build
@@ -4039,6 +4539,7 @@ def main() -> int:
     trees = _timed("multistep", multistep_all, modules, trees)
     bf16 = _timed("bf16", bf16_phase, modules, trees)
     fusion = _timed("zoo", zoo_phase, modules, trees)
+    rate = _timed("rate", rate_phase, modules, card)
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -4077,6 +4578,8 @@ def main() -> int:
             # K1's launches on the fusion path beside the flagship's
             extra = ({"fusion_launches": fusion[name]} if name in fusion
                      else {})
+            if name in rate:
+                extra["rate_launches"] = rate[name]
             extra.update(_bf16_extra(name, bf16))
             kernels.append(entry(name, rec, trained[recipe][key], **extra))
     # the stack's kernels: launches on its own path, and on the recipe paths

@@ -620,11 +620,15 @@ def test_cuda_device_pins_float32(monkeypatch, raw_tree, tmp_path):
 
 
 def test_registry_resolves_the_raw_front_ends():
+    from tpukaldi_torch.models import PASE, channel_averaging, logMelFb
+
     for lib in ("tpukaldi.models", "tpukaldi_torch.models", "neural_networks"):
         assert resolve("CNN", lib) is CNN
         assert resolve("SincNet", lib) is SincNet
-    with pytest.raises(NotImplementedError, match="still to be ported"):
-        resolve("logMelFb")
+        # the rate-differing raw-wave front ends
+        assert resolve("logMelFb", lib) is logMelFb
+        assert resolve("channel_averaging", lib) is channel_averaging
+        assert resolve("PASE", lib) is PASE
 
 
 def test_cpu_paths_count_no_launch(monkeypatch):

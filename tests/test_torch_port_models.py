@@ -17,14 +17,17 @@ from tpukaldi.compat.torch_import import import_model_par
 from tpukaldi.models.mlp import MLP as JaxMLP
 from tpukaldi.models.recurrent import liGRU as JaxLiGRU
 from tpukaldi_torch.models import (
+    PASE,
     GRU_cudnn,
     LSTM_cudnn,
     MLP,
     RNN,
     RNN_cudnn,
     SRU,
+    channel_averaging,
     fusionRNN,
     liGRU,
+    logMelFb,
     minimalGRU,
     resolve,
 )
@@ -128,8 +131,10 @@ def test_registry_resolves_cfg_libraries():
         assert resolve("MLP", lib) is MLP
         for name, cls in zoo.items():
             assert resolve(name, lib) is cls
-    with pytest.raises(NotImplementedError, match="PASE.*still to be ported"):
-        resolve("PASE")
+        # the rate-differing front ends
+        assert resolve("PASE", lib) is PASE
+        assert resolve("logMelFb", lib) is logMelFb
+        assert resolve("channel_averaging", lib) is channel_averaging
     with pytest.raises(KeyError):
         resolve("liGRU", "my_library")
 

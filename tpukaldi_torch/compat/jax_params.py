@@ -13,7 +13,14 @@ family (tpukaldi's per-layer `w_ih{l}`/`w_hh{l}` (K, in, G*H) and
 `b_ih{l}`/`b_hh{l}` (K, G*H) against torch's per-direction
 `weight_ih_l{l}[_reverse]` (G*H, in) ...), SRU (the same names) and
 fusionRNN (`fuse_wz0`/`fuse_wh0` w/b, `w{i}`/`b{i}`, `bn_wz{i}`,
-`bn_wh{i}`, `u{i}`).
+`bn_wh{i}`, `u{i}`) and PASE (`low_hz`, `band_hz`, `sinc_bn`, `sinc_act`,
+`conv{i}` with flax's NWC kernel (k, in, out) against torch's (out, in, k),
+`bn{i}`, `act{i}`, `emb`, `emb_bn`).  logMelFb and channel_averaging have
+no parameters: empty trees both ways.
+
+`convert_pase_checkpoint` and `convert_pase_checkpoint_file` map a pase
+package state dict onto PASE's tree, as tpukaldi's
+`compat/torch_import.py:217-329` do.
 
 `moments_to_jax` / `moments_from_jax` carry a per-parameter tensor set
 (an optimizer moment such as rmsprop's `square_avg`) through the same two
@@ -50,7 +57,10 @@ _CUDNN = {"LSTM_cudnn": "lstm", "GRU_cudnn": "gru", "RNN_cudnn": "rnn"}
 _DIRECTIONS = ("", "_reverse")
 _SRU = ("w", "vf", "vr", "bf", "br")
 _FUSION = ("fusionRNN", "fusionRNN_jit")
-_PORTED = ("MLP", "QLSTM", "SRU", *_CONV, *_GATES, *_CUDNN, *_FUSION)
+# the front ends without parameters
+_PARAMLESS = ("logMelFb", "channel_averaging")
+_PORTED = ("MLP", "QLSTM", "SRU", "PASE", *_CONV, *_GATES, *_CUDNN, *_FUSION,
+           *_PARAMLESS)
 
 
 def _t(x) -> torch.Tensor:
@@ -190,7 +200,20 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
                     params[key]["bias"], stats[key]["mean"], stats[key]["var"])
             sd[f"u.{i}"] = _t(params[f"u{i}"])
             i += 1
-    else:
+    elif class_name == "PASE":
+        sd["low_hz"] = _t(params["low_hz"])
+        sd["band_hz"] = _t(params["band_hz"])
+        for kind, key, port in _pase_layers(params):
+            if kind == "conv":
+                sd[f"{port}.weight"] = _t(
+                    np.asarray(params[key]["kernel"]).transpose(2, 1, 0))
+                sd[f"{port}.bias"] = _t(params[key]["bias"])
+            elif kind == "bn":
+                _bn(sd, port, params[key]["scale"], params[key]["bias"],
+                    stats[key]["mean"], stats[key]["var"])
+            else:
+                sd[port] = _t(params[key])
+    elif class_name not in _PARAMLESS:
         raise NotImplementedError(
             f"weight mapping for {class_name!r} is still to be ported "
             f"(ported: {', '.join(_PORTED)})")
@@ -198,6 +221,19 @@ def from_jax_params(class_name: str, params: Dict[str, Any],
         _bn(sd, "bn0", params["bn_inp"]["scale"], params["bn_inp"]["bias"],
             stats["bn_inp"]["mean"], stats["bn_inp"]["var"])
     return sd
+
+
+def _pase_layers(tree: Dict[str, Any]):
+    """(kind: conv, bn or act; tpukaldi name; port state_dict prefix) of
+    PASE's layers after the cut-offs, in order, for the blocks `tree` has
+    (tpukaldi's `conv{i}` or the port's `conv.{i}.weight` keys)."""
+    out = [("bn", "sinc_bn", "sinc_bn"), ("act", "sinc_act", "sinc_act")]
+    i = 0
+    while f"conv{i}" in tree or f"conv.{i}.weight" in tree:
+        out += [("conv", f"conv{i}", f"conv.{i}"), ("bn", f"bn{i}", f"bn.{i}"),
+                ("act", f"act{i}", f"act.{i}")]
+        i += 1
+    return out + [("conv", "emb", "emb"), ("bn", "emb_bn", "emb_bn")]
 
 
 def _np(t) -> np.ndarray:
@@ -270,6 +306,23 @@ def to_jax_params(state_dict: Dict[str, Any], class_name: str
                                     "beta": _np(sd[f"ln.{i}.beta"])}
             _put_bn(params, stats, f"bn{i}", _bn_tree(sd, f"bn.{i}"))
             i += 1
+        return params, stats
+
+    if class_name in _PARAMLESS:
+        return params, stats
+
+    if class_name == "PASE":
+        params["low_hz"] = _np(sd["low_hz"])
+        params["band_hz"] = _np(sd["band_hz"])
+        for kind, key, port in _pase_layers(sd):
+            if kind == "conv":
+                params[key] = {
+                    "kernel": _np(sd[f"{port}.weight"]).transpose(2, 1, 0),
+                    "bias": _np(sd[f"{port}.bias"])}
+            elif kind == "bn":
+                _put_bn(params, stats, key, _bn_tree(sd, port))
+            else:
+                params[key] = _np(sd[port])
         return params, stats
 
     if class_name == "QLSTM":
@@ -379,3 +432,99 @@ def moments_from_jax(module: torch.nn.Module,
              for k, v in tree.items() if isinstance(v, dict) and "scale" in v}
     sd = from_jax_params(type(module).__name__, tree, stats)
     return {name: sd[name] for name, _ in module.named_parameters()}
+
+
+def convert_pase_checkpoint(
+    state_dict: Dict[str, Any], options: Dict[str, Any]
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A pase package front-end state dict -> PASE's (params, batch_stats)
+    numpy trees in tpukaldi's naming (tpukaldi's
+    `compat/torch_import.py::convert_pase_checkpoint`).  Module prefixes
+    vary across pase versions, so the modules are read in order of
+    appearance and told apart by their contents: `low_hz_`/`band_hz_` the
+    sinc layer, a prefix with `running_mean` a BatchNorm, a 3-D `weight` a
+    Conv1d ((out, in, k) -> NWC (k, in, out)), a lone 1-D `weight` a PReLU
+    slope (a scalar one broadcast per channel); anything else (workers,
+    decoders) is skipped.  A conv whose shape does not fit the pase_cfg,
+    or a checkpoint that runs out of a module, raises."""
+    from ..models.pase import read_pase_cfg
+
+    cfg = read_pase_cfg(options)
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, val in state_dict.items():
+        prefix, _, leaf = key.rpartition(".")
+        if "num_batches_tracked" not in leaf:
+            groups.setdefault(prefix, {})[leaf] = _np(val)
+    seq = []  # (kind, group) in order of appearance
+    for g in groups.values():
+        if "low_hz_" in g or "band_hz_" in g:
+            seq.append(("sinc", g))
+        elif "running_mean" in g:
+            seq.append(("bn", g))
+        elif "weight" in g and g["weight"].ndim == 3:
+            seq.append(("conv", g))
+        elif "weight" in g and g["weight"].ndim <= 1 and len(g) == 1:
+            seq.append(("prelu", g))
+
+    def take(kind, where):
+        while seq:
+            k, g = seq.pop(0)
+            if k == kind:
+                return g
+        raise ValueError(
+            f"pase checkpoint exhausted looking for a {kind!r} for {where!r}")
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    sinc = take("sinc", "sinc front-end")
+    params["low_hz"] = sinc["low_hz_"].reshape(-1, 1)
+    params["band_hz"] = sinc["band_hz_"].reshape(-1, 1)
+
+    def put_bn(name):
+        g = take("bn", name)
+        params[name] = {"scale": g["weight"], "bias": g["bias"]}
+        stats[name] = {"mean": g["running_mean"], "var": g["running_var"]}
+
+    def put_prelu(name, n_chan):
+        w = take("prelu", name)["weight"].reshape(-1)
+        if w.size == 1:  # torch's scalar PReLU broadcasts per channel
+            w = np.broadcast_to(w, (n_chan,)).copy()
+        params[name] = w
+
+    def put_conv(name, g):
+        conv = {"kernel": g["weight"].transpose(2, 1, 0)}
+        if "bias" in g:
+            conv["bias"] = g["bias"]
+        params[name] = conv
+
+    put_bn("sinc_bn")
+    put_prelu("sinc_act", cfg["sinc_out"])
+    for i, (f, k) in enumerate(zip(cfg["fmaps"], cfg["kwidths"])):
+        g = take("conv", f"conv{i}")
+        if g["weight"].shape[0] != f or g["weight"].shape[2] != k:
+            raise ValueError(
+                f"conv{i}: checkpoint shape {g['weight'].shape} does not "
+                f"match pase_cfg (fmaps={f}, kwidth={k})")
+        put_conv(f"conv{i}", g)
+        put_bn(f"bn{i}")
+        put_prelu(f"act{i}", f)
+    put_conv("emb", take("conv", "emb"))
+    put_bn("emb_bn")
+    return params, stats
+
+
+def convert_pase_checkpoint_file(
+    ckpt_path: str, cfg_path: str, out_ckpt: str
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """`torch.load` a pase checkpoint (a state dict, a `{"model": ...}`
+    blob or a module) and write PASE's weights as a `.ckpt` in the format
+    both packages read, usable as `arch_pretrain_file`."""
+    from ..train.checkpoint import write_checkpoint
+
+    blob = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    sd = blob.get("model", blob) if isinstance(blob, dict) else blob
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    params, stats = convert_pase_checkpoint(sd, {"pase_cfg": cfg_path})
+    write_checkpoint(out_ckpt, params, None, stats)
+    return params, stats

@@ -622,6 +622,11 @@ class DeviceCorpusCache:
         seed: int,
         lst_files: Optional[Dict[str, str]] = None,
     ) -> ChunkIndexData:
+        cc = _chunk_config(max_seq_length)
+        if cc["window_size"] > 1 or cc["window_shift"] > 1:
+            # before the upload: the host path serves these chunks
+            raise CacheUnavailable(
+                "rate-differing (raw-wave) chunks use the host path")
         stores = {n: self.stream(ds, n) for n in fea_names}
         lab_store = self.labels(ds, lab_names) if lab_names else None
         # the chunk's utterance set comes from the planner's .lst of the

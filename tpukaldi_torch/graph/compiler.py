@@ -214,6 +214,13 @@ def apply_graph(
                 continue
             logp = _flatten_out(outs[s.arg1])
             y = get_label(s.arg2)
+            if logp.shape[0] != y.shape[0]:
+                # a front end whose frames do not match the labels (PASE
+                # under a window longer than its decimation) fails, as
+                # tpukaldi's broadcast does; nothing is cropped
+                raise ValueError(
+                    f"{s.op}({s.arg1},{s.arg2}): {logp.shape[0]} output rows "
+                    f"against {y.shape[0]} label rows")
             if s.op == "cost_nll":
                 vals = -logp.gather(1, y[:, None])[:, 0]
             else:

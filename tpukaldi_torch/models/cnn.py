@@ -1,6 +1,7 @@
 """Raw-waveform front-ends: CNN and SincNet (counterpart of tpukaldi's
 `models/cnn.py`, reference neural_networks.py:1464-1665, SincConv
-:1668-1959).
+:1668-1959), and the rate-differing ones without parameters, logMelFb and
+channel_averaging (:658-717; their classes at the end of this file).
 
 Both take flat (N, samples) windows (arch_seq_model = False; the raw-wave
 dump cuts 200 ms windows, `tools/save_raw_fea.py`) and return the flattened
@@ -113,8 +114,12 @@ def sinc_filters_fast(low_hz_, band_hz_, kernel_size: int, sample_rate: int,
     n_ = 2 * math.pi * torch.arange(-half, 0.0, dtype=dt,
                                     device=dev)[None, :] / sample_rate
     low = min_low_hz + torch.abs(low_hz_)
-    high = torch.clamp(low + min_band_hz + torch.abs(band_hz_), min_low_hz,
-                       sample_rate / 2)
+    # jnp.clip as tpukaldi has it: maximum then minimum, whose gradient
+    # splits in half at a bound (torch.clamp passes it whole); the mel init
+    # puts the last filter's high edge exactly at sample_rate / 2
+    high = low + min_band_hz + torch.abs(band_hz_)
+    high = torch.minimum(torch.maximum(high, high.new_full((), min_low_hz)),
+                         high.new_full((), sample_rate / 2))
     band = (high - low)[:, 0]
     f_low = low @ n_
     f_high = high @ n_
@@ -370,3 +375,117 @@ class SincNet(_ConvStack):
 
     def first_layer(self, n_filt, len_filt, device):
         return SincConv(self.options, n_filt, len_filt, device=device)
+
+
+def _mel_filterbank(sample_rate: int, n_fft: int, n_mels: int) -> np.ndarray:
+    """Triangular HTK-scale mel filterbank, (n_fft//2+1, n_mels), float64
+    (tpukaldi's `models/cnn.py::_mel_filterbank`)."""
+    n_freqs = n_fft // 2 + 1
+    freqs = np.linspace(0, sample_rate / 2, n_freqs)
+    mel_pts = np.linspace(_to_mel(0.0), _to_mel(sample_rate / 2), n_mels + 2)
+    hz_pts = _to_hz(mel_pts)
+    fb = np.zeros((n_freqs, n_mels))
+    for m in range(n_mels):
+        lo, ce, hi = hz_pts[m], hz_pts[m + 1], hz_pts[m + 2]
+        up = (freqs - lo) / max(ce - lo, 1e-10)
+        down = (hi - freqs) / max(hi - ce, 1e-10)
+        fb[:, m] = np.maximum(0.0, np.minimum(up, down))
+    return fb
+
+
+def refuse_bf16_input(x: torch.Tensor, class_name: str) -> None:
+    """A front end that has no bf16 compute mode raises on a bf16 input
+    (`train/step.py::refuse_bf16_front_ends` refuses such a run first)."""
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{class_name} has no {x.dtype} compute mode: tpukaldi's fails "
+            "in it; run the front end in float32")
+
+
+class logMelFb(nn.Module):
+    """On-the-fly log-mel front end (reference neural_networks.py:658-699,
+    tpukaldi's `models/cnn.py::logMelFb`): (samples, B, 1) -> (frames, B,
+    n_mels), frames = 1 + (samples - window) // shift.  Frames without
+    centring, a periodic Hann window 0.5 - 0.5 cos(2 pi n / window), the
+    power spectrum of `torch.fft.rfft`, the mel filterbank, log10 of the
+    energies clamped at 1e-20.  The spectrum runs in float32 (float64 for a
+    float64 input); the output returns in the caller's dtype.  No
+    parameters."""
+
+    def __init__(self, options: Dict[str, str], inp_dim: int, device=None):
+        super().__init__()
+        o = options
+        self.options, self.inp_dim = options, inp_dim
+        self.sample_rate = int(o.get("logmelfb_nr_sample_rate", 16000))
+        self.n_mels = int(o["logmelfb_nr_filt"])
+        self.win = int(o["logmelfb_stft_window_size"])
+        self.hop = int(o["logmelfb_stft_window_shift"])
+        # a buffer, not a state_dict entry: it moves with the module and
+        # needs no host copy in a step (a captured one cannot make one)
+        self.register_buffer("fb", torch.from_numpy(_mel_filterbank(
+            self.sample_rate, self.win, self.n_mels)).to(device),
+            persistent=False)
+
+    @staticmethod
+    def compute_out_dim(options: Dict[str, str], inp_dim: int) -> int:
+        return int(options["logmelfb_nr_filt"])
+
+    @property
+    def out_dim(self) -> int:
+        return self.n_mels
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        pass
+
+    def forward(self, x: torch.Tensor, generator=None, lengths=None):
+        refuse_bf16_input(x, "logMelFb")
+        if x.shape[-1] != 1:
+            raise ValueError(f"logMelFb takes one channel, got {x.shape[-1]}")
+        dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+        signal = x[..., 0].t().to(dt)  # (B, samples)
+        # frame t is samples [t * hop, t * hop + win): tpukaldi's index
+        # arithmetic, as a view
+        frames = signal.unfold(1, self.win, self.hop)  # (B, frames, win)
+        n = torch.arange(self.win, dtype=dt, device=x.device)
+        window = 0.5 - 0.5 * torch.cos(2 * math.pi * n / self.win)
+        spec = torch.fft.rfft(frames * window, n=self.win, dim=-1)
+        power = spec.abs() ** 2  # (B, frames, win // 2 + 1)
+        mel = power @ self.fb.to(dt)
+        log_mel = torch.log10(torch.clamp_min(mel, 1e-20))
+        return log_mel.transpose(0, 1).to(x.dtype)
+
+
+class channel_averaging(nn.Module):
+    """Fixed-weight multi-microphone average (reference
+    neural_networks.py:702-717): the `chavg_channelweights` normalised to
+    sum 1 in float32, then the weighted sum over the channels, (T, B, C) ->
+    (T, B, 1) in the caller's dtype.  No parameters."""
+
+    def __init__(self, options: Dict[str, str], inp_dim: int, device=None):
+        super().__init__()
+        self.options, self.inp_dim = options, inp_dim
+        weights = np.array([float(v) for v in
+                            options["chavg_channelweights"].split(",")],
+                           dtype=np.float32)
+        self.register_buffer("weights",
+                             torch.from_numpy(weights / weights.sum()).to(device),
+                             persistent=False)
+
+    @staticmethod
+    def compute_out_dim(options: Dict[str, str], inp_dim: int) -> int:
+        return 1
+
+    @property
+    def out_dim(self) -> int:
+        return 1
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        pass
+
+    def forward(self, x: torch.Tensor, generator=None, lengths=None):
+        if x.shape[-1] != self.weights.shape[0]:
+            raise ValueError(
+                f"channel_averaging has {self.weights.shape[0]} channel "
+                f"weights, its input {x.shape[-1]} channels")
+        return torch.einsum("tbc,c->tb", x,
+                            self.weights.to(x.dtype))[..., None]

@@ -97,7 +97,8 @@ class BatchNorm(nn.BatchNorm1d):
     A bf16 input (the bf16 compute mode) is normalised in float32, its
     moments and the running statistics too, with the (bf16) scale and shift
     widened, and the output returns in bf16: tpukaldi's `_F32BatchNorm`.
-    The state_dict keys are BatchNorm1d's."""
+    An (N, C, L) input is normalised per channel over N and L, as flax's
+    over every axis but the last.  The state_dict keys are BatchNorm1d's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = widen(x)
@@ -109,7 +110,8 @@ class BatchNorm(nn.BatchNorm1d):
                                 self.eps).to(x.dtype)
         y = F.batch_norm(xf, None, None, weight, bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(xf.detach(), dim=0, correction=0)
+            dims = (0, 2) if xf.ndim == 3 else 0
+            var, mean = torch.var_mean(xf.detach(), dim=dims, correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1

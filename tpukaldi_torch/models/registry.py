@@ -11,10 +11,11 @@ from typing import Dict, Type
 
 from torch import nn
 
-from .cnn import CNN, SincNet
+from .cnn import CNN, SincNet, channel_averaging, logMelFb
 from .cudnn_like import GRU_cudnn, LSTM_cudnn, RNN_cudnn
 from .fusion import fusionRNN, fusionRNN_jit
 from .mlp import MLP
+from .pase import PASE
 from .quaternion import QLSTM
 from .recurrent import GRU, LSTM, RNN, liGRU, minimalGRU
 from .sru import SRU
@@ -25,11 +26,9 @@ _REGISTRY: Dict[str, Type[nn.Module]] = {
     "MLP": MLP, "liGRU": liGRU, "LSTM": LSTM, "GRU": GRU, "QLSTM": QLSTM,
     "CNN": CNN, "SincNet": SincNet, "RNN": RNN, "minimalGRU": minimalGRU,
     "LSTM_cudnn": LSTM_cudnn, "GRU_cudnn": GRU_cudnn, "RNN_cudnn": RNN_cudnn,
-    "SRU": SRU, "fusionRNN": fusionRNN, "fusionRNN_jit": fusionRNN_jit}
-
-# tpukaldi's classes the port does not have yet (ROADMAP.md, queue 1); no
-# shipped cfg names them
-NOT_PORTED = ("logMelFb", "channel_averaging", "PASE")
+    "SRU": SRU, "fusionRNN": fusionRNN, "fusionRNN_jit": fusionRNN_jit,
+    "logMelFb": logMelFb, "channel_averaging": channel_averaging,
+    "PASE": PASE}
 
 
 def resolve(class_name: str, library: str = "tpukaldi.models") -> Type[nn.Module]:
@@ -39,8 +38,4 @@ def resolve(class_name: str, library: str = "tpukaldi.models") -> Type[nn.Module
             f"({', '.join(LIBRARIES)})")
     if class_name in _REGISTRY:
         return _REGISTRY[class_name]
-    if class_name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model class {class_name!r} is still to be ported to "
-            f"tpukaldi_torch (ported: {', '.join(sorted(_REGISTRY))})")
     raise KeyError(f"unknown model class {class_name!r}")

@@ -25,7 +25,12 @@ frequency follows each frame's pdf, plus noise, cut by `save_raw_fea`'s
 (3200 is the recipes' 200 ms at 16 kHz; narrower windows keep a test
 small), so features and labels share one rate.  The QLSTM's quaternion
 projection needs its spliced input, (2 + 1 + 2) x the stream width, to be a
-multiple of 4: a 40-dim stream gives 200.
+multiple of 4: a 40-dim stream gives 200.  With `wave_window`, a tree also
+carries a rate-differing stream, `data/<split>/feats_wave.scp`: per
+utterance the same kind of waveform as one column of 160 (T - 1) +
+wave_window samples for T label frames (400 for logMelFb's 25 ms window,
+160 for PASE's decimation), `wave_channels` columns for a multi-microphone
+one (each its own noise), which `write_rate_cfg` points a front end at.
 
 The LSTM, GRU and QLSTM recipes have no `*_impl` line (tpukaldi reads
 `auto` then), and an override of a field the cfg lacks is refused, so a run
@@ -67,7 +72,12 @@ from ..io.transition_model import (
 from ..plan import build_plan
 from ..plan.planner import ExperimentPlan
 from ..train.checkpoint import save_all
-from ..train.chunk_runtime import ChunkRuntime, batch_seed, read_info
+from ..train.chunk_runtime import (
+    ChunkRuntime,
+    batch_seed,
+    out_lengths,
+    read_info,
+)
 from ..train.step import forward_step, train_step
 from .save_raw_fea import window_signal
 
@@ -148,15 +158,20 @@ def write_kaldi_tree(
     seed: int = 21,
     corpus: str = "TIMIT",
     raw_wlen: Optional[int] = None,
+    wave_window: Optional[int] = None,
+    wave_channels: int = 1,
 ) -> str:
     """Write the tree under `root` in `corpus`'s layout (TIMIT or DIRHA);
     `splits` maps train/dev/test to (utterances, min frames, max frames).
-    `raw_wlen` adds the raw stream, windows of that many samples."""
+    `raw_wlen` adds the raw stream, windows of that many samples;
+    `wave_window` the rate-differing wave stream of `wave_channels`
+    columns."""
     tm = transition_model(n_phones, n_pdfs)
     rng = np.random.default_rng(seed)
     # the waveforms draw from their own generator: the other streams stay
     # the same with or without them
     rng_raw = np.random.default_rng(seed + 1)
+    rng_wave = np.random.default_rng(seed + 2)
     means = rng.standard_normal((tm.num_pdfs, dim)) * 2.0
     os.makedirs(os.path.join(root, "exp", "tri3", "graph"), exist_ok=True)
     for n_split, (split, (n, lo, hi)) in enumerate(splits.items(), 1):
@@ -173,9 +188,14 @@ def write_kaldi_tree(
             os.makedirs(raw_dir, exist_ok=True)
             raw = ArkScpWriter(os.path.join(raw_dir, "feats_raw.ark"),
                                os.path.join(raw_dir, "feats_raw.scp"))
+        wave = contextlib.nullcontext()
+        if wave_window:
+            wave = ArkScpWriter(os.path.join(d, "feats_wave.ark"),
+                                os.path.join(d, "feats_wave.scp"))
         with ArkScpWriter(os.path.join(d, "feats.ark"),
                           os.path.join(d, "feats.scp")) as w, \
-                open(os.path.join(d, "utt2spk"), "w") as u2s, raw as rw:
+                open(os.path.join(d, "utt2spk"), "w") as u2s, raw as rw, \
+                wave as ww:
             for i in range(n):
                 T = int(rng.integers(lo, hi + 1))
                 tids = rng.integers(1, tm.num_transition_ids + 1, T)
@@ -187,6 +207,11 @@ def write_kaldi_tree(
                 if raw_wlen:
                     rw.write(key, raw_windows(pdfs, tm.num_pdfs, raw_wlen,
                                               rng_raw))
+                if wave_window:
+                    ww.write(key, np.stack(
+                        [waveform(pdfs, tm.num_pdfs, wave_window, rng_wave)
+                         for _ in range(wave_channels)],
+                        axis=1).astype(np.float32))
                 u2s.write(f"{key} {spk}\n")
                 write_vec_int(ali_buf, tids, key=key)
                 cmvn[spk] = cmvn.get(spk, 0) + compute_cmvn_stats(fea)
@@ -204,19 +229,28 @@ def write_kaldi_tree(
     return root
 
 
-def raw_windows(pdfs: np.ndarray, n_pdfs: int, wlen: int,
-                rng: np.random.Generator) -> np.ndarray:
-    """(T, wlen) float32 windows of a synthetic waveform for T label frames:
-    a sinusoid whose frequency follows each frame's pdf (150-3950 Hz), plus
-    noise, peak-normalised as `dump_raw_features` normalises, cut by
-    `window_signal`.  T * 160 + 400 samples give exactly T windows."""
+def waveform(pdfs: np.ndarray, n_pdfs: int, tail: int,
+             rng: np.random.Generator) -> np.ndarray:
+    """A synthetic float64 waveform of 160 (T - 1) + tail samples for T
+    label frames: a sinusoid whose frequency follows each 10 ms frame's pdf
+    (150-3950 Hz), plus noise, peak-normalised as `dump_raw_features`
+    normalises."""
     T = len(pdfs)
-    n = T * LAB_WSHIFT + LAB_WLEN
+    n = (T - 1) * LAB_WSHIFT + tail
     frame = np.minimum(np.arange(n) // LAB_WSHIFT, T - 1)
     freq = 150.0 + 3800.0 * pdfs[frame] / n_pdfs
     sig = np.sin(2 * np.pi * freq * np.arange(n) / FS)
     sig += 0.05 * rng.standard_normal(n)
-    sig /= np.abs(sig).max()
+    return sig / np.abs(sig).max()
+
+
+def raw_windows(pdfs: np.ndarray, n_pdfs: int, wlen: int,
+                rng: np.random.Generator) -> np.ndarray:
+    """(T, wlen) float32 windows of a synthetic waveform for T label frames
+    (`waveform`), cut by `window_signal`.  T * 160 + 400 samples give
+    exactly T windows."""
+    T = len(pdfs)
+    sig = waveform(pdfs, n_pdfs, LAB_WSHIFT + LAB_WLEN, rng)
     windows = window_signal(sig, wlen, LAB_WLEN, LAB_WSHIFT)
     assert windows.shape == (T, wlen), windows.shape
     return windows.astype(np.float32)
@@ -284,6 +318,108 @@ def write_prod_cfg(
     text = text.replace(f"forward_with = {test_name}_test",
                         f"forward_with = {test_name}_prod")
     return _write_cfg(text, tree, out_folder, cfg_path, replace, recipe)
+
+
+# the rate-differing front ends `write_rate_cfg` puts before the flagship's
+# liGRU: their [architecture] sections (optimizer lines as the flagship's),
+# the samples a label frame's window spans (max_seq_length's 6th entry)
+# and their [model] lines, which end in `out_fe`
+_RMSPROP = """arch_lr = 0.0004
+arch_halving_factor = 0.5
+arch_improvement_threshold = 0.001
+arch_opt = rmsprop
+opt_momentum = 0.0
+opt_alpha = 0.95
+opt_eps = 1e-8
+opt_centered = False
+opt_weight_decay = 0.0
+"""
+_FRONT_ARCH = """[{section}]
+arch_name = {name}
+arch_proto = proto/{proto}.proto
+arch_library = tpukaldi.models
+arch_class = {cls}
+arch_pretrain_file = none
+arch_freeze = False
+arch_seq_model = True
+{options}""" + _RMSPROP
+_LOGMEL = dict(name="logmel_front", proto="logMelFb", cls="logMelFb",
+               options="logmelfb_nr_filt = 40\n"
+                       "logmelfb_stft_window_size = 400\n"
+                       "logmelfb_stft_window_shift = 160\n")
+RATE_FRONTS = {
+    # 40 mels, TIMIT's fbank width, over 25 ms windows every 10 ms
+    "logMelFb": ([_LOGMEL], LAB_WLEN, "out_fe=compute(logmel_front,wave)"),
+    # PASE at its published defaults; its frames need window = shift =
+    # its decimation, 160
+    "PASE": ([dict(name="PASE_front", proto="PASE", cls="PASE",
+                   options="pase_cfg = {pase_cfg}\npase_model = none\n")],
+             LAB_WSHIFT, "out_fe=compute(PASE_front,wave)"),
+    # six microphones averaged with equal weights, then logMelFb
+    "chavg_logMelFb": (
+        [dict(name="chavg_front", proto="channelAvg",
+              cls="channel_averaging",
+              options="chAvg_channelWeights = 1,1,1,1,1,1\n"), _LOGMEL],
+        LAB_WLEN,
+        "out_ch=compute(chavg_front,wave)\n\tout_fe=compute(logmel_front,out_ch)"),
+}
+
+
+def write_rate_cfg(
+    tree: str,
+    out_folder: str,
+    cfg_path: str,
+    front: str = "logMelFb",
+    replace: Optional[Dict[str, str]] = None,
+    pase_cfg: str = "",
+    recurrent: bool = True,
+) -> str:
+    """The flagship recipe with its fMLLR input replaced by a tree's wave
+    stream (`write_kaldi_tree(..., wave_window=...)`) through a front end of
+    `RATE_FRONTS`: logMelFb (40 mels, window 400, shift 160), PASE (the
+    `pase_cfg` json; its defaults without one) or channel_averaging over
+    the stream's columns then logMelFb, then the 5x550 liGRU and its two
+    heads, or the heads alone with `recurrent=False`.  The 6-int
+    `max_seq_length_train = 32000,32000,199,199,160,<window>` reads the
+    samples against the label frames (no curriculum).  `replace` maps cfg
+    lines to their substitutes, after these edits."""
+    sections, window, model = RATE_FRONTS[front]
+    with open(FLAGSHIP_CFG) as f:
+        text = f.read()
+    # the wave stream after each dataset's last (fmllr) stream
+    text, n = re.subn(
+        r"(\tfea_lst=\$KALDI_TIMIT/data/(\w+)/feats_fmllr\.scp\n"
+        r"(?:\t.*\n)*?\tcw_right=0\n)\n",
+        lambda m: (m.group(1) + "\t\n\tfea_name=wave\n"
+                   f"\tfea_lst=$KALDI_TIMIT/data/{m.group(2)}/feats_wave.scp\n"
+                   "\tfea_opts=copy-feats ark:- ark:- |\n"
+                   "\tcw_left=0\n\tcw_right=0\n\n"), text)
+    if n != 3:
+        raise ValueError(f"{n} fmllr streams in {FLAGSHIP_CFG}, expected 3")
+    edits = {
+        "max_seq_length_train = 1000":
+            f"max_seq_length_train = 32000,32000,199,199,{LAB_WSHIFT},{window}",
+        "increase_seq_length_train = True": "increase_seq_length_train = False",
+        "out_dnn1=compute(liGRU_layers,fmllr)":
+            model + ("\n\tout_dnn1=compute(liGRU_layers,out_fe)"
+                     if recurrent else ""),
+        "[model]": "".join(
+            _FRONT_ARCH.format(section=f"architecture{4 + i}",
+                               options=a["options"].format(pase_cfg=pase_cfg),
+                               **{k: a[k] for k in ("name", "proto", "cls")})
+            + "\n" for i, a in enumerate(sections)) + "[model]",
+    }
+    if not recurrent:
+        beg = text.index("[architecture1]")
+        text = text[:beg] + text[text.index("[architecture2]"):]
+    for old, new in edits.items():
+        if old not in text:
+            raise ValueError(f"cfg line {old!r} not found in {FLAGSHIP_CFG}")
+        text = text.replace(old, new)
+    if not recurrent:
+        # the heads read the front end's output
+        text = text.replace("out_fe", "out_dnn1")
+    return _write_cfg(text, tree, out_folder, cfg_path, replace, FLAGSHIP_CFG)
 
 
 def _seeded_graph(cfg_path: str, dim: int):
@@ -408,8 +544,10 @@ def forward_utterances(
         i = chunk.names.index(name)
         feats = torch.from_numpy(
             chunk.feats[int(starts[i]):int(chunk.end_index[i])]).to(rt.device)
-        lengths = torch.tensor([feats.shape[0]], device=rt.device)
+        # a rate-differing utterance's frames: its label frames
+        n = int(out_lengths(chunk, [feats.shape[0]])[0])
+        lengths = torch.tensor([n], device=rt.device)
         outs = forward_step(rt.graph, feats[:, None, :], lengths,
                             {out_name: prior}, compute_dtype=rt.compute_dtype)
-        posts[name] = outs[out_name].cpu().numpy()
+        posts[name] = outs[out_name][:n].cpu().numpy()
     return posts

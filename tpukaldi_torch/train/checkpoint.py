@@ -446,8 +446,9 @@ def load_all(paths: Dict[str, str], modules: Dict[str, nn.Module],
         module = modules[arch]
         params, opt_state, stats = read_checkpoint(path)
         sd = from_jax_params(type(module).__name__, params, stats)
-        device = next(module.parameters()).device
-        module.load_state_dict({k: v.to(device) for k, v in sd.items()})
+        state = module.state_dict()
+        module.load_state_dict({k: v.to(state[k].device) if k in state else v
+                                for k, v in sd.items()})
         opt = (optimizers or {}).get(arch)
         if opt is not None:
             opt.load_state_tree(opt_state, path)

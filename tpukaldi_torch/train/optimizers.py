@@ -50,6 +50,14 @@ class ArchOptimizer:
         self.module = module
         self.kind = arch.optimizer.kind
         self.params: List[nn.Parameter] = list(module.parameters())
+
+        def make(cls, **kw):
+            # a front end without parameters (logMelFb, channel_averaging)
+            # keeps the kind's state layout, empty, and its step count, as
+            # optax's chain over an empty tree does; torch.optim refuses an
+            # empty parameter list
+            return cls(self.params, **kw) if self.params else None
+
         self.lr = float(arch.lr[0])
         # step counters on the device where a graph may capture the step
         self.capturable = any(p.is_cuda for p in self.params)
@@ -69,9 +77,8 @@ class ArchOptimizer:
                     f"arch {self.name!r}: opt_dampening={dampening} is "
                     "unsupported (tpukaldi's optax chain has no momentum "
                     "dampening); use opt_dampening=0")
-            self.opt = torch.optim.SGD(self.params, lr=self.lr,
-                                       momentum=momentum, nesterov=nesterov,
-                                       weight_decay=wd)
+            self.opt = make(torch.optim.SGD, lr=self.lr, momentum=momentum,
+                            nesterov=nesterov, weight_decay=wd)
             layout.append({"trace": "momentum_buffer"} if momentum else {})
         elif self.kind == "adam":
             if bool(o.get("opt_amsgrad", False)):
@@ -81,8 +88,8 @@ class ArchOptimizer:
                     "the bias-corrected second moment, torch.optim.Adam that "
                     "of the raw moment (ROADMAP.md section 3)")
             betas = o.get("opt_betas", [0.9, 0.999])
-            self.opt = torch.optim.Adam(
-                self.params, lr=self.lr,
+            self.opt = make(
+                torch.optim.Adam, lr=self.lr,
                 betas=(float(betas[0]), float(betas[1])),
                 eps=float(o.get("opt_eps", 1e-8)), weight_decay=wd,
                 capturable=self.capturable)
@@ -91,8 +98,9 @@ class ArchOptimizer:
         elif self.kind == "rmsprop":
             centered = bool(o.get("opt_centered", False))
             momentum = float(o.get("opt_momentum", 0.0))
-            self.opt = torch.optim.RMSprop(
-                self.params, lr=self.lr, alpha=float(o.get("opt_alpha", 0.99)),
+            self.opt = make(
+                torch.optim.RMSprop, lr=self.lr,
+                alpha=float(o.get("opt_alpha", 0.99)),
                 eps=float(o.get("opt_eps", 1e-8)), weight_decay=wd,
                 momentum=momentum, centered=centered,
                 capturable=self.capturable)
@@ -168,7 +176,9 @@ class ArchOptimizer:
         for i, part in enumerate(self.layout):
             inner[str(i)] = {
                 field: (np.asarray(count, np.int32) if key == "step"
-                        else moments_to_jax(self.module, moments[key],
+                        # a snapshot of a module without parameters
+                        # carries no moment tensors
+                        else moments_to_jax(self.module, moments.get(key, {}),
                                             state_dict))
                 for field, key in part.items()}
         return {"count": np.asarray(count, np.int32),

@@ -42,6 +42,24 @@ from .optimizers import ArchOptimizer
 # quantize, and whose consumer synthesises the filters in float32 anyway
 _CAST_EXEMPT = ("low_hz", "band_hz")
 
+# the raw-wave front ends that have no bf16 compute mode: tpukaldi's fail
+# in it (logMelFb's `jnp.fft.rfft` refuses a bf16 input; PASE's float32
+# sinc filters meet a bf16 signal in `lax.conv_general_dilated`)
+BF16_REFUSED = ("logMelFb", "PASE")
+
+
+def refuse_bf16_front_ends(class_names, compute_dtype) -> None:
+    """Raise NotImplementedError, naming the class and the dtype, when a
+    run that computes in `compute_dtype` (None: float32) uses one of
+    `BF16_REFUSED`; the runtime calls it before any output is written."""
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return
+    for name in class_names:
+        if name in BF16_REFUSED:
+            raise NotImplementedError(
+                f"{name} has no {compute_dtype} compute mode (tpukaldi's "
+                f"fails in it); run it with compute_dtype = float32")
+
 
 def _cast_compute(graph: GraphSpec, feats: torch.Tensor, compute_dtype
                   ) -> Tuple[Optional[Dict[str, Dict[str, torch.Tensor]]],
