@@ -189,7 +189,7 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    2); the bf16 chunk at K = 8 bitwise the K = 1 chunk, and its warm
    chunk profiled beside a float32 one.
 9. Zoo phase, the classes that have no TPU kernel, each at its shipped
-   cfg's widths (at ZOO_DEPTH = 2 of their layers, but fusionRNN at all
+   cfg's widths (at ZOO_DEPTH = 1 of their layers, but fusionRNN at all
    4): RNN (cfg/TIMIT/RNN_fmllr.cfg, 5x550 bidirectional,
    tanh, batchnorm), minimalGRU (minimalGRU_fbank.cfg, 5x550), LSTM_cudnn
    (LSTM_fmllr_cudnn.cfg, 4x550 bidirectional; torch's LSTM, cuDNN in
@@ -238,6 +238,27 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    recurrence's; (f) bf16 compute mode refused before any output.  K1's
    rows of the kernels line carry these runs' launches as
    `rate_launches`.
+
+11. dist_export phase (`dist_export_phase`), the data-parallel mesh and
+   the serving export on the flagship at full width (5x550
+   bidirectional, batch 8) over the multistep phase's TIMIT tree: (a) a
+   train and a valid chunk at K = 8 in an NCCL group of one rank (the
+   gradient and loss all-reduces captured in the step graphs), its
+   `.info` and checkpoints bitwise those of the run without a group; (b)
+   two gloo ranks on the one card (spawned processes, eager: gloo's
+   collectives do not capture), drop 0: one train step of the first batch
+   split 4/4 against the one-process step (loss and err within
+   DIST_LOSS_ATOL), the summed gradients held to float64 by
+   `held_step`'s rule (each path's own relu decisions at its near ties),
+   both ranks' gradients and weights bitwise equal, each rank's K1f and
+   K1b counted, then a train chunk on each rank, rank 1 writing no file
+   of the run; (c) the trained flagship of (a) exported at symbolic T and
+   B (`tools/export_model.py`), served over the test split on the card
+   against the live `forward_step` (DIST_FWD_ATOL, K1f counted from the
+   artifact's launches) and on the CPU over two utterances against the
+   plain path (DIST_CPU_ATOL).  K1's rows of the kernels line carry
+   `dist_launches` (the NCCL run's, each gloo rank's) and K1f's
+   `export_launches`.
 
 The plain path of a TIMIT recurrent recipe is `*_impl = scan`, the plain
 loop through autograd.  The QLSTM's is its bf16-U kernels' plain versions,
@@ -367,8 +388,9 @@ ZOO = {
     "fusionRNN": ("DIRHA6", "fusionRNN", {}),
 }
 # the step checks of the classes without a kernel run the cfg's widths at
-# this many of their 4-5 layers
-ZOO_DEPTH = 2
+# this many of their 4-5 layers (one, to leave the script's time to the
+# dist_export phase)
+ZOO_DEPTH = 1
 ZOO_GRAD_RTOL = 1e-4
 # fusionRNN's Linear biases sit right before a batchnorm, whose mean cancels
 # them: their gradient is zero but for rounding (CPU and card alike), so
@@ -2233,9 +2255,10 @@ def _ms_weights(rt):
             for k, v in m.state_dict().items()}
 
 
-def _ms_run(modules, cfg, k, warm):
+def _ms_run(modules, cfg, k, warm, mesh=None):
     """One train chunk and one valid chunk of the cfg's first epoch on a
-    fresh runtime at TPUKALDI_MULTISTEP=k: the two ChunkResults and the
+    fresh runtime at TPUKALDI_MULTISTEP=k (under the process group `mesh`
+    where given): the two ChunkResults and the
     train chunk's wall, the checkpoints' bytes, the final weights, the
     kernels' launches, the runtime's step counts and the graphs' pool
     bytes; with `warm`, the same train chunk once more on the same runtime
@@ -2252,7 +2275,7 @@ def _ms_run(modules, cfg, k, warm):
     train = [t for t in tasks if t.phase == "train"][0]
     valid = [t for t in tasks if t.phase == "valid"][0]
     with _env(TPUKALDI_MULTISTEP=str(k)):
-        rt = chunk_runtime.ChunkRuntime(exp, "cuda")
+        rt = chunk_runtime.ChunkRuntime(exp, "cuda", mesh)
     check(rt.multistep_k == k, f"TPUKALDI_MULTISTEP={k} read as "
           f"{rt.multistep_k}")
     chunks = {t.phase: rt.load_task_chunk(t) for t in (train, valid)}
@@ -4430,6 +4453,481 @@ def rate_phase(modules, card) -> dict:
     return launches
 
 
+# the dist_export phase: data parallelism and the serving export on the
+# flagship (5x550 bidirectional liGRU, batch 8) over the multistep phase's
+# TIMIT tree, whose train chunk's batches form groups of 8
+DIST_RECIPE = "liGRU"
+# (b)'s two ranks against the one-process step: loss and err
+DIST_LOSS_ATOL = 1e-5
+# (c) the artifact against the live forward: on the card, and on the CPU
+# (over DIST_CPU_UTTS utterances) against the plain path
+DIST_FWD_ATOL = 1e-5
+DIST_CPU_ATOL = 1e-4
+DIST_CPU_UTTS = 2
+DIST_RANKS = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_cfg(trees, name, no_drop=False, replace=None):
+    """The flagship at full width over the multistep TIMIT tree, one train
+    chunk a epoch, in a folder of its own."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    out = os.path.join(WORK, f"dist_{name}")
+    os.makedirs(out)
+    cuts = {**_cuts(DIST_RECIPE), "n_chunks = 5": "n_chunks = 1",
+            **(_no_drop(DIST_RECIPE) if no_drop else {}), **(replace or {})}
+    return ft.write_train_cfg(trees["MS_TIMIT"], out,
+                              os.path.join(out, "run.cfg"), cuts,
+                              recipe=ft.recipe_cfg(DIST_RECIPE)), out
+
+
+def dist_nccl_check(modules, trees) -> dict:
+    """(a) One train chunk and one valid chunk at K = MS_K, without a
+    process group and in an NCCL group of one rank (its gradient and loss
+    all-reduces captured in the step graphs): the `.info` loss and err and
+    the checkpoints bitwise the same.  Returns the NCCL run's cfg (its
+    train checkpoints copied to the final ones) and kernel counts."""
+    from tpukaldi_torch import dist
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    runs, cfgs = {}, {}
+    for name in ("one", "nccl1"):
+        cfgs[name], _ = _dist_cfg(trees, name)
+        mesh = None
+        if name == "nccl1":
+            dist.init_distributed(f"localhost:{_free_port()}", 1, 0,
+                                  device="cuda:0")
+            mesh = dist.data_parallel_mesh("cuda:0")
+            check(mesh.backend == "nccl" and mesh.world_size == 1,
+                  f"the NCCL group: {mesh}")
+        try:
+            runs[name] = _ms_run(modules, cfgs[name], MS_K, False, mesh)
+        finally:
+            if mesh is not None:
+                torch.distributed.destroy_process_group()
+    one, nccl = runs["one"], runs["nccl1"]
+    for name, run in runs.items():
+        print(f"dist (a) {name}: train loss={run['train'].loss} "
+              f"err={run['train'].err}, valid loss={run['valid'].loss} "
+              f"err={run['valid'].err} (.info); train steps: captures "
+              f"{run['train_steps']['graph_captures']}, replays "
+              f"{run['train_steps']['graph_replays']}, eager "
+              f"{run['train_steps']['eager_steps']}; "
+              f"{run['train'].frames_per_sec:.1f} frames/s (.info), wall "
+              f"{run['wall']:.3f} s", flush=True)
+    same = nccl["ckpts"] == one["ckpts"] and _ms_ledger(nccl) == _ms_ledger(one)
+    print(f"dist (a) NCCL world size 1 vs no group: .info and checkpoints "
+          f"bitwise {same}; launches {nccl['counts']['ligru_fwd']} K1f, "
+          f"{nccl['counts']['ligru_bwd']} K1b", flush=True)
+    check(same, "NCCL at world size 1 differs from the run without a group")
+    check(nccl["counts"] == one["counts"],
+          f"launches {nccl['counts']} under NCCL, {one['counts']} without")
+    check(nccl["train_steps"]["graph_captures"] >= 1
+          and nccl["train_steps"]["graph_replays"] >= 1,
+          f"no step graph held NCCL's all-reduce: {nccl['train_steps']}")
+    _, plan = ft.train_plan(cfgs["nccl1"])
+    train = [t for t in plan.epochs[0].tasks if t.phase == "train"][0]
+    for arch, final in plan.final_ckpts.items():
+        shutil.copyfile(train.ckpt_files[arch], final)
+    return {"cfg": cfgs["nccl1"], "counts": nccl["counts"]}
+
+
+def _watch_writes(folder: str, seen: list) -> None:
+    """Record every open for writing, and every rename, of a file under
+    `folder`."""
+    import builtins
+
+    folder = os.path.abspath(folder)
+    real_open, real_replace = builtins.open, os.replace
+
+    def under(path):
+        return (isinstance(path, (str, os.PathLike))
+                and os.path.abspath(path).startswith(folder))
+
+    def spy_open(file, mode="r", *args, **kwargs):
+        if under(file) and any(c in mode for c in "wax+"):
+            seen.append(os.fspath(file))
+        return real_open(file, mode, *args, **kwargs)
+
+    def spy_replace(src, dst, *args, **kwargs):
+        if under(dst):
+            seen.append(os.fspath(dst))
+        return real_replace(src, dst, *args, **kwargs)
+
+    builtins.open, os.replace = spy_open, spy_replace
+
+
+def _first_step(cfg, mesh=None, rank=0):
+    """One train step of the cfg's seeded init on the first batch of its
+    first train chunk (the host path), this rank's shard of it under
+    `mesh`, with K1b's relu decisions recorded: loss, err, the shard's and
+    the batch's shapes, the shard's weight, K1f's and K1b's launches, the
+    relu decisions, the gradients and the stepped state, on the host."""
+    from tpukaldi_torch.kernels import ligru
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+    from tpukaldi_torch.train.step import train_step
+
+    exp, plan = ft.train_plan(cfg)
+    task = plan.epochs[0].tasks[0]
+    with _env(TPUKALDI_DEVICE_CACHE="0"):
+        rt = chunk_runtime.ChunkRuntime(exp, "cuda", mesh)
+        chunk = rt.load_task_chunk(task)
+    rt.ensure_initialized(chunk, with_optimizers=True)
+    bs = rt._effective_bs(chunk, exp.batches.batch_size_train[0])
+    batch = next(rt._batches(chunk, bs, True, task.seed))
+    feats, labs, weight = rt.shard(torch.from_numpy(batch.feats),
+                                   torch.from_numpy(batch.labs))
+    n0 = (ligru.launches, ligru.bwd_launches)
+    relu = []
+    rt.generator.manual_seed(chunk_runtime.batch_seed(task.seed, 0, rank))
+    with _k1b_relu(relu):
+        loss, err = train_step(
+            rt.graph, rt.optimizers, feats.contiguous().cuda(),
+            labs.contiguous().cuda(), batch.n_valid_t, rt.generator,
+            rt.compute_dtype, mesh, weight)
+    return dict(
+        loss=loss.item(), err=err.item(), weight=weight,
+        shard=tuple(feats.shape), batch=tuple(batch.feats.shape),
+        step_launches=(ligru.launches - n0[0], ligru.bwd_launches - n0[1]),
+        relu=[r.cpu() for r in relu],
+        grads={f"{a}.{n}": p.grad.detach().cpu()
+               for a, m in rt.graph.modules.items()
+               for n, p in m.named_parameters()},
+        params={f"{a}.{n}": v.detach().cpu()
+                for a, m in rt.graph.modules.items()
+                for n, v in m.state_dict().items()})
+
+
+def _dist_rank(rank, port, cfg_step, cfg_run, out_run, results):
+    """(b) One of two ranks of a gloo group on the one card: one train step
+    of the flagship's first batch (its shard of the 8 columns) with K1b's
+    relu decisions recorded, then the first train chunk of `cfg_run`
+    through `run_task`, rank 1 watched for writes under `out_run`.  Puts
+    its results on `results`."""
+    sys.path.insert(0, REPO)
+    os.environ.update(TPUKALDI_DEVICE_CACHE="0", TPUKALDI_MULTISTEP="1")
+    from tpukaldi_torch import dist
+    from tpukaldi_torch.kernels import ligru
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+
+    torch.cuda.set_device(0)
+    dist.init_distributed(f"localhost:{port}", DIST_RANKS, rank,
+                          device="cuda:0", backend="gloo")
+    mesh = dist.data_parallel_mesh("cuda:0")
+    out = {"rank": rank, "mesh": repr(mesh)}
+    try:
+        out.update(_first_step(cfg_step, mesh, rank))
+        # the first train chunk of a run's folder: only rank 0 writes
+        writes = []
+        if rank != 0:
+            _watch_writes(out_run, writes)
+        exp, plan = ft.train_plan(cfg_run)
+        task = plan.epochs[0].tasks[0]
+        rt = chunk_runtime.ChunkRuntime(exp, "cuda", mesh)
+        ligru.launches = ligru.bwd_launches = 0
+        chunk_runtime.train_batches = 0
+        res = rt.run_task(
+            task, epoch_lr={a: s.lr[0] for a, s in exp.archs.items()},
+            batch_size=exp.batches.batch_size_train[0])
+        rt.checkpointer.wait()
+        out.update(chunk_loss=res.loss, chunk_err=res.err,
+                   chunk_batches=chunk_runtime.train_batches,
+                   chunk_launches=(ligru.launches, ligru.bwd_launches),
+                   writes=writes, info=task.info_file,
+                   ckpts=sorted(task.ckpt_files.values()))
+    finally:
+        torch.distributed.destroy_process_group()
+        # by value: torch's own pickling shares a tensor's storage through
+        # this process, which exits
+        results.put(_tree_map(lambda t: t.numpy(), out))
+
+
+def _tree_map(fn, tree):
+    """fn over every tensor (or numpy array) of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    return tree
+
+
+def _assemble_relu(ranks, B):
+    """The ranks' K1b relu decisions, a (T, 2 x shard, H) tensor a layer on
+    each, as the one-process layout (T, 2B, H): rank r's forward columns
+    and its reversed copies at their places in the doubled batch."""
+    from tpukaldi_torch.dist import DataParallelMesh, shard_bounds
+
+    layers = []
+    for i in range(len(ranks[0]["relu"])):
+        rec0 = ranks[0]["relu"][i]
+        full = torch.zeros((rec0.shape[0], 2 * B, rec0.shape[2]),
+                           dtype=rec0.dtype)
+        for rank, r in enumerate(ranks):
+            lo, hi = shard_bounds(B, DataParallelMesh(
+                rank, len(ranks), rank, torch.device("cpu"), "gloo"))
+            n = hi - lo
+            full[:, lo:hi] = r["relu"][i][:, :n]
+            full[:, B + lo:B + hi] = r["relu"][i][:, n:]
+        layers.append(full.cuda())
+    return layers
+
+
+def _worst(grads, ref):
+    """(max over tensors of max|g - ref| / max|ref|, that tensor)."""
+    rel = {name: ((g.double().cpu() - ref[name].double().cpu()).abs().max()
+                  / ref[name].double().abs().max().clamp_min(1e-30)).item()
+           for name, g in grads.items()}
+    check(all(math.isfinite(r) for r in rel.values()),
+          "non-finite gradient error")
+    name = max(rel, key=rel.get)
+    return rel[name], name
+
+
+def dist_gloo_check(modules, trees) -> dict:
+    """(b) Two ranks of a gloo group on the one card, eager (gloo's
+    collectives do not capture): one train step of the flagship's first
+    batch at drop 0, its 8 columns split 4/4, against the one-process step
+    on the same batch (both from the host path): loss and err within
+    DIST_LOSS_ATOL; the summed gradients held to a float64 step within
+    STEP_GRAD_FACTOR of the plain path's distance, each path's float64 run
+    taking the path's own relu decisions at its near ties (`held_step`'s
+    rule); both ranks' gradients and weights bitwise the same; each rank's
+    K1f and K1b launches counted; then each rank trains the first train
+    chunk of a run, and rank 1 writes no file of the run's folder."""
+    import multiprocessing
+
+    from tpukaldi_torch.tools import flagship_tree as ft
+
+    cfg_k, out_k = _dist_cfg(trees, "step", no_drop=True)
+    cfg_s = ft.write_train_cfg(
+        trees["MS_TIMIT"], out_k, os.path.join(out_k, "s.cfg"),
+        {**_cuts(DIST_RECIPE), "n_chunks = 5": "n_chunks = 1",
+         **_no_drop(DIST_RECIPE), **_scan(DIST_RECIPE)},
+        recipe=ft.recipe_cfg(DIST_RECIPE))
+    # the train set in 4 chunks: 4 steps of 8 columns a chunk
+    cfg_run, out_run = _dist_cfg(trees, "gloo_run",
+                                 replace={"n_chunks = 5": "n_chunks = 4"})
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.SimpleQueue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dist_rank,
+                         args=(r, port, cfg_k, cfg_run, out_run, results))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    got = [results.get() for _ in procs]
+    for p in procs:
+        p.join(timeout=120)
+        check(p.exitcode == 0, f"a gloo rank exited with {p.exitcode}")
+    ranks = sorted((_tree_map(torch.from_numpy, r) for r in got),
+                   key=lambda r: r["rank"])
+    wall = time.perf_counter() - t0
+    check(all("loss" in r and "writes" in r for r in ranks),
+          f"a gloo rank failed: {[sorted(r) for r in ranks]}")
+
+    # the one-process paths on the same host batch
+    one = _first_step(cfg_k)
+    loss_1, grads_1, relu_1 = one["loss"], one["grads"], one["relu"]
+    shape = one["batch"]
+    relu_1 = [r.cuda() for r in relu_1]
+    with _env(TPUKALDI_DEVICE_CACHE="0"):
+        a_s, a_r, g_r = [], [], []
+        with _scan_relu(record=a_s):
+            loss_s, grads_s, _ = ft.train_step_gradients(cfg_s, "cuda")
+        with _scan_relu(record=a_r, grads=g_r):
+            loss_r, grads_r, _ = ft.train_step_gradients(cfg_s, "cuda",
+                                                         torch.float64)
+        B = shape[1]
+        check(ranks[0]["batch"] == shape, f"the ranks' batch "
+              f"{ranks[0]['batch']}, the one-process batch {shape}")
+        relu_2 = _assemble_relu(ranks, B)
+        errs, ties = {}, {}
+        for path, pos, grads in (
+                ("two ranks", relu_2, ranks[0]["grads"]),
+                ("one process", relu_1, grads_1),
+                ("plain", [a > 0 for a in a_s], grads_s)):
+            decide, ties[path] = _relu_ties("dist", path, pos, a_r, g_r, a_s)
+            ref = grads_r
+            if ties[path]:
+                with _scan_relu(decide=decide):
+                    _, ref, _ = ft.train_step_gradients(cfg_s, "cuda",
+                                                        torch.float64)
+            errs[path] = _worst(grads, ref)
+    r0, r1 = ranks
+    loss_err = abs(r0["loss"] - loss_1)
+    err_err = abs(r0["err"] - one["err"])
+    step_diff = max(float((r0["params"][n].double()
+                           - one["params"][n].double()).abs().max())
+                    for n in one["params"] if one["params"][n].is_floating_point())
+    same_ranks = (all(torch.equal(r0["grads"][n], r1["grads"][n])
+                      for n in r0["grads"])
+                  and all(torch.equal(r0["params"][n], r1["params"][n])
+                          for n in r0["params"]))
+    print(f"dist (b) gloo, {DIST_RANKS} ranks on {torch.cuda.get_device_name(0)}"
+          f" (spawned, {wall:.1f} s with their start): batch {shape} split "
+          f"{[r['shard'] for r in ranks]}, weights "
+          f"{[r['weight'] for r in ranks]}; loss two ranks {r0['loss']:.7f} "
+          f"one process {loss_1:.7f} plain {loss_s:.7f} float64 "
+          f"{loss_r:.7f}, |two - one| {loss_err:.3e} (atol "
+          f"{DIST_LOSS_ATOL:g}); err two ranks {r0['err']:.7f} one process "
+          f"{one['err']:.7f}, |diff| {err_err:.3e}; weights after the step "
+          f"max|two - one| {step_diff:.3e} (rmsprop's first step takes "
+          f"lr x sign(g) where |g| >> eps); worst gradient error vs float64 (each "
+          f"path's own relu decisions at its ties): "
+          + ", ".join(f"{p} {e:.3e} ({n}, {len(ties[p])} ties)"
+                      for p, (e, n) in errs.items())
+          + f" (factor {STEP_GRAD_FACTOR:g} of the plain path's); ranks' "
+          f"gradients and weights bitwise equal {same_ranks}; step launches "
+          f"K1f/K1b by rank {[r['step_launches'] for r in ranks]}", flush=True)
+    for r in ranks:
+        print(f"dist (b) rank {r['rank']} train chunk: loss={r['chunk_loss']}"
+              f" err={r['chunk_err']}, {r['chunk_batches']} steps, K1f/K1b "
+              f"{r['chunk_launches']}, files written under the run "
+              f"{len(r['writes'])}", flush=True)
+    check(loss_err <= DIST_LOSS_ATOL and err_err <= DIST_LOSS_ATOL,
+          f"two-rank loss, err {r0['loss']}, {r0['err']} vs {loss_1}, "
+          f"{one['err']}")
+    check(errs["two ranks"][0] <= STEP_GRAD_FACTOR * errs["plain"][0],
+          f"two-rank gradients {errs['two ranks']} from float64, plain path "
+          f"{errs['plain']}")
+    check(same_ranks, "the ranks' gradients or weights differ")
+    layers = RECIPES[DIST_RECIPE]["layers"]
+    for r in ranks:
+        check(r["step_launches"] == (layers, layers),
+              f"rank {r['rank']}: K1f/K1b {r['step_launches']} in one step")
+        n = r["chunk_batches"]
+        check(n > 0 and r["chunk_launches"] == (layers * n, layers * n),
+              f"rank {r['rank']}: K1f/K1b {r['chunk_launches']} in {n} steps")
+    check(r0["chunk_loss"] == r1["chunk_loss"],
+          "the ranks' chunk losses differ")
+    check(not r1["writes"], f"rank 1 wrote {r1['writes']}")
+    check(os.path.exists(r0["info"]) and all(
+        os.path.exists(p) for p in r0["ckpts"]),
+          "rank 0 wrote no .info or checkpoint")
+    check(r0["err"] == r1["err"], "the ranks' err differ")
+    return {"ligru_fwd": [r["step_launches"][0] + r["chunk_launches"][0]
+                          for r in ranks],
+            "ligru_bwd": [r["step_launches"][1] + r["chunk_launches"][1]
+                          for r in ranks]}
+
+
+def dist_export_check(modules, cfg) -> int:
+    """(c) The flagship trained in (a) exported at symbolic T and B
+    (`tools/export_model.py`), loaded on the card and served over the test
+    split at batch 8: posteriors within DIST_FWD_ATOL of the live
+    `forward_step`, K1f launched by the artifact (counted); the same
+    artifact on the CPU over DIST_CPU_UTTS utterances within DIST_CPU_ATOL
+    of the CPU plain path.  Returns the artifact's K1f launches."""
+    from tpukaldi_torch.data.batching import iter_forward_batches
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.export_model import export_forward, load_exported
+    from tpukaldi_torch.train import chunk_runtime
+    from tpukaldi_torch.train.step import forward_step
+
+    ligru = modules["ligru"]
+    art = os.path.join(WORK, "dist_artifact")
+    t0 = time.perf_counter()
+    export_forward(cfg, art)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = load_exported(art)
+    t_load = time.perf_counter() - t0
+    check(card.meta["batch"] == 0, f"artifact batch {card.meta['batch']}")
+    exp, plan = ft.train_plan(cfg)
+    task = plan.forward_tasks[0]
+    rts = {}
+    for device in ("cuda", "cpu"):
+        rt = chunk_runtime.ChunkRuntime(exp, device)
+        chunk = rt.load_task_chunk(task)
+        rt.ensure_initialized(chunk)
+        rt.restore_from(task.pretrain_files, every_rank=False)
+        rts[device] = rt
+    worst, launches, n_batches, frames = 0.0, 0, 0, 0
+    serve_s = live_s = 0.0
+    for batch in iter_forward_batches(chunk, 8):
+        feats = torch.from_numpy(batch.feats).cuda()
+        lengths = torch.from_numpy(batch.lengths.astype(np.int32)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        live = forward_step(rts["cuda"].graph, feats, lengths)
+        torch.cuda.synchronize()
+        live_s += time.perf_counter() - t0
+        n0 = ligru.launches
+        t0 = time.perf_counter()
+        served = card.call(feats, lengths)
+        torch.cuda.synchronize()
+        serve_s += time.perf_counter() - t0
+        launches += ligru.launches - n0
+        n_batches += 1
+        frames += int(batch.lengths.sum())
+        check(set(served) == set(live), f"outputs {sorted(served)} vs "
+              f"{sorted(live)}")
+        for k, v in served.items():
+            check(bool(torch.isfinite(v).all()), f"{k}: non-finite")
+            worst = max(worst, float((v - live[k]).abs().max()))
+    layers = RECIPES[DIST_RECIPE]["layers"]
+    # the CPU: the artifact and the plain path on the shortest and longest
+    # utterances, each alone
+    cpu = load_exported(art, device="cpu")
+    starts = [0, *chunk.end_index[:-1]]
+    lens = [int(e) - int(s) for s, e in zip(starts, chunk.end_index)]
+    picks = sorted({lens.index(min(lens)), lens.index(max(lens))})
+    worst_cpu = 0.0
+    for i in picks[:DIST_CPU_UTTS]:
+        x = torch.from_numpy(
+            chunk.feats[int(starts[i]):int(chunk.end_index[i])])[:, None, :]
+        n = torch.tensor([x.shape[0]], dtype=torch.int32)
+        want = forward_step(rts["cpu"].graph, x, n)
+        got = cpu.call(x, n)
+        for k in want:
+            worst_cpu = max(worst_cpu, float((got[k] - want[k]).abs().max()))
+    print(f"dist (c) export: {t_export:.1f} s to export, {t_load:.1f} s to "
+          f"load on the card (meta: batch {card.meta['batch']}, platforms "
+          f"{card.meta['platforms']}, {card.meta['compute_dtype']}); the "
+          f"test split, {n_batches} batches of up to 8 ({frames} frames): "
+          f"artifact {serve_s * 1e3:.1f} ms, live forward_step "
+          f"{live_s * 1e3:.1f} ms, max|artifact - live| {worst:.3e} (atol "
+          f"{DIST_FWD_ATOL:g}); K1f launched by the artifact {launches} "
+          f"(= {layers} x {n_batches}); on the CPU, {len(picks)} utterances "
+          f"of {[lens[i] for i in picks]} frames, max|artifact - plain path| "
+          f"{worst_cpu:.3e} (atol {DIST_CPU_ATOL:g})", flush=True)
+    check(worst <= DIST_FWD_ATOL, f"artifact vs live forward {worst}")
+    check(launches == layers * n_batches,
+          f"the artifact launched K1f {launches} times, expected "
+          f"{layers} x {n_batches}")
+    check(worst_cpu <= DIST_CPU_ATOL, f"CPU artifact vs plain {worst_cpu}")
+    return launches
+
+
+def dist_export_phase(modules, trees) -> dict:
+    """The data-parallel mesh and the serving export on the flagship: (a)
+    `dist_nccl_check`, (b) `dist_gloo_check`, (c) `dist_export_check`.
+    Returns the kernels line's extra counts for K1f and K1b."""
+    a = _timed("dist (a) NCCL world size 1", dist_nccl_check, modules, trees)
+    b = _timed("dist (b) gloo two ranks", dist_gloo_check, modules, trees)
+    c = _timed("dist (c) export", dist_export_check, modules, a["cfg"])
+    return {
+        "ligru_fwd": {"dist_launches": {"nccl_world_1": a["counts"]["ligru_fwd"],
+                                        "gloo_ranks": b["ligru_fwd"]},
+                      "export_launches": c},
+        "ligru_bwd": {"dist_launches": {"nccl_world_1": a["counts"]["ligru_bwd"],
+                                        "gloo_ranks": b["ligru_bwd"]}},
+    }
+
+
 def build_kernels(modules) -> None:
     """Every kernel source, one nvcc each, all at once."""
     from tpukaldi_torch.kernels import _build
@@ -4540,6 +5038,7 @@ def main() -> int:
     bf16 = _timed("bf16", bf16_phase, modules, trees)
     fusion = _timed("zoo", zoo_phase, modules, trees)
     rate = _timed("rate", rate_phase, modules, card)
+    dist_extra = _timed("dist export", dist_export_phase, modules, trees)
     print(f"chip_smoke total (after the card check): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -4580,6 +5079,7 @@ def main() -> int:
                      else {})
             if name in rate:
                 extra["rate_launches"] = rate[name]
+            extra.update(dist_extra.get(name, {}))
             extra.update(_bf16_extra(name, bf16))
             kernels.append(entry(name, rec, trained[recipe][key], **extra))
     # the stack's kernels: launches on its own path, and on the recipe paths

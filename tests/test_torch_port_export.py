@@ -1,0 +1,279 @@
+"""The port's serving export (`tpukaldi_torch/tools/export_model.py`) on
+the CPU, mirroring tests/test_export.py: a trained experiment exports to a
+`torch.export` artifact with symbolic T and B whose reloaded forward
+matches the live posteriors (1e-4), and tpukaldi's StableHLO artifact of
+the same trained weights (1e-4).  The custom ops that keep T symbolic
+(`kernels/ops.py`) give, under fake tensors, their real outputs' shapes,
+dtypes and strides (`torch.library.opcheck`)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tpukaldi.data.synth import generate_corpus, write_cfg
+from tpukaldi_torch.config import load_config
+from tpukaldi_torch.graph.compiler import build_graph, init_graph
+from tpukaldi_torch.tools.export_model import (
+    _sample_chunk,
+    export_forward,
+    load_exported,
+    main,
+)
+from tpukaldi_torch.tools.run_exp import run_experiment
+from tpukaldi_torch.train import checkpoint as ckpt
+from tpukaldi_torch.train.step import forward_step
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _train(root, arch, **kw):
+    corpus = generate_corpus(str(root / "c"), n_utts=8, feat_dim=12, seed=13,
+                             noise=0.4, min_len=30, max_len=60)
+    out = str(root / "e")
+    cfg = write_cfg(corpus, out, arch=arch, hidden=16, n_epochs=1,
+                    n_chunks=1, batch_size=kw.pop("batch_size", 4), cw=0,
+                    lr=kw.pop("lr", 0.05))
+    return cfg, out
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    cfg, out = _train(tmp_path_factory.mktemp("exp0"), "liGRU")
+    run_experiment(cfg, device="cpu")
+    return cfg, out
+
+
+def _live_forward(cfg, feats, lengths):
+    """The same forward through the live runtime path (`forward_step` over
+    the graph with the final checkpoints)."""
+    exp = load_config(cfg)
+    chunk = _sample_chunk(exp)
+    graph = build_graph(exp, chunk.fea_layout, chunk.lab_layout, "cpu")
+    init_graph(graph, exp.seed)
+    ef = os.path.join(exp.out_folder, "exp_files")
+    ckpt.load_all({a: os.path.join(ef, f"final_{a}.ckpt")
+                   for a in graph.arch_names}, graph.modules)
+    return forward_step(graph, torch.from_numpy(feats),
+                        torch.as_tensor(lengths, dtype=torch.int32))
+
+
+def _assert_posteriors(got, want, tol):
+    assert set(got) == set(want)
+    for k in got:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol, err_msg=k)
+        # log-softmax posteriors normalise in probability space
+        np.testing.assert_allclose(np.exp(g.astype(np.float64)).sum(axis=1),
+                                   1.0, atol=1e-3)
+
+
+def test_export_roundtrip_matches_live(trained, tmp_path):
+    """One artifact serves two lengths at two batch sizes, each within 1e-4
+    of the live forward."""
+    cfg, _ = trained
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    assert model.meta["seq_model"] is True and model.meta["outs"]
+    assert model.meta["batch"] == 0  # symbolic T and B
+    assert model.meta["platforms"] == ["cpu", "cuda"]
+    assert model.meta["compute_dtype"] == "float32"
+    rng = np.random.default_rng(3)
+    for T, B in ((23, 1), (57, 3)):
+        feats = rng.standard_normal((T, B, model.meta["inp_dim"])).astype(
+            np.float32)
+        lengths = np.asarray([T] * B, np.int32)
+        got = {k: v.numpy() for k, v in model.call(feats, lengths).items()}
+        want = {k: v.numpy() for k, v in
+                _live_forward(cfg, feats, lengths).items()}
+        _assert_posteriors(got, want, 1e-4)
+
+
+def test_export_uneven_lengths_match_live(trained, tmp_path):
+    """A padded batch (lengths below T) goes through the length-aware
+    reversal with B symbolic: the live forward's posteriors, within 1e-4."""
+    cfg, _ = trained
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((31, 4, model.meta["inp_dim"])).astype(
+        np.float32)
+    lengths = np.asarray([31, 12, 25, 1], np.int32)
+    got = {k: v.numpy() for k, v in model.call(feats, lengths).items()}
+    want = {k: v.numpy() for k, v in
+            _live_forward(cfg, feats, lengths).items()}
+    _assert_posteriors(got, want, 1e-4)
+
+
+def test_export_normalized_bakes_priors(trained, tmp_path):
+    cfg, _ = trained
+    model = load_exported(export_forward(cfg, str(tmp_path / "artn"),
+                                         normalize=True), device="cpu")
+    assert model.meta["normalized"], "priors should be baked"
+    rng = np.random.default_rng(5)
+    T = 31
+    feats = rng.standard_normal((T, 1, model.meta["inp_dim"])).astype(
+        np.float32)
+    raw = load_exported(export_forward(cfg, str(tmp_path / "artr")),
+                        device="cpu").call(feats, [T])
+    normed = model.call(feats, [T])
+    name = model.meta["normalized"][0]
+    diff = (raw[name] - normed[name]).numpy()
+    # the difference is exactly the (row-constant) log-prior vector
+    np.testing.assert_allclose(
+        diff, np.broadcast_to(diff[0:1], diff.shape), rtol=1e-5, atol=1e-5)
+    assert np.abs(diff[0]).max() > 1e-3
+
+
+def test_export_cli(trained, tmp_path):
+    """`python -m tpukaldi_torch.tools.export_model <cfg> --out <dir>` in a
+    fresh process, and `main` in this one with a pinned batch."""
+    cfg, _ = trained
+    art = str(tmp_path / "cli_art")
+    r = subprocess.run(
+        [sys.executable, "-m", "tpukaldi_torch.tools.export_model", cfg,
+         "--out", art], capture_output=True, text=True, cwd=REPO,
+        timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert os.path.exists(os.path.join(art, "forward.pt2"))
+    assert os.path.exists(os.path.join(art, "meta.json"))
+    pinned = str(tmp_path / "pinned")
+    assert main([cfg, "--out", pinned, "--batch", "2",
+                 "--platforms", "cpu"]) == 0
+    with open(os.path.join(pinned, "meta.json")) as f:
+        meta = json.load(f)
+    assert meta["batch"] == 2 and meta["platforms"] == ["cpu"]
+    out = load_exported(pinned, device="cpu").call(
+        np.zeros((7, 2, meta["inp_dim"]), np.float32))
+    assert all(v.shape[0] == 14 for v in out.values())
+
+
+@pytest.mark.parametrize("arch", ["GRU", "LSTM", "SRU", "QLSTM"])
+def test_export_zoo_family(arch, tmp_path):
+    """Every recurrent family exports with a symbolic batch and serves the
+    live forward's posteriors (1e-4)."""
+    cfg, _ = _train(tmp_path, arch)
+    run_experiment(cfg, device="cpu")
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    assert model.meta["batch"] == 0
+    T, B = 19, 2
+    feats = np.random.default_rng(7).standard_normal(
+        (T, B, model.meta["inp_dim"])).astype(np.float32)
+    got = {k: v.numpy() for k, v in model.call(feats, [T] * B).items()}
+    for v in got.values():
+        assert v.shape[0] == T * B and np.isfinite(v).all()
+    want = {k: v.numpy() for k, v in
+            _live_forward(cfg, feats, [T] * B).items()}
+    _assert_posteriors(got, want, 1e-4)
+
+
+def test_export_bf16_experiment_records_dtype(tmp_path):
+    """A bf16 cfg exports in the compute dtype its ledger and decode
+    posteriors used (meta.compute_dtype = bfloat16), float32 out."""
+    cfg, _ = _train(tmp_path, "MLP", batch_size=32, lr=0.2)
+    with open(cfg) as f:
+        text = f.read().replace("[exp]", "[exp]\ncompute_dtype = bfloat16", 1)
+    with open(cfg, "w") as f:
+        f.write(text)
+    run_experiment(cfg, device="cpu")
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    assert model.meta["compute_dtype"] == "bfloat16"
+    assert "per-chunk CMVN" in model.meta["input_contract"]["preprocessing"]
+    feats = np.random.default_rng(1).standard_normal(
+        (9, 2, model.meta["inp_dim"])).astype(np.float32)
+    for v in model.call(feats, [9, 9]).values():
+        v = v.numpy()
+        assert v.dtype == np.float32 and np.isfinite(v).all()
+        np.testing.assert_allclose(np.exp(v.astype(np.float64)).sum(axis=1),
+                                   1.0, atol=1e-2)
+
+
+def test_export_requires_trained_checkpoints(tmp_path):
+    corpus = generate_corpus(str(tmp_path / "c"), n_utts=6, seed=1)
+    cfg = write_cfg(corpus, str(tmp_path / "e"), arch="MLP", n_epochs=1,
+                    n_chunks=1)
+    with pytest.raises(FileNotFoundError, match="final checkpoints"):
+        export_forward(cfg, str(tmp_path / "a"))
+
+
+def test_port_artifact_matches_tpukaldis(trained, tmp_path):
+    """tpukaldi's `export_forward` over the same trained checkpoints (the
+    ledger format both packages write) serves the port artifact's
+    posteriors within 1e-4."""
+    from tpukaldi.tools.export_model import export_forward as tpk_export
+    from tpukaldi.tools.export_model import load_exported as tpk_load
+
+    cfg, _ = trained
+    port = load_exported(export_forward(cfg, str(tmp_path / "port")),
+                         device="cpu")
+    tpk = tpk_load(tpk_export(cfg, str(tmp_path / "tpk")))
+    rng = np.random.default_rng(11)
+    for T, B in ((17, 1), (40, 3)):
+        feats = rng.standard_normal((T, B, port.meta["inp_dim"])).astype(
+            np.float32)
+        got = {k: v.numpy() for k, v in port.call(feats, [T] * B).items()}
+        want = {k: np.asarray(v) for k, v in tpk.call(feats, [T] * B).items()}
+        _assert_posteriors(got, want, 1e-4)
+
+
+def _op_cases():
+    """(op, args) for every custom op at small shapes, the plain loops in
+    float32 and bf16, with and without a layer norm."""
+    from tpukaldi_torch.kernels import ops  # noqa: F401
+
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype)
+
+    T, B, H = 5, 3, 4
+    ln = (r(H).abs() + 0.5, r(H), 1e-6)
+    no_ln = (None, None, 0.0)
+    mask = torch.ones(B, H)
+    t = torch.ops.tpukaldi
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        cases += [
+            (t.ligru_recurrence, (r(T, B, 2 * H, dtype=dtype),
+                                  r(H, 2 * H, dtype=dtype),
+                                  mask.to(dtype), True, "relu", *no_ln)),
+            (t.ligru_recurrence, (r(T, B, 2 * H, dtype=dtype),
+                                  r(H, 2 * H, dtype=dtype),
+                                  mask.to(dtype), False, "tanh", *ln)),
+            (t.lstm_recurrence, (r(T, B, 4 * H, dtype=dtype),
+                                 r(H, 4 * H, dtype=dtype), mask.to(dtype),
+                                 dtype == torch.float32, "tanh", *no_ln)),
+            (t.lstm_recurrence_lean, (r(T, B, 4 * H, dtype=dtype),
+                                      r(H, 4 * H), mask, "pallas")),
+            (t.gru_recurrence, (r(T, B, 3 * H, dtype=dtype),
+                                r(H, 2 * H, dtype=dtype), r(H, H, dtype=dtype),
+                                mask.to(dtype), True, "tanh", *no_ln)),
+            (t.minimalgru_recurrence, (r(T, B, 2 * H, dtype=dtype),
+                                       r(H, H, dtype=dtype),
+                                       r(H, H, dtype=dtype), mask.to(dtype),
+                                       "relu", *ln)),
+            (t.rnn_recurrence, (r(T, B, H, dtype=dtype), r(H, H, dtype=dtype),
+                                mask.to(dtype), "tanh", *no_ln)),
+            (t.sru_recurrence, (r(T, B, H, dtype=dtype), r(T, B, H),
+                                r(T, B, H), r(T, B, H), r(H), r(H), r(H),
+                                r(H), "selu", 1.5)),
+            (t.conv_pool, (r(4, 50, dtype=dtype), r(7, 5, dtype=dtype), 3)),
+            (t.conv_pool_ln_act, (r(4, 50, dtype=dtype), r(7, 5), r(5),
+                                  r(14, 5), r(14, 5), 3, 1e-6, True)),
+        ]
+    return cases
+
+
+@pytest.mark.parametrize("index", range(20))
+def test_custom_op_fakes_match_real_outputs(index):
+    """Each op's fake (the shape torch.export traces with) has the real
+    output's shape, dtype and strides, and its schema holds."""
+    op, args = _op_cases()[index]
+    torch.library.opcheck(op.default, args,
+                          test_utils=("test_schema", "test_faketensor"))

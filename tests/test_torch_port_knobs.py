@@ -8,8 +8,9 @@ implement yet, which raise instead of running something else.
    run in float32, bfloat16 names in the bf16 compute mode, through
    `run_experiment` (the shipped `cfg/TIMIT/liGRU_fmllr_bf16.cfg`) and
    through `run_chunk`, and any other name raises `ValueError`.
-2. `[exp] multi_gpu` and `TPUKALDI_NUM_HOSTS` raise `NotImplementedError`
-   in `run_experiment` before any output folder is written;
+2. `[exp] multi_gpu` runs (on the CPU with no process group, world size
+   1, as tpukaldi's mesh over one CPU device), `TPUKALDI_NUM_HOSTS=2` runs
+   this host's half of the forward tasks (`TPUKALDI_HOST_ID`);
    `TPUKALDI_MATMUL_PRECISION` runs with torch's matching precision for the
    run and the previous one restored after it, and a name it does not know
    raises `ValueError` before any output.
@@ -52,6 +53,11 @@ SHRINK = {
     "n_epochs_tr = 24": "n_epochs_tr = 1",
     "n_chunks = 5": "n_chunks = 1",
 }
+# every architecture's rmsprop as adam with amsgrad, which the port refuses
+AMSGRAD = ("arch_opt = rmsprop\nopt_momentum = 0.0\nopt_alpha = 0.95\n"
+           "opt_eps = 1e-8\nopt_centered = False\nopt_weight_decay = 0.0",
+           "arch_opt = adam\nopt_betas = 0.9,0.999\nopt_eps = 1e-8\n"
+           "opt_weight_decay = 0.0\nopt_amsgrad = True")
 KNOBS = ("TPUKALDI_COMPUTE_DTYPE", "TPUKALDI_NUM_HOSTS", "TPUKALDI_HOST_ID",
          "TPUKALDI_MATMUL_PRECISION", "TPUKALDI_PROFILE_DIR",
          "TPUKALDI_FORWARD_BATCH")
@@ -164,14 +170,15 @@ def test_run_chunk_reads_compute_dtype(tree, tmp_path):
 @pytest.mark.parametrize("knob", [
     "multi_gpu", "TPUKALDI_NUM_HOSTS=2", "TPUKALDI_MATMUL_PRECISION=bfloat16",
     "TPUKALDI_MATMUL_PRECISION=tensorfloat32"])
-def test_unported_run_knobs_raise_before_any_output(tree, tmp_path,
-                                                    monkeypatch, knob):
-    """Each knob that would make tpukaldi run otherwise and that the port
-    does not implement yet (a data-parallel mesh, forward tasks sharded
-    across hosts) raises NotImplementedError naming it, and leaves no output
-    folder.  TPUKALDI_MATMUL_PRECISION is ported: bfloat16 runs at torch's
-    "medium" float32 matmul precision, tensorfloat32 at "high", both with
-    cuDNN's TF32 on, and the previous setting comes back after the run."""
+def test_run_level_knobs_run_with_their_settings(tree, tmp_path,
+                                                 monkeypatch, knob):
+    """Each run-level knob of tpukaldi runs.  multi_gpu on the CPU with no
+    process group trains at world size 1 and writes res.res; with
+    TPUKALDI_NUM_HOSTS=2 and TPUKALDI_HOST_ID=1 the run trains and
+    forwards host 1's half of the forward tasks only.
+    TPUKALDI_MATMUL_PRECISION: bfloat16 runs at torch's "medium" float32
+    matmul precision, tensorfloat32 at "high", both with cuDNN's TF32 on,
+    and the previous setting comes back after the run."""
     out = str(tmp_path / "out")
     shrink = dict(SHRINK)
     if knob == "multi_gpu":
@@ -183,9 +190,20 @@ def test_unported_run_knobs_raise_before_any_output(tree, tmp_path,
             monkeypatch.setenv("TPUKALDI_HOST_ID", "1")
     cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), shrink)
     if not knob.startswith("TPUKALDI_MATMUL_PRECISION"):
-        with pytest.raises(NotImplementedError, match=knob.split("=")[0]):
-            run_experiment(cfg, device="cpu")
-        assert not os.path.exists(out)
+        # the test split in 3 forward tasks
+        with open(cfg) as f:
+            head, sep, tail = f.read().partition("[dataset3]")
+        with open(cfg, "w") as f:
+            f.write(head + sep + tail.replace("n_chunks = 1", "n_chunks = 3", 1))
+        run_experiment(cfg, device="cpu")
+        with open(os.path.join(out, "res.res")) as f:
+            assert f.read().startswith("ep=0 ")
+        _, plan = train_plan(cfg)
+        done = [t.done for t in plan.forward_tasks]
+        assert len(done) > 1
+        want = ([i % 2 == 1 for i in range(len(done))]
+                if knob.startswith("TPUKALDI_NUM_HOSTS") else [True] * len(done))
+        assert done == want
         return
     before = (torch.get_float32_matmul_precision(),
               torch.backends.cudnn.allow_tf32)
@@ -238,16 +256,17 @@ def test_profile_dir_gets_a_trace_of_the_run(tree, tmp_path, monkeypatch,
                                             ends):
     """With TPUKALDI_PROFILE_DIR set, a CPU run writes one Chrome trace of
     the whole run into that directory when it ends, by an exception too
-    (tpukaldi stops its trace in a `finally`)."""
+    (tpukaldi stops its trace in a `finally`): here an amsgrad optimizer,
+    which the port refuses when the first train chunk builds it."""
     prof = tmp_path / "prof"
     monkeypatch.setenv("TPUKALDI_PROFILE_DIR", str(prof))
     out = str(tmp_path / "out")
     shrink = dict(SHRINK)
     if ends == "raises":
-        shrink["multi_gpu = False"] = "multi_gpu = True"
+        shrink[AMSGRAD[0]] = AMSGRAD[1]
     cfg = write_train_cfg(tree, out, str(tmp_path / "run.cfg"), shrink)
     if ends == "raises":
-        with pytest.raises(NotImplementedError, match="multi_gpu"):
+        with pytest.raises(NotImplementedError, match="amsgrad"):
             run_experiment(cfg, device="cpu")
     else:
         run_experiment(cfg, device="cpu")

@@ -32,6 +32,7 @@ from tpukaldi.data.prefetch import ChunkPrefetcher as TpkPrefetcher
 from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
 from tpukaldi.train.chunk_runtime import _prefetch_iter as tpk_prefetch_iter
 from tpukaldi_torch.data import ChunkPrefetcher as PortPrefetcher
+from tpukaldi_torch.dist import DataParallelMesh
 from tpukaldi_torch.forward.posteriors import PosteriorWriter
 from tpukaldi_torch.graph import compiler
 from tpukaldi_torch.tools.flagship_tree import (
@@ -317,6 +318,7 @@ def test_restore_from_waits_only_before_a_read(case, tmp_path, monkeypatch):
         checkpointer=_Recorder(events, path if case == "written_by_wait"
                                else None),
         graph=SimpleNamespace(modules={}), optimizers=None,
+        mesh=DataParallelMesh(0, 1, 0, torch.device("cpu"), ""),
         drop_step_graphs=lambda: events.append("drop"))
     monkeypatch.setattr(chunk_runtime.ckpt, "load_all",
                         lambda paths, *a: events.append(("load", paths)))

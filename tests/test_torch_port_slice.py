@@ -236,6 +236,30 @@ for recipe, widths, impl in (
         assert f.read().startswith("ep=0 ")
     posts, _ = forward_outputs(out)
     assert len(list(posts)) == 5
+# the data-parallel mesh, the serving export and the .pkl converter, named
+# (the package walk above imported them too): the last CNN run exported
+# and served at a symbolic batch, its MLP as a reference pkl converted
+import torch
+from tpukaldi_torch import dist
+from tpukaldi_torch.compat import torch_import
+from tpukaldi_torch.tools import export_model
+assert dist.data_parallel_mesh().world_size == 1
+art = export_model.export_forward(cfg, os.path.join(work, "art"))
+served = export_model.load_exported(art, device="cpu")
+outs = served.call(torch.zeros((1, 3, served.meta["inp_dim"])))
+assert all(v.shape[0] == 3 for v in outs.values())
+from tpukaldi_torch.models.mlp import MLP
+mlp = MLP({"dnn_lay": "4,3", "dnn_drop": "0.0,0.0",
+           "dnn_use_batchnorm": "True,False", "dnn_use_laynorm": "False,False",
+           "dnn_use_laynorm_inp": "False", "dnn_use_batchnorm_inp": "False",
+           "dnn_act": "relu,softmax"}, 5)
+opt = torch.optim.RMSprop(mlp.parameters(), lr=0.01, alpha=0.95)
+mlp(torch.randn(6, 5)).sum().backward()
+opt.step()
+pkl = os.path.join(work, "ref.pkl")
+torch.save({"model_par": mlp.state_dict(), "optimizer_par": opt.state_dict()},
+           pkl)
+torch_import.convert_checkpoint_file(pkl, os.path.join(work, "ref.ckpt"), "MLP")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("NO_JAX_OK")
@@ -245,8 +269,8 @@ print("NO_JAX_OK")
 def test_port_runs_without_jax(tmp_path):
     """Every tpukaldi_torch module imports, and the tiny production slice,
     a tiny training run, a tiny QLSTM run and tiny CNN and SincNet runs go
-    through on the CPU, with jax/flax/optax/msgpack and tpukaldi itself
-    unimportable."""
+    through on the CPU, then an export of the last and a .pkl conversion,
+    with jax/flax/optax/msgpack and tpukaldi itself unimportable."""
     proc = subprocess.run(
         [sys.executable, "-c", _NO_JAX, REPO, str(tmp_path)],
         capture_output=True, text=True, timeout=300, cwd=str(tmp_path))

@@ -40,6 +40,7 @@ from tpukaldi_torch.config.model_dsl import parse_model
 from tpukaldi_torch.tools import (
     check_data,
     diagram,
+    export_model,
     gen_example_cfgs,
     metrics,
     plot_acc_and_loss,
@@ -237,7 +238,8 @@ def test_console_entry_points_usage_exit_codes():
             if k.startswith("tpukaldi-torch-")}
     assert sorted(port) == sorted(
         f"tpukaldi-torch-{n}" for n in ("run", "run-chunk", "tune",
-                                        "save-raw-fea", "plot", "gen-cfgs"))
+                                        "save-raw-fea", "plot", "gen-cfgs",
+                                        "export"))
     for target in port.values():
         assert target.startswith("tpukaldi_torch.tools.")
         assert target.endswith(":main")
@@ -245,7 +247,8 @@ def test_console_entry_points_usage_exit_codes():
     assert plot_acc_and_loss.main([]) == 2
     assert plot_acc_and_loss.main(["/nonexistent"]) == 1
     assert tune_hyperparameters.main([]) == 2
-    for main in (run_exp.main, run_chunk.main, save_raw_fea.main):
+    for main in (run_exp.main, run_chunk.main, save_raw_fea.main,
+                 export_model.main):
         with pytest.raises(SystemExit) as e:
             main([])
         assert e.value.code == 2

@@ -501,24 +501,32 @@ class ConvPoolLnAct(torch.autograd.Function):
 
 def conv_pool(x: torch.Tensor, w: torch.Tensor, pool: int) -> torch.Tensor:
     """The differentiable K5 where a gradient is wanted, else the forward
-    alone, which then writes no argmax.  bf16 inputs (the bf16 compute
-    mode) are widened to float32 at this boundary and y comes back in x's
-    dtype, as tpukaldi's model casts around its kernel (the gradients, by
-    autograd through the casts, in the primal dtypes)."""
-    dtype = x.dtype
-    x, w = _launch.widen(x), _launch.widen(w)
+    alone, which then writes no argmax, through its custom op
+    (`ops.conv_pool`, which an exported graph holds).  bf16 inputs (the
+    bf16 compute mode) are widened to float32 at this boundary and y comes
+    back in x's dtype, as tpukaldi's model casts around its kernel (the
+    gradients, by autograd through the casts, in the primal dtypes)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return ConvPool.apply(x, w, pool).to(dtype)
-    return conv1d_pool(x, w, pool, need_idx=False)[0].to(dtype)
+        return ConvPool.apply(_launch.widen(x), _launch.widen(w),
+                              pool).to(x.dtype)
+    from . import ops
+
+    return ops.conv_pool(x, w, pool)
 
 
 def conv_pool_ln_act(x, w, bias, gt, bt, seed: Seed, pool: int, eps: float,
                      relu: bool, drop: float = 0.0) -> torch.Tensor:
     """The differentiable K6 where a gradient is wanted, else the forward
-    alone, which then writes neither idx nor stats.  bf16 inputs are
-    widened at this boundary and the output comes back in x's dtype, as
-    `conv_pool` does."""
+    alone, which then writes neither idx nor stats: at drop 0 through its
+    custom op (`ops.conv_pool_ln_act`, which an exported graph holds).
+    bf16 inputs are widened at this boundary and the output comes back in
+    x's dtype, as `conv_pool` does."""
     dtype = x.dtype
+    if not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w, bias, gt, bt))) and drop == 0.0:
+        from . import ops
+
+        return ops.conv_pool_ln_act(x, w, bias, gt, bt, pool, eps, relu)
     x, w, bias, gt, bt = (_launch.widen(t) for t in (x, w, bias, gt, bt))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w, bias, gt, bt)):

@@ -19,6 +19,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -89,6 +90,42 @@ class RefLayerNorm(nn.Module):
         return ref_laynorm(x, self.gamma, self.beta, self.eps)
 
 
+# whether train-mode batchnorm normalises by the moments of the global
+# batch, summed over the ranks of the process group (`global_batch_moments`)
+_GLOBAL_MOMENTS = False
+
+
+@contextlib.contextmanager
+def global_batch_moments(on: bool = True):
+    """Inside, a train-mode `BatchNorm` normalises by the moments of the
+    global batch, all-reduced over the process group (the data-parallel
+    train step enters it at world size > 1, tpukaldi's sharded step
+    computing them over the whole sharded batch)."""
+    global _GLOBAL_MOMENTS
+    saved, _GLOBAL_MOMENTS = _GLOBAL_MOMENTS, on
+    try:
+        yield
+    finally:
+        _GLOBAL_MOMENTS = saved
+
+
+def _global_moments(xf: torch.Tensor, dims):
+    """(mean, biased variance) over `dims` of every rank's rows: the sums
+    and the row count all-reduced through the differentiable
+    `torch.distributed.nn.functional.all_reduce`, then the centred squares
+    likewise (two passes, as a single device computes them)."""
+    from torch.distributed.nn.functional import all_reduce
+
+    n = xf.numel() // xf.shape[1]
+    s = all_reduce(torch.cat([xf.sum(dim=dims),
+                              xf.new_full((1,), float(n))]))
+    count = s[-1]
+    mean = s[:-1] / count
+    shape = (1, -1, 1) if xf.ndim == 3 else (1, -1)
+    var = all_reduce(((xf - mean.view(shape)) ** 2).sum(dim=dims)) / count
+    return mean, var
+
+
 class BatchNorm(nn.BatchNorm1d):
     """tpukaldi's `make_batchnorm` (flax BatchNorm, momentum 0.95 = torch's
     0.05).  Train mode normalises by the batch's biased variance, as torch
@@ -98,7 +135,9 @@ class BatchNorm(nn.BatchNorm1d):
     moments and the running statistics too, with the (bf16) scale and shift
     widened, and the output returns in bf16: tpukaldi's `_F32BatchNorm`.
     An (N, C, L) input is normalised per channel over N and L, as flax's
-    over every axis but the last.  The state_dict keys are BatchNorm1d's."""
+    over every axis but the last.  Inside `global_batch_moments` the
+    moments are the global batch's, over every rank of the process group.
+    The state_dict keys are BatchNorm1d's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = widen(x)
@@ -108,10 +147,24 @@ class BatchNorm(nn.BatchNorm1d):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 weight, bias, False, 0.0,
                                 self.eps).to(x.dtype)
-        y = F.batch_norm(xf, None, None, weight, bias, True, 0.0, self.eps)
+        dims = (0, 2) if xf.ndim == 3 else 0
+        if _GLOBAL_MOMENTS:
+            mean, var = _global_moments(xf, dims)
+            shape = (1, -1, 1) if xf.ndim == 3 else (1, -1)
+            y = (xf - mean.view(shape)) * torch.rsqrt(
+                var.view(shape) + self.eps)
+            if weight is not None:
+                y = y * weight.view(shape)
+            if bias is not None:
+                y = y + bias.view(shape)
+            mean, var = mean.detach(), var.detach()
+        else:
+            y = F.batch_norm(xf, None, None, weight, bias, True, 0.0,
+                             self.eps)
         with torch.no_grad():
-            dims = (0, 2) if xf.ndim == 3 else 0
-            var, mean = torch.var_mean(xf.detach(), dim=dims, correction=0)
+            if not _GLOBAL_MOMENTS:
+                var, mean = torch.var_mean(xf.detach(), dim=dims,
+                                           correction=0)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked += 1

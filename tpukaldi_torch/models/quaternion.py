@@ -45,6 +45,7 @@ import torch
 from torch import nn
 
 from ..config.schema import to_bool
+from ..kernels import ops
 from ..kernels.lstm import LSTMLeanRecurrence, LSTMRecurrence, lstm_recurrence_ref
 from .common import act_fun, float_list, int_list, recurrent_drop_mask
 from .recurrent import _reverse_time
@@ -221,11 +222,19 @@ class QLSTM(nn.Module):
                    drop_mask: torch.Tensor) -> torch.Tensor:
         """(T, B', 4H) feed-forward gates, the Hamilton-dense u (H, 4H) ->
         (T, B', H), by `qlstm_impl` (module docstring)."""
+        grad = torch.is_grad_enabled()
         if self.acts[i] != "tanh":
+            if not grad:
+                return ops.lstm_recurrence(ff, u, drop_mask, False,
+                                           self.acts[i], None, None, 0.0)
             return lstm_recurrence_ref(ff, u, drop_mask,
                                        act_fun(self.acts[i]))[0]
         mask = drop_mask.expand(ff.shape[1], u.shape[0]).contiguous()
         impl = self.options.get("qlstm_impl", "auto")
+        if not grad:
+            # the custom op (kernels/ops.py) takes the branches below on
+            # the device it runs on
+            return ops.lstm_recurrence_lean(ff, u, mask, impl)
         if impl == "pallas" or (impl == "auto" and ff.device.type == "cuda"):
             # ff goes to K4 in its own dtype (K4's bf16 entry in the bf16
             # compute mode), h comes back float32 and the layer goes on in

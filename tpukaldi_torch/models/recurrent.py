@@ -46,6 +46,7 @@ import torch
 from torch import nn
 
 from ..config.schema import to_bool
+from ..kernels import ops
 from ..kernels.gru import (
     GRURecurrence,
     gru_recurrence_ref,
@@ -165,8 +166,18 @@ class _RecurrentBase(nn.Module):
     def recurrence(self, i: int, ff: torch.Tensor, u: torch.Tensor,
                    drop_mask: torch.Tensor) -> torch.Tensor:
         """(T, B', G*H) feed-forward gates, the fused recurrent weights u
-        (H, len(FUSED_REC)*H) -> (T, B', H) hidden sequence."""
+        (H, len(FUSED_REC)*H) -> (T, B', H) hidden sequence.  Where no
+        gradient is wanted it runs the cell's custom op
+        (`kernels/ops.py`), which an exported graph holds."""
         raise NotImplementedError
+
+    def _ln_args(self, i: int):
+        """Layer i's layer norm as the ops take it: (gamma, beta, eps), or
+        (None, None, 0.0) without one."""
+        if not self.use_ln[i]:
+            return None, None, 0.0
+        ln = self.ln[i]
+        return ln.gamma, ln.beta, ln.eps
 
     def _impl(self, i: int, kernel_acts, ff: torch.Tensor) -> str:
         """How layer i runs: "kernel" (the cell's autograd Function), "scan"
@@ -240,6 +251,11 @@ class liGRU(_RecurrentBase):
 
     def recurrence(self, i, ff, u, drop_mask):
         impl = self._impl(i, ("relu",), ff)
+        if not torch.is_grad_enabled():
+            mask = drop_mask if impl == "loop" else drop_mask.expand(
+                ff.shape[1], u.shape[0]).contiguous()
+            return ops.ligru_recurrence(ff, u, mask, impl == "kernel",
+                                        self.acts[i], *self._ln_args(i))
         if impl == "loop":
             # any activation, optional laynorm on h: the plain loop only
             return ligru_recurrence_ref(
@@ -268,6 +284,11 @@ class LSTM(_RecurrentBase):
 
     def recurrence(self, i, ff, u, drop_mask):
         impl = self._impl(i, ("tanh",), ff)
+        if not torch.is_grad_enabled():
+            mask = drop_mask if impl == "loop" else drop_mask.expand(
+                ff.shape[1], u.shape[0]).contiguous()
+            return ops.lstm_recurrence(ff, u, mask, impl == "kernel",
+                                       self.acts[i], *self._ln_args(i))
         if impl == "loop":
             return lstm_recurrence_ref(
                 ff, u, drop_mask, act_fun(self.acts[i]),
@@ -294,6 +315,11 @@ class GRU(_RecurrentBase):
     def recurrence(self, i, ff, uzr, drop_mask):
         uh = self.uh[i].weight.t().contiguous()
         impl = self._impl(i, ("relu", "tanh"), ff)
+        if not torch.is_grad_enabled():
+            mask = drop_mask if impl == "loop" else drop_mask.expand(
+                ff.shape[1], uzr.shape[0]).contiguous()
+            return ops.gru_recurrence(ff, uzr, uh, mask, impl == "kernel",
+                                      self.acts[i], *self._ln_args(i))
         if impl == "loop":
             return gru_recurrence_ref(
                 ff, uzr, uh, drop_mask, act_fun(self.acts[i]),
@@ -318,6 +344,10 @@ class minimalGRU(_RecurrentBase):
     FUSED_REC = ("uz",)
 
     def recurrence(self, i, ff, uz, drop_mask):
+        if not torch.is_grad_enabled():
+            return ops.minimalgru_recurrence(
+                ff, uz, self.uh[i].weight.t(), drop_mask, self.acts[i],
+                *self._ln_args(i))
         return minimalgru_recurrence_ref(
             ff, uz, self.uh[i].weight.t(), drop_mask, act_fun(self.acts[i]),
             self.ln[i] if self.use_ln[i] else None)
@@ -334,6 +364,9 @@ class RNN(_RecurrentBase):
     REC_GATES = ("uh",)
 
     def recurrence(self, i, ff, uh, drop_mask):
+        if not torch.is_grad_enabled():
+            return ops.rnn_recurrence(ff, uh, drop_mask, self.acts[i],
+                                      *self._ln_args(i))
         return rnn_recurrence_ref(
             ff, uh, drop_mask, act_fun(self.acts[i]),
             self.ln[i] if self.use_ln[i] else None)

@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import to_bool
-from ..kernels import _launch
+from ..kernels import _launch, ops
 from .common import RefLayerNorm, inverted_dropout, torch_linear_uniform, widen
 from .recurrent import _reverse_time
 
@@ -93,13 +93,13 @@ class SRU(nn.Module):
         self.alpha = (math.sqrt(1.0 + math.exp(self.highway_bias) * 2.0)
                       if to_bool(o.get("sru_rescale", "True")) else 1.0)
         if to_bool(o.get("sru_use_relu", "False")):
-            self.g = torch.relu
+            self.g, self.g_name = torch.relu, "relu"
         elif to_bool(o.get("sru_use_selu", "False")):
-            self.g = F.selu
+            self.g, self.g_name = F.selu, "selu"
         elif to_bool(o.get("sru_use_tanh", "True")):
-            self.g = torch.tanh
+            self.g, self.g_name = torch.tanh, "tanh"
         else:
-            self.g = lambda v: v
+            self.g, self.g_name = (lambda v: v), "linear"
         D = inp_dim
         for l in range(self.n_layers):
             if self.layer_norm:
@@ -152,11 +152,13 @@ class SRU(nn.Module):
             x_skip = None
             if self.skip:
                 x_skip = ff[..., 3 * H:] if w.shape[1] == 4 * H else x
-            h = sru_recurrence_ref(
-                ff[..., :H], ff[..., H:2 * H], ff[..., 2 * H:3 * H], x_skip,
-                getattr(self, f"vf{l}"), getattr(self, f"vr{l}"),
-                getattr(self, f"bf{l}"), getattr(self, f"br{l}"), self.g,
-                self.alpha)
+            args = (ff[..., :H], ff[..., H:2 * H], ff[..., 2 * H:3 * H],
+                    x_skip, getattr(self, f"vf{l}"), getattr(self, f"vr{l}"),
+                    getattr(self, f"bf{l}"), getattr(self, f"br{l}"))
+            # the custom op (kernels/ops.py) where no gradient is wanted
+            h = (sru_recurrence_ref(*args, self.g, self.alpha)
+                 if torch.is_grad_enabled() else
+                 ops.sru_recurrence(*args, self.g_name, self.alpha))
             if self.bidir:
                 h = torch.cat([h[:, :B], _reverse_time(h[:, B:], lengths)],
                               dim=2)

@@ -2,7 +2,7 @@
 reference run_exp.py:1-621).
 
   python -m tpukaldi_torch.tools.run_exp cfg/exp.cfg [--device cuda] \\
-      [--check-data] [--section,field=value ...]
+      [--mesh] [--check-data] [--section,field=value ...]
 
 Drives: config load -> plan -> (train chunks with interleaved validation ->
 new-bob lr annealing) x epochs -> res.res -> final checkpoints -> forward
@@ -12,14 +12,27 @@ port's copies of tpukaldi's config, planner, ledger and decode code.  Crash
 recovery goes through the `.info` ledger as in tpukaldi: done tasks are
 skipped on restart.  `--device cuda` without a CUDA
 device is an error; there is no fallback to the CPU.
+
+Data parallelism (`[exp] multi_gpu = True` or `--mesh`, tpukaldi's mesh):
+under a process group already in place, or the one a `torchrun` launch
+describes (`RANK`, `WORLD_SIZE`, `MASTER_ADDR`), every process trains its
+shard of each batch (`dist/mesh.py`); with no group and more than one
+visible card, `run_experiment` starts one process per card (NCCL); else it
+is world size 1.  Only rank 0 writes the ledger, the checkpoints and
+res.res (the other ranks keep their chunk lists in a private temporary
+directory, `ChunkRuntime._task_lists`).  The forward stage runs on rank 0
+of each host, which takes every `TPUKALDI_NUM_HOSTS`-th forward task from
+`TPUKALDI_HOST_ID` on.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import logging
 import os
 import shutil
+import socket
 import sys
 import time
 from typing import Dict, List, Optional, Tuple
@@ -31,6 +44,7 @@ from ..config import ConfigError, load_config
 from ..config.cfg import ExperimentConfig
 from ..data.prefetch import ChunkPrefetcher
 from ..decode.bridge import harvest_wer, run_decode
+from ..dist import mesh as dp
 from ..forward.counts import resolve_count_files
 from ..plan import ChunkTask, build_plan, repair_resume_point
 from ..plan.chunk_cfg import write_chunk_cfg
@@ -47,8 +61,12 @@ _PHASES = ("h2d", "dispatch", "drain", "drain_compute", "drain_fetch",
            "ckpt_block", "restore_wait", "host_batch")
 
 
-def _log(out_folder: str, msg: str) -> None:
+def _log(out_folder: str, msg: str, writes: bool = True) -> None:
+    """Print `msg` and, where this process writes the run's files (rank 0),
+    append it to log.log."""
     print(msg)
+    if not writes:
+        return
     with open(os.path.join(out_folder, "log.log"), "a") as f:
         f.write(msg + "\n")
 
@@ -154,8 +172,11 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
     """The epoch loop (tpukaldi/tools/run_exp.py:167-337): train chunks in
     order, each validation point aggregating the valid tasks after it,
     new-bob halving of every auto-annealed arch's lr, and per epoch an
-    `ep=` line and a `phases ep=` line in res.res."""
+    `ep=` line and a `phases ep=` line in res.res.  Every rank runs it
+    (the reduced valid err gives each the same lr schedule); only rank 0
+    writes."""
     out_folder = exp.out_folder
+    writes = runtime.writes
     # annealing is on iff the user gave a single-value schedule (reference
     # run_exp.py:151-161)
     lr: Dict[str, List[float]] = {a: list(s.lr) for a, s in exp.archs.items()}
@@ -172,7 +193,8 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
         valid_perf: Dict[str, ChunkResult] = {}
         pending_valid: List[ChunkResult] = []
         valid_names: List[str] = []
-        _log(out_folder, f"------ Epoch {ep} / {exp.n_epochs - 1} ------")
+        _log(out_folder, f"------ Epoch {ep} / {exp.n_epochs - 1} ------",
+             writes)
 
         def flush_valid_point():
             nonlocal prev_valid_err, pending_valid, valid_names
@@ -195,7 +217,8 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
                         for i in range(ep + 1, exp.n_epochs):
                             lr[arch][i] = new_lr
                         _log(out_folder,
-                             f"[new-bob] halving lr of {arch} -> {new_lr}")
+                             f"[new-bob] halving lr of {arch} -> {new_lr}",
+                             writes)
             prev_valid_err = err_mean
             pending_valid, valid_names = [], []
 
@@ -207,9 +230,10 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
                 bs = (exp.batches.batch_size_train[ep] if task.phase == "train"
                       else exp.batches.batch_size_valid)
                 msl = exp.batches.msl_for_phase(task.phase, task.epoch)
-                task.write_lst_files()
-                write_chunk_cfg(exp, task, lr=epoch_lr, batch_size=bs,
-                                max_seq_length=msl)
+                if writes:
+                    task.write_lst_files()
+                    write_chunk_cfg(exp, task, lr=epoch_lr, batch_size=bs,
+                                    max_seq_length=msl)
                 res = runtime.run_task(task, epoch_lr=epoch_lr,
                                        max_seq_length=msl, batch_size=bs,
                                        chunk=feeder.get_chunk(task))
@@ -224,6 +248,8 @@ def _train(exp: ExperimentConfig, plan, runtime: ChunkRuntime,
 
         tr_loss, tr_err, tr_time = _aggregate(tr_results)
         epoch_wall = time.time() - t_ep
+        if not writes:
+            continue
         dump_epoch_results(res_file, ep, exp.n_epochs, exp.train_with,
                            tr_loss, tr_err, valid_perf, lr, epoch_wall)
         # where the epoch's wall time went (skipped by "ep="-prefixed
@@ -292,31 +318,78 @@ def matmul_precision():
 
 def check_run_knobs(exp: ExperimentConfig) -> None:
     """The run-level knobs tpukaldi reads (tools/run_exp.py:95-120,
-    :187-190) that the port does not implement yet raise, naming the knob:
-    it runs one process on one device.  A TPUKALDI_MATMUL_PRECISION it does
-    not know raises ValueError here, before any output."""
-    if exp.multi_gpu:
-        raise NotImplementedError(
-            "[exp] multi_gpu = True: data-parallel training is not ported yet "
-            "(ROADMAP.md queue 1, 'DDP and export')")
-    if int(os.environ.get("TPUKALDI_NUM_HOSTS", "1")) > 1:
-        raise NotImplementedError(
-            "TPUKALDI_NUM_HOSTS > 1: sharding the forward stage across hosts "
-            "is not ported yet (ROADMAP.md queue 1, 'DDP and export')")
+    :187-190), checked before any output: a TPUKALDI_MATMUL_PRECISION the
+    port does not know raises ValueError, and TPUKALDI_NUM_HOSTS and
+    TPUKALDI_HOST_ID must be integers with 0 <= host id < hosts."""
     matmul_precision_knob()
+    n_hosts, host_id = forward_hosts()
+    if n_hosts < 1 or not 0 <= host_id < n_hosts:
+        raise ValueError(f"TPUKALDI_HOST_ID={host_id} is not a host of "
+                         f"TPUKALDI_NUM_HOSTS={n_hosts}")
+
+
+def forward_hosts() -> Tuple[int, int]:
+    """(TPUKALDI_NUM_HOSTS, TPUKALDI_HOST_ID), by default (1, 0)."""
+    return (int(os.environ.get("TPUKALDI_NUM_HOSTS", "1")),
+            int(os.environ.get("TPUKALDI_HOST_ID", "0")))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawned_rank(rank: int, world: int, port: int, cfg_file: str,
+                  overrides: Optional[List[str]]) -> None:
+    """One process of a run spread over the visible cards: joins the NCCL
+    group as `rank` on `cuda:<rank>` and runs the experiment there."""
+    device = f"cuda:{rank}"
+    dp.init_distributed(f"localhost:{port}", world, rank, device=device)
+    try:
+        run_experiment(cfg_file, overrides, device=device, use_mesh=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _join_mesh(device: torch.device) -> Tuple[Optional[dp.DataParallelMesh],
+                                               bool]:
+    """The data-parallel mesh of this process and whether it made the
+    group: the group in place, else the one a torchrun launch describes
+    (NCCL on `cuda:<LOCAL_RANK>` for a CUDA device, gloo for the CPU), else
+    world size 1 (no group).  None where the run must be spread over the
+    visible cards by `run_experiment` itself."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        return dp.data_parallel_mesh(device), False
+    env = os.environ
+    if all(k in env for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR")):
+        if device.type == "cuda":
+            device = torch.device("cuda", int(env.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(device)
+            os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo", init_method="env://")
+        return dp.data_parallel_mesh(device), True
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        return None, False
+    return dp.data_parallel_mesh(device), False
 
 
 def run_experiment(
     cfg_file: str,
     overrides: Optional[List[str]] = None,
     device="cuda",
+    use_mesh: bool = False,
 ) -> ExperimentConfig:
+    """Run the cfg's experiment on `device`; `use_mesh` (`--mesh`) or
+    `[exp] multi_gpu = True` makes it data-parallel (module docstring)."""
     device = resolve_device(device)
     # TPUKALDI_PROFILE_DIR: a profiler trace of the whole run, written when
     # it ends, by an exception too (tpukaldi/tools/run_exp.py:91-110)
     profile_dir = os.environ.get("TPUKALDI_PROFILE_DIR")
     if not profile_dir:
-        return _run_experiment(cfg_file, overrides, device)
+        return _run_experiment(cfg_file, overrides, device, use_mesh)
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -326,7 +399,7 @@ def run_experiment(
     prof = profile(activities=activities)
     prof.start()
     try:
-        return _run_experiment(cfg_file, overrides, device)
+        return _run_experiment(cfg_file, overrides, device, use_mesh)
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(
@@ -334,31 +407,53 @@ def run_experiment(
 
 
 def _run_experiment(cfg_file: str, overrides: Optional[List[str]],
-                    device) -> ExperimentConfig:
+                    device, use_mesh: bool = False) -> ExperimentConfig:
     exp = load_config(cfg_file, overrides=overrides)
     # what the port cannot run raises before any output is written
     check_run_knobs(exp)
-    runtime = ChunkRuntime(exp, device)
-    # after the runtime, whose device resolution pins float32
-    with matmul_precision():
-        return _run(exp, runtime)
+    mesh, made = None, False
+    if use_mesh or exp.multi_gpu:
+        mesh, made = _join_mesh(device)
+        if mesh is None:
+            # one process per visible card, each joining one NCCL group
+            world = torch.cuda.device_count()
+            logging.info("data-parallel run over %d cards", world)
+            torch.multiprocessing.start_processes(
+                _spawned_rank, args=(world, _free_port(), cfg_file,
+                                     overrides),
+                nprocs=world, start_method="spawn")
+            return exp
+        device = mesh.device
+    try:
+        runtime = ChunkRuntime(exp, device, mesh)
+        # after the runtime, whose device resolution pins float32
+        with matmul_precision():
+            return _run(exp, runtime)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
 
 
 def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
     out_folder = exp.out_folder
-    os.makedirs(os.path.join(out_folder, "exp_files"), exist_ok=True)
-    # snapshot the resolved config (reference run_exp.py:122-124)
-    with open(os.path.join(out_folder, "conf.cfg"), "w") as f:
-        exp.raw.write(f)
+    mesh, writes = runtime.mesh, runtime.writes
+    if writes:
+        os.makedirs(os.path.join(out_folder, "exp_files"), exist_ok=True)
+        # snapshot the resolved config (reference run_exp.py:122-124)
+        with open(os.path.join(out_folder, "conf.cfg"), "w") as f:
+            exp.raw.write(f)
 
-    # model diagram (reference renders model.svg at startup, utils.py:1703);
-    # as in tpukaldi, a failure is logged and never stops training
-    try:
-        from .diagram import create_block_diagram
+        # model diagram (reference renders model.svg at startup,
+        # utils.py:1703); as in tpukaldi, a failure is logged and never
+        # stops training
+        try:
+            from .diagram import create_block_diagram
 
-        create_block_diagram(exp, os.path.join(out_folder, "model.svg"))
-    except Exception as e:
-        _log(out_folder, f"[diagram] skipped: {e}")
+            create_block_diagram(exp, os.path.join(out_folder, "model.svg"))
+        except Exception as e:
+            _log(out_folder, f"[diagram] skipped: {e}")
+    # the other ranks plan in the folders rank 0 made
+    dp.barrier(mesh)
 
     # the same plan tpukaldi builds (same knobs), so the two share ledgers
     # and checkpoints
@@ -366,19 +461,30 @@ def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
     ckpt_every = int(os.environ.get(
         "TPUKALDI_CKPT_EVERY", exp.raw["exp"].get("ckpt_every_n_chunks", "1")))
     plan = build_plan(exp, n_valid_per_epoch=n_valid, ckpt_every=ckpt_every)
-    for removed in repair_resume_point(plan):
-        _log(out_folder, f"[resume] {removed} invalidated (no restorable "
-             "checkpoint); the chunk will be replayed deterministically")
-
+    if writes:
+        for removed in repair_resume_point(plan):
+            _log(out_folder, f"[resume] {removed} invalidated (no "
+                 "restorable checkpoint); the chunk will be replayed "
+                 "deterministically")
+    # every rank reads the same ledger, as rank 0 left it
+    dp.barrier(mesh)
+    # multi-host: the forward stage split before the prefetch schedule is
+    # built (tpukaldi/tools/run_exp.py:186-190), and run by rank 0 of each
+    # host only
+    n_hosts, host_id = forward_hosts()
+    if n_hosts > 1:
+        plan.forward_tasks = plan.shard_forward_tasks(host_id, n_hosts)
+    if mesh.local_rank != 0:
+        plan.forward_tasks = []
     res_file = os.path.join(out_folder, "res.res")
-    if not os.path.exists(res_file):
+    if writes and not os.path.exists(res_file):
         open(res_file, "w").close()
     feeder = ChunkFeeder(exp, plan, runtime)
     _train(exp, plan, runtime, feeder, res_file)
 
     # training curves (reference utils.py:2495-2614): the txt exports, and
     # the PNGs where matplotlib is installed; a failure is logged only
-    if plan.epochs:
+    if plan.epochs and writes:
         try:
             from .metrics import create_curves, export_txt
 
@@ -390,12 +496,16 @@ def _run(exp: ExperimentConfig, runtime: ChunkRuntime) -> ExperimentConfig:
     # final checkpoints (reference run_exp.py:412-414): the asynchronous
     # writer finishes before the files are copied
     runtime.checkpointer.wait()
-    if plan.epochs:
+    if plan.epochs and writes:
         last_train = [t for t in plan.epochs[-1].tasks if t.phase == "train"][-1]
         for arch, final in plan.final_ckpts.items():
             src = last_train.ckpt_files[arch]
             if os.path.exists(src) and not os.path.exists(final):
                 shutil.copyfile(src, final)
+    # the forward ranks read the final checkpoints rank 0 wrote
+    dp.barrier(mesh)
+    if mesh.local_rank != 0:
+        return exp
 
     # production mode consumes final checkpoints from a previous training
     # run (reference run_exp.py:168-174): never forward random weights
@@ -469,6 +579,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("cfg")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="data-parallel training, as [exp] multi_gpu = "
+                        "True")
     parser.add_argument("--check-data", action="store_true",
                         help="validate the data tree the cfg points at and "
                         "exit without training (rc 1 on errors)")
@@ -478,7 +591,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             from .check_data import run_check
 
             return run_check(args.cfg, overrides)
-        run_experiment(args.cfg, overrides=overrides, device=args.device)
+        run_experiment(args.cfg, overrides=overrides, device=args.device,
+                       use_mesh=args.mesh)
     except ConfigError as e:
         print(f"config error: {e}", file=sys.stderr)
         return 1

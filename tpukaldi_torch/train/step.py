@@ -32,8 +32,10 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from ..dist.mesh import DataParallelMesh, all_reduce_grads, reduce_weighted
 from ..graph.compiler import GraphSpec, apply_graph
 from ..kernels import _launch
+from ..models.common import global_batch_moments
 from .optimizers import ArchOptimizer
 
 # parameter names (substrings) kept float32 in the bf16 compute mode, as
@@ -88,25 +90,51 @@ def train_step(
     n_valid_t: Union[int, torch.Tensor, None] = None,
     generator: Optional[torch.Generator] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh: Optional[DataParallelMesh] = None,
+    weight: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One optimizer step on `loss_final`: forward in train mode (frozen
     architectures in eval mode), backward, then a step of every unfrozen
     architecture's optimizer.  No `lengths`: tpukaldi's train step passes
     none, so bidirectional layers flip the whole bucket-padded batch.
     `generator` (on the graph's device) draws the dropout masks.
-    Returns (loss, err) as detached device scalars."""
+    Returns (loss, err) as detached device scalars.
+
+    Under a process group (`mesh` active) `feats` and `labs` are this
+    rank's shard of the batch and `weight` its share of the batch's rows
+    (`dist.shard_weight`): the loss is weighted before the backward, the
+    unfrozen architectures' gradients are summed over the ranks before the
+    optimizers' clip and step, and (loss, err) come back as the global
+    batch's.  At world size > 1 batchnorm takes the global batch's
+    moments."""
+    dp = mesh is not None and mesh.active
     for opt in optimizers.values():
         opt.zero_grad()
-    params, feats = _cast_compute(graph, feats, compute_dtype)
-    outs = apply_graph(graph, feats, labs, train=True, to_do="train",
-                       n_valid_t=n_valid_t, generator=generator,
-                       params=params)
-    loss = outs["loss_final"]
-    loss.backward()
-    for name, opt in optimizers.items():
-        if not graph.archs[name].freeze:
-            opt.step()
-    return loss.detach(), outs["err_final"].detach()
+    with global_batch_moments(dp and mesh.world_size > 1):
+        params, feats = _cast_compute(graph, feats, compute_dtype)
+        outs = apply_graph(graph, feats, labs, train=True, to_do="train",
+                           n_valid_t=n_valid_t, generator=generator,
+                           params=params)
+        loss = outs["loss_final"]
+        (loss * weight if weight != 1.0 else loss).backward()
+    stepped = {name: opt for name, opt in optimizers.items()
+               if not graph.archs[name].freeze}
+    if dp:
+        all_reduce_grads(stepped, mesh=mesh)
+    for opt in stepped.values():
+        opt.step()
+    loss, err = loss.detach(), outs["err_final"].detach()
+    if dp:
+        loss, err = _global_stats(loss, err, weight, mesh)
+    return loss, err
+
+
+def _global_stats(loss, err, weight, mesh):
+    """(loss, err) of the global batch: each rank's weighted by its share,
+    summed over the ranks in one all-reduce."""
+    both = reduce_weighted(torch.stack([loss.float(), err.float()]), weight,
+                           mesh)
+    return both[0], both[1]
 
 
 def eval_step(
@@ -115,13 +143,20 @@ def eval_step(
     labs: torch.Tensor,
     n_valid_t: Union[int, torch.Tensor, None] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    mesh: Optional[DataParallelMesh] = None,
+    weight: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, err) of a validation batch, every architecture in eval mode."""
+    """(loss, err) of a validation batch, every architecture in eval mode;
+    under a process group those of the global batch, from this rank's
+    shard and its `weight` (as `train_step`)."""
     with torch.inference_mode():
         params, feats = _cast_compute(graph, feats, compute_dtype)
         outs = apply_graph(graph, feats, labs, train=False, to_do="valid",
                            n_valid_t=n_valid_t, params=params)
-        return outs["loss_final"], outs["err_final"]
+        loss, err = outs["loss_final"], outs["err_final"]
+        if mesh is not None and mesh.active:
+            loss, err = _global_stats(loss, err, weight, mesh)
+        return loss, err
 
 
 class StepGraph:
@@ -145,8 +180,11 @@ class StepGraph:
                  labs: torch.Tensor, seq: bool, device,
                  optimizers: Optional[Dict[str, ArchOptimizer]] = None,
                  generator: Optional[torch.Generator] = None, pool=None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 mesh: Optional[DataParallelMesh] = None,
+                 weight: float = 1.0):
         self.device = torch.device(device)
+        self.mesh, self.weight = mesh, weight
         self.graph, self.train = graph, train
         self.compute_dtype = compute_dtype
         self.optimizers = optimizers if train else {}
@@ -178,9 +216,9 @@ class StepGraph:
         if self.train:
             return train_step(self.graph, self.optimizers, self.feats,
                               self.labs, self.n_valid_t, self.generator,
-                              self.compute_dtype)
+                              self.compute_dtype, self.mesh, self.weight)
         return eval_step(self.graph, self.feats, self.labs, self.n_valid_t,
-                         self.compute_dtype)
+                         self.compute_dtype, self.mesh, self.weight)
 
     def capture(self, stream: torch.cuda.Stream) -> None:
         """Capture the step on `stream` (not the current one: a capture
@@ -234,21 +272,24 @@ def make_train_multistep(graph: GraphSpec,
                          optimizers: Dict[str, ArchOptimizer],
                          feats: torch.Tensor, labs: torch.Tensor, seq: bool,
                          device, generator: torch.Generator,
-                         pool=None, compute_dtype=None) -> StepGraph:
+                         pool=None, compute_dtype=None, mesh=None,
+                         weight: float = 1.0) -> StepGraph:
     """A train step on `device` for batches shaped as `feats` and `labs`,
     to capture (tpukaldi's `make_train_multistep`: K steps in one
-    dispatch)."""
+    dispatch); under an NCCL group (`mesh`) the graph holds the step's
+    all-reduces."""
     return StepGraph(graph, True, feats, labs, seq, device, optimizers,
-                     generator, pool, compute_dtype)
+                     generator, pool, compute_dtype, mesh, weight)
 
 
 def make_eval_multistep(graph: GraphSpec, feats: torch.Tensor,
                         labs: torch.Tensor, seq: bool, device,
-                        pool=None, compute_dtype=None) -> StepGraph:
+                        pool=None, compute_dtype=None, mesh=None,
+                        weight: float = 1.0) -> StepGraph:
     """An eval step on `device` for batches shaped as `feats` and `labs`,
     to capture (tpukaldi's `make_eval_multistep`)."""
     return StepGraph(graph, False, feats, labs, seq, device, pool=pool,
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, mesh=mesh, weight=weight)
 
 
 def forward_step(
@@ -268,18 +309,32 @@ def forward_step(
     the caller copies the result to the host, so padding never crosses.
     """
     with torch.inference_mode():
-        params, feats = _cast_compute(graph, feats, compute_dtype)
-        outs = apply_graph(graph, feats, None, train=False, to_do="forward",
-                           lengths=lengths, params=params)
-        result = {}
-        for name in graph.forward_outs:
-            # posteriors are float32 in every compute dtype
-            o = outs[name].float()
-            prior = (log_priors or {}).get(name)
-            if prior is not None:
-                o = o - prior
-            o = o.reshape(o.shape[0] * o.shape[1], -1) if o.ndim == 3 else o
-            if pack_idx is not None:
-                o = o.index_select(0, pack_idx)
-            result[name] = o
+        return forward_outputs(graph, feats, lengths, log_priors, pack_idx,
+                               compute_dtype)
+
+
+def forward_outputs(
+    graph: GraphSpec,
+    feats: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    log_priors: Optional[Dict[str, Optional[torch.Tensor]]] = None,
+    pack_idx: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Dict[str, torch.Tensor]:
+    """`forward_step`'s computation in the caller's grad mode (the serving
+    export traces it under `torch.no_grad`)."""
+    params, feats = _cast_compute(graph, feats, compute_dtype)
+    outs = apply_graph(graph, feats, None, train=False, to_do="forward",
+                       lengths=lengths, params=params)
+    result = {}
+    for name in graph.forward_outs:
+        # posteriors are float32 in every compute dtype
+        o = outs[name].float()
+        prior = (log_priors or {}).get(name)
+        if prior is not None:
+            o = o - prior
+        o = o.reshape(o.shape[0] * o.shape[1], -1) if o.ndim == 3 else o
+        if pack_idx is not None:
+            o = o.index_select(0, pack_idx)
+        result[name] = o
     return result
