@@ -278,6 +278,7 @@ go to build/chip_smoke/.
 from __future__ import annotations
 
 import contextlib
+import copy
 import importlib
 import json
 import math
@@ -287,6 +288,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -360,6 +362,14 @@ POSTERIOR_ATOL = 1e-3
 # (for the QLSTM, the plain bf16 path: its products are bf16 by design)
 STEP_LOSS_ATOL = 1e-4
 STEP_GRAD_FACTOR = 2.0
+# a trained recipe's arks where its weights amplify float32 rounding
+# (LSTM_fmllr_cudnn.cfg after two rmsprop steps, saturated cells over 662
+# steps, each float32 path 1.7e-4 to 6.6e-4 from float64): the same
+# forward in float64 on the card and on the CPU, whose arithmetic differs
+# only in its sum orders (rounding near 1e-16, amplified as float32's is,
+# ~1e-12) and in the float32 log-softmax at the end (a few ulps of values
+# near 10, ~1e-6)
+F64_PATHS_ATOL = 1e-5
 # The zoo phase: the classes with no TPU kernel, each at its shipped cfg's
 # full widths (cfg/TIMIT/RNN_fmllr.cfg 5x550 bidirectional tanh with
 # batchnorm; minimalGRU_fbank.cfg 5x550; LSTM_fmllr_cudnn.cfg 4x550
@@ -409,6 +419,15 @@ ZOO_CUTS = {"batch_size_train = 16": "batch_size_train = 8"}
 FUSION_RUN_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
                    "n_chunks = 5": "n_chunks = 1", **ZOO_CUTS}
 FUSION_LAYERS = 4
+# LSTM_fmllr_cudnn.cfg's run through run_exp: one train chunk of 16
+# utterances, then the forward stage over 13, which leaves every forward
+# batch of 8 padded with rows of length 0
+CUDNN_TREE = dict(dim=40, splits={"train": (16, 150, 778), "dev": (4, 150, 778),
+                                  "test": (13, 150, 778)})
+CUDNN_RUN_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
+                  "n_chunks = 5": "n_chunks = 1",
+                  "increase_seq_length_train = True":
+                  "increase_seq_length_train = False"}
 # recipe -> its kernel module's cell, forward and backward kernel, layers,
 # tree and cuts (2 epochs of 2 train chunks, no sequence-length curriculum;
 # the DIRHA cfg has none already)
@@ -1845,12 +1864,18 @@ def _cpu_posteriors(ft, exp, names, impl=None):
                 a.options["qlstm_impl"] = v
 
 
-def _check_cpu_path(ft, exp, out, names, lengths, recipe) -> str:
+def _check_cpu_path(ft, exp, out, names, lengths, recipe,
+                    float64=False) -> str:
     """Two utterances (shortest, longest) through the port's CPU path from
-    the same final checkpoints.  The QLSTM's CUDA path multiplies bf16
-    operands, so its CPU path is the bf16-U plain version (`qlstm_impl =
-    pallas` on CPU): the same arithmetic, summed in another order, whose
-    rounding ties drift apart over the steps as in the kernel phase.  It is
+    the same final checkpoints; with `float64` (a path with no hand
+    kernel, whose trained weights amplify float32 rounding) the same
+    forward also runs in float64 on the card and on the CPU, held to each
+    other within F64_PATHS_ATOL, and each float32 path's distance from the
+    CPU's float64 run is printed beside.  The QLSTM's
+    CUDA path multiplies bf16 operands, so its CPU path is the bf16-U
+    plain version (`qlstm_impl = pallas` on CPU): the same arithmetic,
+    summed in another order, whose rounding ties drift apart over the
+    steps as in the kernel phase.  It is
     held to POSTERIOR_ATOL, or, where trained weights amplify that drift,
     to the distance between the CPU path's bf16 and float32 arithmetic (the
     scale of a bf16 operand's rounding), printed beside it."""
@@ -1863,10 +1888,21 @@ def _check_cpu_path(ft, exp, out, names, lengths, recipe) -> str:
         return max(float(abs(a[key] - b[key]).max()) for key in wanted)
 
     if recipe != "QLSTM":
-        worst = dist(ft.forward_utterances(exp, wanted, "cpu"), posts)
+        cpu = ft.forward_utterances(exp, wanted, "cpu")
+        worst = dist(cpu, posts)
         check(worst <= POSTERIOR_ATOL,
               f"CUDA posteriors differ from the CPU path by {worst}")
-        return f"max_abs_err={worst:.3e} (atol {POSTERIOR_ATOL:g})"
+        if not float64:
+            return f"max_abs_err={worst:.3e} (atol {POSTERIOR_ATOL:g})"
+        ref = ft.forward_utterances(exp, wanted, "cpu", torch.float64)
+        gap64 = dist(ref, ft.forward_utterances(exp, wanted, "cuda",
+                                                torch.float64))
+        check(gap64 <= F64_PATHS_ATOL,
+              f"the card's float64 forward differs from the CPU's by {gap64}")
+        return (f"max_abs_err={worst:.3e} (atol {POSTERIOR_ATOL:g}); in "
+                f"float64 the card {gap64:.3e} from the CPU (atol "
+                f"{F64_PATHS_ATOL:g}); float32 from the CPU's float64: CUDA "
+                f"{dist(ref, posts):.3e}, CPU {dist(ref, cpu):.3e}")
     cpu_bf16 = _cpu_posteriors(ft, exp, wanted, "pallas")
     gap = dist(cpu_bf16, _cpu_posteriors(ft, exp, wanted, "scan"))
     worst = dist(cpu_bf16, posts)
@@ -3352,6 +3388,34 @@ class _K1Calls:
         self.ligru.ligru_recurrence = self.saved
 
 
+def zero_row_check(twins, inputs, out_name, cls) -> str:
+    """The step check's batch served as a forward batch is padded: its last
+    row cut to length 0 and zeroed.  The card's posteriors are held to the
+    CPU twin's on the valid frames (POSTERIOR_ATOL), and every frame of
+    them, padding included, must be finite."""
+    from tpukaldi_torch.train.step import forward_step
+
+    t0 = time.perf_counter()
+    feats, _, lengths = inputs["cpu"]
+    feats, lengths = feats.clone(), lengths.clone()
+    feats[:, -1] = 0.0
+    lengths[-1] = 0
+    post = {d: forward_step(twins[d].graph, feats.to(twins[d].device),
+                            lengths.to(twins[d].device))[out_name].cpu()
+            for d in ("card", "cpu")}
+    valid = (torch.arange(feats.shape[0])[:, None]
+             < lengths[None, :]).reshape(-1)
+    err = float((post["card"][valid] - post["cpu"][valid]).abs().max())
+    check(bool(torch.isfinite(post["card"]).all()),
+          f"{cls}: non-finite forward with a row of length 0")
+    check(err <= POSTERIOR_ATOL,
+          f"{cls}: card vs CPU forward with a row of length 0 {err}")
+    return (f"; a forward batch with a row of length 0 (lengths "
+            f"{lengths.tolist()}): max_abs_err={err:.3e} on the valid frames "
+            f"(atol {POSTERIOR_ATOL:g}), all {post['card'].shape[0]} frames "
+            f"finite, {time.perf_counter() - t0:.2f} s")
+
+
 def zoo_step_check(modules, cfg, cls, card="cuda") -> dict:
     """One class at full width: the card's train step and forward with
     lengths against a CPU twin from the cfg's seed, and their times."""
@@ -3402,6 +3466,8 @@ def zoo_step_check(modules, cfg, cls, card="cuda") -> dict:
     check(fwd_err <= POSTERIOR_ATOL,
           f"{cls}: card vs CPU forward (valid frames) {fwd_err}")
     fwd_ms = _warm_ms(lambda: fwd("card"))
+    zero_row = (zero_row_check(twins, inputs, out_name, cls)
+                if cls.endswith("_cudnn") else "")
 
     # one train step at drop 0
     def step(d):
@@ -3489,7 +3555,7 @@ def zoo_step_check(modules, cfg, cls, card="cuda") -> dict:
           f"on the valid frames (atol {POSTERIOR_ATOL:g})"
           + (f"; K1f on the fusion layers vs ligru_recurrence_ref "
              f"max_abs_err={k1:.3e} (atol {KERNEL_ATOL:g})" if k1 is not None
-             else ""), flush=True)
+             else "") + zero_row, flush=True)
     print(f"zoo {cls} speed: train step {step_ms:.2f} ms "
           f"({frames / step_ms * 1e3:.1f} frames/s), forward {fwd_ms:.2f} ms "
           f"({frames / fwd_ms * 1e3:.1f} frames/s); the CPU twin's train step "
@@ -3543,6 +3609,8 @@ def fusion_run_phase(modules, tree) -> dict:
           f"{n_train + n_valid + n_fwd}), K1b launches {bwd} (= "
           f"{FUSION_LAYERS} x {n_train}); wall {wall:.3f} s; {ep[0]}; arks "
           f"{n_test} finite; CUDA vs CPU path (2 utterances) {cpu}", flush=True)
+    export = _timed("zoo fusionRNN export", export_check, modules, cfg,
+                    "zoo fusionRNN export", FUSION_LAYERS)
 
     out_s = os.path.join(WORK, "zoo_fusion_serve")
     os.makedirs(out_s)
@@ -3569,13 +3637,137 @@ def fusion_run_phase(modules, tree) -> dict:
           f"{info['elapsed_time_chunk']:.3f} s, {info['frames_per_sec']:.1f} "
           f"frames/s (.info), wall {wall_s:.3f} s; CUDA vs CPU path (2 "
           f"utterances) {cpu_s}", flush=True)
-    return {"ligru_fwd": fwd + counts_s["ligru_fwd"], "ligru_bwd": bwd}
+    return {"ligru_fwd": {"fusion_launches": fwd + counts_s["ligru_fwd"],
+                          "fusion_export_launches": export},
+            "ligru_bwd": {"fusion_launches": bwd}}
+
+
+def cudnn_run_phase(modules) -> None:
+    """cfg/TIMIT/LSTM_fmllr_cudnn.cfg at full width (4 x 550,
+    bidirectional) through run_exp on the card: one train chunk, its valid
+    chunk and the forward stage over a test split that leaves forward
+    batches padded with rows of length 0.  No hand kernel launches (the
+    family is torch's cuDNN RNN); arks finite and held to the CPU path;
+    the forward's frames/s from its .info; cuDNN compacts no weights; the
+    arch's forward and train step timed beside torch's own module over the
+    same weights (flattened, all layers at once); then the trained run
+    exported and served (`export_check`)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+
+    t0 = time.perf_counter()
+    tree = ft.write_kaldi_tree(
+        os.path.join(WORK, "cudnn"), dim=CUDNN_TREE["dim"], n_phones=N_PHONES,
+        n_pdfs=N_PDFS, splits=CUDNN_TREE["splits"])
+    n_test = CUDNN_TREE["splits"]["test"][0]
+    out = os.path.join(WORK, "zoo_lstm_cudnn_run")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                             CUDNN_RUN_CUTS,
+                             recipe=ft.recipe_cfg("LSTM_cudnn"))
+    _reset_counts(modules, chunk_runtime)
+    t1 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        exp = run_experiment(cfg, device="cuda")
+    wall = time.perf_counter() - t1
+    counts = _counts(modules)
+    check(not any(counts.values()), f"LSTM_cudnn run: hand kernels launched "
+          f"{ {k: n for k, n in counts.items() if n} }")
+    n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
+                               chunk_runtime.valid_batches,
+                               chunk_runtime.forward_batches)
+    check(n_train > 0 and n_fwd * chunk_runtime.DEFAULT_FORWARD_BATCH > n_test,
+          f"LSTM_cudnn run: {n_train} train batches, {n_fwd} forward batches "
+          f"for {n_test} utterances (no row of length 0)")
+    with open(os.path.join(out, "res.res")) as f:
+        ep = [line for line in f.read().splitlines() if line.startswith("ep=")]
+    check(len(ep) == 1 and math.isfinite(float(ep[0].split(" loss=")[1]
+                                                .split()[0])),
+          f"LSTM_cudnn res.res: {ep}")
+    posts, info = ft.forward_outputs(out)
+    names, lengths = _check_arks(list(posts), n_test)
+    cpu = _check_cpu_path(ft, exp, out, names, lengths, "LSTM_cudnn",
+                          float64=True)
+    cudnn_warnings = sorted({str(w.message)[:90] for w in warned
+                             if "cuDNN" in str(w.message)
+                             or "contiguous chunk" in str(w.message)})
+    # each layer takes its own flattened weights as they lie
+    check(not any("contiguous chunk" in w for w in cudnn_warnings),
+          f"LSTM_cudnn run: cuDNN compacted the weights: {cudnn_warnings}")
+    recipe = os.path.basename(ft.recipe_cfg("LSTM_cudnn"))
+    print(f"zoo LSTM_cudnn run (run_exp, {recipe} at 4 x 550 "
+          f"bidirectional, 1 train chunk of "
+          f"{CUDNN_TREE['splits']['train'][0]} utterances, then the forward "
+          f"stage over {n_test} in {n_fwd} batches of 8): {n_train} train + "
+          f"{n_valid} valid + {n_fwd} forward batches, no hand kernel "
+          f"launched; wall {wall:.3f} s; {ep[0]}; arks {n_test} finite; "
+          f"forward stage {info['elapsed_time_chunk']:.3f} s, "
+          f"{int(info['frames'])} frames, {info['frames_per_sec']:.1f} "
+          f"frames/s (.info); CUDA vs CPU path (2 utterances) {cpu}; cuDNN "
+          f"warnings {cudnn_warnings or 'none'}", flush=True)
+    _timed("zoo LSTM_cudnn arch vs torch's module", cudnn_module_timing,
+           exp, out)
+    _timed("zoo LSTM_cudnn export", export_check, modules, cfg,
+           "zoo LSTM_cudnn export", 0)
+    print(f"zoo LSTM_cudnn run phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def cudnn_module_timing(exp, out) -> None:
+    """The trained LSTM_cudnn arch (one call per layer, both directions,
+    each layer on its own flattened weights) against torch's `nn.LSTM` over the same
+    weights flattened into one buffer, all layers in one call, on a
+    full-length (778, 8, 40) batch: the no-grad forward's times and max
+    difference, and a train forward and backward's times (dropout 0)."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+
+    _, plan = ft.train_plan(os.path.join(out, "run.cfg"))
+    task = plan.forward_tasks[0]
+    rt = chunk_runtime.ChunkRuntime(exp, "cuda")
+    rt.ensure_initialized(rt.load_task_chunk(task))
+    rt.restore_from(task.pretrain_files, every_rank=False)
+    (arch,) = [m for m in rt.graph.modules.values()
+               if type(m).__name__ == "LSTM_cudnn"]
+    arch.eval()
+    device = next(arch.parameters()).device
+    x = torch.randn((778, 8, arch.inp_dim),
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    lengths = torch.full((8,), 778, dtype=torch.int32, device=device)
+    lib = copy.deepcopy(arch.torch_rnn())
+    lib.flatten_parameters()
+    with torch.no_grad():
+        got, want = arch(x, lengths), lib(x)[0]
+        ms = _warm_ms(lambda: arch(x, lengths))
+        lib_ms = _warm_ms(lambda: lib(x))
+    err = float((got - want).abs().max())
+    check(err <= POSTERIOR_ATOL, f"LSTM_cudnn arch vs torch's module {err}")
+    arch.train()
+    lib.train()
+    arch.dropout = lib.dropout = 0.0
+
+    def train_ms(forward):
+        def step():
+            forward().sum().backward()
+        step()
+        return _warm_ms(step)
+
+    train, lib_train = train_ms(lambda: arch(x)), train_ms(lambda: lib(x)[0])
+    print(f"zoo LSTM_cudnn arch forward (778, 8, {arch.inp_dim}) at 4 x 550 "
+          f"bidirectional: {ms:.3f} ms layer by layer through the op, "
+          f"torch's nn.LSTM over the flattened weights {lib_ms:.3f} ms "
+          f"({ms / lib_ms:.2f}x), max_abs_err={err:.3e}; train forward and "
+          f"backward {train:.3f} ms layer by layer, torch's nn.LSTM "
+          f"{lib_train:.3f} ms ({train / lib_train:.2f}x)", flush=True)
 
 
 def zoo_phase(modules, trees) -> dict:
     """The rest of the shipped zoo on the card: each class's step check,
-    then fusionRNN through run_exp.  Returns K1's launches on the fusion
-    path."""
+    then fusionRNN through run_exp and its export, then LSTM_cudnn's recipe
+    through run_exp and its export.  Returns K1's launches on the fusion
+    path (the kernels line's extra keys)."""
     from tpukaldi_torch.tools import flagship_tree as ft
 
     # the port's own setting (`resolve_device` pins it): the *_cudnn
@@ -3597,6 +3789,7 @@ def zoo_phase(modules, trees) -> dict:
         cfg = _zoo_cfg(trees[corpus], cls, out, "step.cfg", replace)
         zoo_step_check(modules, cfg, cls)
     launches = fusion_run_phase(modules, trees["DIRHA6"])
+    cudnn_run_phase(modules)
     print(f"zoo phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
@@ -4824,28 +5017,30 @@ def dist_gloo_check(modules, trees) -> dict:
                           for r in ranks]}
 
 
-def dist_export_check(modules, cfg) -> int:
-    """(c) The flagship trained in (a) exported at symbolic T and B
+def export_check(modules, cfg, label, layers) -> int:
+    """A trained experiment exported at symbolic T and B
     (`tools/export_model.py`), loaded on the card and served over the test
     split at batch 8: posteriors within DIST_FWD_ATOL of the live
-    `forward_step`, K1f launched by the artifact (counted); the same
-    artifact on the CPU over DIST_CPU_UTTS utterances within DIST_CPU_ATOL
-    of the CPU plain path.  Returns the artifact's K1f launches."""
+    `forward_step`, K1f launched by the artifact `layers` times a batch
+    (counted) and no other hand kernel (none at all where `layers` is 0);
+    the same artifact on the CPU over DIST_CPU_UTTS utterances within
+    DIST_CPU_ATOL of the CPU plain path.  Returns the artifact's K1f
+    launches."""
     from tpukaldi_torch.data.batching import iter_forward_batches
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.tools.export_model import export_forward, load_exported
     from tpukaldi_torch.train import chunk_runtime
     from tpukaldi_torch.train.step import forward_step
 
-    ligru = modules["ligru"]
-    art = os.path.join(WORK, "dist_artifact")
+    art = os.path.join(WORK, re.sub(r"\W+", "_", label) + "_artifact")
     t0 = time.perf_counter()
     export_forward(cfg, art)
     t_export = time.perf_counter() - t0
     t0 = time.perf_counter()
     card = load_exported(art)
     t_load = time.perf_counter() - t0
-    check(card.meta["batch"] == 0, f"artifact batch {card.meta['batch']}")
+    check(card.meta["batch"] == 0, f"{label}: artifact batch "
+          f"{card.meta['batch']}")
     exp, plan = ft.train_plan(cfg)
     task = plan.forward_tasks[0]
     rts = {}
@@ -4855,7 +5050,8 @@ def dist_export_check(modules, cfg) -> int:
         rt.ensure_initialized(chunk)
         rt.restore_from(task.pretrain_files, every_rank=False)
         rts[device] = rt
-    worst, launches, n_batches, frames = 0.0, 0, 0, 0
+    worst, n_batches, frames = 0.0, 0, 0
+    launched = dict.fromkeys(KERNELS, 0)
     serve_s = live_s = 0.0
     for batch in iter_forward_batches(chunk, 8):
         feats = torch.from_numpy(batch.feats).cuda()
@@ -4865,20 +5061,21 @@ def dist_export_check(modules, cfg) -> int:
         live = forward_step(rts["cuda"].graph, feats, lengths)
         torch.cuda.synchronize()
         live_s += time.perf_counter() - t0
-        n0 = ligru.launches
+        before = _counts(modules)
         t0 = time.perf_counter()
         served = card.call(feats, lengths)
         torch.cuda.synchronize()
         serve_s += time.perf_counter() - t0
-        launches += ligru.launches - n0
+        for name, n in _counts(modules).items():
+            launched[name] += n - before[name]
         n_batches += 1
         frames += int(batch.lengths.sum())
-        check(set(served) == set(live), f"outputs {sorted(served)} vs "
-              f"{sorted(live)}")
+        check(set(served) == set(live), f"{label}: outputs {sorted(served)} "
+              f"vs {sorted(live)}")
         for k, v in served.items():
-            check(bool(torch.isfinite(v).all()), f"{k}: non-finite")
+            check(bool(torch.isfinite(v).all()), f"{label} {k}: non-finite")
             worst = max(worst, float((v - live[k]).abs().max()))
-    layers = RECIPES[DIST_RECIPE]["layers"]
+    launches = launched.pop("ligru_fwd")
     # the CPU: the artifact and the plain path on the shortest and longest
     # utterances, each alone
     cpu = load_exported(art, device="cpu")
@@ -4894,7 +5091,7 @@ def dist_export_check(modules, cfg) -> int:
         got = cpu.call(x, n)
         for k in want:
             worst_cpu = max(worst_cpu, float((got[k] - want[k]).abs().max()))
-    print(f"dist (c) export: {t_export:.1f} s to export, {t_load:.1f} s to "
+    print(f"{label}: {t_export:.1f} s to export, {t_load:.1f} s to "
           f"load on the card (meta: batch {card.meta['batch']}, platforms "
           f"{card.meta['platforms']}, {card.meta['compute_dtype']}); the "
           f"test split, {n_batches} batches of up to 8 ({frames} frames): "
@@ -4904,21 +5101,25 @@ def dist_export_check(modules, cfg) -> int:
           f"(= {layers} x {n_batches}); on the CPU, {len(picks)} utterances "
           f"of {[lens[i] for i in picks]} frames, max|artifact - plain path| "
           f"{worst_cpu:.3e} (atol {DIST_CPU_ATOL:g})", flush=True)
-    check(worst <= DIST_FWD_ATOL, f"artifact vs live forward {worst}")
+    check(worst <= DIST_FWD_ATOL, f"{label}: artifact vs live forward {worst}")
     check(launches == layers * n_batches,
-          f"the artifact launched K1f {launches} times, expected "
+          f"{label}: the artifact launched K1f {launches} times, expected "
           f"{layers} x {n_batches}")
-    check(worst_cpu <= DIST_CPU_ATOL, f"CPU artifact vs plain {worst_cpu}")
+    others = {k: n for k, n in launched.items() if n}
+    check(not others, f"{label}: the artifact launched {others}")
+    check(worst_cpu <= DIST_CPU_ATOL, f"{label}: CPU artifact vs plain "
+          f"{worst_cpu}")
     return launches
 
 
 def dist_export_phase(modules, trees) -> dict:
     """The data-parallel mesh and the serving export on the flagship: (a)
-    `dist_nccl_check`, (b) `dist_gloo_check`, (c) `dist_export_check`.
+    `dist_nccl_check`, (b) `dist_gloo_check`, (c) `export_check`.
     Returns the kernels line's extra counts for K1f and K1b."""
     a = _timed("dist (a) NCCL world size 1", dist_nccl_check, modules, trees)
     b = _timed("dist (b) gloo two ranks", dist_gloo_check, modules, trees)
-    c = _timed("dist (c) export", dist_export_check, modules, a["cfg"])
+    c = _timed("dist (c) export", export_check, modules, a["cfg"],
+               "dist (c) export", RECIPES[DIST_RECIPE]["layers"])
     return {
         "ligru_fwd": {"dist_launches": {"nccl_world_1": a["counts"]["ligru_fwd"],
                                         "gloo_ranks": b["ligru_fwd"]},
@@ -5075,8 +5276,7 @@ def main() -> int:
                            bound_ms=bound, bound_by=bound_by,
                            library_ms=None if lib is None else lib[0])
             # K1's launches on the fusion path beside the flagship's
-            extra = ({"fusion_launches": fusion[name]} if name in fusion
-                     else {})
+            extra = dict(fusion.get(name, {}))
             if name in rate:
                 extra["rate_launches"] = rate[name]
             extra.update(dist_extra.get(name, {}))

@@ -2,9 +2,12 @@
 the CPU, mirroring tests/test_export.py: a trained experiment exports to a
 `torch.export` artifact with symbolic T and B whose reloaded forward
 matches the live posteriors (1e-4), and tpukaldi's StableHLO artifact of
-the same trained weights (1e-4).  The custom ops that keep T symbolic
-(`kernels/ops.py`) give, under fake tensors, their real outputs' shapes,
-dtypes and strides (`torch.library.opcheck`)."""
+the same trained weights (1e-4).  Every recurrent family that tpukaldi
+serves does so, the `*_cudnn` family and fusionRNN included, on a batch
+with uneven lengths and a row of length 0 (the forward batches' padding).
+The custom ops that keep T symbolic (`kernels/ops.py`) give, under fake
+tensors, their real outputs' shapes, dtypes and strides
+(`torch.library.opcheck`)."""
 
 import json
 import os
@@ -152,23 +155,112 @@ def test_export_cli(trained, tmp_path):
     assert all(v.shape[0] == 14 for v in out.values())
 
 
-@pytest.mark.parametrize("arch", ["GRU", "LSTM", "SRU", "QLSTM"])
+# the *_cudnn classes over `write_cfg`'s LSTM cfg, its [architecture1]
+# given the keys of cfg/TIMIT/LSTM_fmllr_cudnn.cfg:134-157 at hidden 16 and
+# 2 layers: family -> (class, the options it changes)
+CUDNN = {
+    "LSTM_cudnn": ("LSTM_cudnn", {}),
+    "LSTM_cudnn_unidir": ("LSTM_cudnn", {"bidirectional": "False"}),
+    "GRU_cudnn": ("GRU_cudnn", {}),
+    "RNN_cudnn_tanh": ("RNN_cudnn", {"nonlinearity": "tanh"}),
+    "RNN_cudnn_relu": ("RNN_cudnn", {"nonlinearity": "relu"}),
+}
+CUDNN_KEYS = dict(hidden_size="16", num_layers="2", bias="True",
+                  batch_first="True", dropout="0.2", bidirectional="True")
+# the families that did not export before the `*_cudnn` layers and
+# fusionRNN's recurrence ran custom ops, and RNN and minimalGRU, which no
+# test held
+NEW_FAMILIES = ["RNN", "minimalGRU", "fusionRNN", *CUDNN]
+# a serving batch: uneven lengths, one row of length 0
+T_SERVE, LENGTHS = 19, [19, 11, 0]
+
+
+def _cudnn_cfg(cfg, cls, options):
+    """Rewrite the synthetic LSTM cfg's [architecture1] into `cls` with
+    CUDNN_KEYS updated by `options` (tpukaldi's `write_cfg` has no
+    `*_cudnn` branch)."""
+    with open(cfg) as f:
+        lines = f.read().split("\n")
+    start = lines.index("[architecture1]")
+    end = next(i for i in range(start + 1, len(lines))
+               if lines[i].startswith("["))
+    section = []
+    for line in lines[start:end]:
+        key = line.split(" = ", 1)[0]
+        if key == "arch_proto":
+            line = f"{key} = proto/{cls}.proto"
+        elif key == "arch_class":
+            line = f"{key} = {cls}"
+        elif key.startswith("lstm_"):
+            # the LSTM's keys give way to the *_cudnn ones, in their place
+            if key == "lstm_lay":
+                section += [f"{k} = {v}" for k, v in
+                            {**CUDNN_KEYS, **options}.items()]
+            continue
+        section.append(line)
+    with open(cfg, "w") as f:
+        f.write("\n".join(lines[:start] + section + lines[end:]))
+    return cfg
+
+
+def _train_family(root, family):
+    """`family` trained by the port on the CPU: (cfg, out)."""
+    cls, options = CUDNN.get(family, (None, None))
+    cfg, out = _train(root, "LSTM" if cls else family)
+    if cls:
+        _cudnn_cfg(cfg, cls, options)
+    run_experiment(cfg, device="cpu")
+    return cfg, out
+
+
+def _serving_batch(inp_dim, seed):
+    """(feats (T_SERVE, 3, inp_dim), LENGTHS, the valid frames' mask over
+    the T*B output rows): zeros past each row's length, as the forward
+    batches pad."""
+    feats = np.random.default_rng(seed).standard_normal(
+        (T_SERVE, len(LENGTHS), inp_dim)).astype(np.float32)
+    valid = np.arange(T_SERVE)[:, None] < np.asarray(LENGTHS)[None, :]
+    feats[~valid] = 0.0
+    return feats, np.asarray(LENGTHS, np.int32), valid.reshape(-1)
+
+
+@pytest.mark.parametrize("arch", ["GRU", "LSTM", "SRU", "QLSTM",
+                                  *NEW_FAMILIES])
 def test_export_zoo_family(arch, tmp_path):
     """Every recurrent family exports with a symbolic batch and serves the
-    live forward's posteriors (1e-4)."""
-    cfg, _ = _train(tmp_path, arch)
-    run_experiment(cfg, device="cpu")
+    live forward's posteriors (1e-4) on a batch with uneven lengths and a
+    row of length 0, every frame finite."""
+    cfg, _ = _train_family(tmp_path, arch)
     model = load_exported(export_forward(cfg, str(tmp_path / "art")),
                           device="cpu")
     assert model.meta["batch"] == 0
-    T, B = 19, 2
-    feats = np.random.default_rng(7).standard_normal(
-        (T, B, model.meta["inp_dim"])).astype(np.float32)
-    got = {k: v.numpy() for k, v in model.call(feats, [T] * B).items()}
+    feats, lengths, _ = _serving_batch(model.meta["inp_dim"], 7)
+    got = {k: v.numpy() for k, v in model.call(feats, lengths).items()}
     for v in got.values():
-        assert v.shape[0] == T * B and np.isfinite(v).all()
+        assert v.shape[0] == feats.shape[0] * feats.shape[1]
+        assert np.isfinite(v).all()
     want = {k: v.numpy() for k, v in
-            _live_forward(cfg, feats, [T] * B).items()}
+            _live_forward(cfg, feats, lengths).items()}
+    _assert_posteriors(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("family", NEW_FAMILIES)
+def test_port_family_artifact_matches_tpukaldis(family, tmp_path):
+    """tpukaldi's `export_forward` over the same trained checkpoints serves
+    the port artifact's posteriors within 1e-4 on the valid frames of a
+    batch with uneven lengths and a row of length 0."""
+    from tpukaldi.tools.export_model import export_forward as tpk_export
+    from tpukaldi.tools.export_model import load_exported as tpk_load
+
+    cfg, _ = _train_family(tmp_path, family)
+    port = load_exported(export_forward(cfg, str(tmp_path / "port")),
+                         device="cpu")
+    tpk = tpk_load(tpk_export(cfg, str(tmp_path / "tpk")))
+    assert port.meta["batch"] == tpk.meta["batch"] == 0
+    feats, lengths, valid = _serving_batch(port.meta["inp_dim"], 11)
+    got = {k: v.numpy()[valid] for k, v in port.call(feats, lengths).items()}
+    want = {k: np.asarray(v)[valid] for k, v in
+            tpk.call(feats, lengths).items()}
     _assert_posteriors(got, want, 1e-4)
 
 
@@ -192,6 +284,50 @@ def test_export_bf16_experiment_records_dtype(tmp_path):
         assert v.dtype == np.float32 and np.isfinite(v).all()
         np.testing.assert_allclose(np.exp(v.astype(np.float64)).sum(axis=1),
                                    1.0, atol=1e-2)
+
+
+def test_export_bf16_fusion_chooses_k1_where_served(tmp_path, monkeypatch):
+    """A bf16 fusionRNN artifact traced on the CPU leaves the choice of its
+    recurrence to the op where it runs: its graph holds one
+    `tpukaldi::fusion_recurrence` node a layer with tensor inputs only; on
+    the CPU the op runs the plain loop carrying bf16, never K1's wrapper;
+    where the op sees a card's tensor it calls K1's wrapper (K1f there) on
+    float32 inputs, once a layer."""
+    from tpukaldi_torch.kernels import ligru, ops
+
+    cfg, _ = _train(tmp_path, "fusionRNN")
+    with open(cfg) as f:
+        text = f.read().replace("[exp]", "[exp]\ncompute_dtype = bfloat16", 1)
+    with open(cfg, "w") as f:
+        f.write(text)
+    run_experiment(cfg, device="cpu")
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    assert model.meta["compute_dtype"] == "bfloat16"
+    assert model.meta["batch"] == 0
+    # the forward sits in a grad-mode wrapper's submodule
+    nodes = [n for gm in model.program.graph_module.modules()
+             if isinstance(gm, torch.fx.GraphModule) for n in gm.graph.nodes
+             if n.target is torch.ops.tpukaldi.fusion_recurrence.default]
+    assert nodes and all(isinstance(a, torch.fx.Node)
+                         for n in nodes for a in n.args)
+    k1_inputs = []
+    wrapper = ligru.ligru_recurrence
+
+    def spy(ff, u, mask):
+        k1_inputs.append((ff.dtype, u.dtype, mask.dtype))
+        return wrapper(ff, u, mask)
+
+    monkeypatch.setattr(ligru, "ligru_recurrence", spy)
+    feats, lengths, _ = _serving_batch(model.meta["inp_dim"], 5)
+    on_cpu = model.call(feats, lengths)
+    assert k1_inputs == []
+    monkeypatch.setattr(ops, "_fusion_on_k1", lambda ff: True)
+    as_served = model.call(feats, lengths)
+    assert k1_inputs == [(torch.float32,) * 3] * len(nodes)
+    for posteriors in (on_cpu, as_served):
+        for v in posteriors.values():
+            assert torch.isfinite(v).all()
 
 
 def test_export_requires_trained_checkpoints(tmp_path):
@@ -249,6 +385,9 @@ def _op_cases():
             (t.lstm_recurrence, (r(T, B, 4 * H, dtype=dtype),
                                  r(H, 4 * H, dtype=dtype), mask.to(dtype),
                                  dtype == torch.float32, "tanh", *no_ln)),
+            (t.fusion_recurrence, (r(T, B, 2 * H, dtype=dtype),
+                                   r(H, 2 * H, dtype=dtype),
+                                   mask.to(dtype))),
             (t.lstm_recurrence_lean, (r(T, B, 4 * H, dtype=dtype),
                                       r(H, 4 * H), mask, "pallas")),
             (t.gru_recurrence, (r(T, B, 3 * H, dtype=dtype),
@@ -267,10 +406,27 @@ def _op_cases():
             (t.conv_pool_ln_act, (r(4, 50, dtype=dtype), r(7, 5), r(5),
                                   r(14, 5), r(14, 5), 3, 1e-6, True)),
         ]
+    # the *_cudnn layer: each mode, bidirectional with lengths (one of
+    # them 0) and without, unidirectional, with and without biases,
+    # widened to float32 out
+    lengths = torch.tensor([5, 2, 0], dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        for mode, G, bidir, lens, bias in (
+                ("LSTM", 4, True, lengths, True),
+                ("GRU", 3, False, None, True),
+                ("RNN_TANH", 1, True, None, False),
+                ("RNN_RELU", 1, True, lengths, True)):
+            weights = []
+            for _ in range(2 if bidir else 1):
+                weights += [r(G * H, 6, dtype=dtype), r(G * H, H, dtype=dtype)]
+                if bias:
+                    weights += [r(G * H, dtype=dtype), r(G * H, dtype=dtype)]
+            cases.append((t.cudnn_rnn_layer, (
+                r(T, B, 6, dtype=dtype), lens, weights, bias, mode, bidir)))
     return cases
 
 
-@pytest.mark.parametrize("index", range(20))
+@pytest.mark.parametrize("index", range(30))
 def test_custom_op_fakes_match_real_outputs(index):
     """Each op's fake (the shape torch.export traces with) has the real
     output's shape, dtype and strides, and its schema holds."""

@@ -12,6 +12,8 @@ through `from_jax_params`.  Inputs come from numpy with a seed.  Tolerance:
 sides, sums in other orders.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,18 +22,28 @@ import pytest
 import torch
 
 from tpukaldi.compat.torch_import import import_model_par
+from tpukaldi.io import read_mat_ark
 from tpukaldi.models import cudnn_like as jax_cudnn
 from tpukaldi.models import fusion as jax_fusion
 from tpukaldi.models import recurrent as jax_recurrent
 from tpukaldi.models import sru as jax_sru
 from tpukaldi.train.checkpoint import save_checkpoint
+from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
 from tpukaldi.train.optimizers import make_optimizer
 from tpukaldi_torch.compat.jax_params import (
     moments_from_jax,
     moments_to_jax,
     to_jax_params,
 )
+from tpukaldi_torch.kernels import ligru
 from tpukaldi_torch.models import fusion, resolve
+from tpukaldi_torch.tools.flagship_tree import (
+    recipe_cfg,
+    save_seeded_init,
+    write_kaldi_tree,
+    write_train_cfg,
+)
+from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train.checkpoint import load_all
 from tpukaldi_torch.train.optimizers import ArchOptimizer
 from torch_port_helpers import (
@@ -138,8 +150,7 @@ def _setup(case, seed=5, drop=True):
 @pytest.mark.parametrize("case", list(CASES))
 def test_forward_matches_tpukaldi(case, with_lengths):
     """Eval forward, with bucket-padded lengths or without.  With lengths
-    the valid frames agree (a bidirectional `*_cudnn` stack runs packed:
-    its padding frames are zeros, tpukaldi's run on)."""
+    the valid frames agree."""
     class_name, opts, x, jmod, params, stats, port = _setup(case)
     lengths = np.array([11, 7, 4], np.int64) if with_lengths else None
     want = np.asarray(jmod.apply(
@@ -153,6 +164,27 @@ def test_forward_matches_tpukaldi(case, with_lengths):
         valid = np.arange(11)[:, None] < lengths[None, :]
         got, want = got[valid], want[valid]
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_forward_matches_tpukaldi_with_a_zero_length_row(case):
+    """Eval forward of a batch padded as the forward batches are
+    (`data/batching.py`): lengths [11, 7, 0], the padding frames zeros.
+    The valid frames agree with tpukaldi's to ATOL, and every frame of the
+    output, padding included, is finite."""
+    class_name, opts, x, jmod, params, stats, port = _setup(case)
+    lengths = np.array([11, 7, 0], np.int64)
+    valid = np.arange(11)[:, None] < lengths[None, :]
+    x[~valid] = 0.0
+    want = np.asarray(jmod.apply(
+        _variables(params, stats), jnp.asarray(x), train=False,
+        lengths=jnp.asarray(lengths, jnp.int32)))
+    with torch.inference_mode():
+        got = port(torch.from_numpy(x), lengths=torch.from_numpy(lengths))
+    got = got.numpy()
+    assert got.shape == want.shape == (11, 3, port.out_dim)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[valid], want[valid], rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -261,33 +293,39 @@ def test_tpukaldi_checkpoint_restores_and_steps(case, tmp_path):
 
 def test_fusion_cpu_path_runs_the_ligru_plain_version(monkeypatch):
     """On the CPU, fusionRNN's recurrence is K1's plain version on the gates
-    reordered to (wh, wz) and u to [uh | uz], one call a layer, and never
-    K1's autograd Function; it agrees with tpukaldi's scan in train mode
-    (batch statistics) and at eval."""
+    reordered to (wh, wz) and u to [uh | uz], one call a layer, never K1's
+    autograd Function and no kernel launch: at eval without a gradient
+    through the `tpukaldi::fusion_recurrence` op (K1's wrapper, whose CPU
+    branch is the plain version), in train mode with one through the plain
+    loop itself.  Both agree with tpukaldi's scan (train mode with batch
+    statistics)."""
     calls = []
 
-    def ref(ff, u, mask):
+    def ref(ff, u, mask, *rest):
         calls.append((tuple(ff.shape), tuple(u.shape)))
-        return ligru_ref(ff, u, mask)
+        return ligru_ref(ff, u, mask, *rest)
 
     def kernel(*args):
         raise AssertionError("K1's Function called on a CPU tensor")
 
-    ligru_ref = fusion.ligru_recurrence_ref
+    ligru_ref = ligru.ligru_recurrence_ref
     monkeypatch.setattr(fusion, "ligru_recurrence_ref", ref)
+    monkeypatch.setattr(ligru, "ligru_recurrence_ref", ref)
     monkeypatch.setattr(fusion.LiGRURecurrence, "apply", kernel)
     class_name, opts, x, jmod, params, stats, port = _setup("fusionRNN",
                                                             drop=False)
+    launches = ligru.launches
     for train in (False, True):
         calls.clear()
         port.train(train)
-        with torch.no_grad():
-            got = port(torch.from_numpy(x)).numpy()
+        with torch.set_grad_enabled(train):
+            got = port(torch.from_numpy(x)).detach().numpy()
         want, _ = jmod.apply(_variables(params, stats), jnp.asarray(x),
                              train=train, mutable=["batch_stats"])
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
         # layer 0 is the fusion layer, 24 // 3 = 8 wide; layer 1 is 12
         assert calls == [((11, 6, 16), (8, 16)), ((11, 6, 24), (12, 24))]
+    assert ligru.launches == launches
 
 
 def _init_stats(x):
@@ -362,3 +400,56 @@ def test_reset_parameters_draws_tpukaldi_init(case):
     port.reset_parameters(torch.Generator().manual_seed(2))
     got, _ = to_jax_params(port.state_dict(), class_name)
     _assert_same_init(got, want)
+
+
+# cfg/TIMIT/LSTM_fmllr_cudnn.cfg at 2 layers of 16, drop 0, one epoch of one
+# chunk; its test split of 5 utterances leaves every forward batch (8 rows)
+# partial, padded with rows of length 0
+CUDNN_RUN_SPLITS = {"train": (16, 40, 80), "dev": (4, 40, 60),
+                    "test": (5, 30, 90)}
+CUDNN_RUN_CUTS = {"hidden_size = 550": "hidden_size = 16",
+                  "num_layers = 4": "num_layers = 2",
+                  "dropout = 0.2": "dropout = 0.0",
+                  "n_epochs_tr = 24": "n_epochs_tr = 1",
+                  "n_chunks = 5": "n_chunks = 1",
+                  "increase_seq_length_train = True":
+                  "increase_seq_length_train = False"}
+# the arks (log-posteriors minus log-priors, up to 0.21 here) after two
+# rmsprop steps from the same weights: the two packages part by 4.8e-7 at
+# most on the CPU (float32 sums in other orders); held 20x wider
+CUDNN_RUN_ATOL = 1e-5
+
+
+def test_cudnn_recipe_run_with_partial_forward_batches_matches_tpukaldi(
+        tmp_path):
+    """The bidirectional LSTM_cudnn recipe, shrunk, through tpukaldi's
+    `run_experiment` and the port's (CPU) from the same seeded weights:
+    res.res written by both, and the port's forward arks equal to
+    tpukaldi's on every written frame within CUDNN_RUN_ATOL."""
+    tree = write_kaldi_tree(str(tmp_path / "timit"), 10, n_phones=3,
+                            n_pdfs=9, splits=CUDNN_RUN_SPLITS)
+    outs, init = {}, None
+    for side in ("tpk", "port"):
+        out = str(tmp_path / side)
+        os.makedirs(out)
+        cfg = write_train_cfg(tree, out, os.path.join(out, "run.cfg"),
+                              CUDNN_RUN_CUTS, recipe=recipe_cfg("LSTM_cudnn"))
+        if init is None:
+            init = save_seeded_init(cfg, 10, str(tmp_path / "init"))
+        outs[side] = (out, cfg)
+    tpk_run_experiment(outs["tpk"][1], overrides=init)
+    run_experiment(outs["port"][1], overrides=init, device="cpu")
+    arks = {}
+    for side, (out, _) in outs.items():
+        assert os.path.getsize(os.path.join(out, "res.res")) > 0, side
+        ef = os.path.join(out, "exp_files")
+        (name,) = [f for f in os.listdir(ef) if f.endswith("_to_decode.ark")]
+        arks[side] = dict(read_mat_ark(os.path.join(ef, name)))
+    assert sorted(arks["port"]) == sorted(arks["tpk"])
+    assert len(arks["tpk"]) == CUDNN_RUN_SPLITS["test"][0]
+    for key, want in arks["tpk"].items():
+        got = arks["port"][key]
+        assert got.shape == want.shape == (want.shape[0], 9), key
+        assert np.isfinite(got).all(), key
+        np.testing.assert_allclose(got, want, rtol=0, atol=CUDNN_RUN_ATOL,
+                                   err_msg=key)

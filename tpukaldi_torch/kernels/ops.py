@@ -14,10 +14,16 @@ B, so an exported graph holds one node per recurrence or fused conv layer:
   activation and an optional layer norm on h (`gamma`, `beta`, `eps`);
 - `lstm_recurrence_lean`: the QLSTM's recurrence, K4f on a card (bf16 ff
   taken as it is), chosen by device where the op runs;
+- `fusion_recurrence`: fusionRNN's relu recurrence, K1f on a card, chosen
+  by device where the op runs;
 - `conv_pool`, `conv_pool_ln_act`: K5f and K6f at eval (no argmax, no
   statistics, no dropout);
 - `rnn_recurrence`, `minimalgru_recurrence`, `sru_recurrence`: the zoo's
-  plain loops, on either device (tpukaldi scans them too).
+  plain loops, on either device (tpukaldi scans them too);
+- `cudnn_rnn_layer`: one layer of the `*_cudnn` family, both directions
+  (`models/cudnn_like.py::rnn_layer`: torch's RNN, cuDNN on a CUDA tensor;
+  tpukaldi scans it, with no Pallas kernel), its length-aware reversal
+  inside, bf16 widened to float32.
 
 The models call these ops where no gradient is wanted (eval, forward,
 serving and export alike), so an artifact and the live forward run the same
@@ -29,7 +35,7 @@ loads an artifact, whose graph names the ops.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,6 +113,31 @@ def lstm_recurrence_lean(ff: torch.Tensor, u: torch.Tensor,
 @lstm_recurrence_lean.register_fake
 def _(ff, u, mask, impl):
     return _hidden_like(ff, 4)
+
+
+def _fusion_on_k1(ff: torch.Tensor) -> bool:
+    """Whether fusionRNN's recurrence takes K1's wrapper for `ff`: on a card
+    always, on the CPU unless the state is carried in bf16."""
+    return ff.device.type == "cuda" or ff.dtype != torch.bfloat16
+
+
+@torch.library.custom_op("tpukaldi::fusion_recurrence", mutates_args=())
+def fusion_recurrence(ff: torch.Tensor, u: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """fusionRNN's relu recurrence, chosen on the tensor's device when the op
+    runs (so an artifact traced on the CPU launches K1f on a card): K1's
+    wrapper (K1f on a CUDA tensor, its plain version on a float32 CPU one,
+    float32 at the boundary), or in bf16 on the CPU the plain loop carrying
+    bf16, as tpukaldi's scan does."""
+    if _fusion_on_k1(ff):
+        return ligru.ligru_recurrence(widen(ff), widen(u),
+                                      widen(mask)).to(ff.dtype)
+    return ligru.ligru_recurrence_ref(ff, u, mask)
+
+
+@fusion_recurrence.register_fake
+def _(ff, u, mask):
+    return _hidden_like(ff, 2)
 
 
 @torch.library.custom_op("tpukaldi::gru_recurrence", mutates_args=())
@@ -198,3 +229,21 @@ def conv_pool_ln_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 def _(x, w, bias, gt, bt, pool, eps, relu):
     K, O = w.shape
     return x.new_empty((x.shape[0], (x.shape[1] - K + 1) // pool, O))
+
+
+@torch.library.custom_op("tpukaldi::cudnn_rnn_layer", mutates_args=())
+def cudnn_rnn_layer(x: torch.Tensor, lengths: Optional[torch.Tensor],
+                    weights: List[torch.Tensor], has_bias: bool, mode: str,
+                    bidirectional: bool) -> torch.Tensor:
+    from ..models.cudnn_like import rnn_layer
+
+    return rnn_layer(x, lengths, weights, has_bias, mode, bidirectional,
+                     False)
+
+
+@cudnn_rnn_layer.register_fake
+def _(x, lengths, weights, has_bias, mode, bidirectional):
+    H = weights[1].shape[1] * (2 if bidirectional else 1)
+    return x.new_empty((x.shape[0], x.shape[1], H),
+                       dtype=torch.float32 if x.dtype == torch.bfloat16
+                       else x.dtype)

@@ -19,11 +19,16 @@ fusionRNN_mfcc_6ch.cfg).  It follows tpukaldi:
   it).
 
 That recurrence is the liGRU's term for term (z = sigmoid(wz + h Uz), hc =
-relu(wh + h Uh) * mask, h = z h + (1 - z) hc), so on a CUDA tensor it runs
-the port's K1 (`kernels/ligru.py::LiGRURecurrence`: K1f forward, K1b
-backward), with u reordered into K1's [uh | uz] and the gates into its (wh,
-wz) layout; K1's gates hold (H <= 1024, a grid the card holds at once) and
-a refused launch raises.  On a CPU tensor it runs `ligru_recurrence_ref`.
+relu(wh + h Uh) * mask, h = z h + (1 - z) hc), so it runs the port's K1
+with u reordered into K1's [uh | uz] and the gates into its (wh, wz)
+layout; K1's gates hold (H <= 1024, a grid the card holds at once) and a
+refused launch raises.  Where no gradient is wanted (eval, forward,
+serving, export) it is the `tpukaldi::fusion_recurrence` op
+(`kernels/ops.py`), which chooses by device when it runs: K1f on a CUDA
+tensor, on a CPU one K1's plain version (in bf16 the plain loop carrying
+bf16), so an artifact traced on the CPU launches K1f on a card.
+Training runs `LiGRURecurrence` (K1f forward, K1b backward) on a CUDA
+tensor and `ligru_recurrence_ref` on a CPU one.
 
 The state_dict keys follow tpukaldi's names: `fuse_wz.weight` (out, Din/M)
 and `.bias`, `fuse_wh.*`, `w.{i}.weight` (2H, D) and `.bias`,
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import to_bool
+from ..kernels import ops
 from ..kernels.ligru import LiGRURecurrence, ligru_recurrence_ref
 from .common import batchnorm, float_list, int_list
 from .recurrent import _reverse_time
@@ -191,7 +197,10 @@ class fusionRNN(nn.Module):
             # the bf16 compute mode, where its scan carries bf16 and K1
             # widens its inputs and returns float32 h)
             mask = mask.to(x.dtype)
-            if x.device.type == "cpu":
+            if not torch.is_grad_enabled():
+                h = ops.fusion_recurrence(
+                    ff, u.contiguous(), mask.expand(Bp, H).contiguous())
+            elif x.device.type == "cpu":
                 h = ligru_recurrence_ref(ff, u, mask)
             else:
                 h = LiGRURecurrence.apply(

@@ -523,17 +523,23 @@ def forward_utterances(
     exp: ExperimentConfig,
     names: Iterable[str],
     device,
+    dtype: torch.dtype = torch.float32,
 ) -> Dict[str, np.ndarray]:
     """Posteriors of the first forward output for the utterances `names` of
     `exp`'s first forward task, each forwarded alone through the port's
     forward step on `device` from the run's final checkpoints.  `exp` is
     what `run_experiment` returned (its count files resolved), so the
-    result is held to that run's ark."""
+    result is held to that run's ark.  `dtype=torch.float64` (plain paths
+    only: the kernels take float32) runs the modules and the features in
+    float64, a reference for the float32 paths (the heads' log-softmax
+    stays float32, as in tpukaldi)."""
     task = build_plan(exp).forward_tasks[0]
     rt = ChunkRuntime(exp, device)
     chunk = rt.load_task_chunk(task)
     rt.ensure_initialized(chunk)
     rt.restore_from(task.pretrain_files)
+    for module in rt.graph.modules.values():
+        module.to(dtype)
     out_name = exp.forward.outs[0]
     counts = load_counts(exp.forward.counts_from[0])
     prior = torch.as_tensor(np.log(counts / counts.sum()), dtype=torch.float32,
@@ -543,7 +549,8 @@ def forward_utterances(
     for name in names:
         i = chunk.names.index(name)
         feats = torch.from_numpy(
-            chunk.feats[int(starts[i]):int(chunk.end_index[i])]).to(rt.device)
+            chunk.feats[int(starts[i]):int(chunk.end_index[i])]).to(
+                rt.device, dtype)
         # a rate-differing utterance's frames: its label frames
         n = int(out_lengths(chunk, [feats.shape[0]])[0])
         lengths = torch.tensor([n], device=rt.device)
