@@ -66,7 +66,11 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    (`need_dx=False`, for a layer 0 whose input needs no gradient): their
    other gradients bitwise equal between the two, and two calls bitwise
    equal.  K6 also at cfg/TIMIT/CNN_fbank.cfg's layer 0 (L=440,
-   K=10, O=80, pool 3, drop 0.15).  K5f and K6f also at forced ties (x
+   K=10, O=80, pool 3, drop 0.15).  All four the same way at SincNet's
+   published 251 taps (CONV_251: K5 at O=80, K6 at 128, also at drop
+   0.15), timed with their bounds and yardsticks (`k251_*` on their
+   records), and at a pool of 16 (CONV_LONG_POOL), past the forwards' run
+   of 12 conv positions.  K5f and K6f also at forced ties (x
    and w in {-1, 0, 1}: the argmax exactly the plain version's) and on
    their launch's other paths (row blocks, one pooled-row buffer).  Beside each kernel: the least time the card could take for the
    same work (bytes or operations, at the published peaks), and a library
@@ -121,7 +125,14 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    2 starts at once, beside chunk 1's checkpoint writer: after `wait()`,
    chunk 1's checkpoints are byte-equal to the synchronous writer's from
    the host copy, and the writer's seconds are printed beside chunk 2's
-   wall time.
+   wall time.  After the recipes, SincNet at its published 251-tap layer
+   0 (`sinc251_phase`: SincNet_raw.cfg with `sinc_len_filt = 251,5,5`,
+   SINC251) over the raw tree: one train chunk at the card's default step
+   graphs, its valid chunk and the forward stage through
+   `run_experiment(device="cuda")`, K5f once per batch and K5b once per
+   train batch (both more than 0; `sinc251_launches` on their records),
+   the arks finite and two utterances held to the CPU path, frames/s from
+   the `.info` files.
 5. Profile phase, per recipe: the serving path's forward stage and one warm
    train chunk again under torch.profiler: device busy time, idle share,
    top device ops and, for the train chunk, device time by layer.  The
@@ -562,6 +573,19 @@ CONV_TIES = ((16, 3200, 129, 80, 3), (16, 440, 10, 80, 3))
 # aligned and its span takes the plain per-thread load
 CONV_LONG_K5 = (2, 20001, 129, 16, 1)
 CONV_LONG_K6 = (2, 4501, 129, 20, 3)
+# SincNet's published layer 0 (Ravanelli & Bengio, "Speaker Recognition
+# from Raw Waveform with SincNet", SLT 2018; cfg/SincNet_TIMIT.cfg of
+# github.com/mravanelli/SincNet): 251 taps at the training batch, K5 at
+# SincNet's 80 filters, K6 at CNN_raw's 128, pool 3; and a pool longer
+# than the forwards' run of 12 conv positions
+CONV_251 = (128, 3200, 251, 3)
+CONV_LONG_POOL = (16, 3200, 251, 80, 16)
+# sinc251_phase: cfg/TIMIT/SincNet_raw.cfg at the paper's filter lengths
+# (its [architecture1] otherwise as shipped), one train chunk, its valid
+# chunk, then the forward stage
+SINC251 = {"sinc_len_filt = 129,5,3": "sinc_len_filt = 251,5,5"}
+SINC251_CUTS = {"n_epochs_tr = 24": "n_epochs_tr = 1",
+                "n_chunks = 5": "n_chunks = 1"}
 # the whole conv stack (K7f, K7b) at CNN_raw's shapes (its [architecture1]
 # cnn_* fields): the training batch of 128 windows and the serving batch;
 # a slice of the serving batch is held to the plain version
@@ -1164,11 +1188,13 @@ def conv_kernel_phase(conv1d) -> dict:
     a gradient to the neighbouring sample; each with dX and without (for
     a layer 0 whose input needs no gradient), whose other gradients must be
     bitwise those with dX, and twice, bitwise equal; then
-    `conv_fwd_edges`.  Times: median of 5
-    launches, the plain version's of 3, the library composite's of 3.
-    Returns {kernel name: record} at the recipe's shape (K5 at O = 80, K6
-    at O = 128; the backwards with dX, as the raw recipes run them: their
-    input layer norm trains a gain and a shift)."""
+    `conv_fwd_edges`.  The same at SincNet's published 251 taps
+    (CONV_251: K5 at O = 80, K6 at 128, also with dropout) and at a pool
+    of 16 (CONV_LONG_POOL).  Times: median of 5 launches, the plain
+    version's of 3, the library composite's of 3.  Returns {kernel name:
+    record} at the recipe's shape (K5 at O = 80, K6 at O = 128; the
+    backwards with dX, as the raw recipes run them: their input layer norm
+    trains a gain and a shift), with the times at 251 taps as `k251_*`."""
     import torch.nn.functional as F
 
     N, L, K, pool = CONV_TRAIN
@@ -1179,10 +1205,18 @@ def conv_kernel_phase(conv1d) -> dict:
               for drop in (0.0, CONV_DROP)] + [(*CONV_ODD, 0.0, False),
                                                (*CONV_ODD, CONV_DROP, True),
                                                (*CONV_FBANK, CONV_DROP, True)]
+    # SincNet's 251 taps (K5 at 80 filters, K6 at 128, also with dropout)
+    # and a pool of 16
+    n251, l251, k251, p251 = CONV_251
+    shapes += [(n251, l251, k251, 80, p251, 0.0, True),
+               (n251, l251, k251, 128, p251, 0.0, True),
+               (n251, l251, k251, 128, p251, CONV_DROP, True),
+               (*CONV_LONG_POOL, 0.0, True)]
     for n_, l_, k_, o_, p_, drop, relu in shapes:
         x, w, bias, gt, bt, dy = _conv_inputs(n_, l_, k_, o_, p_, n_ + o_)
         tag = f"N={n_} L={l_} K={k_} O={o_} pool={p_}"
         train = (n_, l_, k_, p_) == CONV_TRAIN
+        long_taps = (n_, l_, k_, p_) == CONV_251
         with torch.inference_mode():
             got, same = {}, {}
             if drop == 0.0:
@@ -1211,7 +1245,16 @@ def conv_kernel_phase(conv1d) -> dict:
             gr = conv1d.conv1d_pool_ln_act_bwd_ref(*ln[:6], idx6, stats, dy,
                                                    *ln[6:])
             torch.cuda.synchronize()
-            dropped = ((z == 0) != (z_r == 0)).sum().item()
+            # the hash mask exactly: no element it drops is nonzero in the
+            # kernel's output, and none it keeps is 0 where the plain
+            # output is not (beyond CONV_ATOL of 0, where relu's gate may
+            # fall either way)
+            keep = conv1d.drop_mask(seed, torch.arange(n_, device=z.device),
+                                    z.shape[1], o_, drop) if drop else None
+            dropped = (((~keep & (z != 0))
+                        | (keep & (z == 0) & (z_r.abs() > CONV_ATOL)))
+                       .sum().item() if drop else 0)
+            del keep
             got["conv_ln_fwd"] = (max((z - z_r).abs().max().item(),
                                       (stats - stats_r).abs().max().item(),
                                       (ypool - y6).abs().max().item()),
@@ -1278,10 +1321,11 @@ def conv_kernel_phase(conv1d) -> dict:
                   f"{_fwd_geometry(conv1d, 'conv_ln_fwd', n_, l_, k_, o_, p_)}"
                   f"), K6b without dX {times[1][0]:.3f} ms "
                   f"(bound {times[1][1]:.4f} ms)", flush=True)
-        if not train or drop:
+        if not (train or long_taps) or drop:
             continue
-        # times at the training batch, and the library composites; the
-        # backwards with dX (the recipes' path, recorded) and without
+        # times at the training batch (K = 129, and SincNet's 251), and
+        # the library composites; the backwards with dX (the recipes'
+        # path, recorded) and without
         for name, kernel, plain in (
                 ("conv_pool_fwd", lambda _: conv1d.conv1d_pool(x, w, p_),
                  lambda _: conv1d.conv1d_pool_ref(x, w, p_)),
@@ -1324,10 +1368,14 @@ def conv_kernel_phase(conv1d) -> dict:
                       + (f"; {_fwd_geometry(conv1d, name, n_, l_, k_, o_, p_)}"
                          if fwd else ""), flush=True)
                 own = o_ == (80 if name.startswith("conv_pool") else 128)
-                if own and need_dx:
+                if own and need_dx and train:
                     rec[name].update(ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=bound,
                                      bound_by=by, shape=(n_, l_, k_, o_, p_))
+                elif own and need_dx:
+                    rec[name].update(k251_ms=ms, k251_plain_ms=plain_ms,
+                                     k251_library_ms=lib_ms,
+                                     k251_bound_ms=bound, k251_bound_by=by)
     # the serving batch: the forwards alone (no idx, no stats)
     for name, O in (("conv_pool_fwd", 80), ("conv_ln_fwd", 128)):
         M = (L - K + 1) // pool
@@ -1911,6 +1959,75 @@ def _check_cpu_path(ft, exp, out, names, lengths, recipe,
           f"(CPU bf16-U vs float32 {gap})")
     return (f"max_abs_err={worst:.3e} vs the bf16-U plain version (atol "
             f"max({POSTERIOR_ATOL:g}, CPU bf16-U vs float32 {gap:.3e}))")
+
+
+def sinc251_phase(modules, trees) -> dict:
+    """SincNet at its published 251-tap layer 0 (cfg/TIMIT/SincNet_raw.cfg
+    with `sinc_len_filt = 251,5,5`, SINC251) through run_exp on the card
+    over the raw tree: one train chunk at the card's default step graphs,
+    its valid chunk, then the forward stage.  K5f once per (train + valid
+    + forward) batch and K5b once per train batch, both more than 0, no
+    other kernel; the arks finite and two utterances held to the CPU path;
+    frames/s from the `.info` files.  Returns K5's launches."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.tools.run_exp import run_experiment
+    from tpukaldi_torch.train import chunk_runtime
+
+    out = os.path.join(WORK, "sinc251")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(trees["RAW"], out, os.path.join(out, "run.cfg"),
+                             {**SINC251_CUTS, **SINC251},
+                             recipe=ft.recipe_cfg("SincNet"))
+    _reset_counts(modules, chunk_runtime)
+    t0 = time.perf_counter()
+    exp = run_experiment(cfg, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts(modules)
+    _check_only(counts, "SincNet", "SincNet-251 run")
+    n_train, n_valid, n_fwd = (chunk_runtime.train_batches,
+                               chunk_runtime.valid_batches,
+                               chunk_runtime.forward_batches)
+    steps = _graph_counts(chunk_runtime)
+    fwd, bwd = counts["conv_pool_fwd"], counts["conv_pool_bwd"]
+    check(fwd > 0 and fwd == n_train + n_valid + n_fwd,
+          f"SincNet-251: K5f {fwd}, expected {n_train} train + {n_valid} "
+          f"valid + {n_fwd} forward batches")
+    check(bwd > 0 and bwd == n_train,
+          f"SincNet-251: K5b {bwd}, expected {n_train} train batches")
+    taps = [a.options.get("sinc_len_filt") for a in exp.archs.values()
+            if a.class_name == "SincNet"]
+    check(taps == ["251,5,5"], f"SincNet-251 ran sinc_len_filt {taps}")
+    infos = {f: chunk_runtime.read_info(p)
+             for f, p in _train_infos(out).items()}
+    check(len(infos) == 2, f"SincNet-251 train/valid .info: {sorted(infos)}")
+    for f, v in infos.items():
+        check(math.isfinite(v["loss"]) and math.isfinite(v["err"])
+              and v["frames"] > 0, f"SincNet-251 {f}: {v}")
+    with open(os.path.join(out, "res.res")) as f:
+        ep = [line for line in f.read().splitlines() if line.startswith("ep=")]
+    check(len(ep) == 1, f"SincNet-251 res.res: {ep}")
+    n_test = TREES["RAW"]["splits"]["test"][0]
+    posts, info = ft.forward_outputs(out)
+    names, lengths = _check_arks(list(posts), n_test)
+    cpu = _check_cpu_path(ft, exp, out, names, lengths, "SincNet")
+    print(f"SincNet-251 (cfg/TIMIT/SincNet_raw.cfg, sinc_len_filt = "
+          f"251,5,5, 80,60,60 filters, pools 3,3,3; 1 train chunk, its "
+          f"valid chunk, the forward stage): {n_train} train + {n_valid} "
+          f"valid + {n_fwd} forward batches; conv_pool_fwd launches {fwd} "
+          f"(= {n_train + n_valid + n_fwd}), conv_pool_bwd launches {bwd} "
+          f"(= {n_train}); steps: captures {steps['graph_captures']}, "
+          f"replays {steps['graph_replays']}, eager {steps['eager_steps']}; "
+          f"run_experiment wall {wall:.3f} s; {ep[0]}", flush=True)
+    for f, v in infos.items():
+        print(f"SincNet-251 .info {f}: loss={v['loss']:.4f} "
+              f"err={v['err']:.4f} frames={int(v['frames'])} "
+              f"{v['frames_per_sec']:.1f} frames/s, phases {_phases(v)}",
+              flush=True)
+    print(f"SincNet-251 forward stage: {n_test} utterances, "
+          f"{int(info['frames'])} frames, {info['frames_per_sec']:.1f} "
+          f"frames/s (.info); arks finite, {N_PDFS} wide; CUDA vs CPU path "
+          f"(2 utterances) {cpu}", flush=True)
+    return {"conv_pool_fwd": fwd, "conv_pool_bwd": bwd}
 
 
 def _phases(info) -> str:
@@ -5234,6 +5351,7 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
+    sinc251 = _timed("SincNet-251", sinc251_phase, modules, trees)
     _timed("device cache", device_cache_phase, trees, trained, card)
     trees = _timed("multistep", multistep_all, modules, trees)
     bf16 = _timed("bf16", bf16_phase, modules, trees)
@@ -5281,6 +5399,13 @@ def main() -> int:
                 extra["rate_launches"] = rate[name]
             extra.update(dist_extra.get(name, {}))
             extra.update(_bf16_extra(name, bf16))
+            if _raw(recipe):
+                # the times at SincNet's 251 taps, and K5's launches on its
+                # run
+                extra.update({k: v for k, v in rec.items()
+                              if k.startswith("k251_")})
+                if name in sinc251:
+                    extra["sinc251_launches"] = sinc251[name]
             kernels.append(entry(name, rec, trained[recipe][key], **extra))
     # the stack's kernels: launches on its own path, and on the recipe paths
     kernels += [entry(name, stack[name], stack[name]["launches"],

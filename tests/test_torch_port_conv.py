@@ -95,6 +95,9 @@ def _conv_inputs(N, L, K, O, pool, seed):
     (2, 400, 129, 16, 3),   # the CPU tests' raw windows
     (3, 500, 40, 16, 2),    # K < 128
     (5, 260, 7, 9, 5),      # odd N, tiny K, a pool tail
+    (3, 800, 251, 32, 3),   # SincNet's published 251 taps
+    (2, 400, 251, 16, 3),   # 251 taps over the CPU tests' raw windows
+    (2, 800, 129, 16, 16),  # a pool past the forwards' run of 12
 ])
 def test_conv_pool_matches_tpukaldi(shape):
     """y and (dx, dw) of the plain K5 and of `ConvPool` against tpukaldi's
@@ -131,6 +134,9 @@ def test_pool_argmax_takes_the_first_match():
 @pytest.mark.parametrize("shape", [
     (5, 640, 129, 16, 2),  # the recipe's K
     (3, 423, 40, 16, 3),   # K < 128, odd N
+    (3, 800, 251, 32, 3),  # SincNet's published 251 taps
+    (2, 400, 251, 16, 3),  # 251 taps over the CPU tests' raw windows
+    (2, 800, 129, 16, 16),  # a pool past the forwards' run of 12
 ])
 def test_conv_pool_ln_act_matches_tpukaldi(shape, relu):
     """out of the plain K6 and of `ConvPoolLnAct`, and all five gradients,
@@ -261,10 +267,15 @@ SINC_OPTS = dict(
     sinc_use_laynorm_inp="True", sinc_use_batchnorm_inp="False",
     sinc_use_laynorm="True,True,True", sinc_use_batchnorm="False,True,False",
     sinc_act="leaky_relu,leaky_relu,leaky_relu", sinc_drop="0.0,0.0,0.0")
+# SincNet's published filter lengths (Ravanelli & Bengio, SLT 2018; its
+# cfg/SincNet_TIMIT.cfg): layer 0 of 251 taps
+SINC251 = {"sinc_len_filt = 129,5,3": "sinc_len_filt = 251,5,5"}
 MODULES = {
     "CNN": (jax_cnn.CNN, CNN, CNN_OPTS),
     "SincNet": (jax_cnn.SincNet, SincNet, SINC_OPTS),
     "SincNet_fast": (jax_cnn.SincNet, SincNet, {**SINC_OPTS, "sinc_fast": "True"}),
+    "SincNet251": (jax_cnn.SincNet, SincNet,
+                   {**SINC_OPTS, "sinc_len_filt": "251,5,5"}),
 }
 L_RAW = 400
 
@@ -442,20 +453,23 @@ def _arks(out):
     return dict(read_mat_ark(os.path.join(ef, name[0])))
 
 
-@pytest.mark.parametrize("recipe", ["CNN", "SincNet"])
+@pytest.mark.parametrize("recipe", ["CNN", "SincNet", "SincNet251"])
 def test_raw_recipe_serving_matches_tpukaldi(recipe, raw_tree, tmp_path,
                                              monkeypatch):
     """The production forward of the shrunk recipe from the port's seeded
     final checkpoints, read by both packages: every posterior row within
     1e-4 (log-posteriors minus log-priors, order 10), the port through its
-    plain K6/K5 (`pallas`)."""
+    plain K6/K5 (`pallas`).  SincNet251 is SincNet_raw.cfg at the paper's
+    filter lengths (SINC251), layer 0 of 251 taps."""
     monkeypatch.setenv("TPUKALDI_CONV_IMPL", "pallas")
-    shrink = {**SHRINK, **RECIPE_SHRINK[recipe]}
+    base = "SincNet" if recipe == "SincNet251" else recipe
+    shrink = {**SHRINK, **RECIPE_SHRINK[base],
+              **(SINC251 if recipe == "SincNet251" else {})}
     outs = {}
     for side in ("tpk", "port"):
         out = str(tmp_path / side)
         outs[side] = write_prod_cfg(raw_tree, out, str(tmp_path / f"{side}.cfg"),
-                                    shrink, recipe=recipe_cfg(recipe))
+                                    shrink, recipe=recipe_cfg(base))
         save_seeded_finals(outs[side], L_RAW)
     run_experiment(outs["port"], device="cpu")
     monkeypatch.delenv("TPUKALDI_CONV_IMPL")
@@ -581,13 +595,54 @@ def test_conv_impl_knob(monkeypatch):
 
 
 def test_kernel_gates_raise():
-    """K above tpukaldi's 129 raises (not a silent reroute), on any device;
-    so does a pool that leaves no pooled row."""
-    x = torch.zeros(2, 400)
-    with pytest.raises(ValueError, match="K <= 129"):
-        conv1d.ConvPool.apply(x, torch.zeros(130, 4), 3)
-    with pytest.raises(ValueError, match="pool"):
-        conv1d.conv1d_pool(x, torch.zeros(100, 4), 400)
+    """K5's and K6's envelope, 1 <= K <= 512 and 1 <= pool <= 32 with a
+    pooled row, is checked before any device dispatch: outside it a
+    ValueError names the limit (not a silent reroute), on the CPU and on
+    any other device (here the meta device); SincNet's 251 taps and a pool
+    of 16 run, through the Functions and the no-grad ops.  The whole conv
+    stack (K7) keeps its own limits, K0 <= 129 and pool <= 12, at its gate
+    and its entry."""
+    from tpukaldi_torch.kernels import conv_stack, ops
+
+    for device in ("cpu", "meta"):
+        x = torch.zeros(2, 1200, device=device)
+        args = [torch.zeros(4, device=device)] + [torch.zeros(
+            (1200 - 100 + 1) // 33, 4, device=device)] * 2
+        with pytest.raises(ValueError, match="K <= 512, got 513"):
+            conv1d.ConvPool.apply(x, torch.zeros(513, 4, device=device), 3)
+        with pytest.raises(ValueError, match="K <= 512, got 513"):
+            conv1d.conv1d_pool_ln_act(x, torch.zeros(513, 4, device=device),
+                                      *args, 0, 3, EPS, True)
+        with pytest.raises(ValueError, match="pool <= 32, got 33"):
+            conv1d.conv1d_pool(x, torch.zeros(100, 4, device=device), 33)
+        with pytest.raises(ValueError, match="pool <= 32, got 33"):
+            conv1d.conv1d_pool_ln_act(x, torch.zeros(100, 4, device=device),
+                                      *args, 0, 33, EPS, True)
+        with pytest.raises(ValueError, match="does not fit"):
+            conv1d.conv1d_pool(x[:, :120], torch.zeros(100, 4, device=device),
+                               30)
+    x = torch.randn(2, 1200)
+    for K, pool in ((251, 3), (251, 16), (512, 32)):
+        M = (1200 - K + 1) // pool
+        w = torch.randn(K, 4, requires_grad=True)
+        assert conv1d.ConvPool.apply(x, w, pool).shape == (2, M, 4)
+        assert ops.conv_pool(x, w.detach(), pool).shape == (2, M, 4)
+        gt, bt = torch.ones(M, 4), torch.zeros(M, 4)
+        out = conv1d.ConvPoolLnAct.apply(x, w, torch.zeros(4), gt, bt, 0,
+                                         pool, EPS, True, 0.0)
+        assert out.shape == (2, M, 4)
+        out.sum().backward()
+        assert torch.isfinite(w.grad).all()
+    with pytest.raises(ValueError, match="K <= 129, got 130"):
+        conv_stack.stack_supported((130, 5), (128, 60), 3200, (3, 3))
+    with pytest.raises(ValueError, match="pool <= 12, got 16"):
+        conv_stack.stack_supported((129, 5), (128, 60), 3200, (16, 3))
+    z = torch.zeros
+    with pytest.raises(ValueError, match="K <= 129, got 130"):
+        conv_stack.conv_stack_fused(
+            z(2, 400), z(130, 128), z(128), z(90, 128), z(90, 128),
+            [(z(8, 128, 3), z(8), z(28, 8), z(28, 8))], 0, (3, 3), EPS,
+            True, (0.0, 0.0))
 
 
 def test_cuda_device_pins_float32(monkeypatch, raw_tree, tmp_path):

@@ -330,6 +330,56 @@ def test_export_bf16_fusion_chooses_k1_where_served(tmp_path, monkeypatch):
             assert torch.isfinite(v).all()
 
 
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_export_sincnet_251_matches_live(impl, tmp_path, monkeypatch):
+    """cfg/TIMIT/SincNet_raw.cfg at SincNet's published filter lengths
+    (`sinc_len_filt = 251,5,5`), shrunk to 16-filter convs and a 32-wide
+    MLP over 400-sample windows, from seeded final checkpoints: it exports
+    at batch 0 and the artifact serves the live forward's posteriors within
+    1e-4 on a batch with a row of length 0, every frame finite.  Under
+    `pallas` layer 0 is the `tpukaldi::conv_pool` op (K5's no-grad entry)
+    in the exported graph, its fake at K = 251; under `auto` the CPU's
+    composed path."""
+    from tpukaldi_torch.tools.flagship_tree import (
+        recipe_cfg,
+        save_seeded_finals,
+        write_kaldi_tree,
+        write_prod_cfg,
+    )
+
+    monkeypatch.setenv("TPUKALDI_CONV_IMPL", impl)
+    L = 400
+    tree = write_kaldi_tree(str(tmp_path / "tree"), 10, n_phones=3, n_pdfs=9,
+                            splits={"train": (2, 20, 30), "dev": (2, 20, 30),
+                                    "test": (3, 20, 30)}, raw_wlen=L)
+    cfg = write_prod_cfg(tree, str(tmp_path / "out"), str(tmp_path / "run.cfg"),
+                         {"sinc_n_filt = 80,60,60": "sinc_n_filt = 16,8,8",
+                          "sinc_len_filt = 129,5,3": "sinc_len_filt = 251,5,5",
+                          "dnn_lay = 2048,2048,N_out_lab_cd":
+                          "dnn_lay = 32,32,N_out_lab_cd"},
+                         recipe=recipe_cfg("SincNet"))
+    save_seeded_finals(cfg, L)
+    model = load_exported(export_forward(cfg, str(tmp_path / "art")),
+                          device="cpu")
+    assert model.meta["batch"] == 0 and model.meta["inp_dim"] == L
+    # (the forward's no_grad region is a submodule of the exported graph)
+    ops = [n for gm in model.program.graph_module.modules()
+           if isinstance(gm, torch.fx.GraphModule) for n in gm.graph.nodes
+           if n.op == "call_function"
+           and n.target == torch.ops.tpukaldi.conv_pool.default]
+    assert len(ops) == (1 if impl == "pallas" else 0)
+    if ops:
+        assert tuple(ops[0].args[1].meta["val"].shape) == (251, 16)
+    feats, lengths, _ = _serving_batch(L, 5)
+    got = {k: v.numpy() for k, v in model.call(feats, lengths).items()}
+    for v in got.values():
+        assert v.shape[0] == feats.shape[0] * feats.shape[1]
+        assert np.isfinite(v).all()
+    want = {k: v.numpy() for k, v in
+            _live_forward(cfg, feats, lengths).items()}
+    _assert_posteriors(got, want, 1e-4)
+
+
 def test_export_requires_trained_checkpoints(tmp_path):
     corpus = generate_corpus(str(tmp_path / "c"), n_utts=6, seed=1)
     cfg = write_cfg(corpus, str(tmp_path / "e"), arch="MLP", n_epochs=1,
@@ -423,10 +473,17 @@ def _op_cases():
                     weights += [r(G * H, dtype=dtype), r(G * H, dtype=dtype)]
             cases.append((t.cudnn_rnn_layer, (
                 r(T, B, 6, dtype=dtype), lens, weights, bias, mode, bidir)))
+    # the conv ops at SincNet's published 251 taps, and with a pool of 16
+    # (past the forwards' run of 12 conv positions)
+    for K, pool in ((251, 3), (251, 16)):
+        M = (300 - K + 1) // pool
+        cases += [(t.conv_pool, (r(2, 300), r(K, 5), pool)),
+                  (t.conv_pool_ln_act, (r(2, 300), r(K, 5), r(5), r(M, 5),
+                                        r(M, 5), pool, 1e-6, True))]
     return cases
 
 
-@pytest.mark.parametrize("index", range(30))
+@pytest.mark.parametrize("index", range(34))
 def test_custom_op_fakes_match_real_outputs(index):
     """Each op's fake (the shape torch.export traces with) has the real
     output's shape, dtype and strides, and its schema holds."""

@@ -45,8 +45,13 @@ BWD_SOURCE = "conv_pool_bwd.cu"
 LN_SOURCE = "conv_ln_fwd.cu"
 LN_BWD_SOURCE = "conv_ln_bwd.cu"
 
-MAX_K = 129  # tpukaldi's limit (conv1d.py:48), kept by the kernels
-MAX_POOL = 12  # the kernels' pooled runs hold 12 conv positions per thread
+# The envelope of K5 and K6, on every device (csrc/conv_tile.cuh's
+# kMaxTaps and kMaxPool): filters of up to 32 ms at 16 kHz (SincNet's
+# published 251 taps, 25-ms 401-tap filters), pools of up to 32 conv
+# positions.  tpukaldi's 129 is its TPU's (one 128-tap MXU pass and a
+# rank-1 epilogue tap); the Hopper kernels loop over the taps.
+MAX_K = 512
+MAX_POOL = 32
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 # kernel launches since the last reset (one per wrapper call that launched);
@@ -220,8 +225,9 @@ def conv1d_pool_ln_act_bwd_ref(
 
 # ----------------------------------------------------------------- kernels
 def _geometry(fn: str, x: torch.Tensor, w: torch.Tensor, pool: int):
-    """(N, L, K, O, M), with tpukaldi's K limit; the kernels' pool limit is
-    checked where they launch."""
+    """(N, L, K, O, M) inside the envelope (1 <= K <= MAX_K, 1 <= pool <=
+    MAX_POOL, a pooled row), which the kernels and the plain versions
+    share; outside it a ValueError names the limit."""
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"{fn}: x must be (N, L) and w (K, O), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -229,16 +235,12 @@ def _geometry(fn: str, x: torch.Tensor, w: torch.Tensor, pool: int):
     K, O = w.shape
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{fn} supports 1 <= K <= {MAX_K}, got {K}")
-    if pool < 1 or L - K + 1 < pool:
+    if not 1 <= pool <= MAX_POOL:
+        raise ValueError(f"{fn} supports 1 <= pool <= {MAX_POOL}, got {pool}")
+    if L - K + 1 < pool:
         raise ValueError(f"{fn}: pool {pool} does not fit L - K + 1 = "
                          f"{L - K + 1}")
     return N, L, K, O, (L - K + 1) // pool
-
-
-def _kernel_pool(fn: str, pool: int) -> None:
-    if pool > MAX_POOL:
-        raise ValueError(f"{fn}: the kernel takes pool <= {MAX_POOL} (a "
-                         f"thread's run of conv positions), got {pool}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -272,7 +274,6 @@ def conv1d_pool(x: torch.Tensor, w: torch.Tensor, pool: int,
     _launch.refuse_bf16("conv1d_pool", x, w)
     if x.device.type == "cpu":
         return conv1d_pool_ref(x, w, pool)
-    _kernel_pool("conv1d_pool", pool)
     _launch.check_tensors("conv1d_pool", x=(x, (N, L), torch.float32),
                           w=(w, (K, O), torch.float32))
     y = torch.empty((N, M, O), device=x.device, dtype=torch.float32)
@@ -296,7 +297,6 @@ def conv1d_pool_bwd(x: torch.Tensor, dy: torch.Tensor, idx: torch.Tensor,
     _launch.refuse_bf16("conv1d_pool_bwd", x, dy, w)
     if x.device.type == "cpu":
         return conv1d_pool_bwd_ref(x, dy, idx, w, pool, need_dx)
-    _kernel_pool("conv1d_pool_bwd", pool)
     _launch.check_tensors(
         "conv1d_pool_bwd", x=(x, (N, L), torch.float32),
         dy=(dy, (N, M, O), torch.float32), idx=(idx, (N, M, O), torch.int8),
@@ -376,7 +376,6 @@ def conv1d_pool_ln_act(
         seed = int(seed) if drop > 0.0 else 0
         return (*conv1d_pool_ln_act_ref(x, w, bias, gt, bt, seed, pool, eps,
                                         relu, drop), None)
-    _kernel_pool("conv1d_pool_ln_act", pool)
     _launch.check_tensors(
         "conv1d_pool_ln_act", x=(x, (N, L), torch.float32),
         w=(w, (K, O), torch.float32), bias=(bias, (O,), torch.float32),
@@ -420,7 +419,6 @@ def conv1d_pool_ln_act_bwd(
         return conv1d_pool_ln_act_bwd_ref(x, w, bias, gt, bt, seed, idx,
                                           stats, dz, pool, eps, relu, drop,
                                           need_dx)
-    _kernel_pool("conv1d_pool_ln_act_bwd", pool)
     if ypool is None:
         raise ValueError("conv1d_pool_ln_act_bwd: the kernel reads K6f's "
                          "ypool, which its forward writes with residuals")

@@ -54,10 +54,15 @@ BWD_SOURCE = "conv_stack_bwd.cu"
 SALT = 1 << 20  # layer i's window ids are offset by i * SALT (tpukaldi's _SALT)
 MASK_LANES = 128  # the element id's row stride in every layer's mask
 LAYER0_FILTERS = 128
-# the kernels' limits (csrc/stack_tile.cuh's kMaxUpperK, kMaxChannels),
-# restated for the gate, which runs on the CPU as well
+# the kernels' limits (csrc/stack_tile.cuh's kMaxUpperK, kMaxChannels,
+# kMaxStackPool), restated for the gate, which runs on the CPU as well
 MAX_UPPER_K = 8  # taps an upper layer's kernels unroll
 MAX_CHANNELS = 128  # filters, and so input channels, of an upper layer
+# the stack's own limits on layer 0's taps and on every layer's pool: the
+# envelope it was designed and held at, narrower than K6's own
+# (conv1d.MAX_K, MAX_POOL), which the stack does not widen with it
+MAX_LAYER0_K = 129
+MAX_POOL = 12
 
 # kernel launches since the last reset (one per wrapper call that launched:
 # the forward's call runs K6f and one upper-layer kernel per layer, the
@@ -111,14 +116,14 @@ def stack_supported(len_filt: Sequence[int], n_filt: Sequence[int],
             f"conv_stack_fused: layer 0 takes {LAYER0_FILTERS} filters (its "
             f"dropout ids elements m * 128 + o, as K6 does only at O = 128), "
             f"got {n_filt[0]}")
-    if not 1 <= len_filt[0] <= conv1d.MAX_K:
+    if not 1 <= len_filt[0] <= MAX_LAYER0_K:
         raise ValueError(f"conv_stack_fused: layer 0 takes 1 <= K <= "
-                         f"{conv1d.MAX_K}, got {len_filt[0]}")
+                         f"{MAX_LAYER0_K}, got {len_filt[0]}")
     for i, (lin, K, P, ct, M) in enumerate(
             stack_geometry(inp_dim, len_filt, pools)):
-        if not 1 <= P <= conv1d.MAX_POOL:
+        if not 1 <= P <= MAX_POOL:
             raise ValueError(f"conv_stack_fused: layer {i} takes 1 <= pool "
-                             f"<= {conv1d.MAX_POOL}, got {P}")
+                             f"<= {MAX_POOL}, got {P}")
         if i and not 1 <= K <= MAX_UPPER_K:
             raise ValueError(f"conv_stack_fused: upper layer {i} takes 1 <= "
                              f"K <= {MAX_UPPER_K}, got {K}")

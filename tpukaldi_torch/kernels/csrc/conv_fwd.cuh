@@ -25,6 +25,13 @@
 // the phase.  With two pooled-row buffers (nbuf 2) the two overlap; where
 // only one fits, conv and epilogue take turns.
 //
+// Long filters and pools.  A filter of any K in the entries' envelope
+// (conv_tile.cuh) is one more trip of the tap loop: the weight tile holds
+// the Kp taps it is given.  A pool longer than kFwdRun is one pooled row
+// a run, its conv positions kFwdRun at a time, the max and its first index
+// carried from one to the next; the chains and comparisons are the same,
+// so a pool that fits a run gives the bits it gave before.
+//
 // Two blocks.  A window whose runs fill the long block's conv warps once
 // or more goes to that block, one an SM; a shorter window's item would idle
 // part of them and its phases are short, so it goes to a block of a
@@ -70,8 +77,13 @@ struct FwdWarps {
   static_assert(kEpi % kQuads == 0, "epilogue threads take whole rows");
 };
 
-// pooled rows a run holds, and the window words of `runs` runs
-__host__ __device__ inline int fwd_rows(int pool) { return kFwdRun / pool; }
+// pooled rows a run holds: whole pooling windows of its kFwdRun conv
+// positions, or one window of a longer pool, which the run then computes
+// kFwdRun positions at a time (conv_pool_runs); and the window words of
+// `runs` runs
+__host__ __device__ inline int fwd_rows(int pool) {
+  return pool <= kFwdRun ? kFwdRun / pool : 1;
+}
 __host__ __device__ inline int fwd_span(int runs, int pool, int Kp) {
   return (runs * fwd_rows(pool) * pool + Kp + kFwdRun + 3) / 4 * 4;
 }
@@ -139,11 +151,6 @@ inline bool fwd_geometry(int N, int L, int K, int O, int pool, bool whole,
     }
   }
   return false;
-}
-
-// the forwards' geometry check: a run holds whole pooling windows
-inline bool fwd_ok(int N, int L, int K, int O, int pool) {
-  return geometry_ok(N, L, K, O, pool) && pool <= kFwdRun;
 }
 
 // Whether a window of M pooled rows goes to the short block: its runs
@@ -307,43 +314,51 @@ __device__ __forceinline__ void conv_tile(const float* xs, const float* ws,
   conv_taps<0>(w4, xp, k0, Kp, true, acc, ring, cur, wv, nx);
 }
 
-// Max-pool a run of the thread's kTileF filters: for each row r <
-// fwd_rows(pool), emit(r, m, word) with m[f] the max of filter f over the
-// row's pool values and byte f of word the first index reaching it:
-// pool_run's comparisons, kTileF filters a step.
-template <typename Emit>
-__device__ __forceinline__ void pool_tile(
-    const float (&acc)[kFwdRun][kTileF], int pool, Emit emit) {
-  const int used = kFwdRun / pool * pool;
+// A run's max-pool state for the thread's kTileF filters: in the current
+// pooling window, the max m[f] of filter f so far and the first index
+// arg[f] reaching it, q the window's conv positions seen; row the windows
+// done
+struct PoolState {
   float m[kTileF];
   uint32_t arg[kTileF];
   int q = 0;
   int row = 0;
+};
+
+// Max-pool the first `used` conv positions of a tile into `st`: at the end
+// of each pooling window, emit(row, m, word) with byte f of word the first
+// index reaching m[f] (torch's and tpukaldi's first match), kTileF filters
+// a step.  A window longer than the tile continues from the tile before.
+template <typename Emit>
+__device__ __forceinline__ void pool_tile(
+    const float (&acc)[kFwdRun][kTileF], int pool, int used, PoolState& st,
+    Emit emit) {
 #pragma unroll
   for (int j = 0; j < kFwdRun; ++j) {
     if (j < used) {
 #pragma unroll
       for (int f = 0; f < kTileF; ++f) {
-        if (q == 0 || acc[j][f] > m[f]) {
-          m[f] = acc[j][f];
-          arg[f] = q;
+        if (st.q == 0 || acc[j][f] > st.m[f]) {
+          st.m[f] = acc[j][f];
+          st.arg[f] = st.q;
         }
       }
-      if (++q == pool) {
+      if (++st.q == pool) {
         uint32_t word = 0;
 #pragma unroll
-        for (int f = 0; f < kTileF; ++f) word |= arg[f] << (8 * f);
-        emit(row, m, word);
-        q = 0;
-        ++row;
+        for (int f = 0; f < kTileF; ++f) word |= st.arg[f] << (8 * f);
+        emit(st.row, st.m, word);
+        st.q = 0;
+        ++st.row;
       }
     }
   }
 }
 
 // By the conv threads: the runs 0 .. runs - 1 of a staged span.  Run g
-// covers the conv positions g * R * pool + j, j < kFwdRun, and the pooled
-// rows g * R + r, r < R = fwd_rows(pool).  Each row below `rows` goes to
+// covers the conv positions g * R * pool + j, j < R * pool, and the pooled
+// rows g * R + r, r < R = fwd_rows(pool), its positions kFwdRun at a time
+// (once, where the pool fits in kFwdRun).  Each row below `rows` goes to
 // ys[row * kFwdFilt + c] (the max) and, where ids is not null, to
 // ids[row * kFwdFilt + c] (the first index reaching it), c the filter in
 // the tile: a thread's kTileF filters of a row as one store each.
@@ -357,11 +372,10 @@ __device__ inline void conv_pool_runs(const float* xs, const float* ws,
   const int lane = threadIdx.x % 32;
   const int fl = lane % kTileLanes;
   const int R = fwd_rows(pool);
+  const int width = R * pool;  // conv positions of a run
   for (int g = threadIdx.x / 32 * kTileGroups + lane / kTileLanes; g < runs;
        g += W::kRuns) {
-    float acc[kFwdRun][kTileF];
-    conv_tile(xs, ws, g * R * pool, fl, Kp, acc);
-    pool_tile(acc, pool, [&](int r, const float (&m)[kTileF], uint32_t word) {
+    auto store = [&](int r, const float (&m)[kTileF], uint32_t word) {
       const int row = g * R + r;
       if (row < rows) {
         const int at = row * kTileLanes + fl;
@@ -374,7 +388,13 @@ __device__ inline void conv_pool_runs(const float* xs, const float* ws,
           reinterpret_cast<Args*>(ids)[at] = static_cast<Args>(word);
         }
       }
-    });
+    };
+    PoolState st;
+    for (int c0 = 0; c0 < width; c0 += kFwdRun) {
+      float acc[kFwdRun][kTileF];
+      conv_tile(xs, ws, g * width + c0, fl, Kp, acc);
+      pool_tile(acc, pool, min(kFwdRun, width - c0), st, store);
+    }
   }
 }
 

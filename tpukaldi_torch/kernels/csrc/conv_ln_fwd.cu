@@ -293,7 +293,8 @@ extern "C" long tpk_conv_ln_smem_bytes(int L, int K, int pool) {
 extern "C" int tpk_conv_ln_fwd_plan(int N, int L, int K, int O, int pool,
                                     int* out) {
   Launch l{};
-  const bool ok = tpk::fwd_ok(N, L, K, O, pool) && plan(N, L, K, O, pool, &l);
+  const bool ok =
+      tpk::geometry_ok(N, L, K, O, pool) && plan(N, L, K, O, pool, &l);
   const int got[] = {l.threads, tpk::kFwdFilt, tpk::kFwdRun,
                      tpk::kTileF, l.g.items, l.grid, static_cast<int>(l.smem),
                      l.per_sm, l.g.nbuf};
@@ -312,7 +313,8 @@ extern "C" int tpk_conv_ln_fwd(const float* x, const float* w,
                                int relu, unsigned threshold, float scale,
                                int drop_on, cudaStream_t stream) {
   Launch l;
-  if (!tpk::fwd_ok(N, L, K, O, pool) || !plan(N, L, K, O, pool, &l)) {
+  if (!tpk::geometry_ok(N, L, K, O, pool) ||
+      !plan(N, L, K, O, pool, &l)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int M = (L - K + 1) / pool;

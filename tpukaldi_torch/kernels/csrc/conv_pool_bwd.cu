@@ -13,8 +13,9 @@
 // where the caller asks for it (a null dx skips it, for an input that
 // needs no gradient, such as a waveform fed in as it is), each thread
 // kDxRun consecutive samples over a shared tile of the scattered gradient
-// (no atomics); each window's share of dW, summed in levels of at most 32
-// terms (16 rows, 32 stages, blocks), into dw_part (N, K, O); then the
+// (no atomics); each window's share of dW, a block per group of up to 136
+// taps, summed in levels of at most 32 terms (16 rows, 32 stages,
+// blocks), into dw_part (N, K, O); then the
 // windows, 32 at a time.  A replayed step gives the same bits, and dw is
 // the same with or without dx.  The Pallas kernel keeps dW in an output
 // block resident over its sequential grid; Hopper's blocks run in no

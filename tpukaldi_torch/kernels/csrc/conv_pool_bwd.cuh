@@ -13,9 +13,17 @@
 
 namespace tpk {
 
-// taps a warp of the dW pass owns: k = warp + kDwWarps * i, i < kDwTaps
+// The dW pass takes the taps in groups of kDwGroup, a block a group (grid
+// z); a warp of the block owns the taps k = group * kDwGroup + warp +
+// kDwWarps * i, i < kDwTaps, in registers.  A group covers kDwGroupTaps
+// taps or more, so a filter of up to that many taps is one group, as it
+// was before there were groups.
 constexpr int kDwWarps = 8;
-constexpr int kDwTaps = (kMaxTaps + kDwWarps - 1) / kDwWarps;
+constexpr int kDwGroupTaps = 129;
+constexpr int kDwTaps = (kDwGroupTaps + kDwWarps - 1) / kDwWarps;
+constexpr int kDwGroup = kDwWarps * kDwTaps;
+
+inline int dw_groups(int K) { return (K + kDwGroup - 1) / kDwGroup; }
 
 // The dX pass, register-tiled: a thread computes kDxRun consecutive
 // samples.  kDxRun is odd, so the 32 lanes of a warp, kDxRun words apart,
@@ -125,9 +133,10 @@ inline size_t dx_smem_bytes(int K) {
   return static_cast<size_t>(kDxFilt) * (Kp + dx_width(Kp)) * sizeof(float);
 }
 
-// the dW pass reads taps up to kDwWarps * kDwTaps - 1 past a row's argmax
+// a dW block's window: its group's taps, up to kDwGroup - 1 past a row's
+// argmax, from the row's first conv position
 inline __host__ __device__ int dw_span(int M, int pool) {
-  return M * pool + kDwWarps * kDwTaps + kRun;
+  return M * pool + kDwGroup;
 }
 
 inline size_t dw_smem_bytes(int M, int pool) {
@@ -135,8 +144,10 @@ inline size_t dw_smem_bytes(int M, int pool) {
          sizeof(float);
 }
 
-// One window's share of dW: block (n, filter tile); lane c = filter, warp
-// = taps k = warp + kDwWarps * i.  Over the pooled rows p, dw[k, o] +=
+// One window's share of dW: block (n, filter tile, tap group); lane c =
+// filter, warp = taps k = k0 + warp + kDwWarps * i, k0 = group *
+// kDwGroup, the window staged from sample k0.  Over the pooled rows p,
+// dw[k, o] +=
 // x[n, p * pool + idx + k] * dy[n, p, o] (the only nonzero conv gradient of
 // the row).  No float chain is longer than 32 terms: 16 rows into a stage,
 // 32 stages into a block, the blocks into the total (as du_tile.cuh);
@@ -154,10 +165,11 @@ conv_pool_dw_part_kernel(const float* __restrict__ x,
   int* ids = reinterpret_cast<int*>(dys + 32 * kFilt);
   const int n = blockIdx.x;
   const int o0 = blockIdx.y * kFilt;
+  const int k0 = blockIdx.z * kDwGroup;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const size_t win = static_cast<size_t>(n) * M * O;
-  load_window(x + static_cast<size_t>(n) * L, L, 0, span, xs);
+  load_window(x + static_cast<size_t>(n) * L, L, k0, span, xs);
   float part[kDwTaps] = {};
   float blk[kDwTaps] = {};
   float tot[kDwTaps] = {};
@@ -202,7 +214,7 @@ conv_pool_dw_part_kernel(const float* __restrict__ x,
   if (o < O) {
 #pragma unroll
     for (int i = 0; i < kDwTaps; ++i) {
-      const int k = warp + kDwWarps * i;
+      const int k = k0 + warp + kDwWarps * i;
       if (k < K) {
         dw_part[(static_cast<size_t>(n) * K + k) * O + o] =
             tot[i] + (blk[i] + part[i]);
@@ -267,7 +279,8 @@ inline cudaError_t launch_conv_pool_bwd(const float* x, const float* dy,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dw_smem));
   if (err != cudaSuccess) return err;
-  conv_pool_dw_part_kernel<<<dim3(N, tiles), kDwWarps * 32, dw_smem, stream>>>(
+  const dim3 dw_grid(N, tiles, dw_groups(K));
+  conv_pool_dw_part_kernel<<<dw_grid, kDwWarps * 32, dw_smem, stream>>>(
       x, dy, idx, dw_part, L, K, O, M, pool);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -3,8 +3,9 @@
 // Replaces tpukaldi/kernels/conv1d.py::_fwd_kernel (launched from
 // _conv_pool_fwd), layer 0 of the raw-waveform SincNet recipe:
 //
-//     c[n, s, o]   = sum_k x[n, s + k] * w[k, o]          k < K <= 129
+//     c[n, s, o]   = sum_k x[n, s + k] * w[k, o]          k < K <= 512
 //     y[n, m, o]   = max_q c[n, m * pool + q, o]          m < M = (L-K+1)/pool
+//                                                         q < pool <= 32
 //     idx[n, m, o] = the first q reaching it (int8; not written when null)
 //
 // x (N, L), w (K, O) and y (N, M, O) float32, products and sums in float32
@@ -107,7 +108,8 @@ bool plan(int N, int L, int K, int O, int pool, Launch* l) {
 extern "C" int tpk_conv_pool_fwd_plan(int N, int L, int K, int O, int pool,
                                       int* out) {
   Launch l{};
-  const bool ok = tpk::fwd_ok(N, L, K, O, pool) && plan(N, L, K, O, pool, &l);
+  const bool ok =
+      tpk::geometry_ok(N, L, K, O, pool) && plan(N, L, K, O, pool, &l);
   const int got[] = {l.threads, tpk::kFwdFilt, tpk::kFwdRun,
                      tpk::kTileF, l.g.rows, l.g.blocks, l.g.items, l.grid,
                      static_cast<int>(l.smem), l.per_sm, l.g.nbuf};
@@ -121,7 +123,8 @@ extern "C" int tpk_conv_pool_fwd(const float* x, const float* w, float* y,
                                  int8_t* idx, int N, int L, int K, int O,
                                  int pool, cudaStream_t stream) {
   Launch l;
-  if (!tpk::fwd_ok(N, L, K, O, pool) || !plan(N, L, K, O, pool, &l)) {
+  if (!tpk::geometry_ok(N, L, K, O, pool) ||
+      !plan(N, L, K, O, pool, &l)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int M = (L - K + 1) / pool;

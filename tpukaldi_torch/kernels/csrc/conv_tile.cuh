@@ -1,11 +1,12 @@
 // What the raw-waveform layer-0 kernels share (conv_pool_fwd.cu K5f,
 // conv_pool_bwd.cu K5b, conv_ln_fwd.cu K6f, conv_ln_bwd.cu K6b) and the
 // conv stack's (K7f, K7b): the geometry, the layer norm's affine step and
-// the dropout hash; the backwards' and the stack's window load, max-pool of
-// a run of conv positions and block sums; the runtime queries their
-// launches keep (SM count, shared-memory limit, occupancy).  The backwards'
-// dX and dW passes are in conv_pool_bwd.cuh, the forwards' register tile
-// and pipeline (their own window load and max-pool) in conv_fwd.cuh.
+// the dropout hash; the dW pass's window load and the block sums; the
+// runtime queries their launches keep (SM count, shared-memory limit,
+// occupancy).  The backwards' dX and dW passes are in conv_pool_bwd.cuh,
+// the forwards' register tile and pipeline (their own window load and
+// max-pool) in conv_fwd.cuh.  The stack's upper layers keep limits of
+// their own (stack_tile.cuh).
 //
 // Layouts (tpukaldi's): x (N, L) float32, w (K, O) float32, pooled outputs
 // and their gradients (N, M, O) with M = (L - K + 1) / pool, idx (N, M, O)
@@ -24,19 +25,20 @@
 
 namespace tpk {
 
-constexpr int kMaxTaps = 129;   // tpukaldi's MAX_K
+// The envelope of the four entries: filters of up to 32 ms at 16 kHz
+// (SincNet's published 251 taps, 25-ms 401-tap filters) and pools of up to
+// 32 conv positions.  Nothing in a kernel is sized by them: the forwards
+// stage the Kp taps they are given, the dW pass takes its taps in groups,
+// and a pool longer than the forwards' run is taken in several runs.
+constexpr int kMaxTaps = 512;
+constexpr int kMaxPool = 32;
 constexpr int kTapChunk = 8;    // taps are padded to a multiple of it
-constexpr int kRun = 12;        // conv positions per thread per run
-constexpr int kMaxPool = kRun;  // a run holds whole pooling windows
 constexpr int kFilt = 32;       // filters per backward block, one per lane
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block
 
 __host__ __device__ inline int padded_taps(int K) {
   return (K + kTapChunk - 1) / kTapChunk * kTapChunk;
 }
-
-// pooled rows per run
-__host__ __device__ inline int run_rows(int pool) { return kRun / pool; }
 
 // xs[i] = x_row[start + i] for i < count, zero outside [0, L): the zeros
 // meet zero weights or fall beyond the last pooled row, and stay finite
@@ -45,33 +47,6 @@ __device__ inline void load_window(const float* __restrict__ x_row, int L,
   for (int i = threadIdx.x; i < count; i += blockDim.x) {
     const int t = start + i;
     xs[i] = (t >= 0 && t < L) ? x_row[t] : 0.0f;
-  }
-}
-
-// Max-pool a run: for each of its run_rows(pool) rows, emit(row, max,
-// argmax) with the first index that reaches the max (torch's and
-// tpukaldi's first match)
-template <typename Emit>
-__device__ __forceinline__ void pool_run(const float (&acc)[kRun], int pool,
-                                         Emit emit) {
-  const int used = run_rows(pool) * pool;
-  float m = 0.0f;
-  int arg = 0;
-  int q = 0;
-  int row = 0;
-#pragma unroll
-  for (int j = 0; j < kRun; ++j) {
-    if (j < used) {
-      if (q == 0 || acc[j] > m) {
-        m = acc[j];
-        arg = q;
-      }
-      if (++q == pool) {
-        emit(row, m, arg);
-        q = 0;
-        ++row;
-      }
-    }
   }
 }
 
@@ -98,15 +73,11 @@ __device__ __forceinline__ bool drop_keep(uint32_t eid, uint32_t seed,
 }
 
 // The layer-norm kernels (K6b, and K7's upper layers): block (window n,
-// tile of 32 filters), kLnWarps warps over the window's runs and rows, and
+// tile of 32 filters), kLnWarps warps over the window's rows, and
 // two rows of per-warp partial sums.  K6f sums in the same order with its
 // own thread layout: row m's term in slot m mod kLnWarps, in increasing m,
 // then the slots in order.
 constexpr int kLnWarps = 16;
-
-inline __host__ __device__ int ln_runs(int M, int pool) {
-  return (M + run_rows(pool) - 1) / run_rows(pool);
-}
 
 // the sum over the block's warps of each lane's `part`, in warp order;
 // every thread gets its lane's total.  red holds kLnWarps x kFilt floats.

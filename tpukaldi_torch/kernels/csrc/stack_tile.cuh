@@ -41,6 +41,9 @@ namespace tpk {
 
 // (conv_stack.py's gate restates the first two, and its masks the third)
 constexpr int kMaxUpperK = 8;      // taps of an upper layer
+// the pool of a layer (layer 0's, through K6, and each upper one's): the
+// stack keeps the limit it was designed and held at, below K6's own
+constexpr int kMaxStackPool = 12;
 constexpr int kMaxChannels = 128;  // input channels and filters of one
 constexpr uint32_t kMaskLanes = 128;  // element id m * 128 + o, every layer
 // what the entries return, in place of a cudaError_t, for a layer whose
@@ -230,7 +233,8 @@ upper_gemm_kernel(const GemmArgs g) {
 
   if constexpr (kPool) {
     // the conv rows into the pooling buffer (over the staging buffers),
-    // then each pooled row of the span: pool_run's comparisons, + bias
+    // then each pooled row of the span: the first index reaching the max
+    // (tpukaldi's first match), + bias
     float* cs = smem;
 #pragma unroll
     for (int p = 0; p < kGemmP; ++p) {
@@ -339,7 +343,7 @@ inline size_t ln_smem_bytes(int M) {
 inline bool upper_geometry_ok(int N, int lin, int C, int K, int O, int pool,
                               int M) {
   return N > 0 && C >= 1 && C <= kMaxChannels && K >= 1 && K <= kMaxUpperK &&
-         O >= 1 && O <= kMaxChannels && pool >= 1 && pool <= kMaxPool &&
+         O >= 1 && O <= kMaxChannels && pool >= 1 && pool <= kMaxStackPool &&
          M >= 1 && M * pool + K - 1 <= lin;
 }
 

@@ -210,8 +210,9 @@ def conv_pool(x: torch.Tensor, w: torch.Tensor, pool: int) -> torch.Tensor:
 
 @conv_pool.register_fake
 def _(x, w, pool):
-    K, O = w.shape
-    return x.new_empty((x.shape[0], (x.shape[1] - K + 1) // pool, O))
+    # the envelope's check, so that an export outside it raises as a call
+    _, _, _, O, M = conv1d._geometry("conv_pool", x, w, pool)
+    return x.new_empty((x.shape[0], M, O))
 
 
 @torch.library.custom_op("tpukaldi::conv_pool_ln_act", mutates_args=())
@@ -227,8 +228,8 @@ def conv_pool_ln_act(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 @conv_pool_ln_act.register_fake
 def _(x, w, bias, gt, bt, pool, eps, relu):
-    K, O = w.shape
-    return x.new_empty((x.shape[0], (x.shape[1] - K + 1) // pool, O))
+    _, _, _, O, M = conv1d._geometry("conv_pool_ln_act", x, w, pool)
+    return x.new_empty((x.shape[0], M, O))
 
 
 @torch.library.custom_op("tpukaldi::cudnn_rnn_layer", mutates_args=())

@@ -63,7 +63,7 @@ FILES = ("conv_pool_bwd.cu", "conv_ln_bwd.cu", "conv_pool_bwd.cuh",
 _LN = "  conv_ln_bwd_kernel<<<grid, tpk::kLnWarps * 32, 0, stream>>>("
 _DX = ("    conv_pool_dx_tile_kernel<<<dx_grid, kDxThreads, dx_smem, "
        "stream>>>(")
-_DW = ("  conv_pool_dw_part_kernel<<<dim3(N, tiles), kDwWarps * 32, dw_smem, "
+_DW = ("  conv_pool_dw_part_kernel<<<dw_grid, kDwWarps * 32, dw_smem, "
        "stream>>>(")
 _SUM = ("  reduce_windows_kernel<<<static_cast<unsigned>(blocks), threads, 0, "
         "stream>>>(")
