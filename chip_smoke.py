@@ -56,7 +56,16 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    time, and the partial-sum buffers; K1b: the units' dA pairs staged at a
    time, and the dA buffer) are printed beside the time.  K4f
    and K4b are timed beside the float32 K2f and K2b on the same inputs,
-   K3b beside K2b at the same (T, B, H).
+   K3b beside K2b at the same (T, B, H).  The four forwards also past the
+   backwards' limit, at WIDE_FWD_SHAPES (H = 2048 at the flagship's
+   serving batch and at 64 rows, 1036 and 1536; K3f in tanh and relu, K4f
+   through its float32-ff and bf16-ff entries), under the same checks,
+   each with the rows of U a CTA keeps resident and the bytes of U the
+   grid streams a step (csrc/u_stream.cuh), its time and its bound (which
+   counts the share of U past all the card's shared memory once a step,
+   from L2 at the rate this run measures with csrc/l2_read.cu before the
+   kernel phase), and cuDNN's float32 and bf16 LSTM beside K2f and K4f at
+   (778, 16, 2048).
    The conv kernels (K5f, K5b, K6f, K6b) at
    the training batch (128, 3200, K=129, O=80 and 128, pool 3), K6 also
    at dropout 0.15 (the same dropped elements), at an odd shape, and K5f
@@ -101,7 +110,14 @@ norm, relu and dropout kernels (K6f/K6b), and SincNet_raw.cfg (sinc convs
    and the peak device memory.  The plain path serves at the same forward
    batch, the port's default of 8 utterances.  The liGRU's forward stage
    runs once more at TPUKALDI_FORWARD_PIPELINE_DEPTH=1: its arks
-   byte-equal to those of the default depth 6.
+   byte-equal to those of the default depth 6.  After the recipes'
+   phases, the flagship at 5 x 2048 (`wide_phase`, WIDE_LAYERS) served the
+   same way: K1f once per layer per forward batch and K1b never, its arks
+   held to its `ligru_impl = scan` run on the card and two utterances to
+   the CPU path, with frames/s and peak memory; then, with every count at
+   0, each forward kernel at H = 2049 and a train step of the flagship at
+   5 x 2048 each raise the ValueError that names the limit (2048; K1b's
+   1024), and no kernel launches.
 4. Training phase, per recipe, the slice's main path: the cfg over the same
    tree (train 64 utterances of 150-778 frames, dev 16; raw: 32 and 8),
    with 2 epochs of 2 train chunks and no sequence-length curriculum,
@@ -335,6 +351,17 @@ LEAN_BWD_SHAPES = ((778, 32, 1024), (1000, 32, 1024))
 # not a multiple of 16, U's largest slice at 96 rows, and a batch of two
 # passes (more than 128 rows)
 LEAN_BWD_EDGE_SHAPES = ((37, 5, 36), (50, 96, 1024), (50, 136, 1024))
+# the forward recurrences past the backward kernels' limit,
+# K1f, K2f, K3f (both acts) and K4f (both entries): H = 2048 at the
+# flagship's serving batch (8 doubled) and at 64 rows (u = 16, P = 128: the
+# slices of U streamed past the rows that fit, csrc/u_stream.cuh), an odd
+# width just past 1024, and 1536
+WIDE_FWD_SHAPES = ((778, 16, 2048), (50, 64, 2048), (50, 5, 1036),
+                   (50, 16, 1536))
+FWD_MAX_HIDDEN, BWD_MAX_HIDDEN = 2048, 1024
+# the flagship at that width (the serving run of `wide_phase`)
+WIDE_LAYERS = {"ligru_lay = 550,550,550,550,550":
+               "ligru_lay = 2048,2048,2048,2048,2048"}
 # kernel vs plain version on the card: both float32, the recurrent products
 # summed in another order per step, compounding over up to 1000 steps
 # the train .info phases of the asynchronous hand-off and the split drain
@@ -825,17 +852,89 @@ WORDS = {
 }
 
 
-def bound_ms(name, T, B, H, words=None):
+# the forwards' U as the kernels hold it: (multiple of H^2, bytes an
+# element), and the shared memory of the whole card (132 SMs of 232,448
+# bytes a block may opt in to)
+U_BYTES = {"ligru_fwd": (2, 4), "lstm_fwd": (4, 4), "gru_fwd": (3, 4),
+           "lstm_lean_fwd": (4, 2)}
+SMEM_BYTES = 132 * 232448
+# the card's L2: {"bytes": its size, "rate": the bytes a second it serves
+# from a buffer that stays in it}, both read in this run by `measure_l2`
+L2 = {}
+# the buffers `measure_l2` reads over and over, in bytes; it keeps the
+# fastest
+L2_PROBE_BYTES = (4 << 20, 16 << 20, 30 << 20)
+
+
+def bound_ms(name, T, B, H, words=None, l2=None):
     """(least ms the card could take for one call at (T, B, H), "bytes" or
     "operations"): each input read once and each output written once at the
     memory's peak, against the recurrent products at the peak of their
-    precision (the gate arithmetic adds under 1% at these H).  `words`
-    replaces WORDS[name] (K4's bf16 entries: BF16_WORDS)."""
+    precision (the gate arithmetic adds under 1% at these H).  A forward's
+    U that exceeds all the card's shared memory cannot stay on chip (at
+    H = 2048 every forward's U does), so its excess is read again at each
+    step after the first: from L2 as far as it fits there, at L2's rate
+    (`l2`, as `L2`, which it defaults to), and from device memory past that.
+    Every byte reaches the SMs through L2, so then the bytes take the
+    longer of device memory's time and L2's.  `words` replaces WORDS[name]
+    (K4's bf16 entries: BF16_WORDS)."""
     tbh, hh, bh = words or WORDS[name]
-    bytes_ms = 4 * (tbh * T * B * H + hh * H * H + bh * B * H) / PEAK_BYTES * 1e3
+    once = 4 * (tbh * T * B * H + hh * H * H + bh * B * H)
+    bytes_ms = once / PEAK_BYTES * 1e3
+    mult, size = U_BYTES.get(name, (0, 0))
+    excess = max(0, mult * H * H * size - SMEM_BYTES)
+    if excess:
+        l2 = l2 or L2
+        device = once + (T - 1) * max(0, excess - l2["bytes"])
+        bytes_ms = max(device / PEAK_BYTES,
+                       (once + (T - 1) * excess) / l2["rate"]) * 1e3
     ops_ms = sum(n * T * B * H * H / PEAK_FLOPS[p]
                  for p, n in FLOPS[name].items()) * 1e3
     return (bytes_ms, "bytes") if bytes_ms > ops_ms else (ops_ms, "operations")
+
+
+def measure_l2() -> None:
+    """The card's L2 size and read rate, from csrc/l2_read.cu: the probe over
+    each buffer of L2_PROBE_BYTES, enough passes a launch to read about
+    2 GB, the median of 5 launches each; the fastest rate, stored in L2 for
+    `bound_ms`."""
+    import ctypes
+
+    from tpukaldi_torch.kernels import _build
+
+    lib = _build.load("l2_read.cu")
+    entry = lib.tpk_l2_read
+    entry.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    entry.restype = ctypes.c_int
+    size = ctypes.c_int(0)
+    err = lib.tpk_l2_bytes(ctypes.byref(size))
+    check(err == 0 and size.value > 0,
+          f"the L2 size query failed with CUDA error {err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(1, device="cuda")
+    rates = {}
+    for nbytes in L2_PROBE_BYTES:
+        check(nbytes < size.value,
+              f"an L2 probe of {nbytes} bytes exceeds the L2's {size.value}")
+        buf = torch.zeros(nbytes // 4, device="cuda")
+        reps = -(-(2 << 30) // nbytes)
+
+        def run():
+            err = entry(buf.data_ptr(), nbytes // 16, reps,
+                        4 * sms, out.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"the L2 probe failed with CUDA error {err}")
+
+        rates[nbytes] = reps * nbytes / (median_ms(run, 5) * 1e-3)
+    torch.cuda.synchronize()
+    check(out.item() == 0.0, "the L2 probe wrote its sum")
+    L2.update(bytes=size.value, rate=max(rates.values()))
+    print(f"L2: {size.value} bytes; read rate "
+          + ", ".join(f"{r / 1e12:.4f} TB/s over {n} bytes"
+                      for n, r in rates.items())
+          + f" (bounds take {L2['rate'] / 1e12:.4f}; device memory's peak "
+          f"{PEAK_BYTES / 1e12:g})", flush=True)
 
 
 def _gate_perm(x, H):
@@ -915,8 +1014,9 @@ def _k2b_ms(lstm, T, B, H):
 def kernel_phase(mods) -> dict:
     """Every kernel against its plain version at the main paths' shapes;
     returns {kernel name: worst error}, {(kernel name, T, B, H): (ms, plain
-    ms)} and {kernel name: (library ms, T, B, H)}."""
-    errs, timing, library = {}, {}, {}
+    ms)}, {kernel name: (library ms, T, B, H)} and the forwards' library
+    ms at WIDE_FWD_SHAPES[0] (`library_wide`)."""
+    errs, timing, library, library_wide = {}, {}, {}, {}
     for cell, mod in mods.items():
         lean = cell == "lstm_lean"
         # the persistent kernels, forward K4f, K1f, K2f and K3f, backward
@@ -924,17 +1024,25 @@ def kernel_phase(mods) -> dict:
         persistent_fwd = cell in ("ligru", "lstm", "gru", "lstm_lean")
         persistent_bwd = cell in ("ligru", "lstm", "gru", "lstm_lean")
         name = f"{cell}_fwd"
-        # K3f also in relu (None: the cell's own act)
+        # K3f also in relu, K4f also through its bf16-ff entry (None: the
+        # cell's own act, float32 ff), at one shape after the other
         shapes = (LEAN_FWD_SHAPES + LEAN_FWD_EDGE_SHAPES if lean
-                  else FWD_SHAPES + FWD_EDGE_SHAPES if persistent_fwd
-                  else FWD_SHAPES)
-        runs = [(*shape, None) for shape in shapes]
-        if cell == "gru":
-            runs += [(*shape, "relu") for shape in GRU_RELU_FWD_SHAPES]
+                  else FWD_SHAPES + FWD_EDGE_SHAPES) + WIDE_FWD_SHAPES
+        also, also_shapes = (
+            ("relu", GRU_RELU_FWD_SHAPES + WIDE_FWD_SHAPES) if cell == "gru"
+            else ("bf16 ff", WIDE_FWD_SHAPES) if lean else (None, ()))
+        runs = [(*shape, act) for shape in shapes
+                for act in dict.fromkeys((None, also))
+                if act is None or shape in also_shapes]
+        inputs = {}
         for T, B, H, act in runs:
-            fns = _cell_fns(cell, mod, act)
+            fns = _cell_fns(cell, mod, None if act == "bf16 ff" else act)
             label = f"{name}" + (f" {act}" if act else "")
-            ff, ws, mask, _ = _recurrence_inputs(cell, T, B, H, T + B)
+            if (T, B, H) not in inputs:
+                inputs = {(T, B, H): _recurrence_inputs(cell, T, B, H, T + B)}
+            ff, ws, mask, _ = inputs[(T, B, H)]
+            if act == "bf16 ff":  # held on ff rounded, which it widens
+                ff = ff.to(torch.bfloat16)
             with torch.inference_mode():
                 got = fns["fwd"](ff, ws, mask)
                 want = fns["fwd_ref"](ff, ws, mask)
@@ -946,27 +1054,35 @@ def kernel_phase(mods) -> dict:
                 torch.cuda.synchronize()
                 err = max((a - b).abs().max().item() for a, b in zip(got, want))
                 rel = err / max(b.abs().max().item() for b in want)
-                step = _lean_step_error(ff, *ws, mask, *got) if lean else None
+                step = (_lean_step_error(ff.float(), *ws, mask, *got) if lean
+                        else None)
                 ms = median_ms(lambda: fns["fwd"](ff, ws, mask), 5)
                 plain_ms = median_ms(lambda: fns["fwd_ref"](ff, ws, mask), 3)
                 # the float32 kernel on the same inputs, twice K4f's bytes
                 k2_ms = (median_ms(lambda: mod.lstm_recurrence(ff, *ws, mask), 3)
-                         if lean else None)
+                         if lean and act is None else None)
             atol = LEAN_SEQ_ATOL if lean else KERNEL_ATOL
             print(f"kernel {label} T={T} B={B} H={H}: max_abs_err={err:.3e} "
                   f"max_rel_err={rel:.3e} (atol {atol:g})"
                   + (f", per step {step:.3e} (atol {LEAN_STEP_ATOL:g})"
                      if lean else "")
                   + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms"
-                  + (f", K2f at this shape {k2_ms:.3f} ms" if lean else ""),
+                  + (f", K2f at this shape {k2_ms:.3f} ms"
+                     if k2_ms is not None else ""),
                   flush=True)
             if persistent_fwd:
                 plan = (mod.lean_fwd_plan if lean else mod.fwd_plan)(B, H)
+                bound, bound_by = bound_ms(
+                    name, T, B, H,
+                    BF16_WORDS[name] if act == "bf16 ff" else None)
                 print(f"kernel {label} T={T} B={B} H={H}: {1e3 * ms / T:.2f} us "
                       f"per step; grid P={plan['ctas']} CTAs of u="
                       f"{plan['units']} units, {plan['smem_bytes']} shared-memory "
-                      f"bytes a CTA, h staged {plan['chunk']} columns at a time; "
-                      f"repeat bitwise equal: {same}", flush=True)
+                      f"bytes a CTA, h staged {plan['chunk']} columns at a time, "
+                      f"k_res={plan['k_res']} rows of U resident a CTA, "
+                      f"{plan['stream_bytes']} bytes of U streamed a step; bound "
+                      f"{bound:.3f} ms ({bound_by}); repeat bitwise equal: "
+                      f"{same}", flush=True)
             check(math.isfinite(err) and err <= atol,
                   f"{label} disagrees with its plain version at {(T, B, H)}: {err}")
             if lean:
@@ -976,10 +1092,13 @@ def kernel_phase(mods) -> dict:
             errs[name] = max(errs.get(name, 0.0), err)
             if act is None:  # the kernels line times the recipe's act
                 timing[(name, T, B, H)] = (ms, plain_ms)
-            if name in ("lstm_fwd", "lstm_lean_fwd") and name not in library:
+            if (name in ("lstm_fwd", "lstm_lean_fwd") and act is None
+                    and (name not in library
+                         or (T, B, H) == WIDE_FWD_SHAPES[0])):
                 dtype = torch.bfloat16 if lean else torch.float32
                 lib_ms, gemm_ms, lib_err = library_ms(mod, ff, ws[0], dtype)
-                library[name] = (lib_ms, T, B, H)
+                (library if name not in library
+                 else library_wide)[name] = (lib_ms, T, B, H)
                 print(f"library {name} T={T} B={B} H={H}: cuDNN LSTM "
                       f"({str(dtype)[6:]}) {lib_ms:.3f} ms, of which the "
                       f"identity input GEMM alone {gemm_ms:.3f} ms; h vs the "
@@ -1100,7 +1219,8 @@ def kernel_phase(mods) -> dict:
             print(f"kernel autograd ({label} Function vs {against}, T=50 B=4 "
                   f"H=64): max_abs_err={ag_err:.3e} (atol 1e-5)", flush=True)
             check(ag_err <= 1e-5, f"{label} Function gradients disagree: {ag_err}")
-    return {"errs": errs, "timing": timing, "library": library}
+    return {"errs": errs, "timing": timing, "library": library,
+            "library_wide": library_wide}
 
 
 def conv_bound_ms(name, N, L, K, O, pool, residuals=True, need_dx=True):
@@ -2035,9 +2155,10 @@ def _phases(info) -> str:
                     if k.startswith("phase_"))
 
 
-def serving_phase(modules, trees, recipe) -> dict:
+def serving_phase(modules, trees, recipe, replace=None, tag=None) -> dict:
     """The serving path of one recipe: production forward from seeded final
-    checkpoints."""
+    checkpoints.  `replace` changes lines of the cfg on both paths (the
+    flagship at 5 x 2048: WIDE_LAYERS), `tag` names such a run."""
     from tpukaldi_torch.tools import flagship_tree as ft
     from tpukaldi_torch.tools.run_exp import run_experiment
     from tpukaldi_torch.train import chunk_runtime
@@ -2046,15 +2167,19 @@ def serving_phase(modules, trees, recipe) -> dict:
     tree = trees[r["corpus"]]
     dim = TREES[r["corpus"]]["dim"]
     n_test = TREES[r["corpus"]]["splits"]["test"][0]
-    out = os.path.join(WORK, f"serve_{recipe}")
-    out_plain = os.path.join(WORK, f"serve_{recipe}_plain")
+    replace = replace or {}
+    label = tag or recipe
+    out = os.path.join(WORK, f"serve_{label}")
+    out_plain = os.path.join(WORK, f"serve_{label}_plain")
     for d in (out, out_plain):
         os.makedirs(d)
     src = ft.recipe_cfg(recipe)
-    cfg = ft.write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), recipe=src)
+    cfg = ft.write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), replace,
+                            recipe=src)
     cfg_plain = ft.write_prod_cfg(tree, out_plain,
                                   os.path.join(out_plain, "run.cfg"),
-                                  _plain_replace(recipe), recipe=src)
+                                  {**replace, **_plain_replace(recipe)},
+                                  recipe=src)
     # the same seed, so both runs read the same weights
     ft.save_seeded_finals(cfg, dim=dim)
     ft.save_seeded_finals(cfg_plain, dim=dim)
@@ -2079,7 +2204,7 @@ def serving_phase(modules, trees, recipe) -> dict:
         run_experiment(cfg_plain, device="cuda")
     wall_plain = time.perf_counter() - t0
     check(not any(_counts(modules).values()),
-          f"{recipe} plain path still launched a kernel: {_counts(modules)}")
+          f"{label} plain path still launched a kernel: {_counts(modules)}")
     posts_plain, info_plain = ft.forward_outputs(out_plain)
 
     posts, posts_plain = list(posts), list(posts_plain)
@@ -2089,7 +2214,7 @@ def serving_phase(modules, trees, recipe) -> dict:
         check(key == key_p, f"ark order differs: {key} vs {key_p}")
         worst_plain = max(worst_plain, float(abs(post - post_p).max()))
     check(worst_plain <= POSTERIOR_ATOL,
-          f"{recipe}: kernel path vs plain path posteriors differ by {worst_plain}")
+          f"{label}: kernel path vs plain path posteriors differ by {worst_plain}")
     # every forward batch ran its layers through the kernel; the test
     # utterances in batches of at most the port's default forward batch
     # take at least n / that many batches
@@ -2104,24 +2229,87 @@ def serving_phase(modules, trees, recipe) -> dict:
     check(int(info["frames"]) == frames, f".info frames {info['frames']} != {frames}")
     cpu = _check_cpu_path(ft, exp, out, names, lengths, recipe)
 
-    print(f"serving {recipe}: {n_test} utterances, {frames} frames, {n_batches} "
+    print(f"serving {label}: {n_test} utterances, {frames} frames, {n_batches} "
           f"forward batches of up to {fwd_bs}, {r['fwd']} launches {launches} "
-          f"(= {r['layers']} x {n_batches}), arks {N_PDFS} wide, all finite; "
-          f"peak device memory {peak:.2f} GiB", flush=True)
-    print(f"serving {recipe} kernel path: forward stage "
+          f"(= {r['layers']} x {n_batches}), {r['bwd']} launches {bwd}, arks "
+          f"{N_PDFS} wide, all finite; peak device memory {peak:.2f} GiB",
+          flush=True)
+    print(f"serving {label} kernel path: forward stage "
           f"{info['elapsed_time_chunk']:.3f} s, {info['frames_per_sec']:.1f} "
           f"frames/s (.info), run_experiment wall {wall:.3f} s, phases "
           f"{_phases(info)}", flush=True)
-    print(f"serving {recipe} plain path ({plain_label}): forward stage "
+    print(f"serving {label} plain path ({plain_label}): forward stage "
           f"{info_plain['elapsed_time_chunk']:.3f} s, "
           f"{info_plain['frames_per_sec']:.1f} frames/s (.info), run_experiment "
           f"wall {wall_plain:.3f} s, phases {_phases(info_plain)}", flush=True)
-    print(f"serving {recipe} agreement: kernel vs plain path max_abs_err="
+    print(f"serving {label} agreement: kernel vs plain path max_abs_err="
           f"{worst_plain:.3e} (atol {POSTERIOR_ATOL:g}), CUDA vs CPU path (2 "
           f"utterances) {cpu}", flush=True)
-    if recipe == "liGRU":
+    if recipe == "liGRU" and not replace:
         pipeline_depth_check(cfg, info)
-    return {"cfg": cfg, "stack_launches": stack_launches}
+    return {"cfg": cfg, "stack_launches": stack_launches, "launches": launches}
+
+
+def _refused(what, fn, *needles) -> str:
+    """fn() must raise a ValueError whose message holds every needle;
+    returns the message.  No other exception is caught."""
+    try:
+        fn()
+    except ValueError as e:
+        msg = str(e)
+        check(all(n in msg for n in needles),
+              f"{what}: refused as {msg!r}, which does not name {needles}")
+        return msg
+    raise AssertionError(f"{what}: ran, where a ValueError was expected")
+
+
+def wide_phase(modules, trees) -> dict:
+    """Serving past the backward kernels' limit: the flagship at
+    5 x 2048 (WIDE_LAYERS) through `serving_phase` (K1f once per layer per
+    forward batch, K1b never, arks held to the scan path and two utterances
+    to the CPU path); then, with every count at 0, the refusals: each
+    forward kernel's entry at H = FWD_MAX_HIDDEN + 1 (K4f through both), and
+    a train step of the flagship at 5 x 2048, whose Function refuses K1b's
+    H <= BWD_MAX_HIDDEN before its forward launches: each a ValueError
+    naming the limit, and no kernel launched.  Returns K1f's launches on the
+    serving run."""
+    from tpukaldi_torch.tools import flagship_tree as ft
+    from tpukaldi_torch.train import chunk_runtime
+
+    served = serving_phase(modules, trees, "liGRU", WIDE_LAYERS, "liGRU-2048")
+    _reset_counts(modules, chunk_runtime)
+    T, B, H = 2, 1, FWD_MAX_HIDDEN + 1
+    for cell in ("ligru", "lstm", "gru", "lstm_lean"):
+        mod = modules["lstm" if cell == "lstm_lean" else cell]
+        fns = _cell_fns(cell, mod)
+        n_gates = {"ligru": 2, "lstm": 4, "gru": 3, "lstm_lean": 4}[cell]
+        ff = torch.zeros(T, B, n_gates * H, device="cuda")
+        ws = ((torch.zeros(H, 2 * H, device="cuda"),
+               torch.zeros(H, H, device="cuda")) if cell == "gru"
+              else (torch.zeros(H, n_gates * H, device="cuda"),))
+        mask = torch.ones(B, H, device="cuda")
+        entries = [(f"{cell}_fwd", ff)]
+        if cell == "lstm_lean":
+            entries.append(("lstm_lean_fwd bf16 ff", ff.to(torch.bfloat16)))
+        for label, x in entries:
+            msg = _refused(f"{label} at H={H}",
+                           lambda x=x: fns["fwd"](x, ws, mask), f"H={H}",
+                           f"limit of {FWD_MAX_HIDDEN}")
+            print(f"refused {label} at H={H}: {msg}", flush=True)
+    out = os.path.join(WORK, "train_liGRU-2048")
+    os.makedirs(out)
+    cfg = ft.write_train_cfg(trees["TIMIT"], out, os.path.join(out, "run.cfg"),
+                             {**_cuts("liGRU"), **WIDE_LAYERS},
+                             recipe=ft.recipe_cfg("liGRU"))
+    msg = _refused("a train step of the flagship at 5 x 2048",
+                   lambda: ft.train_step_gradients(cfg, "cuda"),
+                   "ligru_recurrence_bwd", f"H={FWD_MAX_HIDDEN}",
+                   f"limit of {BWD_MAX_HIDDEN}")
+    print(f"refused a train step of the flagship at 5 x {FWD_MAX_HIDDEN}: "
+          f"{msg}", flush=True)
+    counts = _counts(modules)
+    check(not any(counts.values()), f"the refusals launched kernels: {counts}")
+    return {"ligru_fwd": served["launches"]}
 
 
 def _drop_forward_ledger(out) -> None:
@@ -5247,12 +5435,13 @@ def dist_export_phase(modules, trees) -> dict:
 
 
 def build_kernels(modules) -> None:
-    """Every kernel source, one nvcc each, all at once."""
+    """Every kernel source, and the L2 probe's (`measure_l2`), one nvcc
+    each, all at once."""
     from tpukaldi_torch.kernels import _build
 
     t0 = time.perf_counter()
     sources = [getattr(modules[mod], attr)
-               for mod, _, attr, _ in KERNELS.values()]
+               for mod, _, attr, _ in KERNELS.values()] + ["l2_read.cu"]
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     print(f"build {', '.join(sources)} (nvcc sm_90a, in parallel): "
@@ -5282,6 +5471,20 @@ def _ptxas(report):
                       f"{spill.group(2)} bytes spill loads"))
     check(bool(found), f"no kernel in the ptxas report {report}")
     return found
+
+
+def _wide_extra(name, k) -> dict:
+    """A forward recurrence's numbers at WIDE_FWD_SHAPES[0] (H = 2048, its
+    U streamed) for its record on the kernels line."""
+    T, B, H = WIDE_FWD_SHAPES[0]
+    ms, plain_ms = k["timing"][(name, T, B, H)]
+    bound, bound_by = bound_ms(name, T, B, H)
+    lib = k["library_wide"].get(name)
+    return {"h2048_shape": [T, B, H], "h2048_ms": ms,
+            "h2048_plain_ms": plain_ms, "h2048_bound_ms": bound,
+            "h2048_bound_by": bound_by, "h2048_l2_bytes": L2["bytes"],
+            "h2048_l2_read_bytes_per_s": L2["rate"],
+            "h2048_library_ms": None if lib is None else lib[0]}
 
 
 def _timed(label, fn, *args):
@@ -5314,6 +5517,7 @@ def main() -> int:
     modules = {"ligru": ligru, "lstm": lstm, "gru": gru, "conv1d": conv1d,
                "conv_stack": conv_stack}
     build_kernels(modules)
+    measure_l2()
 
     # a process's first torch.optim optimizer imports torch._dynamo (seconds
     # of host time, once per process); done here, timed, so that no chunk
@@ -5351,6 +5555,8 @@ def main() -> int:
         for name in STACK_KERNELS:
             recipe_stack[name] += (s["stack_launches"][name]
                                    + trained[recipe]["stack_launches"][name])
+    wide = _timed("liGRU-2048 serving and refusals", wide_phase, modules,
+                  trees)
     sinc251 = _timed("SincNet-251", sinc251_phase, modules, trees)
     _timed("device cache", device_cache_phase, trees, trained, card)
     trees = _timed("multistep", multistep_all, modules, trees)
@@ -5395,6 +5601,10 @@ def main() -> int:
                            library_ms=None if lib is None else lib[0])
             # K1's launches on the fusion path beside the flagship's
             extra = dict(fusion.get(name, {}))
+            if kind == "fwd" and not _raw(recipe):
+                extra.update(_wide_extra(name, k))
+            if name in wide:
+                extra["flagship2048_launches"] = wide[name]
             if name in rate:
                 extra["rate_launches"] = rate[name]
             extra.update(dist_extra.get(name, {}))

@@ -15,16 +15,11 @@ import os
 import subprocess
 import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpukaldi.config import load_config
-from tpukaldi.graph.compiler import build_graph, init_graph
 from tpukaldi.io import read_mat_ark
 from tpukaldi.tools.run_exp import run_experiment as tpk_run_experiment
-from tpukaldi.train.checkpoint import save_all
 from tpukaldi.train.chunk_runtime import read_info
 from tpukaldi_torch.kernels import ligru
 from tpukaldi_torch.tools.flagship_tree import (
@@ -36,6 +31,7 @@ from tpukaldi_torch.tools.flagship_tree import (
 )
 from tpukaldi_torch.tools.run_exp import run_experiment
 from tpukaldi_torch.train import chunk_runtime
+from torch_port_helpers import final_ckpts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIM = 10
@@ -62,29 +58,6 @@ def _cfg(tree, out):
     return write_prod_cfg(tree, out, os.path.join(out, "run.cfg"), SHRINK)
 
 
-def _final_ckpts(cfg, out_folders):
-    """tpukaldi's init, batchnorm drawn from numpy, saved into each run."""
-    exp = load_config(cfg)
-    graph = build_graph(exp, {"fmllr": (0, DIM)}, {})
-    params, stats = init_graph(graph, jax.random.key(0),
-                               jnp.zeros((4, 2, DIM), jnp.float32))
-    params = jax.tree_util.tree_map(np.asarray, params)
-    stats = jax.tree_util.tree_map(np.asarray, stats)
-    rng = np.random.default_rng(9)
-    for arch, tree_ in stats.items():
-        for name, s in tree_.items():
-            s["mean"] = rng.normal(0, 0.3, s["mean"].shape).astype(np.float32)
-            s["var"] = rng.uniform(0.5, 1.5, s["var"].shape).astype(np.float32)
-            p = params[arch][name]
-            p["scale"] = rng.uniform(0.5, 1.5, p["scale"].shape).astype(np.float32)
-            p["bias"] = rng.normal(0, 0.3, p["bias"].shape).astype(np.float32)
-    for out in out_folders:
-        ef = os.path.join(out, "exp_files")
-        os.makedirs(ef, exist_ok=True)
-        save_all({a: os.path.join(ef, f"final_{a}.ckpt") for a in params},
-                 params, None, stats)
-
-
 def _forward_outputs(out):
     ef = os.path.join(out, "exp_files")
     arks = [f for f in os.listdir(ef) if f.endswith("_to_decode.ark")]
@@ -98,7 +71,7 @@ def _forward_outputs(out):
 def test_production_forward_matches_tpukaldi(tree, tmp_path):
     out_tpk, out_port = str(tmp_path / "tpk"), str(tmp_path / "port")
     cfg_tpk, cfg_port = _cfg(tree, out_tpk), _cfg(tree, out_port)
-    _final_ckpts(cfg_tpk, [out_tpk, out_port])
+    final_ckpts(cfg_tpk, [out_tpk, out_port], DIM)
     tpk_run_experiment(cfg_tpk)
     run_experiment(cfg_port, device="cpu")
 

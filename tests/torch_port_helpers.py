@@ -7,6 +7,7 @@ Not a test module (pytest collects test_*.py only); the test files import
 it from their own directory.
 """
 
+import os
 from types import SimpleNamespace
 
 import jax
@@ -14,8 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from tpukaldi.config import load_config
 from tpukaldi.config.model_dsl import parse_model
 from tpukaldi.graph import compiler as jax_compiler
+from tpukaldi.train.checkpoint import save_all
 from tpukaldi.train.optimizers import make_optimizer
 from tpukaldi.train.step import _loss_fn, make_eval_step, make_train_step
 from tpukaldi_torch.compat.jax_params import from_jax_params, to_jax_params
@@ -205,3 +208,29 @@ def check_train_and_eval_step(exp):
                                atol=1e-5)
     np.testing.assert_allclose(got_err.item(), float(err_e), rtol=0,
                                atol=1e-6)
+
+
+def final_ckpts(cfg, out_folders, dim):
+    """tpukaldi's init of the cfg's graph over a `dim`-wide fmllr stream,
+    batchnorm parameters and statistics drawn from numpy, saved as the
+    final checkpoints of each run folder in `out_folders`, so that a
+    tpukaldi run and a port run forward the same weights."""
+    exp = load_config(cfg)
+    graph = jax_compiler.build_graph(exp, {"fmllr": (0, dim)}, {})
+    params, stats = jax_compiler.init_graph(
+        graph, jax.random.key(0), jnp.zeros((4, 2, dim), jnp.float32))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    stats = jax.tree_util.tree_map(np.asarray, stats)
+    rng = np.random.default_rng(9)
+    for arch, tree_ in stats.items():
+        for name, s in tree_.items():
+            s["mean"] = rng.normal(0, 0.3, s["mean"].shape).astype(np.float32)
+            s["var"] = rng.uniform(0.5, 1.5, s["var"].shape).astype(np.float32)
+            p = params[arch][name]
+            p["scale"] = rng.uniform(0.5, 1.5, p["scale"].shape).astype(np.float32)
+            p["bias"] = rng.normal(0, 0.3, p["bias"].shape).astype(np.float32)
+    for out in out_folders:
+        ef = os.path.join(out, "exp_files")
+        os.makedirs(ef, exist_ok=True)
+        save_all({a: os.path.join(ef, f"final_{a}.ckpt") for a in params},
+                 params, None, stats)

@@ -86,10 +86,33 @@ def bind(source: str, name: str, n_ptrs: int,
     `tpk_<name>` and that kernel's largest H."""
     entry_fn = entry(source, name,
                      [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints)
-    max_hidden = getattr(_build.load(source), f"tpk_{name}_max_hidden")
-    max_hidden.argtypes = []
-    max_hidden.restype = ctypes.c_int
-    return entry_fn, max_hidden()
+    return entry_fn, max_hidden(source, name)
+
+
+def max_hidden(source: str, name: str) -> int:
+    """The largest H of the kernel `tpk_<name>` of `csrc/<source>` (built
+    if needed)."""
+    fn = getattr(_build.load(source), f"tpk_{name}_max_hidden")
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def check_hidden(fn: str, H: int, limit: int) -> None:
+    """Raise a ValueError naming `fn` and its limit where H exceeds it."""
+    if H > limit:
+        raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of {limit}")
+
+
+def refuse_wide_backward(fn: str, ctx, H: int, source: str,
+                         name: str) -> None:
+    """In an autograd Function's forward on the card: where a gradient is
+    wanted and H exceeds the backward kernel's limit (1024, below the
+    forward kernels' 2048), raise the backward's ValueError before
+    anything launches, so that no forward runs whose backward would be
+    refused."""
+    if any(ctx.needs_input_grad):
+        check_hidden(fn, H, max_hidden(source, name))
 
 
 def dims(fn: str, ff: torch.Tensor, gates: int) -> Tuple[int, int, int]:
@@ -152,7 +175,7 @@ def refuse_bf16(fn: str, *tensors: torch.Tensor) -> None:
                         "boundary (kernels/_launch.py::widen)")
 
 
-def check_inputs(fn: str, H: int, max_hidden: int,
+def check_inputs(fn: str, H: int, limit: int,
                  dtypes: Optional[Dict[str, torch.dtype]] = None,
                  **tensors: Tuple[torch.Tensor, Tuple[int, ...]]) -> None:
     """Each (tensor, expected shape) contiguous, on one CUDA device, with
@@ -161,9 +184,7 @@ def check_inputs(fn: str, H: int, max_hidden: int,
     dtypes = dtypes or {}
     check_tensors(fn, **{name: (t, shape, dtypes.get(name, torch.float32))
                          for name, (t, shape) in tensors.items()})
-    if H > max_hidden:
-        raise ValueError(f"{fn}: H={H} exceeds the kernel's limit of "
-                         f"{max_hidden}")
+    check_hidden(fn, H, limit)
 
 
 def launch(name: str, entry_fn: Callable[..., int], ptrs, T: int, B: int,

@@ -24,7 +24,16 @@
 //   refused, not run.
 // - Uh[:, S_q] and [Uz | Ur][:, S_q] stay in shared memory for all T
 //   steps, copied once per call with cp.async in the layout K3b reads
-//   (gru_slices.cuh): 44 KB at H = 550, 115 KB at H = 1024.
+//   (gru_slices.cuh): 44 KB at H = 550, 115 KB at H = 1024.  Past what
+//   shared memory holds (H = 2048, u = 16: 416 KB), a CTA keeps its first
+//   k_res rows resident (640 at B' = 16, 384 at 64 rows) and streams the
+//   rest with each product's chunks, 128 rows a chunk, the part of the
+//   rows that product reads (gru_slices.cuh::stage_gru_rows,
+//   u_stream.cuh): 34.6 MB of U a step over the grid at B' = 16, 67.9 us a
+//   step at (T, B, H) = (778, 16, 2048) on an H100 at 700 W
+//   (tpukaldi_torch/tools/recurrence_envelope.py).  Where the slices fit
+//   (every H <= 1024, and 1036), the resident design runs as before, bit
+//   for bit.  H <= 2048 keeps u <= 16 on 132 SMs.
 // - A step has two phases, each ending at a grid barrier:
 //   (a) every CTA streams h_{t-1} (the pass's rows x H) from hbuf through
 //       shared memory in chunks of up to 256 columns, double-buffered with
@@ -89,10 +98,11 @@
 
 #include "gru_slices.cuh"
 #include "persist_grid.cuh"
+#include "u_stream.cuh"
 
 namespace {
 
-constexpr int kMaxHidden = 1024;  // as K3b's limit
+constexpr int kMaxHidden = 2048;  // K3b's is 1024
 constexpr int kThreads = 256;
 constexpr int kRows = 4;          // batch rows of a thread's tile
 constexpr int kMaxRows = 128;     // batch rows of one pass
@@ -132,16 +142,20 @@ struct Params {
   int rows;  // batch rows of a pass
   int mmax;  // rows of the largest pass, padded to kRows
   int kc;    // columns staged at a time (a multiple of 4)
+  int kres;  // U's rows resident: kp, or whole chunks (the rest streamed)
 };
 
 struct Plan {
   int u, ctas, kp, bp, rows, mmax, kc;
+  int k_res;  // U's rows a CTA keeps resident (kp: all, the resident design)
   size_t smem;
 };
 
-// U's slices, the two staged chunks, and the partial sums
-inline size_t smem_bytes(int kp, int u, int mmax, int kc) {
-  const size_t u_floats = static_cast<size_t>(kp) * tpk::gru_row_floats(u);
+// U's resident rows, the two staged chunks, the partial sums and, where
+// U's slices are streamed, their two staged chunks
+inline size_t smem_bytes(int res_rows, int u, int mmax, int kc, bool stream) {
+  const size_t u_floats = static_cast<size_t>(res_rows + (stream ? 2 * kc : 0)) *
+                          tpk::gru_row_floats(u);
   const size_t h_floats = 2 * static_cast<size_t>(mmax) * odd_words(kc);
   return (u_floats + h_floats + kPartialFloats) * sizeof(float);
 }
@@ -150,6 +164,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// U's rows from kres on, if any, are streamed a chunk at a time, each
+// product staging its own part of them (u_stream.cuh)
 template <int kAct>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_fwd_kernel(const Params p) {
@@ -163,11 +179,15 @@ gru_fwd_kernel(const Params p) {
   const int hs_ld = odd_words(kc);
   const size_t three_h = 3 * static_cast<size_t>(H);
 
-  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kp x ld
-  float* hs = us + static_cast<size_t>(kp) * ld;  // 2 x mmax x hs_ld
+  // U's resident rows: kp, or whole chunks where the rest is streamed
+  const int kr = p.kres;
+  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kr x ld
+  float* hs = us + static_cast<size_t>(kr) * ld;  // 2 x mmax x hs_ld
   float* gs = hs + 2 * static_cast<size_t>(p.mmax) * hs_ld;  // partial sums
+  float* ss = gs + kPartialFloats;  // 2 x kc x ld streamed chunks of U
 
-  tpk::load_gru_slices(us, kp, p.uh, p.uzr, H, u, unit0, up);
+  // U's resident rows (a streamed slice's are all below H)
+  tpk::load_gru_slices(us, kr, p.uh, p.uzr, H, u, unit0, up, min(H, kr));
 
   float* const hbuf = p.hbuf;
   float* const rbuf = p.hbuf + static_cast<size_t>(p.bp) * kp;
@@ -198,8 +218,10 @@ gru_fwd_kernel(const Params p) {
       }
     }
 
-    // stage columns [ch * kc, ch * kc + width) of the pass's rows of src
-    auto stage = [&](const float* src, int ch) {
+    // stage columns [ch * kc, ch * kc + width) of the pass's rows of src,
+    // and a streamed chunk's rows of U's part that the product reads (the
+    // [Uz, Ur] part, or the Uh part) beside them
+    auto stage = [&](const float* src, int ch, bool uzr_part) {
       const int k0 = ch * kc;
       const int per_row = min(kc, kp - k0) / 4;
       float* buf = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld;
@@ -209,11 +231,18 @@ gru_fwd_kernel(const Params p) {
         tpk::cp_async16_cg(buf + r * hs_ld + v,
                            src + static_cast<size_t>(b0 + r) * kp + k0 + v);
       }
+      if (k0 >= kr) {
+        tpk::stage_gru_rows(ss + (ch & 1) * static_cast<size_t>(kc) * ld, p.uh,
+                            p.uzr, uzr_part, H, u, unit0, up, k0,
+                            k0 + 4 * per_row);
+      }
       tpk::cp_async_commit();
     };
     // the pass's rows of src times the slice rows' words [w0, w0 + nw), as
-    // partial sums gs[slice][row][4 * nw]; returns the slices
+    // partial sums gs[slice][row][4 * nw]; returns the slices.  w0 = 0 is
+    // the Uh part, any other the [Uz, Ur] part
     auto product = [&](const float* src, int w0, int nw) {
+      const bool uzr_part = w0 != 0;
       const int ntile = tr_n * nw;  // tiles of kRows rows x one word
       const int S = max(1, kThreads / ntile);
       const bool active = tid < ntile * S;
@@ -224,10 +253,10 @@ gru_fwd_kernel(const Params p) {
       float acc[kRows][4];
 #pragma unroll
       for (int x = 0; x < kRows * 4; ++x) acc[x / 4][x % 4] = 0.0f;
-      stage(src, 0);
+      stage(src, 0, uzr_part);
       for (int ch = 0; ch < nchunks; ++ch) {
         if (ch + 1 < nchunks) {
-          stage(src, ch + 1);
+          stage(src, ch + 1, uzr_part);
           tpk::cp_async_wait<1>();
         } else {
           tpk::cp_async_wait<0>();
@@ -236,7 +265,10 @@ gru_fwd_kernel(const Params p) {
         if (active) {
           const float* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
                             + tr * hs_ld;
-          const float* uc = us + static_cast<size_t>(ch) * kc * ld + 4 * (w0 + tw);
+          const float* uc =
+              (ch * kc >= kr
+                   ? ss + (ch & 1) * static_cast<size_t>(kc) * ld
+                   : us + static_cast<size_t>(ch) * kc * ld) + 4 * (w0 + tw);
           const int ksteps = min(kc, kp - ch * kc) / 4;
           for (int kk = s_thr; kk < ksteps; kk += S) {
             float4 hr[kRows], uw[4];
@@ -357,6 +389,12 @@ inline void (*fwd_kernel(int act))(const Params) {
   return act == 0 ? gru_fwd_kernel<0> : gru_fwd_kernel<1>;
 }
 
+// bytes of U the grid streams a step: each CTA's rows past k_res, the 3u
+// floats of its units (Uh's in one product, Uz's and Ur's in the other)
+inline long long stream_bytes(const Plan& pl, int H) {
+  return 12LL * H * (H - (pl.k_res < H ? pl.k_res : H));
+}
+
 // The launch's shape for (B, H) on the current device, and whether the
 // card can hold its grid at once; returns a CUDA error code (0: fits).
 int make_plan(int B, int H, int act, Plan* pl) {
@@ -388,13 +426,25 @@ int make_plan(int B, int H, int act, Plan* pl) {
                       ? kMaxRows : kMaxPos * kThreads / u / kRows * kRows;
   pl->rows = B < cap ? B : cap;
   pl->mmax = round_rows(pl->rows);
+  // the resident design where U's whole slices fit beside the chunks,
+  // halving them as far as 16 columns; else the streamed one (u_stream.cuh)
   pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
-  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc, false) > static_cast<size_t>(optin) &&
          pl->kc > 16) {
     pl->kc = round4(pl->kc / 2);
   }
-  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc);
-  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  pl->k_res = pl->kp;
+  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc, false);
+  if (pl->smem > static_cast<size_t>(optin)) {
+    const auto smem = [&](int rows, int kc) {
+      return smem_bytes(rows, u, pl->mmax, kc, true);
+    };
+    if (!tpk::stream_plan(smem, optin, sizeof(float) * tpk::gru_row_floats(u),
+                          H, &pl->kc, &pl->k_res)) {
+      return kErrNotResident;
+    }
+    pl->smem = smem(pl->k_res, pl->kc);
+  }
   const auto kernel = fwd_kernel(act);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(pl->smem));
@@ -412,8 +462,9 @@ int make_plan(int B, int H, int act, Plan* pl) {
 
 extern "C" int tpk_gru_fwd_max_hidden() { return kMaxHidden; }
 
-// out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, columns staged
-// at a time) of the launch for (B, H); returns make_plan's code.
+// out[0..5] = (CTAs, units a CTA, shared-memory bytes a CTA, columns staged
+// at a time, U's rows a CTA keeps resident (round4(H): all), bytes of U the
+// grid streams a step) of the launch for (B, H); returns make_plan's code.
 extern "C" int tpk_gru_fwd_plan(int B, int H, int* out) {
   Plan pl;
   const int err = make_plan(B, H, 1, &pl);
@@ -422,6 +473,8 @@ extern "C" int tpk_gru_fwd_plan(int B, int H, int* out) {
     out[1] = pl.u;
     out[2] = static_cast<int>(pl.smem);
     out[3] = pl.kc;
+    out[4] = pl.k_res;
+    out[5] = static_cast<int>(stream_bytes(pl, H));
   }
   cudaGetLastError();  // a failed query leaves nothing behind
   return err;
@@ -443,7 +496,8 @@ extern "C" int tpk_gru_fwd(const float* ff, const float* uzr, const float* uh,
     return err;
   }
   Params prm{ff, uzr, uh, mask, out, hbuf, static_cast<unsigned*>(bar),
-             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc};
+             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc,
+             pl.k_res};
   void* args[] = {&prm};
   const cudaError_t launched = cudaLaunchCooperativeKernel(
       fwd_kernel(act), dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);

@@ -33,6 +33,14 @@
 //   H = 550; 20 at u = 8: 80 KB at H = 1024), zero-padded to a multiple of
 //   4 rows.  A row's odd number of words puts 8 rows read at one column in
 //   8 distinct groups of 4 banks.
+// - Past what shared memory holds (H = 2048, u = 16: 288 KB a slice), a
+//   CTA keeps its first k_res rows resident (1,024 at B' = 16, 768 at 64
+//   rows) and streams the rest with h's chunks, 128 rows a chunk
+//   (u_stream.cuh): 18.9 MB of U a step over the grid at B' = 16, 23.3 us a
+//   step at (T, B, H) = (778, 16, 2048) on an H100 at 700 W
+//   (tpukaldi_torch/tools/recurrence_envelope.py).  Where the slice fits
+//   (every H <= 1024; 1036 and 1536 too), the resident design runs as
+//   before, bit for bit.  H <= 2048 keeps u <= 16 on 132 SMs.
 // - h is exchanged through hbuf[2][Bp][Hp] in global memory (float32, B
 //   and H padded to 4, zeroed by the wrapper; persist_grid.cuh): each step
 //   every CTA streams the whole h_{t-1} through shared memory in chunks of
@@ -73,10 +81,11 @@
 #include <cuda_runtime.h>
 
 #include "persist_grid.cuh"
+#include "u_stream.cuh"
 
 namespace {
 
-constexpr int kMaxHidden = 1024;  // as K1b's limit
+constexpr int kMaxHidden = 2048;  // K1b's is 1024
 constexpr int kThreads = 256;
 constexpr int kRows = 4;            // batch rows of a thread's tile
 constexpr int kMaxRows = 128;       // batch rows of one pass
@@ -121,16 +130,20 @@ struct Params {
   int rows;  // batch rows of a pass
   int mmax;  // rows of the largest pass, padded to kRows
   int kc;    // h columns staged at a time (a multiple of 4)
+  int kres;  // U's rows resident: kp, or whole chunks (the rest streamed)
 };
 
 struct Plan {
   int u, ctas, kp, bp, rows, mmax, kc;
+  int k_res;  // U's rows a CTA keeps resident (kp: all, the resident design)
   size_t smem;
 };
 
-// U's slice, the two staged h chunks, and the partial sums
-inline size_t smem_bytes(int kp, int u, int mmax, int kc) {
-  const size_t u_floats = static_cast<size_t>(kp) * row_floats(u);
+// U's resident rows, the two staged h chunks, the partial sums and, where
+// U's slice is streamed, its two staged chunks
+inline size_t smem_bytes(int res_rows, int u, int mmax, int kc, bool stream) {
+  const size_t u_floats =
+      static_cast<size_t>(res_rows + (stream ? 2 * kc : 0)) * row_floats(u);
   const size_t h_floats = 2 * static_cast<size_t>(mmax) * odd_words(kc);
   return (u_floats + h_floats + kPartialFloats) * sizeof(float);
 }
@@ -139,6 +152,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// U's rows from kres on, if any, are streamed a chunk at a time
+// (u_stream.cuh)
 __global__ void __launch_bounds__(kThreads, 1)
 ligru_fwd_kernel(const Params p) {
   const int H = p.H, kp = p.kp, kc = p.kc;
@@ -150,15 +165,18 @@ ligru_fwd_kernel(const Params p) {
   const int hs_ld = odd_words(kc);
   const size_t two_h = 2 * static_cast<size_t>(H);
 
-  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kp x ld
-  float* hs = us + static_cast<size_t>(kp) * ld;  // 2 x mmax x hs_ld
+  // U's resident rows: kp, or whole chunks where the rest is streamed
+  const int kr = p.kres;
+  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kr x ld
+  float* hs = us + static_cast<size_t>(kr) * ld;  // 2 x mmax x hs_ld
   float* gs = hs + 2 * static_cast<size_t>(p.mmax) * hs_ld;  // partial sums
+  float* ss = gs + kPartialFloats;  // 2 x kc x ld streamed chunks of U
 
   // U's slice: the block's H rows are one contiguous run of upk; the rows
-  // up to kp are zeros
-  for (int i = H * ld + tid; i < kp * ld; i += kThreads) us[i] = 0.0f;
+  // up to kp are zeros (a streamed slice's resident rows are all below H)
+  for (int i = H * ld + tid; i < kr * ld; i += kThreads) us[i] = 0.0f;
   const float* blk = p.upk + static_cast<size_t>(blockIdx.x) * H * ld;
-  for (int i = tid; i < H * ld / 4; i += kThreads) {
+  for (int i = tid; i < min(H, kr) * ld / 4; i += kThreads) {
     tpk::cp_async16_cg(us + 4 * i, blk + 4 * static_cast<size_t>(i));
   }
   tpk::cp_async_commit();
@@ -200,7 +218,8 @@ ligru_fwd_kernel(const Params p) {
       const float* src = p.hbuf + (t & 1) * buf_elems + static_cast<size_t>(b0) * kp;
       float* dst = p.hbuf + ((t + 1) & 1) * buf_elems + static_cast<size_t>(b0) * kp;
 
-      // stage h columns [ch * kc, ch * kc + width) of the pass's rows
+      // stage h columns [ch * kc, ch * kc + width) of the pass's rows, and
+      // a streamed chunk's rows of U beside them
       auto stage = [&](int ch) {
         const int k0 = ch * kc;
         const int per_row = min(kc, kp - k0) / 4;
@@ -210,6 +229,11 @@ ligru_fwd_kernel(const Params p) {
           const int v = (i - r * per_row) * 4;
           tpk::cp_async16_cg(buf + r * hs_ld + v,
                              src + static_cast<size_t>(r) * kp + k0 + v);
+        }
+        if (k0 >= kr) {
+          tpk::stage_rows<16>(ss + (ch & 1) * static_cast<size_t>(kc) * ld,
+                              4 * ld, blk, 4 * static_cast<size_t>(ld), ld / 4,
+                              k0, k0 + 4 * per_row, H);
         }
         tpk::cp_async_commit();
       };
@@ -242,7 +266,10 @@ ligru_fwd_kernel(const Params p) {
         if (active) {
           const float* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
                             + tr * hs_ld;
-          const float* uc = us + static_cast<size_t>(ch) * kc * ld + 4 * tw;
+          const float* uc =
+              (ch * kc >= kr
+                   ? ss + (ch & 1) * static_cast<size_t>(kc) * ld
+                   : us + static_cast<size_t>(ch) * kc * ld) + 4 * tw;
           const int ksteps = min(kc, kp - ch * kc) / 4;
           for (int kk = s_thr; kk < ksteps; kk += S) {
             float4 hr[kRows], uw[4];
@@ -323,6 +350,13 @@ ligru_fwd_kernel(const Params p) {
   }
 }
 
+// bytes of U the grid streams a step: each CTA's rows past k_res, whole
+// packed rows
+inline long long stream_bytes(const Plan& pl, int H) {
+  return static_cast<long long>(pl.ctas) * (H - (pl.k_res < H ? pl.k_res : H)) *
+         row_floats(pl.u) * sizeof(float);
+}
+
 // The launch's shape for (B, H) on the current device, and whether the
 // card can hold its grid at once; returns a CUDA error code (0: fits).
 int make_plan(int B, int H, Plan* pl) {
@@ -354,13 +388,25 @@ int make_plan(int B, int H, Plan* pl) {
                       ? kMaxRows : kMaxPos * kThreads / u / kRows * kRows;
   pl->rows = B < cap ? B : cap;
   pl->mmax = round_rows(pl->rows);
+  // the resident design where U's whole slice fits beside the h chunks,
+  // halving them as far as 16 columns; else the streamed one (u_stream.cuh)
   pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
-  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc, false) > static_cast<size_t>(optin) &&
          pl->kc > 16) {
     pl->kc = round4(pl->kc / 2);
   }
-  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc);
-  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  pl->k_res = pl->kp;
+  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc, false);
+  if (pl->smem > static_cast<size_t>(optin)) {
+    const auto smem = [&](int rows, int kc) {
+      return smem_bytes(rows, u, pl->mmax, kc, true);
+    };
+    if (!tpk::stream_plan(smem, optin, sizeof(float) * row_floats(u), H,
+                          &pl->kc, &pl->k_res)) {
+      return kErrNotResident;
+    }
+    pl->smem = smem(pl->k_res, pl->kc);
+  }
   err = cudaFuncSetAttribute(ligru_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(pl->smem));
@@ -378,9 +424,10 @@ int make_plan(int B, int H, Plan* pl) {
 
 extern "C" int tpk_ligru_fwd_max_hidden() { return kMaxHidden; }
 
-// out[0..4] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
-// staged at a time, floats of a packed U row) of the launch for (B, H);
-// returns make_plan's code.
+// out[0..6] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
+// staged at a time, floats of a packed U row, U's rows a CTA keeps
+// resident (round4(H): all), bytes of U the grid streams a step) of the
+// launch for (B, H); returns make_plan's code.
 extern "C" int tpk_ligru_fwd_plan(int B, int H, int* out) {
   Plan pl;
   const int err = make_plan(B, H, &pl);
@@ -390,6 +437,8 @@ extern "C" int tpk_ligru_fwd_plan(int B, int H, int* out) {
     out[2] = static_cast<int>(pl.smem);
     out[3] = pl.kc;
     out[4] = row_floats(pl.u);
+    out[5] = pl.k_res;
+    out[6] = static_cast<int>(stream_bytes(pl, H));
   }
   cudaGetLastError();  // a failed query leaves nothing behind
   return err;
@@ -414,7 +463,8 @@ extern "C" int tpk_ligru_fwd(const float* ff, const float* upk, const float* mas
     return err;
   }
   Params prm{ff, upk, mask, out, hbuf, static_cast<unsigned*>(bar),
-             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc};
+             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc,
+             pl.k_res};
   void* args[] = {&prm};
   const cudaError_t launched = cudaLaunchCooperativeKernel(
       ligru_fwd_kernel, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);

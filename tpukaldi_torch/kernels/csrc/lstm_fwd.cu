@@ -29,6 +29,14 @@
 //   upk once with cp.async, H rows of 4u floats (44 KB at H = 550, u = 5;
 //   144 KB at H = 1024, u = 8), each row padded to an odd number of
 //   16-byte words and zero-padded to a multiple of 4 rows.
+// - Past what shared memory holds (H = 2048, u = 16: 544 KB a slice), a
+//   CTA keeps its first k_res rows resident (384 at B' = 16, 256 at 64
+//   rows) and streams the rest with h's chunks, 128 rows a chunk, only its
+//   units' words (u_stream.cuh): 54.5 MB of U a step over the grid at
+//   B' = 16, 37.8 us a step at (T, B, H) = (778, 16, 2048) on an H100 at
+//   700 W (tpukaldi_torch/tools/recurrence_envelope.py).  Where the slice
+//   fits (every H <= 1024, and 1036), the resident design runs as before,
+//   bit for bit.  H <= 2048 keeps u <= 16 on 132 SMs.
 // - h is exchanged through hbuf[2][Bp][Hp] in global memory (float32, B
 //   and H padded to 4, zeroed by the wrapper; persist_grid.cuh): each step
 //   every CTA streams the whole h_{t-1} through shared memory in chunks of
@@ -77,10 +85,11 @@
 #include <cuda_runtime.h>
 
 #include "persist_grid.cuh"
+#include "u_stream.cuh"
 
 namespace {
 
-constexpr int kMaxHidden = 1024;  // as K2b's limit
+constexpr int kMaxHidden = 2048;  // K2b's is 1024
 constexpr int kThreads = 256;
 constexpr int kRows = 4;            // batch rows of a thread's tile
 constexpr int kMaxRows = 128;       // batch rows of one pass
@@ -120,16 +129,20 @@ struct Params {
   int rows;  // batch rows of a pass
   int mmax;  // rows of the largest pass, padded to 4
   int kc;    // h columns staged at a time (a multiple of 4)
+  int kres;  // U's rows resident: kp, or whole chunks (the rest streamed)
 };
 
 struct Plan {
   int u, ctas, kp, bp, rows, mmax, kc;
+  int k_res;  // U's rows a CTA keeps resident (kp: all, the resident design)
   size_t smem;
 };
 
-// U's slice, the two staged h chunks, and the partial sums
-inline size_t smem_bytes(int kp, int u, int mmax, int kc) {
-  const size_t u_floats = static_cast<size_t>(kp) * odd_words(4 * u);
+// U's resident rows, the two staged h chunks, the partial sums and, where
+// U's slice is streamed, its two staged chunks
+inline size_t smem_bytes(int res_rows, int u, int mmax, int kc, bool stream) {
+  const size_t u_floats =
+      static_cast<size_t>(res_rows + (stream ? 2 * kc : 0)) * odd_words(4 * u);
   const size_t h_floats = 2 * static_cast<size_t>(mmax) * odd_words(kc);
   return (u_floats + h_floats + kPartialFloats) * sizeof(float);
 }
@@ -138,6 +151,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// U's rows from kres on, if any, are streamed a chunk at a time
+// (u_stream.cuh)
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_fwd_kernel(const Params p) {
   const int H = p.H, kp = p.kp, kc = p.kc;
@@ -147,14 +162,20 @@ lstm_fwd_kernel(const Params p) {
   const int us_ld = odd_words(4 * p.u);
   const int hs_ld = odd_words(kc);
 
-  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kp x us_ld
-  float* hs = us + static_cast<size_t>(kp) * us_ld;  // 2 x mmax x hs_ld
+  // U's resident rows: kp, or whole chunks where the rest is streamed
+  const int kr = p.kres;
+  float* us = reinterpret_cast<float*>(tpk::dynamic_smem());  // kr x us_ld
+  float* hs = us + static_cast<size_t>(kr) * us_ld;  // 2 x mmax x hs_ld
   float* gs = hs + 2 * static_cast<size_t>(p.mmax) * hs_ld;  // partial sums
+  float* ss = gs + kPartialFloats;  // 2 x kc x us_ld streamed chunks of U
+  // the CTA's words of row k: upk + (k H + unit0) 4 floats
+  const float* blk = p.upk + static_cast<size_t>(unit0) * 4;
 
-  // U's slice: zero the padding, then the H real rows of up 16-byte words
-  for (int i = tid; i < kp * us_ld; i += kThreads) us[i] = 0.0f;
+  // U's slice: zero the padding, then the real rows of up 16-byte words
+  // (a streamed slice's resident rows are all below H)
+  for (int i = tid; i < kr * us_ld; i += kThreads) us[i] = 0.0f;
   __syncthreads();
-  for (int i = tid; i < H * up; i += kThreads) {
+  for (int i = tid; i < min(H, kr) * up; i += kThreads) {
     const int k = i / up;
     const int v = i - k * up;
     tpk::cp_async16_cg(us + static_cast<size_t>(k) * us_ld + 4 * v,
@@ -199,7 +220,9 @@ lstm_fwd_kernel(const Params p) {
       const float* src = p.hbuf + (t & 1) * buf_elems + static_cast<size_t>(b0) * kp;
       float* dst = p.hbuf + ((t + 1) & 1) * buf_elems + static_cast<size_t>(b0) * kp;
 
-      // stage h columns [ch * kc, ch * kc + width) of the pass's rows
+      // stage h columns [ch * kc, ch * kc + width) of the pass's rows, and
+      // a streamed chunk's rows of U beside them (the words of its units:
+      // the product reads no other)
       auto stage = [&](int ch) {
         const int k0 = ch * kc;
         const int per_row = min(kc, kp - k0) / 4;
@@ -209,6 +232,11 @@ lstm_fwd_kernel(const Params p) {
           const int v = (i - r * per_row) * 4;
           tpk::cp_async16_cg(buf + r * hs_ld + v,
                              src + static_cast<size_t>(r) * kp + k0 + v);
+        }
+        if (k0 >= kr) {
+          tpk::stage_rows<16>(ss + (ch & 1) * static_cast<size_t>(kc) * us_ld,
+                              4 * us_ld, blk, 16 * static_cast<size_t>(H), up,
+                              k0, k0 + 4 * per_row, H);
         }
         tpk::cp_async_commit();
       };
@@ -241,7 +269,10 @@ lstm_fwd_kernel(const Params p) {
         if (active) {
           const float* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
                             + tr * hs_ld;
-          const float* uc = us + static_cast<size_t>(ch) * kc * us_ld + 4 * tc;
+          const float* uc =
+              (ch * kc >= kr
+                   ? ss + (ch & 1) * static_cast<size_t>(kc) * us_ld
+                   : us + static_cast<size_t>(ch) * kc * us_ld) + 4 * tc;
           const int ksteps = min(kc, kp - ch * kc) / 4;
           for (int kk = s_thr; kk < ksteps; kk += S) {
             float4 hr[kRows], uw[4];
@@ -327,6 +358,12 @@ lstm_fwd_kernel(const Params p) {
   }
 }
 
+// bytes of U the grid streams a step: each CTA's rows past k_res, the
+// 16-byte words of its units
+inline long long stream_bytes(const Plan& pl, int H) {
+  return 16LL * H * (H - (pl.k_res < H ? pl.k_res : H));
+}
+
 // The launch's shape for (B, H) on the current device, and whether the
 // card can hold its grid at once; returns a CUDA error code (0: fits).
 int make_plan(int B, int H, Plan* pl) {
@@ -357,13 +394,25 @@ int make_plan(int B, int H, Plan* pl) {
                       ? kMaxRows : kMaxPos * kThreads / u / kRows * kRows;
   pl->rows = B < cap ? B : cap;
   pl->mmax = round_rows(pl->rows);
+  // the resident design where U's whole slice fits beside the h chunks,
+  // halving them as far as 16 columns; else the streamed one (u_stream.cuh)
   pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
-  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+  while (smem_bytes(pl->kp, u, pl->mmax, pl->kc, false) > static_cast<size_t>(optin) &&
          pl->kc > 16) {
     pl->kc = round4(pl->kc / 2);
   }
-  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc);
-  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  pl->k_res = pl->kp;
+  pl->smem = smem_bytes(pl->kp, u, pl->mmax, pl->kc, false);
+  if (pl->smem > static_cast<size_t>(optin)) {
+    const auto smem = [&](int rows, int kc) {
+      return smem_bytes(rows, u, pl->mmax, kc, true);
+    };
+    if (!tpk::stream_plan(smem, optin, sizeof(float) * odd_words(4 * u), H,
+                          &pl->kc, &pl->k_res)) {
+      return kErrNotResident;
+    }
+    pl->smem = smem(pl->k_res, pl->kc);
+  }
   err = cudaFuncSetAttribute(lstm_fwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(pl->smem));
@@ -381,8 +430,10 @@ int make_plan(int B, int H, Plan* pl) {
 
 extern "C" int tpk_lstm_fwd_max_hidden() { return kMaxHidden; }
 
-// out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
-// staged at a time) of the launch for (B, H); returns make_plan's code.
+// out[0..5] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
+// staged at a time, U's rows a CTA keeps resident (round4(H): all), bytes
+// of U the grid streams a step) of the launch for (B, H); returns
+// make_plan's code.
 extern "C" int tpk_lstm_fwd_plan(int B, int H, int* out) {
   Plan pl;
   const int err = make_plan(B, H, &pl);
@@ -391,6 +442,8 @@ extern "C" int tpk_lstm_fwd_plan(int B, int H, int* out) {
     out[1] = pl.u;
     out[2] = static_cast<int>(pl.smem);
     out[3] = pl.kc;
+    out[4] = pl.k_res;
+    out[5] = static_cast<int>(stream_bytes(pl, H));
   }
   cudaGetLastError();  // a failed query leaves nothing behind
   return err;
@@ -412,7 +465,8 @@ extern "C" int tpk_lstm_fwd(const float* ff, const float* upk, const float* mask
     return err;
   }
   Params prm{ff, upk, mask, h_out, c_out, hbuf, static_cast<unsigned*>(bar),
-             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc};
+             T, B, H, pl.u, pl.kp, pl.bp, pl.rows, pl.mmax, pl.kc,
+             pl.k_res};
   void* args[] = {&prm};
   const cudaError_t launched = cudaLaunchCooperativeKernel(
       lstm_fwd_kernel, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);

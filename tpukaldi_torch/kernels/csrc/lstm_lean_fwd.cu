@@ -30,7 +30,15 @@
 // - U stays in shared memory for all T steps: each CTA copies its slice of
 //   upk once with cp.async, H rows of 8u bytes (64 KB at H = 1024; 80 KB
 //   with each row padded by 16 bytes against bank conflicts), zero-padded
-//   to a multiple of 16 rows and 16 columns.
+//   to a multiple of 16 rows and 16 columns.  Past what shared memory
+//   holds (H = 2048, u = 16: 288 KB), a CTA keeps its first k_res rows
+//   resident (1,024 at B' = 16, 768 at 64 rows) and streams the rest with
+//   h's chunks, 128 rows a chunk, into the same skewed ldmatrix layout
+//   (u_stream.cuh): 16.8 MB of U a step over the grid, 17.6 us a step at
+//   (T, B, H) = (778, 16, 2048) on an H100 at 700 W
+//   (tpukaldi_torch/tools/recurrence_envelope.py).  Where the slice fits
+//   (every H <= 1024; 1036 and 1536 too), the resident design runs as
+//   before, bit for bit.  H <= 2048 keeps u <= 16 on 132 SMs.
 // - h is exchanged through hbuf[2][Bp][Hp] in global memory (bf16, B and H
 //   padded to 16, zeroed by the wrapper; persist_grid.cuh): each step
 //   every CTA streams the whole bf16 h_{t-1} through shared memory in
@@ -73,10 +81,11 @@
 #include "lstm_lean_cell.cuh"
 #include "mma_bf16.cuh"
 #include "persist_grid.cuh"
+#include "u_stream.cuh"
 
 namespace {
 
-constexpr int kMaxHidden = 1024;  // as K4b's limit
+constexpr int kMaxHidden = 2048;  // K4b's is 1024
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 128;   // batch rows of one pass
@@ -112,16 +121,20 @@ struct Params {
   int bp;    // B padded to 16: hbuf's rows
   int mmax;  // rows of the largest pass, padded to 16
   int kc;    // h columns staged at a time (a multiple of 16)
+  int kres;  // U's rows resident: kp, or whole chunks (the rest streamed)
 };
 
 struct Plan {
   int u, ctas, kp, np, bp, mmax, kc;
+  int k_res;  // U's rows a CTA keeps resident (kp: all, the resident design)
   size_t smem;
 };
 
-// U's slice, the two staged h chunks, and the partial sums
-inline size_t smem_bytes(int kp, int np, int mmax, int kc) {
-  const size_t u_bytes = static_cast<size_t>(kp) * (np + kSkew) * 2;
+// U's resident rows, the two staged h chunks, the partial sums and, where
+// U's slice is streamed, its two staged chunks
+inline size_t smem_bytes(int res_rows, int np, int mmax, int kc, bool stream) {
+  const size_t u_bytes =
+      static_cast<size_t>(res_rows + (stream ? 2 * kc : 0)) * (np + kSkew) * 2;
   const size_t h_bytes = 2 * static_cast<size_t>(mmax) * (kc + kSkew) * 2;
   return u_bytes + h_bytes + static_cast<size_t>(kPartialFloats) * 4;
 }
@@ -137,6 +150,8 @@ __device__ __forceinline__ void load_ff(const Params<FF>& p, int t, int row,
   for (int g = 0; g < 4; ++g) v[g] = widen(f[static_cast<size_t>(g) * p.H]);
 }
 
+// U's rows from kres on, if any, are streamed a chunk at a time
+// (u_stream.cuh)
 template <typename FF>
 __global__ void __launch_bounds__(kThreads, 1)
 lstm_lean_fwd_kernel(const Params<FF> p) {
@@ -149,19 +164,26 @@ lstm_lean_fwd_kernel(const Params<FF> p) {
   const int us_ld = np + kSkew;
   const int hs_ld = kc + kSkew;
 
+  // U's resident rows: kp, or whole chunks where the rest is streamed
+  const int kr = p.kres;
   unsigned char* smem = tpk::dynamic_smem();
-  __nv_bfloat16* us = reinterpret_cast<__nv_bfloat16*>(smem);  // kp x us_ld
-  __nv_bfloat16* hs = us + static_cast<size_t>(kp) * us_ld;  // 2 x mmax x hs_ld
+  __nv_bfloat16* us = reinterpret_cast<__nv_bfloat16*>(smem);  // kr x us_ld
+  __nv_bfloat16* hs = us + static_cast<size_t>(kr) * us_ld;  // 2 x mmax x hs_ld
   float* gs = reinterpret_cast<float*>(hs + 2 * static_cast<size_t>(p.mmax) * hs_ld);
+  // 2 x kc x us_ld streamed chunks of U
+  __nv_bfloat16* ss = reinterpret_cast<__nv_bfloat16*>(gs + kPartialFloats);
+  // the CTA's columns of row k: upk + (k H + unit0) 4 bf16
+  const __nv_bfloat16* blk = p.upk + static_cast<size_t>(unit0) * 4;
 
-  // U's slice: zero the padding, then the H real rows of 8 * up bytes, two
-  // units (16 bytes) a copy where H is even (then every piece is 16-byte
-  // aligned), one unit (8 bytes) otherwise
-  for (int i = tid; i < kp * us_ld; i += kThreads) us[i] = __float2bfloat16_rn(0.0f);
+  // U's slice: zero the padding, then the real rows of 8 * up bytes (a
+  // streamed slice's resident rows are all below H), two units (16 bytes)
+  // a copy where H is even (then every piece is 16-byte aligned), one unit
+  // (8 bytes) otherwise
+  for (int i = tid; i < kr * us_ld; i += kThreads) us[i] = __float2bfloat16_rn(0.0f);
   __syncthreads();
   const int vec = (H % 2 == 0) ? 2 : 1;
   const int pieces = up / vec;
-  for (int i = tid; i < H * pieces; i += kThreads) {
+  for (int i = tid; i < min(H, kr) * pieces; i += kThreads) {
     const int k = i / pieces;
     const int v = (i - k * pieces) * vec;
     const __nv_bfloat16* src = p.upk + (static_cast<size_t>(k) * H + unit0 + v) * 4;
@@ -216,7 +238,9 @@ lstm_lean_fwd_kernel(const Params<FF> p) {
       const __nv_bfloat16* src = p.hbuf + (t & 1) * buf_elems + static_cast<size_t>(b0) * kp;
       __nv_bfloat16* dst = p.hbuf + ((t + 1) & 1) * buf_elems + static_cast<size_t>(b0) * kp;
 
-      // stage h columns [ch * kc, ch * kc + width) of the pass's rows
+      // stage h columns [ch * kc, ch * kc + width) of the pass's rows, and
+      // a streamed chunk's rows of U beside them (the columns of its units:
+      // a padding column's product lands only in a column no cell reads)
       auto stage = [&](int ch) {
         const int k0 = ch * kc;
         const int per_row = min(kc, kp - k0) / 8;
@@ -226,6 +250,17 @@ lstm_lean_fwd_kernel(const Params<FF> p) {
           const int v = (i - r * per_row) * 8;
           tpk::cp_async16_cg(buf + r * hs_ld + v,
                              src + static_cast<size_t>(r) * kp + k0 + v);
+        }
+        if (k0 >= kr) {
+          __nv_bfloat16* rows = ss + (ch & 1) * static_cast<size_t>(kc) * us_ld;
+          const int r1 = k0 + 8 * per_row;
+          if (vec == 2) {
+            tpk::stage_rows<16>(rows, 2 * us_ld, blk, 8 * static_cast<size_t>(H),
+                                pieces, k0, r1, H);
+          } else {
+            tpk::stage_rows<8>(rows, 2 * us_ld, blk, 8 * static_cast<size_t>(H),
+                               pieces, k0, r1, H);
+          }
         }
         tpk::cp_async_commit();
       };
@@ -255,8 +290,11 @@ lstm_lean_fwd_kernel(const Params<FF> p) {
         // lane's ldmatrix row: row lane % 16, columns (lane / 16) * 8 on
         const __nv_bfloat16* hc = hs + (ch & 1) * static_cast<size_t>(p.mmax) * hs_ld
                                   + (lane % 16) * hs_ld + (lane / 16) * 8;
-        const __nv_bfloat16* uc = us + (static_cast<size_t>(ch) * kc + lane % 16) * us_ld
-                                  + (lane / 16) * 8;
+        const __nv_bfloat16* uc =
+            (ch * kc >= kr
+                 ? ss + ((ch & 1) * static_cast<size_t>(kc) + lane % 16) * us_ld
+                 : us + (static_cast<size_t>(ch) * kc + lane % 16) * us_ld)
+            + (lane / 16) * 8;
         const int ksteps = min(kc, kp - ch * kc) / 16;
         if (active) {
 #pragma unroll 2
@@ -349,6 +387,12 @@ lstm_lean_fwd_kernel(const Params<FF> p) {
   }
 }
 
+// bytes of U the grid streams a step: each CTA's rows past k_res, the 8
+// bytes (4 bf16 gates) of each of its units
+inline long long stream_bytes(const Plan& pl, int H) {
+  return 8LL * H * (H - (pl.k_res < H ? pl.k_res : H));
+}
+
 // The launch's shape for (B, H) on the current device, and whether the
 // card can hold its grid at once; returns a CUDA error code (0: fits).
 // The two entries' kernels take the same shared memory and registers (the
@@ -380,13 +424,26 @@ int make_plan(int B, int H, Plan* pl) {
   pl->np = round16(4 * u);
   pl->bp = round16(B);
   pl->mmax = round16(B < kMaxRows ? B : kMaxRows);
+  // the resident design where U's whole slice fits beside the h chunks,
+  // halving them as far as 16 columns; else the streamed one (u_stream.cuh)
   pl->kc = pl->kp < kMaxChunk ? pl->kp : kMaxChunk;
-  while (smem_bytes(pl->kp, pl->np, pl->mmax, pl->kc) > static_cast<size_t>(optin) &&
+  while (smem_bytes(pl->kp, pl->np, pl->mmax, pl->kc, false) >
+             static_cast<size_t>(optin) &&
          pl->kc > 16) {
     pl->kc = round16(pl->kc / 2);
   }
-  pl->smem = smem_bytes(pl->kp, pl->np, pl->mmax, pl->kc);
-  if (pl->smem > static_cast<size_t>(optin)) return kErrNotResident;
+  pl->k_res = pl->kp;
+  pl->smem = smem_bytes(pl->kp, pl->np, pl->mmax, pl->kc, false);
+  if (pl->smem > static_cast<size_t>(optin)) {
+    const auto smem = [&](int rows, int kc) {
+      return smem_bytes(rows, pl->np, pl->mmax, kc, true);
+    };
+    if (!tpk::stream_plan(smem, optin, 2 * static_cast<size_t>(pl->np + kSkew),
+                          H, &pl->kc, &pl->k_res)) {
+      return kErrNotResident;
+    }
+    pl->smem = smem(pl->k_res, pl->kc);
+  }
   err = cudaFuncSetAttribute(lstm_lean_fwd_kernel<FF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(pl->smem));
@@ -413,7 +470,8 @@ int launch(const FF* ff, const void* upk, const float* mask, float* h_out,
   }
   Params<FF> prm{ff, static_cast<const __nv_bfloat16*>(upk), mask, h_out, c_out,
                  static_cast<__nv_bfloat16*>(hbuf), static_cast<unsigned*>(bar),
-                 T, B, H, pl.u, pl.kp, pl.np, pl.bp, pl.mmax, pl.kc};
+                 T, B, H, pl.u, pl.kp, pl.np, pl.bp, pl.mmax, pl.kc,
+                 pl.k_res};
   void* args[] = {&prm};
   const cudaError_t launched = cudaLaunchCooperativeKernel(
       lstm_lean_fwd_kernel<FF>, dim3(pl.ctas), dim3(kThreads), args, pl.smem, stream);
@@ -426,8 +484,10 @@ int launch(const FF* ff, const void* upk, const float* mask, float* h_out,
 extern "C" int tpk_lstm_lean_fwd_max_hidden() { return kMaxHidden; }
 extern "C" int tpk_lstm_lean_fwd_bf16_max_hidden() { return kMaxHidden; }
 
-// out[0..3] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
-// staged at a time) of the launch for (B, H); returns make_plan's code.
+// out[0..5] = (CTAs, units a CTA, shared-memory bytes a CTA, h columns
+// staged at a time, U's rows a CTA keeps resident (round16(H): all), bytes
+// of U the grid streams a step) of the launch for (B, H); returns
+// make_plan's code.
 extern "C" int tpk_lstm_lean_fwd_plan(int B, int H, int* out) {
   Plan pl;
   const int err = make_plan<float>(B, H, &pl);
@@ -436,6 +496,8 @@ extern "C" int tpk_lstm_lean_fwd_plan(int B, int H, int* out) {
     out[1] = pl.u;
     out[2] = static_cast<int>(pl.smem);
     out[3] = pl.kc;
+    out[4] = pl.k_res;
+    out[5] = static_cast<int>(stream_bytes(pl, H));
   }
   cudaGetLastError();  // a failed query leaves nothing behind
   return err;

@@ -14,8 +14,11 @@ mask, h); its backward is `gru_recurrence_bwd`.  On a CUDA tensor those
 launch `csrc/gru_fwd.cu` and `csrc/gru_bwd.cu` (design notes there) or
 raise.  The forward, K3f, is one persistent cooperative launch whose CTAs
 each keep column slices of Uzr and Uh in shared memory for all T steps
-and exchange h and r * h through global buffers, two grid barriers a step
-(`fwd_plan` reports its grid).  The backward, K3b, is a gate remat over
+(where they do not fit, their rows that do; the rest streamed each step,
+`csrc/u_stream.cuh`) and exchange h and r * h through global buffers, two
+grid barriers a step (`fwd_plan` reports its grid).  K3f takes H <= 2048,
+K3b H <= 1024: `GRURecurrence` refuses a gradient past 1024 before its
+forward launches.  The backward, K3b, is a gate remat over
 all steps, then the dh chain as one persistent cooperative launch on K3f's
 grid, whose CTAs keep the same slices in shared memory (`csrc/
 gru_slices.cuh`) and exchange partial sums twice a step (`bwd_plan`
@@ -228,10 +231,13 @@ def gru_recurrence_bwd(
 
 def fwd_plan(B: int, H: int) -> dict:
     """K3f's launch at (B, H) on the current card: its CTAs, the hidden
-    units each owns, each CTA's shared-memory bytes and the columns of h
-    (and of r * h) it stages at a time.  Raises where the card cannot hold
-    the grid at once, as the launch would."""
-    return _launch.plan(SOURCE, "gru_fwd", B, H)
+    units each owns, each CTA's shared-memory bytes, the columns of h (and
+    of r * h) it stages at a time, the rows of its slices of U each CTA
+    keeps resident (`k_res`; H padded to 4 where the whole slices fit) and
+    the bytes of U the grid streams a step past them (`stream_bytes`).
+    Raises where the card cannot hold the grid at once, as the launch
+    would."""
+    return _launch.plan(SOURCE, "gru_fwd", B, H, "k_res", "stream_bytes")
 
 
 def bwd_plan(B: int, H: int) -> dict:
@@ -252,6 +258,9 @@ class GRURecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ff, uzr, uh, mask, act_name):
+        if ff.device.type == "cuda":
+            _launch.refuse_wide_backward("gru_recurrence_bwd", ctx,
+                                         uh.shape[0], BWD_SOURCE, "gru_bwd")
         w = _launch.widen
         h = gru_recurrence(w(ff), w(uzr), w(uh), w(mask), act_name)
         ctx.save_for_backward(ff, uzr, uh, mask, h)

@@ -13,8 +13,11 @@ and their plain PyTorch versions.
 and `csrc/ligru_bwd.cu` (design notes there) or raise.  The forward, K1f,
 is one persistent cooperative launch whose CTAs each keep the (Uh, Uz)
 column pairs of their hidden units in shared memory for all T steps
-(packed once per call by `_pack`) and exchange h through a global
-ping-pong buffer, one grid barrier a step (`fwd_plan` reports its grid).
+(packed once per call by `_pack`; where a slice does not fit, its rows
+that do, the rest streamed each step, `csrc/u_stream.cuh`) and exchange h
+through a global ping-pong buffer, one grid barrier a step (`fwd_plan`
+reports its grid).  K1f takes H <= 2048, K1b H <= 1024: `LiGRURecurrence` refuses a
+gradient past 1024 before its forward launches.
 The backward, K1b, is three launches: a gate remat over all T * B rows, a
 persistent cooperative dh chain on K1f's grid whose CTAs each keep their
 units' rows of [Uh | Uz] in shared memory (packed once per call by
@@ -170,9 +173,13 @@ def _pack_pairs(pairs: torch.Tensor, H: int, units: int,
 def fwd_plan(B: int, H: int) -> dict:
     """K1f's launch at (B, H) on the current card: its CTAs, the hidden
     units each owns, each CTA's shared-memory bytes, the columns of h it
-    stages at a time and the floats of a packed U row.  Raises where the
-    card cannot hold the grid at once, as the launch would."""
-    return _launch.plan(SOURCE, "ligru_fwd", B, H, "row_floats")
+    stages at a time, the floats of a packed U row, the rows of its slice
+    of U each CTA keeps resident (`k_res`; H padded to 4 where the whole
+    slice fits) and the bytes of U the grid streams a step past them
+    (`stream_bytes`).  Raises where the card cannot hold the grid at once,
+    as the launch would."""
+    return _launch.plan(SOURCE, "ligru_fwd", B, H, "row_floats", "k_res",
+                        "stream_bytes")
 
 
 def ligru_recurrence_bwd(
@@ -229,6 +236,9 @@ class LiGRURecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ff, u, mask):
+        if ff.device.type == "cuda":
+            _launch.refuse_wide_backward("ligru_recurrence_bwd", ctx,
+                                         u.shape[0], BWD_SOURCE, "ligru_bwd")
         w = _launch.widen
         h = ligru_recurrence(w(ff), w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h)

@@ -13,9 +13,10 @@ recurrent weight (K4, the "lean" kernels).
 `lstm_recurrence_bwd`.  On a CUDA tensor the forward launches
 `csrc/lstm_fwd.cu` (K2f): one persistent cooperative launch whose CTAs
 each keep a column slice of the float32 U in shared memory for all T
-steps, form the gates with float32 FMAs on the CUDA cores and exchange h
-through a global ping-pong buffer, one grid barrier a step (`fwd_plan`
-reports its grid).  The backward launches `csrc/lstm_bwd.cu` (K2b): the
+steps (where a slice does not fit, its rows that do; the rest streamed
+each step, `csrc/u_stream.cuh`), form the gates with float32 FMAs on the CUDA cores
+and exchange h through a global ping-pong buffer, one grid barrier a step
+(`fwd_plan` reports its grid).  The backward launches `csrc/lstm_bwd.cu` (K2b): the
 gates rematerialised for all T * B rows at once by a parallel tiled
 float32 pass (so they agree with K2f's to the sum order), then the dh
 chain as one persistent cooperative launch on K2f's grid, each CTA keeping
@@ -31,9 +32,13 @@ Python time loops that mirror tpukaldi's `lstm_recurrence_scan` and
 operands of every recurrent product, the products exact and summed in
 float32, and h and c kept in float32.  Its forward `lstm_recurrence_lean`
 launches `csrc/lstm_lean_fwd.cu` (K4f): one persistent cooperative launch
-whose CTAs each keep a column slice of U in shared memory for all T steps,
-form the gates with bf16 tensor-core products and exchange h through a
-global ping-pong buffer, one grid barrier a step.  Its backward
+whose CTAs each keep a column slice of U in shared memory for all T steps
+(where a slice does not fit, its rows that do; the rest streamed each
+step), form
+the gates with bf16 tensor-core products and exchange h through a global
+ping-pong buffer, one grid barrier a step.  The forwards take H <= 2048,
+the backwards H <= 1024: the Functions refuse a gradient past 1024 before
+their forward launches.  Its backward
 `lstm_recurrence_lean_bwd` launches `csrc/lstm_lean_bwd.cu` (K4b): the
 gates rematerialised for all T * B rows at once by a tiled bf16
 tensor-core GEMM (so they agree with K4f's to the sum order), then the dh
@@ -242,10 +247,12 @@ def lstm_recurrence(ff: torch.Tensor, u: torch.Tensor,
 
 def fwd_plan(B: int, H: int) -> dict:
     """K2f's launch at (B, H) on the current card: its CTAs, the hidden
-    units each owns, each CTA's shared-memory bytes and the h columns it
-    stages at a time.  Raises where the card cannot hold the grid at once,
-    as the launch would."""
-    return _launch.plan(SOURCE, "lstm_fwd", B, H)
+    units each owns, each CTA's shared-memory bytes, the h columns it
+    stages at a time, the rows of its slice of U each CTA keeps resident
+    (`k_res`; H padded to 4 where the whole slice fits) and the bytes of U
+    the grid streams a step past them (`stream_bytes`).  Raises where the
+    card cannot hold the grid at once, as the launch would."""
+    return _launch.plan(SOURCE, "lstm_fwd", B, H, "k_res", "stream_bytes")
 
 
 def lstm_recurrence_bwd(
@@ -299,6 +306,9 @@ class LSTMRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ff, u, mask):
+        if ff.device.type == "cuda":
+            _launch.refuse_wide_backward("lstm_recurrence_bwd", ctx,
+                                         u.shape[0], BWD_SOURCE, "lstm_bwd")
         w = _launch.widen
         h, c = lstm_recurrence(w(ff), w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h, c)
@@ -363,8 +373,9 @@ def _pad(n: int, m: int) -> int:
 
 def lean_fwd_plan(B: int, H: int) -> dict:
     """K4f's launch at (B, H) on the current card, as `fwd_plan` gives
-    K2f's."""
-    return _launch.plan(LEAN_SOURCE, "lstm_lean_fwd", B, H)
+    K2f's (`k_res` is H padded to 16 where the whole slice fits)."""
+    return _launch.plan(LEAN_SOURCE, "lstm_lean_fwd", B, H, "k_res",
+                        "stream_bytes")
 
 
 def lstm_recurrence_lean_bwd(
@@ -450,6 +461,10 @@ class LSTMLeanRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, ff, u, mask):
+        if ff.device.type == "cuda":
+            _launch.refuse_wide_backward("lstm_recurrence_lean_bwd", ctx,
+                                         u.shape[0], LEAN_BWD_SOURCE,
+                                         "lstm_lean_bwd")
         w = _launch.widen
         h, c = lstm_recurrence_lean(ff, w(u), w(mask))
         ctx.save_for_backward(ff, u, mask, h, c)

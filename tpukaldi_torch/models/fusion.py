@@ -21,8 +21,8 @@ fusionRNN_mfcc_6ch.cfg).  It follows tpukaldi:
 That recurrence is the liGRU's term for term (z = sigmoid(wz + h Uz), hc =
 relu(wh + h Uh) * mask, h = z h + (1 - z) hc), so it runs the port's K1
 with u reordered into K1's [uh | uz] and the gates into its (wh, wz)
-layout; K1's gates hold (H <= 1024, a grid the card holds at once) and a
-refused launch raises.  Where no gradient is wanted (eval, forward,
+layout; K1's gates hold (H <= 2048 serving and H <= 1024 training, a grid
+the card holds at once) and a refused launch raises.  Where no gradient is wanted (eval, forward,
 serving, export) it is the `tpukaldi::fusion_recurrence` op
 (`kernels/ops.py`), which chooses by device when it runs: K1f on a CUDA
 tensor, on a CPU one K1's plain version (in bf16 the plain loop carrying

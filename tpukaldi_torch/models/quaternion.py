@@ -21,8 +21,10 @@ layers:
 - `scan`: the float32 recurrence (`LSTMRecurrence`): K2f/K2b on the card,
   the plain loop on CPU.
 A layer with another activation runs the plain float32 loop, as tpukaldi's
-scan does.  K4 takes H <= 1024 (one thread per hidden unit) and raises
-above; tpukaldi's TPU memory gate (`lean_fits_vmem`) is not ported.
+scan does.  K4f takes H <= 2048 (past what shared memory holds it streams
+U, `csrc/u_stream.cuh`) and K4b H <= 1024, and each raises above (a
+gradient past 1024 before the forward launches); tpukaldi's TPU memory
+gate (`lean_fits_vmem`) is not ported.
 
 In the bf16 compute mode the QLSTM's K4 path passes its bf16 ff to K4's
 bf16 entry (the mask widened, h cast back to bf16), as tpukaldi's kernel

@@ -51,7 +51,8 @@ import torch
 
 from ..kernels import _build, conv1d
 from ..train.chunk_runtime import resolve_device
-from .lstm_fwd_phases import _median_ms
+from . import variant_builds
+from .variant_builds import median_ms
 
 SHAPES = ((128, 3200, 129, 80, 3), (128, 3200, 129, 128, 3))
 DROP = 0.15  # CNN_raw's layer-0 dropout
@@ -121,36 +122,6 @@ def variant_files(files: Dict[str, str], table=None
             texts[hits[0]] = texts[hits[0]].replace(old, new)
         out[name] = texts
     return out
-
-
-def _build_variants(files: Dict[str, Dict[str, str]]
-                    ) -> Dict[str, Dict[str, ctypes.CDLL]]:
-    """Both entries of every variant, one nvcc each, all at once, into
-    build/tpukaldi_torch/variants/conv_bwd_v<i>/."""
-    procs = {}
-    for i, (name, texts) in enumerate(files.items()):
-        d = os.path.join(_build.BUILD_DIR, "variants", f"conv_bwd_v{i}")
-        os.makedirs(d, exist_ok=True)
-        for fname, text in texts.items():
-            with open(os.path.join(d, fname), "w") as f:
-                f.write(text)
-        for src in FILES[:2]:
-            lib = os.path.join(d, f"lib{src[:-3]}.so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o", lib,
-                   os.path.join(d, src)]
-            procs[name, src] = (lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    libs: Dict[str, Dict[str, ctypes.CDLL]] = {}
-    for (name, src), (lib, proc) in procs.items():
-        report = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {src}:\n{report}")
-        regs = [line.split(":", 1)[1].strip() for line in report.splitlines()
-                if "registers" in line]
-        print(f"{name} {src}: {'; '.join(regs)}", flush=True)
-        libs.setdefault(name, {})[src] = ctypes.CDLL(lib)
-    return libs
 
 
 def _runners(libs: Dict[str, ctypes.CDLL], x, w, bias, gt, bt, dz, idx5, idx,
@@ -245,7 +216,7 @@ def main(argv: List[str]) -> int:
         exact[name] = True
         if "ypool" not in files[name]["conv_ln_bwd.cu"]:
             old.add(name)
-    libs = _build_variants(files)
+    libs = variant_builds.build_variants(files, "conv_bwd", FILES[:2])
     bad = 0
     for N, L, K, O, pool in shapes:
         tag = f"N={N} L={L} K={K} O={O} pool={pool}"
@@ -285,7 +256,7 @@ def main(argv: List[str]) -> int:
                 print(line, flush=True)
         times: Dict = {key: [] for key in fns}
         for key in list(fns) + list(reversed(fns)):
-            times[key].append(_median_ms(fns[key]))
+            times[key].append(median_ms(fns[key]))
         for (name, kern, need), ts in times.items():
             print(f"{tag} {name} {kern} {'with' if need else 'without'} dX: "
                   f"{' / '.join(f'{t:.3f}' for t in ts)} ms", flush=True)

@@ -38,8 +38,7 @@ import torch
 
 from ..kernels import _build, conv1d
 from ..train.chunk_runtime import resolve_device
-from .conv_fwd_phases import _build_variants, sources
-from .lstm_fwd_phases import _median_ms
+from .variant_builds import Use, build_variants, median_ms, sources
 
 SRCS = (conv1d.SOURCE, conv1d.BWD_SOURCE, conv1d.LN_SOURCE,
         conv1d.LN_BWD_SOURCE)
@@ -65,21 +64,6 @@ TIMED_NEW = ((128, 3200, 251, 80, 3), (128, 3200, 251, 128, 3),
 EPS, SEED, DROP = 1e-6, -12345, 0.15
 # chip_smoke.py's CONV_ATOL, CONV_GRAD_RTOL and CONV_MAX_FLIPS
 ATOL, GRAD_RTOL, MAX_FLIPS = 1e-5, 2e-5, 10
-
-
-class _Use:
-    """The port's wrappers launch `libs` (source -> library) inside."""
-
-    def __init__(self, libs: Dict[str, ctypes.CDLL]):
-        self.libs = libs
-
-    def __enter__(self):
-        self.saved = dict(_build._loaded)
-        _build._loaded.update(self.libs)
-
-    def __exit__(self, *exc):
-        _build._loaded.clear()
-        _build._loaded.update(self.saved)
 
 
 def _inputs(N, L, K, O, pool, seed):
@@ -200,7 +184,7 @@ def main(argv: List[str]) -> int:
                          text=True).stdout.strip(), flush=True)
     before = None
     if argv[:1] == ["--before"]:
-        before = _build_variants({"before": sources(argv[1], FILES)},
+        before = build_variants({"before": sources(argv[1], FILES)},
                                  "conv_envelope", SRCS)["before"]
     built = {src: _build.load(src) for src in SRCS}
     _regs("as built", built)
@@ -210,14 +194,14 @@ def main(argv: List[str]) -> int:
             N, L, K, O, pool = shape
             ins = _inputs(*shape, seed=sum(shape))
             k6 = _k6_fits(L, K, pool)
-            with _Use(built):
+            with Use(built):
                 got = _calls(*ins, pool, k6)
                 repeat = _calls(*ins, pool, k6)
             problems = _vs_plain(got, *ins, pool)
             problems += [f"{k} differs on a repeat" for k in got
                          if not _same(got[k], repeat[k])]
             if before is not None and shape in OLD_SHAPES:
-                with _Use(before):
+                with Use(before):
                     old = _calls(*ins, pool, k6)
                 problems += [f"{k} differs from the before build" for k in got
                              if not _same(got[k], old[k])]
@@ -228,7 +212,7 @@ def main(argv: List[str]) -> int:
                      if not k6 else "") + ": "
                   + ("; ".join(problems) if problems else "ok"), flush=True)
             if K > 129 or pool > 12:
-                with _Use(built):
+                with Use(built):
                     print(f"  K5f {conv1d.fwd_plan(conv1d.SOURCE, *shape)}"
                           + (f"\n  K6f {conv1d.fwd_plan(conv1d.LN_SOURCE, *shape)}"
                              if k6 else ""), flush=True)
@@ -237,7 +221,7 @@ def main(argv: List[str]) -> int:
             N, L, K, O, pool = shape
             x, w, bias, gt, bt, dy = _inputs(*shape, seed=1)
             ln = (x, w, bias, gt, bt, SEED, pool, EPS, True, 0.0)
-            with _Use(built):
+            with Use(built):
                 _, idx = conv1d.conv1d_pool(x, w, pool)
                 _, idx6, stats, ypool = conv1d.conv1d_pool_ln_act(*ln)
             kernels = {
@@ -258,17 +242,17 @@ def main(argv: List[str]) -> int:
                 if shape in TIMED and before is not None:
                     t = []
                     for libs in (before, built, built, before):
-                        with _Use(libs):
-                            t.append(_median_ms(fn, 11))
+                        with Use(libs):
+                            t.append(median_ms(fn, 11))
                     print(f"time {name} {tag}: before {t[0]:.4f} {t[3]:.4f},"
                           f" as built {t[1]:.4f} {t[2]:.4f} ms (as built / "
                           f"before {(t[1] + t[2]) / (t[0] + t[3]):.3f})",
                           flush=True)
                 else:
-                    with _Use(built):
-                        t = [_median_ms(fn, 11) for _ in range(2)]
+                    with Use(built):
+                        t = [median_ms(fn, 11) for _ in range(2)]
                     print(f"time {name} {tag}: as built {t[0]:.4f} "
-                          f"{t[1]:.4f} ms; plain {_median_ms(plains[name], 3):.4f}"
+                          f"{t[1]:.4f} ms; plain {median_ms(plains[name], 3):.4f}"
                           f" ms", flush=True)
     print(f"{bad} shapes disagree", flush=True)
     return 1 if bad else 0

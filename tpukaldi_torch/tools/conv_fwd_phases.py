@@ -67,7 +67,8 @@ import torch
 from ..kernels import _build, conv1d
 from ..train.chunk_runtime import resolve_device
 from .conv_bwd_phases import _cut, _set, variant_files
-from .lstm_fwd_phases import _median_ms
+from . import variant_builds
+from .variant_builds import median_ms
 
 SHAPES = ((128, 3200, 129, 80, 3), (128, 3200, 129, 128, 3))
 # chip_smoke.py's CONV_ODD and CONV_FBANK, then a window with one
@@ -125,48 +126,10 @@ VARIANTS = {
 }
 
 
-def sources(src_dir: str = _build._CSRC, files: Tuple[str, ...] = FILES
-            ) -> Dict[str, str]:
+def sources(src_dir: str = _build._CSRC) -> Dict[str, str]:
     """The files as they are in `src_dir` (a design before conv_fwd.cuh
     has none)."""
-    out = {}
-    for name in files:
-        path = os.path.join(src_dir, name)
-        if os.path.exists(path):
-            with open(path) as f:
-                out[name] = f.read()
-    return out
-
-
-def _build_variants(files: Dict[str, Dict[str, str]], stem: str = "conv_fwd",
-                    srcs: Tuple[str, ...] = FILES[:2]
-                    ) -> Dict[str, Dict[str, ctypes.CDLL]]:
-    """The entries `srcs` of every variant, one nvcc each, all at once,
-    into build/tpukaldi_torch/variants/<stem>_v<i>/."""
-    procs = {}
-    for i, (name, texts) in enumerate(files.items()):
-        d = os.path.join(_build.BUILD_DIR, "variants", f"{stem}_v{i}")
-        os.makedirs(d, exist_ok=True)
-        for fname, text in texts.items():
-            with open(os.path.join(d, fname), "w") as f:
-                f.write(text)
-        for src in srcs:
-            lib = os.path.join(d, f"lib{src[:-3]}.so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-o", lib,
-                   os.path.join(d, src)]
-            procs[name, src] = (lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    libs: Dict[str, Dict[str, ctypes.CDLL]] = {}
-    for (name, src), (lib, proc) in procs.items():
-        report = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name} {src}:\n{report}")
-        regs = [line.split(":", 1)[1].strip() for line in report.splitlines()
-                if "registers" in line]
-        print(f"{name} {src}: {'; '.join(regs)}", flush=True)
-        libs.setdefault(name, {})[src] = ctypes.CDLL(lib)
-    return libs
+    return variant_builds.sources(src_dir, FILES)
 
 
 def _plans(name: str, libs: Dict[str, ctypes.CDLL], shape) -> str:
@@ -346,7 +309,7 @@ def _wrapped(libs, names) -> None:
                         conv1d.LN_SOURCE]
                     for kern, (alone, queued) in calls.items():
                         times.setdefault(kern, {}).setdefault(name, []).append(
-                            (_median_ms(alone, 21), _queued_ms(queued)))
+                            (median_ms(alone, 21), _queued_ms(queued)))
             for kern, by in times.items():
                 print(f"through the wrapper N={N} L={L} K={K} O={O} "
                       f"pool={pool} {kern}: " + "; ".join(
@@ -384,7 +347,7 @@ def _serve(libs, befores) -> int:
             del want
             times = {name: [] for name in names}
             for name in names + names[::-1]:
-                times[name].append(_median_ms(fns[name], 3))
+                times[name].append(median_ms(fns[name], 3))
         print(f"serving N={N} L={L} K={K} O={O} pool={pool} {kern}: "
               + "; ".join(f"{name} " + " / ".join(f"{t:.3f}" for t in ts)
                           + " ms" for name, ts in times.items()), flush=True)
@@ -412,7 +375,7 @@ def main(argv: List[str]) -> int:
         files[name] = sources(d)
         exact[name] = True
         names.append(name)
-    libs = _build_variants(files)
+    libs = variant_builds.build_variants(files, "conv_fwd", FILES[:2])
     for name, lib in libs.items():
         print(_plans(name, lib, shapes[0]), flush=True)
     for shape in shapes[1:] + (EQUAL_SHAPES if befores else ()):
@@ -431,7 +394,7 @@ def main(argv: List[str]) -> int:
         times: Dict = {key: [] for key in fns}
         device: Dict = {key: [] for key in fns}
         for key in list(fns) + list(reversed(fns)):
-            times[key].append(_median_ms(fns[key]))
+            times[key].append(median_ms(fns[key]))
             device[key].append(_queued_ms(fns[key]))
         for (name, kern), ts in times.items():
             print(f"{tag} {name} {kern}: "

@@ -58,9 +58,9 @@ import torch
 from ..kernels import _build, conv1d, conv_stack
 from ..train.chunk_runtime import resolve_device
 from .conv_bwd_phases import _cut, _set, variant_files
-from .conv_fwd_phases import _build_variants, _queued_ms
-from .conv_fwd_phases import sources as _sources
-from .lstm_fwd_phases import _median_ms
+from . import variant_builds
+from .conv_fwd_phases import _queued_ms
+from .variant_builds import build_variants, median_ms
 
 FILES = ("conv_stack_fwd.cu", "conv_stack_bwd.cu", "stack_tile.cuh",
          "conv_tile.cuh", "conv_pool_bwd.cuh", "persist_grid.cuh")
@@ -113,7 +113,7 @@ SOURCES = FILES[:2]
 
 def sources(src_dir: str = _build._CSRC) -> Dict[str, str]:
     """The files as they are in `src_dir`."""
-    return _sources(src_dir, FILES)
+    return variant_builds.sources(src_dir, FILES)
 
 
 class Build:
@@ -369,7 +369,7 @@ def _times(builds, N, seed_t) -> None:
         alone: Dict = {key: [] for key in fns}
         device: Dict = {key: [] for key in fns}
         for key in list(fns) + list(reversed(fns)):
-            alone[key].append(_median_ms(fns[key]))
+            alone[key].append(median_ms(fns[key]))
             device[key].append(_queued_ms(fns[key]))
     for (name, what), ts in alone.items():
         print(f"{tag} {name} {what}: "
@@ -397,9 +397,9 @@ def _serve(builds, names, seed_t) -> None:
         z0 = _layer0(first, POOLS, 0.0, True, False)[0]
         times: Dict = {name: [] for name in names}
         for name in names + names[::-1]:
-            times[name].append(_median_ms(lambda: builds[name].fwd(
+            times[name].append(median_ms(lambda: builds[name].fwd(
                 z0, ups, POOLS, seed_t, 0.0, True, False), 3))
-        k6 = _median_ms(lambda: _layer0(first, POOLS, 0.0, True, False), 3)
+        k6 = median_ms(lambda: _layer0(first, POOLS, 0.0, True, False), 3)
     print(f"serving N={SERVE_N} K7f upper layers: " + "; ".join(
         f"{name} " + " / ".join(f"{t:.3f}" for t in ts) + " ms"
         for name, ts in times.items()) + f"; K6f {k6:.3f} ms", flush=True)
@@ -423,7 +423,7 @@ def main(argv: List[str]) -> int:
         files[name] = sources(d)
         exact[name] = True
         names.append(name)
-    libs = _build_variants(files, "conv_stack", SOURCES)
+    libs = build_variants(files, "conv_stack", SOURCES)
     builds = {name: Build(lib) for name, lib in libs.items()}
     seed_t = conv1d._seed_tensor(SEED, torch.device("cuda"))
     bad = 0

@@ -45,7 +45,8 @@ import torch
 from ..kernels import _build, ligru, lstm
 from ..train.chunk_runtime import resolve_device
 from . import lstm_fwd_phases
-from .lstm_fwd_phases import _build_all, _median_ms, variants
+from .lstm_fwd_phases import _build_all, variants
+from .variant_builds import median_ms
 
 SHAPES = ((778, 64, 550), (1000, 16, 550))
 ATOL = 1e-4  # as chip_smoke.py's KERNEL_ATOL
@@ -170,7 +171,7 @@ def main(argv: List[str]) -> int:
                   f"{ATOL:g}), repeat bitwise equal: {same}", flush=True)
         times = {name: [] for name in fns}
         for name in list(fns) + list(reversed(fns)):
-            times[name].append(_median_ms(fns[name]))
+            times[name].append(median_ms(fns[name]))
         for name, ts in times.items():
             print(f"T={T} B={B} H={H} {name}: "
                   f"{' / '.join(f'{t:.3f}' for t in ts)} ms, "

@@ -118,20 +118,6 @@ def _runner(lib: ctypes.CDLL, ff, u, mask):
     return fn
 
 
-def _median_ms(fn, reps: int = 5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[reps // 2]
-
-
 def _inputs(T, B, H, seed):
     g = torch.Generator().manual_seed(seed)
     ff = torch.randn(T, B, 4 * H, generator=g)
@@ -166,7 +152,7 @@ def main(argv: List[str]) -> int:
                   f"{ATOL:g}), repeat bitwise equal: {same}", flush=True)
         times = {name: [] for name in fns}
         for name in list(fns) + list(reversed(fns)):
-            times[name].append(_median_ms(fns[name]))
+            times[name].append(median_ms(fns[name]))
         for name, ts in times.items():
             print(f"T={T} B={B} H={H} {name}: "
                   f"{' / '.join(f'{t:.3f}' for t in ts)} ms, "

@@ -53,7 +53,8 @@ import torch
 
 from ..kernels import _build, lstm
 from ..train.chunk_runtime import resolve_device
-from .lstm_fwd_phases import _build_all, _median_ms, variants
+from .lstm_fwd_phases import _build_all, variants
+from .variant_builds import median_ms
 
 SHAPES = ((778, 32, 1024), (1000, 32, 1024), (50, 136, 1024), (37, 5, 36),
           (50, 96, 1024))
@@ -201,7 +202,7 @@ def main(argv: List[str]) -> int:
         fns.update(extra)
         times = {name: [] for name in fns}
         for name in list(fns) + list(reversed(fns)):
-            times[name].append(_median_ms(fns[name]))
+            times[name].append(median_ms(fns[name]))
         for name, ts in times.items():
             print(f"T={T} B={B} H={H} {name}: "
                   f"{' / '.join(f'{t:.3f}' for t in ts)} ms", flush=True)
